@@ -1,0 +1,99 @@
+"""Eval CLI of the port (counterpart of unet_torch_tpu/cli/test_cli.py).
+
+    python -m unet_torch_tpu_torch.cli.test_cli <config.yml> \
+        --checkpoint run/seedN/models/best.pt [--test-path DIR] \
+        [--mode auto|single_mc] [--out-dir DIR] [--device cuda]
+
+Builds the config's model, loads the torch state_dict checkpoint (strict)
+and runs the matching eval suite into <save_dir>/eval/. The device defaults
+to cuda and raises where there is no GPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+
+from unet_torch_tpu.cli.config import Config
+from unet_torch_tpu.data.io import get_image_list
+from unet_torch_tpu_torch.ckpt import load_weights
+from unet_torch_tpu_torch.core.device import resolve_device
+from unet_torch_tpu_torch.core.precision import resolve_precision
+from unet_torch_tpu_torch.eval import reports
+from unet_torch_tpu_torch.models.unet import build_model
+
+# eval modes of the JAX CLI that the port does not have yet
+_NOT_PORTED = {
+    "single": "queue 1 item 7",
+    "single_crop": "queue 1 item 7",
+    "reg": "queue 1 item 7",
+    "mt_reg": "queue 1 item 8",
+}
+
+
+def _auto_mode(model_type: str) -> str:
+    if model_type in ("attention", "single", "TransUnet"):
+        return "single_mc"
+    if model_type in ("multi_task_regTU", "multi_task_reg"):
+        return "mt_reg"
+    if model_type in ("regression", "regression_t"):
+        return "reg"
+    raise ValueError(f"No eval mode for model_type {model_type!r}")
+
+
+def run_eval(cfg: Config, checkpoint: str, test_path=None, mode="auto",
+             out_dir=None, device="cuda"):
+    m = cfg.model
+    if mode == "auto":
+        mode = _auto_mode(m.model_type)
+    if mode in _NOT_PORTED:
+        raise NotImplementedError(
+            f"eval mode {mode!r} is not ported yet "
+            f"(ROADMAP.md {_NOT_PORTED[mode]})")
+    if mode != "single_mc":
+        raise ValueError(f"Unknown mode {mode!r}")
+    dev = resolve_device(device)
+
+    tpu_options = {}
+    if m.remat:
+        tpu_options["remat"] = True
+    if m.fold:
+        tpu_options["fold"] = True
+    model = build_model(m.model_type, n_channels=m.channel,
+                        n_classes=m.num_class, base=m.initial_filter_size,
+                        dropout=m.dropout, dropout_p=m.drop_out_rate,
+                        **tpu_options)
+    load_weights(checkpoint, model)
+    dtype = resolve_precision(cfg.train.precision)
+    input_size = tuple(m.input_size)
+
+    paths = test_path or (cfg.dataset.test_path[0]
+                          if cfg.dataset.test_path else None)
+    if not paths:
+        raise ValueError("No test path given (config test_path empty)")
+    image_list = get_image_list(paths)
+    out_dir = out_dir or os.path.join(cfg.dataset.save_dir, "eval")
+    os.makedirs(out_dir, exist_ok=True)
+
+    results = reports.test_single_mc(model, dev, dtype, input_size, m.channel,
+                                     m.num_class, image_list, out_dir)
+    print(results)
+    return results
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("config")
+    ap.add_argument("--checkpoint", required=True)
+    ap.add_argument("--test-path", default=None)
+    ap.add_argument("--mode", default="auto", choices=["auto", "single_mc"])
+    ap.add_argument("--out-dir", default=None)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+    cfg = Config.load(args.config)
+    run_eval(cfg, args.checkpoint, args.test_path, args.mode, args.out_dir,
+             args.device)
+
+
+if __name__ == "__main__":
+    main()

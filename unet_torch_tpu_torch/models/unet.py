@@ -1,0 +1,100 @@
+"""U-Net (counterpart of unet_torch_tpu/models/unet.py).
+
+`UNet` takes NHWC input (B,H,W,C_in) and returns NHWC logits
+(B,H,W,n_classes), as the JAX model does, computed in the input's dtype.
+Inside, the NHWC input is viewed as NCHW in channels_last memory (a permute,
+no copy).
+
+Channel codes (reference Model.py:99-104): -1 -> 1 input channel (HED
+hematoxylin), -2 -> 3 channels (Macenko-normalised RGB).
+"""
+
+from __future__ import annotations
+
+import warnings
+
+from torch import nn
+
+from unet_torch_tpu_torch.nn.blocks import (
+    DoubleConv,
+    Down,
+    OutConv,
+    Up,
+    reset_parameters,
+)
+
+# options of the JAX package that shape TPU layouts or memory; no meaning here
+_TPU_OPTIONS = ("fold", "remat", "head_dtype")
+
+_NOT_PORTED = {
+    "attention": "queue 1 item 8",
+    "multi_task": "queue 1 item 8",
+    "multi_task_reg": "queue 1 item 8",
+    "TransUnet": "queue 1 item 10",
+    "TransUnet_unet_fallback": "queue 1 item 10",
+    "regression_t": "queue 1 item 10",
+    "multi_task_regTU": "queue 1 item 10",
+    "CLTR": "queue 1 item 11",
+}
+
+
+def resolve_channels(n_channels: int) -> int:
+    if n_channels == -2:
+        return 3
+    if n_channels == -1:
+        return 1
+    return n_channels
+
+
+class UNet(nn.Module):
+    """Vanilla U-Net. Input (B,H,W,C_in) -> logits (B,H,W,n_classes)."""
+
+    def __init__(self, n_channels: int, n_classes: int, base: int = 64,
+                 dropout: bool = False, dropout_p: float = 0.5,
+                 generator=None):
+        super().__init__()
+        self.inc = DoubleConv(n_channels, base)
+        self.down1 = Down(base, base * 2, dropout, dropout_p)
+        self.down2 = Down(base * 2, base * 4, dropout, dropout_p)
+        self.down3 = Down(base * 4, base * 8, dropout, dropout_p)
+        self.down4 = Down(base * 8, base * 16, dropout, dropout_p)
+        self.up1 = Up(base * 16, base * 8, dropout, dropout_p)
+        self.up2 = Up(base * 8, base * 4, dropout, dropout_p)
+        self.up3 = Up(base * 4, base * 2, dropout, dropout_p)
+        self.up4 = Up(base * 2, base, dropout, dropout_p)
+        self.outc = OutConv(base, n_classes)
+        reset_parameters(self, generator)
+
+    def forward(self, x):
+        x1 = self.inc(x.permute(0, 3, 1, 2))
+        x2 = self.down1(x1)
+        x3 = self.down2(x2)
+        x4 = self.down3(x3)
+        x5 = self.down4(x4)
+        x = self.up1(x5, x4)
+        x = self.up2(x, x3)
+        x = self.up3(x, x2)
+        x = self.up4(x, x1)
+        return self.outc(x).permute(0, 2, 3, 1)
+
+
+def build_model(model_type: str, *, n_channels: int, n_classes: int,
+                base: int = 64, dropout: bool = False, dropout_p: float = 0.5,
+                generator=None, **tpu_options):
+    """Model factory for the ported part of the UNet family.
+
+    `fold`, `remat` and `head_dtype` are accepted for config compatibility
+    with the JAX package and ignored with a warning."""
+    for key in tpu_options:
+        if key not in _TPU_OPTIONS:
+            raise TypeError(f"build_model got an unexpected option {key!r}")
+        warnings.warn(f"{key}={tpu_options[key]!r} is a TPU option of the JAX "
+                      "package; the port ignores it", stacklevel=2)
+    if model_type in ("single", "regression"):
+        return UNet(resolve_channels(n_channels), n_classes, base, dropout,
+                    dropout_p, generator=generator)
+    if model_type in _NOT_PORTED:
+        raise NotImplementedError(
+            f"model_type {model_type!r} is not ported yet "
+            f"(ROADMAP.md {_NOT_PORTED[model_type]})")
+    raise ValueError(f"Invalid model_type {model_type!r}")
