@@ -41,7 +41,8 @@ _MAIN_PATH = r"""
 import sys
 from unet_torch_tpu_torch.core.rng import seed_everything
 from unet_torch_tpu_torch.eval.reports import make_predict_fn
-from unet_torch_tpu_torch.kernels import build, fused_conv
+from unet_torch_tpu_torch.kernels import attention, build, fused_conv
+from unet_torch_tpu_torch.models.transunet import configs, resnetv2, vit
 from unet_torch_tpu_torch.models.unet import build_model
 from unet_torch_tpu_torch.nn import blocks
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in (
@@ -60,7 +61,7 @@ def _run(code):
 
 def test_port_imports_no_jax():
     # every module of the slice was imported
-    assert int(_run(_CHECK).split()[-1]) >= 16
+    assert int(_run(_CHECK).split()[-1]) >= 21
 
 
 def test_main_path_imports_no_jax_package():

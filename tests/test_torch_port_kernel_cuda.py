@@ -1,15 +1,17 @@
-"""The Hopper fused conv3x3+BN+ReLU kernel against its plain PyTorch version,
-on a CUDA card. Skips without one: the kernel has no CPU mode.
+"""The Hopper kernels (fused conv3x3+BN+ReLU, flash attention forward)
+against their plain PyTorch versions, on a CUDA card. Skips without one: the
+kernels have no CPU mode.
 
 This file imports no JAX, so that it runs where only the port is installed:
 
-    python -m pytest tests/test_torch_port_kernel_cuda.py -m cuda
+    python -m pytest tests/test_torch_port_kernel_cuda.py -m cuda --noconftest
 """
 
 import numpy as np
 import pytest
 import torch
 
+from unet_torch_tpu_torch.kernels import attention as port_attn
 from unet_torch_tpu_torch.kernels import fused_conv as port_fc
 
 # (B, H, W, Cin, Cout): tests/test_fused_conv.py's shapes (odd H in the
@@ -71,3 +73,73 @@ def test_kernel_rejects_what_it_does_not_take():
         port_fc.fused_conv3x3_bn_relu(x, w[:2], s, s)
     with pytest.raises(RuntimeError, match="inference-only"):
         port_fc.fused_conv3x3_bn_relu(x, w.requires_grad_(), s, s)
+
+
+# (B, H, Nq, Nk, Dqk, Dv, masked): the ViT's head width with Nq, Nk off the
+# 64-row tiles; CLTR's Dqk != Dv with a mask; one key; the widest widths
+# with a single query row; the narrowest with Nk a tile multiple.
+ATTN_SHAPES = [(2, 3, 100, 77, 64, 64, False), (3, 2, 70, 90, 64, 32, True),
+               (2, 1, 5, 1, 32, 16, False), (1, 2, 1, 130, 128, 128, True),
+               (2, 2, 64, 128, 16, 48, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", ATTN_SHAPES)
+def test_attention_kernel_matches_plain_on_card(shape, dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the Hopper kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    *dims, masked = shape
+    b, h, nq, nk, dqk, dv = dims
+    rng = np.random.RandomState(1)
+    q, k, v = (torch.from_numpy(rng.randn(*s).astype(np.float32))
+               .cuda().to(dtype)
+               for s in ((b, h, nq, dqk), (b, h, nk, dqk), (b, h, nk, dv)))
+    mask = None
+    if masked:  # row 0 pads its last third; row 1, if any, every key
+        mask = torch.zeros(b, nk, dtype=torch.bool)
+        mask[0, nk - nk // 3:] = True
+        mask[1:2] = True
+        mask = mask.cuda()
+    before = port_attn.fused_attention.launches
+    with torch.inference_mode():
+        out = port_attn.fused_attention(q, k, v, key_padding_mask=mask)
+        torch.cuda.synchronize()
+        ref = port_attn.attention_reference(
+            q, k, v, dqk ** -0.5,
+            None if mask is None else port_attn.padding_bias(mask))
+    assert port_attn.fused_attention.launches == before + 1
+    assert out.shape == ref.shape == (b, h, nq, dv) and out.dtype == dtype
+    assert torch.isfinite(out).all()
+    err = (out.float() - ref.float()).abs().max().item()
+    # relative to max|v|: each output row is a convex combination of rows of
+    # v. bf16: both versions round the probabilities (2**-9 of max|v| each)
+    # and the output once; f32: sums in other orders (the bound of
+    # chip_smoke.py)
+    peak = v.float().abs().max().item()
+    bound = (1e-5 if dtype == torch.float32 else 2 ** -7) * peak
+    assert err <= bound, (err, bound)
+    if masked and b > 1:  # every key of row 1 is padding: the mean of v
+        mean = v[1].float().mean(dim=1, keepdim=True).expand(h, nq, dv)
+        assert (out[1].float() - mean).abs().max().item() <= bound
+
+
+@pytest.mark.cuda
+def test_attention_kernel_rejects_what_it_does_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the Hopper kernel has no CPU mode")
+    q = torch.randn(1, 2, 8, 64, device="cuda")
+    fa = port_attn.fused_attention
+    for d in (8, 24, 144):  # not a multiple of 16, or wider than 128
+        x = torch.randn(1, 2, 8, d, device="cuda")
+        with pytest.raises(ValueError, match="multiples of 16"):
+            fa(x, x, x)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa(q.transpose(2, 3).contiguous().transpose(2, 3), q, q)
+    with pytest.raises(TypeError):
+        fa(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError, match="v must be"):
+        fa(q, q, q[:, :, :4])
+    with pytest.raises(RuntimeError, match="forward-only"):
+        fa(q.requires_grad_(), q, q)

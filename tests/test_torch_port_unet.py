@@ -88,8 +88,12 @@ def test_build_model_contract():
         model = build_model("single", n_channels=-2, n_classes=3, base=4,
                             fold=True)
     assert model.inc.double_conv[0].in_channels == 3
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
+    # the TransUnet family has its own builder, as in the JAX package; its
+    # UNet fallback is the plain UNet
+    with pytest.raises(ValueError, match="build_transunet"):
         build_model("TransUnet", n_channels=3, n_classes=3)
+    assert isinstance(build_model("TransUnet_unet_fallback", n_channels=3,
+                                  n_classes=3, base=4), UNet)
     with pytest.raises(TypeError):
         build_model("single", n_channels=3, n_classes=3, mesh={"data": 8})
     with pytest.raises(ValueError):

@@ -7,6 +7,10 @@
 Builds the config's model, loads the torch state_dict checkpoint (strict)
 and runs the matching eval suite into <save_dir>/eval/. The device defaults
 to cuda and raises where there is no GPU.
+
+`model_type: TransUnet` builds R50-ViT-B_16 at img_size = input_size[0], as
+the JAX CLI does; like the JAX CLI it does not read the config's `model:`
+key.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ from unet_torch_tpu_torch.ckpt import load_weights
 from unet_torch_tpu_torch.core.device import resolve_device
 from unet_torch_tpu_torch.core.precision import resolve_precision
 from unet_torch_tpu_torch.eval import reports
+from unet_torch_tpu_torch.models.transunet.vit import build_transunet
 from unet_torch_tpu_torch.models.unet import build_model
 
 # eval modes of the JAX CLI that the port does not have yet
@@ -59,10 +64,14 @@ def run_eval(cfg: Config, checkpoint: str, test_path=None, mode="auto",
         tpu_options["remat"] = True
     if m.fold:
         tpu_options["fold"] = True
-    model = build_model(m.model_type, n_channels=m.channel,
-                        n_classes=m.num_class, base=m.initial_filter_size,
-                        dropout=m.dropout, dropout_p=m.drop_out_rate,
-                        **tpu_options)
+    if m.model_type == "TransUnet":
+        model = build_transunet(m.model_type, img_size=m.input_size[0],
+                                num_classes=m.num_class, **tpu_options)
+    else:
+        model = build_model(m.model_type, n_channels=m.channel,
+                            n_classes=m.num_class,
+                            base=m.initial_filter_size, dropout=m.dropout,
+                            dropout_p=m.drop_out_rate, **tpu_options)
     load_weights(checkpoint, model)
     dtype = resolve_precision(cfg.train.precision)
     input_size = tuple(m.input_size)

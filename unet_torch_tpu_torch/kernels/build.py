@@ -2,9 +2,10 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface. It is compiled with nvcc
 for Hopper (sm_90a) into ``build/kernels/<name>-<hash>.so`` at the root of the
-checkout, where ``<hash>`` covers the source and the flags: an edited source
-builds anew, an unchanged one is loaded as it is. Nothing is compiled when a
-module is imported; the first launch builds.
+checkout, where ``<hash>`` covers the source, the shared ``csrc/*.cuh``
+headers and the flags: an edited source or header builds anew, an unchanged
+one is loaded as it is. Nothing is compiled when a module is imported; the
+first launch builds, or ``build_all`` builds several sources at once.
 
 A plain C interface keeps PyTorch's headers out of the compile (seconds
 instead of minutes); pointers and the stream are passed as integers.
@@ -19,6 +20,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -45,6 +47,8 @@ def build(name: str) -> Path:
     The library is written to a temporary file and renamed into place, so
     processes that build at the same time never load a half-written file."""
     digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     out = BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
     if out.exists():
@@ -64,6 +68,13 @@ def build(name: str) -> Path:
         if os.path.exists(tmp):
             os.unlink(tmp)
     return out
+
+
+def build_all(names) -> list[Path]:
+    """``build`` each source, all nvcc processes running at once."""
+    names = list(names)
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        return list(pool.map(build, names))
 
 
 @functools.cache

@@ -1,0 +1,330 @@
+"""TransUnet: ViT(-hybrid) encoder + cup decoder (counterpart of
+unet_torch_tpu/models/transunet/vit.py, which mirrors the reference's
+vit_seg_modeling.py). The eval forward of `VisionTransformer` is ported.
+
+  Attention          fused QKV projection, the attention kernel, out
+  Mlp                fc1, exact GELU, fc2
+  Block / Encoder    pre-LN blocks (LayerNorm eps 1e-6), final LayerNorm
+  Embeddings         ResNetV2 hybrid + 1x1 patch conv (or plain patches),
+                     learned position embeddings
+  Conv2dReLU         conv3x3 (no bias) + BN (eps 1e-5) + ReLU: in eval one
+                     fused_conv3x3_bn_relu call (the Hopper kernel on a card)
+  DecoderCup         tokens -> (B, h, w, hidden) -> conv_more -> DecoderBlocks
+                     (align-corners bilinear 2x up, concat skip, 2 Conv2dReLU)
+  SegmentationHead   conv3x3 with bias
+  VisionTransformer  gray -> RGB repeat, encoder, decoder, head
+
+`VisionTransformer` takes NHWC input (B, H, W, C) and returns NHWC logits,
+as the JAX model does. The ResNetV2 and the encoder run on NCHW tensors in
+channels_last memory; the decoder runs on NHWC tensors, the fused conv
+kernel's layout. Parameters stay f32 and each layer computes in its input's
+dtype, so under bf16 the residual stream is bf16 too (the JAX model's is
+promoted to f32 by its f32 position embeddings).
+
+The JAX package's W-folded decoder tail (FoldedDecoderTail, _FoldedHeadConv,
+_tail_fold_factor) is a TPU lane-padding workaround over the same parameters
+and is not carried over. Modules carry the reference's state_dict names, so
+`ckpt/bridge.py::transunet_state_dict_from_flax` output loads strictly.
+"""
+
+from __future__ import annotations
+
+import copy
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from unet_torch_tpu_torch.kernels.attention import fused_attention
+from unet_torch_tpu_torch.kernels.fused_conv import (
+    fold_bn,
+    fused_conv3x3_bn_relu,
+)
+from unet_torch_tpu_torch.models.transunet.configs import CONFIGS
+from unet_torch_tpu_torch.models.transunet.resnetv2 import ResNetV2
+from unet_torch_tpu_torch.models.unet import ignore_tpu_options
+
+# model types of the JAX build_transunet that the port does not have yet
+_NOT_PORTED = {
+    "regression_t": "queue 1 item 10",
+    "multi_task_regTU": "queue 1 item 10",
+    "multitask_em": "queue 1 item 10",
+}
+
+
+def bilinear_upsample_2x(x):
+    """NHWC 2x bilinear upsampling with align_corners=True (the reference's
+    UpsamplingBilinear2d)."""
+    _, h, w, _ = x.shape
+    y = F.interpolate(x.permute(0, 3, 1, 2), size=(2 * h, 2 * w),
+                      mode="bilinear", align_corners=True)
+    return y.permute(0, 2, 3, 1)
+
+
+class Linear(nn.Linear):
+    def forward(self, x):
+        return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+
+
+class LayerNorm(nn.LayerNorm):
+    def forward(self, x):
+        return F.layer_norm(x, self.normalized_shape,
+                            self.weight.to(x.dtype), self.bias.to(x.dtype),
+                            self.eps)
+
+
+class Attention(nn.Module):
+    """Multi-head self-attention. q, k and v come from one product with the
+    three weights stacked; the heads go through `fused_attention` as
+    (B, heads, N, d)."""
+
+    def __init__(self, hidden_size: int, num_heads: int):
+        super().__init__()
+        self.num_heads = num_heads
+        self.query = Linear(hidden_size, hidden_size)
+        self.key = Linear(hidden_size, hidden_size)
+        self.value = Linear(hidden_size, hidden_size)
+        self.out = Linear(hidden_size, hidden_size)
+
+    def forward(self, x):
+        b, n, hidden = x.shape
+        d = hidden // self.num_heads
+        w = torch.cat([self.query.weight, self.key.weight, self.value.weight])
+        bias = torch.cat([self.query.bias, self.key.bias, self.value.bias])
+        qkv = F.linear(x, w.to(x.dtype), bias.to(x.dtype))
+        # (B, N, 3, heads, d) -> (3, B, heads, N, d): q, k, v contiguous
+        qkv = qkv.view(b, n, 3, self.num_heads, d).permute(2, 0, 3, 1, 4)
+        q, k, v = qkv.contiguous()
+        ctx = fused_attention(q, k, v, scale=1.0 / math.sqrt(d))
+        return self.out(ctx.permute(0, 2, 1, 3).reshape(b, n, hidden))
+
+
+class Mlp(nn.Module):
+    def __init__(self, hidden_size: int, mlp_dim: int, dropout_rate: float):
+        super().__init__()
+        self.fc1 = Linear(hidden_size, mlp_dim)
+        self.fc2 = Linear(mlp_dim, hidden_size)
+        self.dropout = nn.Dropout(dropout_rate)
+
+    def forward(self, x):
+        x = self.dropout(F.gelu(self.fc1(x)))
+        return self.dropout(self.fc2(x))
+
+
+class Block(nn.Module):
+    def __init__(self, config):
+        super().__init__()
+        hidden, t = config.hidden_size, config.transformer
+        self.attention_norm = LayerNorm(hidden, eps=1e-6)
+        self.ffn_norm = LayerNorm(hidden, eps=1e-6)
+        self.ffn = Mlp(hidden, t.mlp_dim, t.dropout_rate)
+        self.attn = Attention(hidden, t.num_heads)
+
+    def forward(self, x):
+        x = x + self.attn(self.attention_norm(x))
+        return x + self.ffn(self.ffn_norm(x))
+
+
+class Encoder(nn.Module):
+    def __init__(self, config):
+        super().__init__()
+        self.layer = nn.ModuleList(
+            Block(config) for _ in range(config.transformer.num_layers))
+        self.encoder_norm = LayerNorm(config.hidden_size, eps=1e-6)
+
+    def forward(self, x):
+        for block in self.layer:
+            x = block(x)
+        return self.encoder_norm(x)
+
+
+class Embeddings(nn.Module):
+    """NCHW image -> ((B, n_patches, hidden) tokens, ResNetV2 skips or None)."""
+
+    def __init__(self, config, img_size: int):
+        super().__init__()
+        grid = config.patches.grid
+        if grid is not None:
+            patch = (img_size // 16 // grid[0], img_size // 16 // grid[1])
+            n_patches = ((img_size // (16 * patch[0]))
+                         * (img_size // (16 * patch[1])))
+            self.hybrid_model = ResNetV2(config.resnet.num_layers,
+                                         config.resnet.width_factor)
+            in_channels = self.hybrid_model.width * 16
+        else:
+            patch = tuple(config.patches.size)
+            n_patches = (img_size // patch[0]) * (img_size // patch[1])
+            in_channels = 3
+        self.patch_embeddings = nn.Conv2d(in_channels, config.hidden_size,
+                                          patch, stride=patch)
+        self.position_embeddings = nn.Parameter(
+            torch.zeros(1, n_patches, config.hidden_size))
+        self.dropout = nn.Dropout(config.transformer.dropout_rate)
+
+    def forward(self, x):
+        features = None
+        if hasattr(self, "hybrid_model"):
+            x, features = self.hybrid_model(x)
+        pe = self.patch_embeddings
+        x = F.conv2d(x, pe.weight.to(x.dtype), pe.bias.to(x.dtype),
+                     stride=pe.stride)
+        x = x.flatten(2).transpose(1, 2)
+        return self.dropout(x + self.position_embeddings.to(x.dtype)), features
+
+
+class Transformer(nn.Module):
+    def __init__(self, config, img_size: int):
+        super().__init__()
+        self.embeddings = Embeddings(config, img_size)
+        self.encoder = Encoder(config)
+
+    def forward(self, x):
+        x, features = self.embeddings(x)
+        return self.encoder(x), features
+
+
+class Conv2dReLU(nn.Sequential):
+    """conv3x3 (no bias) -> BatchNorm -> ReLU on NHWC tensors, as `.0`, `.1`
+    and `.2`. In eval mode BN folds its running statistics into a scale and
+    bias and the three run as one fused_conv3x3_bn_relu call (the Hopper
+    kernel on a CUDA tensor); in train mode they run as torch's modules."""
+
+    def __init__(self, in_channels: int, out_channels: int):
+        super().__init__(
+            nn.Conv2d(in_channels, out_channels, 3, padding=1, bias=False),
+            nn.BatchNorm2d(out_channels),
+            nn.ReLU(inplace=True),
+        )
+
+    def forward(self, x):
+        if self.training:
+            return super().forward(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        conv, bn = self[0], self[1]
+        scale, bias = fold_bn(bn.weight, bn.bias, bn.running_mean,
+                              bn.running_var, bn.eps)
+        w = conv.weight.permute(2, 3, 1, 0).to(x.dtype).contiguous()
+        return fused_conv3x3_bn_relu(x.contiguous(), w, scale, bias)
+
+
+class DecoderBlock(nn.Module):
+    def __init__(self, in_channels: int, out_channels: int,
+                 skip_channels: int = 0):
+        super().__init__()
+        self.conv1 = Conv2dReLU(in_channels + skip_channels, out_channels)
+        self.conv2 = Conv2dReLU(out_channels, out_channels)
+
+    def forward(self, x, skip=None):
+        x = bilinear_upsample_2x(x)
+        if skip is not None:
+            x = torch.cat([x, skip], dim=-1)
+        return self.conv2(self.conv1(x))
+
+
+class DecoderCup(nn.Module):
+    """(B, n_patches, hidden) tokens + NCHW skips -> NHWC features."""
+
+    head_channels = 512
+
+    def __init__(self, config):
+        super().__init__()
+        self.n_skip = config.n_skip
+        self.conv_more = Conv2dReLU(config.hidden_size, self.head_channels)
+        out_channels = list(config.decoder_channels)
+        in_channels = [self.head_channels] + out_channels[:-1]
+        hybrid = config.patches.grid is not None
+        skip_channels = [config.skip_channels[i] if hybrid and i < self.n_skip
+                         else 0 for i in range(len(out_channels))]
+        self.blocks = nn.ModuleList(
+            DecoderBlock(i, o, s)
+            for i, o, s in zip(in_channels, out_channels, skip_channels))
+
+    def forward(self, hidden_states, features=None):
+        b, n_patch, hidden = hidden_states.shape
+        h = w = math.isqrt(n_patch)
+        x = self.conv_more(hidden_states.reshape(b, h, w, hidden))
+        for i, block in enumerate(self.blocks):
+            skip = None
+            if features is not None and i < self.n_skip:
+                skip = features[i].permute(0, 2, 3, 1)
+            x = block(x, skip)
+        return x
+
+
+class SegmentationHead(nn.Sequential):
+    """conv3x3 with bias on NHWC features, as `.0`."""
+
+    def __init__(self, in_channels: int, out_channels: int):
+        super().__init__(nn.Conv2d(in_channels, out_channels, 3, padding=1))
+
+    def forward(self, x):
+        conv = self[0]
+        y = F.conv2d(x.permute(0, 3, 1, 2), conv.weight.to(x.dtype),
+                     conv.bias.to(x.dtype), padding=1)
+        return y.permute(0, 2, 3, 1)
+
+
+class VisionTransformer(nn.Module):
+    """TransUnet. Input (B, H, W, C) with C = 3 or 1 -> logits
+    (B, H, W, num_classes)."""
+
+    def __init__(self, config, img_size: int = 224, num_classes: int = 2,
+                 vis: bool = False, generator=None):
+        super().__init__()
+        if vis:
+            raise NotImplementedError(
+                "vis=True (returning the attention weights) is not ported: "
+                "the attention kernel keeps no weights")
+        self.transformer = Transformer(config, img_size)
+        self.decoder = DecoderCup(config)
+        self.segmentation_head = SegmentationHead(
+            config.decoder_channels[-1], num_classes)
+        reset_parameters(self, generator)
+
+    def forward(self, x):
+        if x.shape[-1] == 1:  # gray -> RGB
+            x = x.repeat(1, 1, 1, 3)
+        encoded, features = self.transformer(x.permute(0, 3, 1, 2))
+        return self.segmentation_head(self.decoder(encoded, features))
+
+
+def reset_parameters(model: nn.Module, generator=None) -> None:
+    """The reference's initialisation, drawn from `generator`: torch's
+    defaults for convs and linear layers (kaiming-uniform weights, biases
+    U(+-1/sqrt(fan_in))), then xavier-uniform MLP weights with N(0, 1e-6)
+    biases; norms at weight 1 and bias 0, BN running mean 0 and var 1.
+    Position embeddings stay 0."""
+    for m in model.modules():
+        if isinstance(m, (nn.Conv2d, nn.Linear)):
+            nn.init.kaiming_uniform_(m.weight, a=math.sqrt(5),
+                                     generator=generator)
+            if m.bias is not None:
+                bound = 1.0 / math.sqrt(m.weight[0].numel())
+                nn.init.uniform_(m.bias, -bound, bound, generator=generator)
+        elif isinstance(m, (nn.GroupNorm, nn.LayerNorm, nn.BatchNorm2d)):
+            m.reset_parameters()
+    for m in model.modules():
+        if isinstance(m, Mlp):
+            for fc in (m.fc1, m.fc2):
+                nn.init.xavier_uniform_(fc.weight, generator=generator)
+                nn.init.normal_(fc.bias, std=1e-6, generator=generator)
+
+
+def build_transunet(model_type: str, img_size: int, num_classes: int,
+                    generator=None, **tpu_options):
+    """R50-ViT-B_16 with n_skip 3 and grid img_size/16, as the JAX package's
+    build_transunet builds it by default. `fold` is accepted for config
+    compatibility and ignored with a warning."""
+    ignore_tpu_options(tpu_options)
+    if model_type in _NOT_PORTED:
+        raise NotImplementedError(
+            f"model_type {model_type!r} is not ported yet "
+            f"(ROADMAP.md {_NOT_PORTED[model_type]})")
+    if model_type != "TransUnet":
+        raise ValueError(f"Unknown TransUnet model_type {model_type!r}")
+    config = copy.deepcopy(CONFIGS["R50-ViT-B_16"])
+    config.n_classes = num_classes
+    config.n_skip = 3
+    config.patches.grid = (img_size // 16, img_size // 16)
+    return VisionTransformer(config, img_size, num_classes,
+                             generator=generator)

@@ -30,12 +30,10 @@ _NOT_PORTED = {
     "attention": "queue 1 item 8",
     "multi_task": "queue 1 item 8",
     "multi_task_reg": "queue 1 item 8",
-    "TransUnet": "queue 1 item 10",
-    "TransUnet_unet_fallback": "queue 1 item 10",
-    "regression_t": "queue 1 item 10",
-    "multi_task_regTU": "queue 1 item 10",
     "CLTR": "queue 1 item 11",
 }
+# built by models/transunet/vit.py::build_transunet, as in the JAX package
+_TRANSUNET_TYPES = ("TransUnet", "regression_t", "multi_task_regTU")
 
 
 def resolve_channels(n_channels: int) -> int:
@@ -78,21 +76,32 @@ class UNet(nn.Module):
         return self.outc(x).permute(0, 2, 3, 1)
 
 
+def ignore_tpu_options(tpu_options: dict) -> None:
+    """Warn about each TPU option (`fold`, `remat`, `head_dtype`) of the JAX
+    package, which the port accepts for config compatibility and ignores;
+    raise on any other keyword."""
+    for key in tpu_options:
+        if key not in _TPU_OPTIONS:
+            raise TypeError(f"unexpected model option {key!r}")
+        warnings.warn(f"{key}={tpu_options[key]!r} is a TPU option of the JAX "
+                      "package; the port ignores it", stacklevel=3)
+
+
 def build_model(model_type: str, *, n_channels: int, n_classes: int,
                 base: int = 64, dropout: bool = False, dropout_p: float = 0.5,
                 generator=None, **tpu_options):
-    """Model factory for the ported part of the UNet family.
+    """Model factory for the ported part of the UNet family
+    (`TransUnet_unet_fallback` is the plain UNet, as in the JAX package).
 
     `fold`, `remat` and `head_dtype` are accepted for config compatibility
     with the JAX package and ignored with a warning."""
-    for key in tpu_options:
-        if key not in _TPU_OPTIONS:
-            raise TypeError(f"build_model got an unexpected option {key!r}")
-        warnings.warn(f"{key}={tpu_options[key]!r} is a TPU option of the JAX "
-                      "package; the port ignores it", stacklevel=2)
-    if model_type in ("single", "regression"):
+    ignore_tpu_options(tpu_options)
+    if model_type in ("single", "regression", "TransUnet_unet_fallback"):
         return UNet(resolve_channels(n_channels), n_classes, base, dropout,
                     dropout_p, generator=generator)
+    if model_type in _TRANSUNET_TYPES:
+        raise ValueError(f"model_type {model_type!r} is built by "
+                         "models.transunet.build_transunet")
     if model_type in _NOT_PORTED:
         raise NotImplementedError(
             f"model_type {model_type!r} is not ported yet "
