@@ -5,8 +5,9 @@
 Builds the Hopper kernels from unet_torch_tpu_torch/csrc, then:
 
   1. device     the card's name and power limit; fails without a GPU
-  2. build      nvcc of both kernels (fused conv3x3+BN+ReLU, flash attention
-                forward), one process each, all at once; timed
+  2. build      nvcc of every kernel source (fused conv3x3+BN+ReLU, flash
+                attention forward, flash attention backward, dropout keep
+                mask), one process each, all at once; timed
   3. kernel     the fused conv against its plain PyTorch version at every
                 distinct conv shape of the UNet-64 eval forward (batch 8,
                 512x512 input), in bf16 and in f32 with TF32 off; errors and
@@ -29,6 +30,26 @@ Builds the Hopper kernels from unet_torch_tpu_torch/csrc, then:
   9. model      one 512x512 image through the TransUnet in f32, card against
                 CPU, as in phase 5; the CPU reference runs at the full
                 512x512 (about 1.5 s with the card's host)
+ T1. mask       the dropout keep-mask probe against the plain hash, bit for
+                bit, at (96, 1024, 1024) rate 0.1 and (12, 100, 77) rate 0.3
+ T2. train      the train forward (o, lse) and the backward (dq, dk, dv)
+     kernels    against their plain versions at the ViT's shape and at a
+                ragged masked Dqk != Dv shape, rates 0 and 0.1, bf16 and f32;
+                errors, median times
+ T3. train      TransUnet R50-ViT-B/16 train step through make_single_steps,
+     main       bf16, batch 8 at 512x512, SGD (lr 0.01, momentum 0.9,
+                weight decay 1e-4), poly LR, dice_bce_mc, as
+                configs/transunet.yml trains it, on one fixed seeded batch:
+                12 train-forward and 12 backward launches per step, the loss
+                finite and falling, img/s (also with both plain attention
+                versions), peak device memory
+ T4. train      one f32 train step of the full-width TransUnet at batch 2,
+     model      224x224 (grid 14, 196 tokens: ragged tiles), card against
+                CPU with TF32 off: the loss and every parameter's gradient
+ T5. trainer    Trainer.single_train, 2 epochs of 2 steps at 512x512 batch
+                8 on seeded synthetic batches, its checkpoints in a temporary
+                directory; best.pt reloads strictly into a fresh model whose
+                eval forward runs the two eval kernels
 
 Any failure raises and the script exits nonzero. The last line of stdout is
 {"ok": true, "device": {...}}; the line before it is one JSON object with the
@@ -40,9 +61,11 @@ from __future__ import annotations
 
 import copy
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -82,6 +105,37 @@ ATTN_CASES = [((BATCH, 12, 1024, 1024, 64, 64), False),
 # orders. Read on an H100: 6.9e-5 against a peak of 6.6, 1.05e-5 of it. The
 # bound leaves about 9.5x that, and stays under TF32's input rounding.
 TRANSUNET_REL_TOL = 1e-4
+# T1: ((B*H, Nq, Nk), rate) of the mask probe
+MASK_CASES = [((BATCH * 12, 1024, 1024), 0.1), ((3 * 4, 100, 77), 0.3)]
+# T2: ((B, H, Nq, Nk, Dqk, Dv), masked, rate) of the train kernels
+TRAIN_ATTN_CASES = [(ATTN_CASES[0][0], False, 0.0),
+                    (ATTN_CASES[0][0], False, 0.1),
+                    (ATTN_CASES[1][0], True, 0.0),
+                    (ATTN_CASES[1][0], True, 0.1)]
+# T2 bounds. o: as ATTN_REL_TOL, times 1/(1 - rate), since the kept
+# probabilities are scaled up by that. lse: both sum the same f32 scores
+# exponentiated in other orders (read: 1.4e-6); 1e-4 absolute. Gradients,
+# relative to each one's peak: bf16, both versions round P and dS to bf16
+# at different points (the kernel from exp2 of scores summed in another
+# order) and sum 1024 such products (read: at most 2.9e-3), so 2**-6; f32,
+# sums in other orders (read: at most 1.3e-6), so 1e-5.
+LSE_ABS_TOL = 1e-4
+GRAD_REL_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -6}
+# T3: warm-up steps, then timed steps, all on one fixed batch
+TRAIN_WARMUP = 3
+TRAIN_STEPS = 10
+# T4: f32 train step, card against CPU, at batch 2, 224x224. Loss: 1e-5
+# relative (read: 2.1e-7). Gradients: the weight-standardised convs of the
+# ResNetV2 take the difference of nearly equal sums in their backward, so
+# that f32 round-off alone moves some of their gradients by 15% of their
+# peak (an f32 step on the CPU against the same step in f64: 0.149 for
+# block3.unit7.conv2, two thread counts alike). So each gradient's error on
+# the card against the CPU's f64 step is held to the CPU's own f32 error
+# against it: at most T4_NOISE_RATIO times the larger of that and 1e-6 of
+# the gradient's peak (both sides sum in f32 in other orders).
+T4_BATCH, T4_SIZE = 2, 224
+T4_LOSS_REL_TOL = 1e-5
+T4_NOISE_RATIO = 10.0
 
 
 def phase(name, msg):
@@ -198,15 +252,16 @@ def seeded_unet(gen):
                                      generator=gen), gen)
 
 
-def seeded_transunet(gen):
-    """TransUnet R50-ViT-B/16 at 512x512, 3 classes, as configs/transunet.yml
-    builds it, with seeded weights, BN statistics and position embeddings.
+def seeded_transunet(gen, size=None):
+    """TransUnet R50-ViT-B/16 at size x size (SIZE by default), 3 classes, as
+    configs/transunet.yml builds it, with seeded weights, BN statistics and
+    position embeddings.
     The decoder's and head's convs are drawn kaiming-normal (gain sqrt 2):
     torch's default conv init shrinks the variance 3x per conv, so after the
     decoder's nine the BN shifts, not the image, would decide the logits."""
     from unet_torch_tpu_torch.models.transunet.vit import build_transunet
 
-    model = build_transunet("TransUnet", img_size=SIZE,
+    model = build_transunet("TransUnet", img_size=size or SIZE,
                             num_classes=N_CLASSES, generator=gen)
     pos = model.transformer.embeddings.position_embeddings
     with torch.no_grad():
@@ -351,6 +406,352 @@ def eval_batch(rng, n_cells=40, radius=(6, 14)):
     return (x - mean) / std
 
 
+def train_batch(rng, batch, size, n_cells=40, radius=(6, 14)):
+    """`batch` synthetic cell images of size x size with their class maps:
+    disks of class 1 (dark) or 2 (light) on class 0, z-normalised per image
+    and channel as eval_batch's images."""
+    yy, xx = np.mgrid[:size, :size]
+    x = 200.0 + 10.0 * rng.standard_normal((batch, size, size, 3))
+    y = np.zeros((batch, size, size), np.int64)
+    for img, lab in zip(x, y):
+        for cy, cx, r in zip(rng.randint(0, size, n_cells),
+                             rng.randint(0, size, n_cells),
+                             rng.randint(*radius, n_cells)):
+            disk = (yy - cy) ** 2 + (xx - cx) ** 2 <= r * r
+            cls = rng.randint(1, N_CLASSES)
+            img[disk] = rng.uniform(40, 100, 3) if cls == 1 else \
+                rng.uniform(100, 160, 3)
+            lab[disk] = cls
+    x = x.astype(np.float32)
+    mean = x.mean(axis=(1, 2), keepdims=True)
+    std = x.std(axis=(1, 2), keepdims=True)
+    return (x - mean) / std, y
+
+
+def check_mask(at, dev):
+    """T1. The probe's own path first: each case's mask drawn once, the
+    launches counted; then each mask held against the plain hash, and both
+    timed. Returns ({shape: (mismatches, ms, plain_ms)}, launches)."""
+    at.dropout_keep_mask.launches = 0
+    masks = [at.dropout_keep_mask(*shape, 1234, rate, dev)
+             for shape, rate in MASK_CASES]
+    torch.cuda.synchronize()
+    launches = at.dropout_keep_mask.launches
+    if launches != len(MASK_CASES):
+        raise AssertionError(f"{launches} mask probe launches for "
+                             f"{len(MASK_CASES)} masks")
+    results = {}
+    for (shape, rate), mask in zip(MASK_CASES, masks):
+        nk_p = at.dfa_nk_p(shape[2])
+        thr = at.dropout_threshold(rate)
+        ref = at.dropout_keep(1234, *shape, nk_p, thr, device=dev)
+        bad = int((mask.bool() != ref).sum().item())
+        keep = mask.float().mean().item()
+        if mask.shape != ref.shape or mask.dtype != torch.uint8 or bad:
+            raise AssertionError(f"mask probe differs from the plain hash at "
+                                 f"{shape} rate {rate}: {bad} elements")
+        ms = median_ms(lambda: at.dropout_keep_mask(*shape, 1234, rate, dev))
+        plain_ms = median_ms(lambda: at.dropout_keep(1234, *shape, nk_p, thr,
+                                                     device=dev))
+        results[shape] = (bad, ms, plain_ms)
+        phase("T1 mask", f"(B*H, Nq, Nk)={shape} rate {rate} nk_p {nk_p}: "
+              f"bit-exact with the plain hash, keep fraction {keep:.6f}; "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    return results, launches
+
+
+def check_train_attention(at, dev):
+    """T2. Returns {dtype: {(shape, masked, rate): (o_err, fwd_ms,
+    fwd_plain_ms, grad_err, bwd_ms, bwd_plain_ms)}}, grad_err the largest
+    absolute error of dq, dk and dv."""
+    gen = torch.Generator().manual_seed(SEED)
+    results = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        per_case = {}
+        for shape, masked, rate in TRAIN_ATTN_CASES:
+            b, h, nq, nk, dqk, dv = shape
+            q, k, v, mask = attention_inputs(shape, masked, gen)
+            g = torch.randn(b, h, nq, dv, generator=gen)
+            q, k, v, g = (t.to(dev, dtype) for t in (q, k, v, g))
+            bias = None if mask is None else at.padding_bias(mask.to(dev))
+            scale, seed = dqk ** -0.5, 77
+            args = (q, k, v, scale, bias, seed, rate)
+            o, lse = at.attention_train_forward(*args)
+            torch.cuda.synchronize()
+            ref_o, ref_lse = at.attention_train_reference(*args)
+            o_err = (o.float() - ref_o.float()).abs().max().item()
+            o_bound = (ATTN_REL_TOL[dtype] / (1.0 - rate)
+                       * v.float().abs().max().item())
+            lse_err = (lse - ref_lse).abs().max().item()
+            if not (o.shape == ref_o.shape and o.dtype == dtype
+                    and torch.isfinite(o).all() and o_err <= o_bound
+                    and lse_err <= LSE_ABS_TOL):
+                raise AssertionError(
+                    f"train forward disagrees with plain at {shape} {dtype} "
+                    f"rate {rate}: o {o_err} (bound {o_bound}), lse "
+                    f"{lse_err} (bound {LSE_ABS_TOL})")
+            bwd_args = (q, k, v, ref_o, ref_lse, g, scale, bias, seed, rate)
+            grads = at.attention_backward(*bwd_args)
+            torch.cuda.synchronize()
+            refs = at.attention_backward_reference(*bwd_args)
+            rel, abs_err = [], []
+            for name, a, r in zip(("dq", "dk", "dv"), grads, refs):
+                err = (a.float() - r.float()).abs().max().item()
+                peak = r.float().abs().max().item()
+                if not (a.shape == r.shape and a.dtype == dtype
+                        and torch.isfinite(a).all()
+                        and err <= GRAD_REL_TOL[dtype] * peak):
+                    raise AssertionError(
+                        f"backward {name} disagrees with plain at {shape} "
+                        f"{dtype} rate {rate}: {err} (bound "
+                        f"{GRAD_REL_TOL[dtype] * peak})")
+                rel.append(err / peak)
+                abs_err.append(err)
+            fwd_ms = median_ms(lambda: at.attention_train_forward(*args))
+            fwd_plain_ms = median_ms(lambda: at.attention_train_reference(
+                *args))
+            bwd_ms = median_ms(lambda: at.attention_backward(*bwd_args))
+            bwd_plain_ms = median_ms(lambda: at.attention_backward_reference(
+                *bwd_args))
+            per_case[(shape, masked, rate)] = (o_err, fwd_ms, fwd_plain_ms,
+                                               max(abs_err), bwd_ms,
+                                               bwd_plain_ms)
+            fwd_tf = 2 * b * h * nq * nk * (dqk + dv) / fwd_ms / 1e9
+            bwd_tf = 2 * b * h * nq * nk * (3 * dqk + 2 * dv) / bwd_ms / 1e9
+            phase("T2 train kernels",
+                  f"{str(dtype)[6:]} (B,H,Nq,Nk,Dqk,Dv)={shape} masked="
+                  f"{masked} rate {rate}: forward o max_abs_err {o_err:.3e} "
+                  f"(bound {o_bound:.3e}) lse {lse_err:.3e}, kernel "
+                  f"{fwd_ms:.4f} ms ({fwd_tf:.1f} TFLOP/s) plain "
+                  f"{fwd_plain_ms:.4f} ms; backward dq/dk/dv rel err "
+                  f"{rel[0]:.2e}/{rel[1]:.2e}/{rel[2]:.2e} (bound "
+                  f"{GRAD_REL_TOL[dtype]:.2e}), kernel {bwd_ms:.4f} ms "
+                  f"({bwd_tf:.1f} TFLOP/s) plain {bwd_plain_ms:.4f} ms")
+            del q, k, v, g, o, lse, ref_o, ref_lse, grads, refs
+        results[dtype] = per_case
+    return results
+
+
+class PlainAttention(torch.autograd.Function):
+    """Both plain attention versions (train forward and backward) under
+    autograd, in place of the kernels, for comparison only (T3)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, seed, scale, rate):
+        from unet_torch_tpu_torch.kernels import attention as at
+
+        o, lse = at.attention_train_reference(q, k, v, scale, None, seed,
+                                              rate)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.args = (seed, scale, rate)
+        return o
+
+    @staticmethod
+    def backward(ctx, g):
+        from unet_torch_tpu_torch.kernels import attention as at
+
+        q, k, v, o, lse = ctx.saved_tensors
+        seed, scale, rate = ctx.args
+        grads = at.attention_backward_reference(q, k, v, o, lse, g, scale,
+                                                None, seed, rate)
+        return (*grads, None, None, None)
+
+
+def reset_counts(at, fc):
+    for fn in (at.fused_attention, at.attention_train_forward,
+               at.attention_backward, at.dropout_keep_mask,
+               fc.fused_conv3x3_bn_relu):
+        fn.launches = 0
+
+
+def counts(at, fc):
+    return {"fused_attention": at.fused_attention.launches,
+            "attention_train_forward": at.attention_train_forward.launches,
+            "attention_backward": at.attention_backward.launches,
+            "dropout_keep_mask": at.dropout_keep_mask.launches,
+            "fused_conv3x3_bn_relu": fc.fused_conv3x3_bn_relu.launches}
+
+
+def train_steps(train_step, model, opt, x, y, gen, n, it0=0):
+    """n steps on one batch; (host seconds per step, ending in a sync;
+    losses)."""
+    from unet_torch_tpu_torch.train.optim import poly_lr
+
+    times, losses = [], []
+    for it in range(it0, it0 + n):
+        t0 = time.perf_counter()
+        loss = train_step(model, opt, x, y, poly_lr(0.01, it, 1000), gen)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+    return times, losses
+
+
+def check_train_step(at, fc, vit, dev):
+    """T3. Returns (launches of one step, step seconds, plain step
+    seconds, peak bytes)."""
+    from unet_torch_tpu_torch.core.rng import seed_everything
+    from unet_torch_tpu_torch.train.optim import make_optimizer
+    from unet_torch_tpu_torch.train.steps import make_single_steps
+
+    model = seeded_transunet(seed_everything(SEED)).to(dev)
+    n_layers = len(model.transformer.encoder.layer)
+    opt = make_optimizer("SGD", model.parameters(), 0.01, 1e-4)
+    train_step, _ = make_single_steps("dice_bce_mc", "dice_bce_mc", N_CLASSES)
+    xs, ys = train_batch(np.random.RandomState(SEED + 1), BATCH, SIZE)
+    x = torch.from_numpy(xs).to(dev, torch.bfloat16)
+    y = torch.from_numpy(ys).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts(at, fc)
+    _, first = train_steps(train_step, model, opt, x, y, gen, 1)
+    launches = counts(at, fc)
+    want = {"fused_attention": 0, "attention_train_forward": n_layers,
+            "attention_backward": n_layers, "dropout_keep_mask": 0,
+            "fused_conv3x3_bn_relu": 0}
+    if launches != want:
+        raise AssertionError(f"one TransUnet train step launched {launches}, "
+                             f"expected {want}")
+    times, losses = train_steps(train_step, model, opt, x, y, gen,
+                                TRAIN_WARMUP - 1 + TRAIN_STEPS, it0=1)
+    losses = first + losses
+    peak = torch.cuda.max_memory_allocated(dev)
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]
+            and np.mean(losses[-3:]) < np.mean(losses[:3])):
+        raise AssertionError(f"train loss not finite and falling: {losses}")
+    step_s = statistics.median(times[TRAIN_WARMUP - 1:])
+    # both plain attention versions in place of the kernels, for comparison
+    vit.dropout_flash_attention = PlainAttention.apply
+    try:
+        plain_times, _ = train_steps(train_step, model, opt, x, y, gen,
+                                     2 + TRAIN_STEPS, it0=len(losses))
+    finally:
+        vit.dropout_flash_attention = at.dropout_flash_attention
+    plain_s = statistics.median(plain_times[2:])
+    phase("T3 train main",
+          f"TransUnet R50-ViT-B/16 train step bf16 B={BATCH} {SIZE}x{SIZE} "
+          f"SGD dice_bce_mc: launches per step {launches}; loss "
+          f"{losses[0]:.5f} -> {losses[-1]:.5f} over {len(losses)} steps on "
+          f"one batch; median {step_s * 1e3:.2f} ms = {BATCH / step_s:.1f} "
+          f"img/s (plain attention forward and backward "
+          f"{plain_s * 1e3:.2f} ms = {BATCH / plain_s:.1f} img/s); peak "
+          f"device memory {peak / 2**30:.2f} GiB")
+    return launches, step_s, plain_s, peak
+
+
+def check_train_step_f32(dev):
+    """T4: one f32 train step on the card, against the same step on the CPU
+    in f32 and in f64."""
+    from unet_torch_tpu_torch.core.rng import seed_everything
+    from unet_torch_tpu_torch.nn.dropout import Dropout
+    from unet_torch_tpu_torch.train.optim import make_optimizer
+    from unet_torch_tpu_torch.train.steps import make_single_steps
+
+    model = seeded_transunet(seed_everything(SEED), T4_SIZE)
+    # the card and the CPU would draw different masks
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.p = 0.0
+    xs, ys = train_batch(np.random.RandomState(SEED + 2), T4_BATCH, T4_SIZE)
+    train_step, _ = make_single_steps("dice_bce_mc", "dice_bce_mc", N_CLASSES)
+    cpu = torch.device("cpu")
+    out = {}
+    for side, device, dtype in (("card", dev, torch.float32),
+                                ("cpu", cpu, torch.float32),
+                                ("cpu64", cpu, torch.float64)):
+        m = copy.deepcopy(model).to(device, dtype)
+        opt = make_optimizer("SGD", m.parameters(), 0.01, 1e-4)
+        loss = train_step(m, opt, torch.from_numpy(xs).to(device, dtype),
+                          torch.from_numpy(ys).to(device), 0.01, None)
+        out[side] = (loss.item(), {n: p.grad.detach().cpu().double()
+                                   for n, p in m.named_parameters()})
+    (loss_gpu, g_gpu), (loss_cpu, g_cpu) = out["card"], out["cpu"]
+    g64 = out["cpu64"][1]
+    loss_err = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
+    worst, worst_name, worst_rel = 0.0, None, 0.0
+    for n, ref in g64.items():
+        if not torch.isfinite(g_gpu[n]).all():
+            raise AssertionError(f"non-finite card gradient of {n}")
+        peak = ref.abs().max().item()
+        card_err = (g_gpu[n] - ref).abs().max().item()
+        cpu_err = (g_cpu[n] - ref).abs().max().item()
+        ratio = card_err / max(cpu_err, 1e-6 * peak, 1e-30)
+        if ratio > worst:
+            worst, worst_name, worst_rel = ratio, n, card_err / max(peak,
+                                                                    1e-30)
+    if loss_err > T4_LOSS_REL_TOL or worst > T4_NOISE_RATIO:
+        raise AssertionError(f"f32 train step card vs CPU: loss rel err "
+                             f"{loss_err} (bound {T4_LOSS_REL_TOL}), "
+                             f"gradient {worst_name} {worst} times the CPU's "
+                             f"f32 error (bound {T4_NOISE_RATIO})")
+    phase("T4 train model",
+          f"TransUnet f32 train step B={T4_BATCH} {T4_SIZE}x{T4_SIZE} card "
+          f"vs CPU: loss {loss_gpu:.7f} vs {loss_cpu:.7f} (rel err "
+          f"{loss_err:.2e}, bound {T4_LOSS_REL_TOL:.0e}); {len(g64)} "
+          f"gradients against the CPU's f64 step: the worst is "
+          f"{worst_name}, {worst:.2f} times the CPU's f32 error (bound "
+          f"{T4_NOISE_RATIO:.0f}; {worst_rel:.2e} of its peak)")
+    return loss_err, worst
+
+
+def check_trainer(at, fc, dev, xs):
+    """T5: Trainer.single_train on seeded synthetic batches, then best.pt
+    served by the eval kernels. Returns the eval forward's launches."""
+    from unet_torch_tpu_torch.ckpt import load_weights
+    from unet_torch_tpu_torch.core.rng import seed_everything
+    from unet_torch_tpu_torch.eval.reports import make_predict_fn
+    from unet_torch_tpu_torch.models.transunet.vit import build_transunet
+    from unet_torch_tpu_torch.train.trainer import Trainer
+
+    start = time.perf_counter()
+    # the trainer iterates its loaders and takes their len(): lists of
+    # (x, y) numpy batches, NHWC images and class maps as the train CLI's
+    # loaders yield them
+    rng = np.random.RandomState(SEED + 3)
+    loaders = {"train": [train_batch(rng, BATCH, SIZE) for _ in range(2)],
+               "val": [train_batch(rng, 1, SIZE) for _ in range(2)]}
+    with tempfile.TemporaryDirectory() as tmp:
+        run = os.path.join(tmp, "run")
+        trainer = Trainer(seeded_transunet(seed_everything(SEED)),
+                          "TransUnet", run, loaders, BATCH, "SGD", 0.01,
+                          1e-4, patience=25, num_epochs=2,
+                          loss_function="dice_bce_mc",
+                          accuracy_metric="dice_bce_mc",
+                          num_classes=N_CLASSES, lr_scheduler=True,
+                          seed=SEED, device=dev, dtype=torch.bfloat16,
+                          plot=False)
+        trainer.train()
+        losses = trainer.train_loss_list + trainer.val_loss_list
+        if len(trainer.train_loss_list) != 2 or not np.isfinite(losses).all():
+            raise AssertionError(f"trainer losses {losses}")
+        for name in ("logs.txt", "models/best.pt", "models/last_epoch.pt"):
+            if not os.path.exists(os.path.join(run, name)):
+                raise AssertionError(f"trainer wrote no {name}")
+        served = build_transunet("TransUnet", img_size=SIZE,
+                                 num_classes=N_CLASSES)
+        load_weights(os.path.join(run, "models", "best.pt"), served)
+    predict = make_predict_fn(served, dev, torch.bfloat16, classes=True)
+    reset_counts(at, fc)
+    classes = predict(xs)
+    torch.cuda.synchronize()
+    launches = counts(at, fc)
+    n_layers = len(served.transformer.encoder.layer)
+    if (launches["fused_attention"], launches["fused_conv3x3_bn_relu"]) != (
+            n_layers, len(transunet_conv_shapes(SIZE))):
+        raise AssertionError(f"the trained TransUnet's eval forward "
+                             f"launched {launches}")
+    hist = check_classes(classes)
+    phase("T5 trainer",
+          f"Trainer.single_train TransUnet bf16 B={BATCH} {SIZE}x{SIZE}, 2 "
+          f"epochs x 2 steps: train loss {trainer.train_loss_list}, val "
+          f"loss {trainer.val_loss_list}; best.pt reloaded strictly, its "
+          f"eval forward launched {launches['fused_attention']} attention "
+          f"and {launches['fused_conv3x3_bn_relu']} fused conv kernels, "
+          f"class histogram {hist.tolist()}; "
+          f"{time.perf_counter() - start:.1f} s")
+    return launches
+
+
 def main():
     # 1. device
     if not torch.cuda.is_available():
@@ -374,9 +775,12 @@ def main():
 
     # 2. build
     start = time.perf_counter()
-    libs = build.build_all(["fused_conv3x3_bn_relu", "flash_attention_fwd"])
+    libs = build.build_all(["fused_conv3x3_bn_relu", "flash_attention_fwd",
+                            "flash_attention_bwd", "dropout_keep_mask"])
     fc._library()
     at._library()
+    at._bwd_library()
+    at._mask_library()
     build_s = time.perf_counter() - start
     phase("build", f"{', '.join(p.name for p in libs)} built and loaded in "
           f"{build_s:.2f} s")
@@ -470,6 +874,26 @@ def main():
     phase("model", f"TransUnet card + CPU f32 check took "
           f"{time.perf_counter() - start:.1f} s")
 
+    del model, cpu_model, predict
+    # T1. the mask probe's own path, then against the plain hash
+    mres, mask_launches = check_mask(at, dev)
+
+    # T2. the train kernels against their plain versions
+    tres2 = check_train_attention(at, dev)
+
+    # T3. the TransUnet train main path
+    t3_launches, step_s, plain_step_s, _ = check_train_step(at, fc, vit, dev)
+
+    # T4. an f32 train step, card against CPU
+    start = time.perf_counter()
+    check_train_step_f32(dev)
+    phase("T4 train model", f"card + CPU f32 train step took "
+          f"{time.perf_counter() - start:.1f} s")
+
+    # T5. the trainer and a served checkpoint
+    t5_launches = check_trainer(at, fc, dev, xs)
+
+    # the port's main paths import no JAX and nothing of the JAX package
     jax_side = sorted(m for m in sys.modules if m.split(".")[0] in (
         "jax", "jaxlib", "flax", "optax", "unet_torch_tpu"))
     if jax_side:
@@ -478,6 +902,10 @@ def main():
     conv_bf16 = {**kres[torch.bfloat16], **tres[torch.bfloat16]}
     vit_shape = ATTN_CASES[0][0]
     attn_bf16 = ares[torch.bfloat16]
+    train_bf16 = tres2[torch.bfloat16]
+    vit_train = train_bf16[TRAIN_ATTN_CASES[0]]  # the ViT's shape at rate 0
+    n_fwd = t3_launches["attention_train_forward"]
+    n_bwd = t3_launches["attention_backward"]
     print(smi)
     print(json.dumps({"kernels": [{
         "name": "fused_conv3x3_bn_relu",
@@ -505,7 +933,45 @@ def main():
         # bf16, the ViT's shape, summed over the 12 launches of a forward
         "ms": attn_launches * attn_bf16[vit_shape][1],
         "plain_ms": attn_launches * attn_bf16[vit_shape][2],
-    }]}))
+    }, {
+        "name": "flash_attention_fwd_train",
+        "route": "cuda",
+        "source": "unet_torch_tpu_torch/csrc/flash_attention_fwd.cu",
+        "replaces": "unet_torch_tpu/kernels/attention.py:442",
+        # the TransUnet train step's, one step
+        "launches": n_fwd,
+        "launches_by_path": {"transunet_train": n_fwd},
+        "max_abs_err": max(e[0] for e in train_bf16.values()),
+        # bf16, the ViT's shape at rate 0, summed over the 12 launches
+        "ms": n_fwd * vit_train[1],
+        "plain_ms": n_fwd * vit_train[2],
+    }, {
+        "name": "flash_attention_bwd",
+        "route": "cuda",
+        "source": "unet_torch_tpu_torch/csrc/flash_attention_bwd.cu",
+        "replaces": "unet_torch_tpu/kernels/attention.py:739",
+        "also_replaces": ["unet_torch_tpu/kernels/attention.py:561",
+                          "unet_torch_tpu/kernels/attention.py:256"],
+        "launches": n_bwd,
+        "launches_by_path": {"transunet_train": n_bwd},
+        "max_abs_err": max(e[3] for e in train_bf16.values()),
+        "ms": n_bwd * vit_train[4],
+        "plain_ms": n_bwd * vit_train[5],
+    }, {
+        "name": "dropout_keep_mask",
+        "route": "cuda",
+        "source": "unet_torch_tpu_torch/csrc/dropout_keep_mask.cu",
+        "replaces": "unet_torch_tpu/benchmarks/tpu_dfa_check.py:41",
+        # a probe: its own path (T1, one mask per case), not the train step
+        "launches": mask_launches,
+        "launches_by_path": {"mask_probe": mask_launches},
+        # elements that differ from the plain hash
+        "max_abs_err": max(r[0] for r in mres.values()),
+        "ms": mres[MASK_CASES[0][0]][1],
+        "plain_ms": mres[MASK_CASES[0][0]][2],
+    }], "train_step": {
+        "img_s": BATCH / step_s, "plain_attention_img_s": BATCH / plain_step_s,
+        "eval_launches_after_training": t5_launches}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

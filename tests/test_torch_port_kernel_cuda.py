@@ -1,4 +1,5 @@
-"""The Hopper kernels (fused conv3x3+BN+ReLU, flash attention forward)
+"""The Hopper kernels (fused conv3x3+BN+ReLU, flash attention forward in
+its eval and train calls, flash attention backward, dropout keep-mask probe)
 against their plain PyTorch versions, on a CUDA card. Skips without one: the
 kernels have no CPU mode.
 
@@ -141,5 +142,130 @@ def test_attention_kernel_rejects_what_it_does_not_take():
         fa(q.half(), q.half(), q.half())
     with pytest.raises(ValueError, match="v must be"):
         fa(q, q, q[:, :, :4])
-    with pytest.raises(RuntimeError, match="forward-only"):
-        fa(q.requires_grad_(), q, q)
+    # with autograd recording the call is the train kernels' (no eval launch)
+    before = (fa.launches, port_attn.attention_train_forward.launches)
+    fa(q.requires_grad_(), q, q).sum().backward()
+    assert (fa.launches, port_attn.attention_train_forward.launches) == (
+        before[0], before[1] + 1)
+    with pytest.raises(ValueError, match="lse must be"):
+        port_attn.attention_backward(q, q, q, q, q, q, 0.125)
+    with pytest.raises(TypeError):
+        port_attn.attention_backward(
+            q, q, q, q, torch.zeros(2, 8, device="cuda"), q.bfloat16(), 0.125)
+
+
+def _needs_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the Hopper kernel has no CPU mode")
+
+
+# (B*H, Nq, Nk, nk_p, rate): the ViT's padded stride, a ragged shape, and a
+# row * nk_p that passes 2**32 (uint32 wraparound) from row 4096 on
+MASK_SHAPES = [(6, 64, 1024, None, 0.1), (12, 100, 77, None, 0.3),
+               (1, 4200, 8, 1 << 20, 0.5)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", MASK_SHAPES)
+def test_keep_mask_probe_is_bit_exact_on_card(shape):
+    _needs_card()
+    n_bh, nq, nk, nk_p, rate = shape
+    before = port_attn.dropout_keep_mask.launches
+    mask = port_attn.dropout_keep_mask(n_bh, nq, nk, 1234, rate, "cuda",
+                                       nk_p=nk_p)
+    assert port_attn.dropout_keep_mask.launches == before + 1
+    ref = port_attn.dropout_keep(
+        1234, n_bh, nq, nk, nk_p or port_attn.dfa_nk_p(nk),
+        port_attn.dropout_threshold(rate), device="cuda")
+    assert mask.dtype == torch.uint8 and mask.shape == ref.shape
+    assert torch.equal(mask.bool(), ref)
+
+
+def _train_inputs(shape, dtype):
+    *dims, masked = shape
+    b, h, nq, nk, dqk, dv = dims
+    rng = np.random.RandomState(2)
+    q, k, v, g = (torch.from_numpy(rng.randn(*s).astype(np.float32))
+                  .cuda().to(dtype)
+                  for s in ((b, h, nq, dqk), (b, h, nk, dqk), (b, h, nk, dv),
+                            (b, h, nq, dv)))
+    bias = None
+    if masked:  # as in test_attention_kernel_matches_plain_on_card
+        mask = torch.zeros(b, nk, dtype=torch.bool)
+        mask[0, nk - nk // 3:] = True
+        mask[1:2] = True
+        bias = port_attn.padding_bias(mask.cuda())
+    return q, k, v, g, bias
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", ATTN_SHAPES)
+def test_train_kernels_match_plain_on_card(shape, dtype, rate):
+    """The train forward (o, lse) and the backward (dq, dk, dv) against
+    attention_train_reference and attention_backward_reference, at the
+    bounds of chip_smoke.py phase T2: o within the eval bound times
+    1 / (1 - rate) of max|v|, lse within 1e-4, each gradient within 2**-6
+    (bf16: P and dS rounded at different points) or 1e-5 (f32) of its
+    peak, or of its inputs' scale at Nk = 1, where dS cancels."""
+    _needs_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, g, bias = _train_inputs(shape, dtype)
+    scale, seed = shape[4] ** -0.5, 77
+    args = (q, k, v, scale, bias, seed, rate)
+    before = (port_attn.attention_train_forward.launches,
+              port_attn.attention_backward.launches)
+    o, lse = port_attn.attention_train_forward(*args)
+    ref_o, ref_lse = port_attn.attention_train_reference(*args)
+    bwd_args = (q, k, v, ref_o, ref_lse, g, scale, bias, seed, rate)
+    grads = port_attn.attention_backward(*bwd_args)
+    refs = port_attn.attention_backward_reference(*bwd_args)
+    torch.cuda.synchronize()
+    assert (port_attn.attention_train_forward.launches,
+            port_attn.attention_backward.launches) == (before[0] + 1,
+                                                       before[1] + 1)
+    assert o.shape == ref_o.shape and o.dtype == dtype
+    assert lse.shape == ref_lse.shape == (shape[0] * shape[1], shape[2])
+    o_bound = ((1e-5 if dtype == torch.float32 else 2 ** -7) / (1 - rate)
+               * v.float().abs().max().item())
+    assert (o.float() - ref_o.float()).abs().max().item() <= o_bound
+    assert (lse - ref_lse).abs().max().item() <= 1e-4
+    rel = 1e-5 if dtype == torch.float32 else 2 ** -6
+
+    def amax(t):
+        return t.float().abs().max().item()
+
+    # With Nk = 1, P is one-hot and dS = P (dP - D) cancels: dq and dk are 0
+    # in exact arithmetic, so only there their bound is the rounding of dP
+    # and D, rel times scale * max|g| * max|v| * max|k| (dq) or max|q| (dk).
+    # Every other shape holds each gradient to rel times its own peak.
+    one_hot = shape[3] == 1
+    floor = {"dq": scale * amax(g) * amax(v) * amax(k) if one_hot else 0.0,
+             "dk": scale * amax(g) * amax(v) * amax(q) if one_hot else 0.0,
+             "dv": 0.0}
+    for name, a, r in zip(("dq", "dk", "dv"), grads, refs):
+        assert a.shape == r.shape and a.dtype == dtype, name
+        assert torch.isfinite(a).all(), name
+        err = (a.float() - r.float()).abs().max().item()
+        assert err <= rel * max(amax(r), floor[name]), (name, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+def test_autograd_on_card_matches_cpu(rate):
+    """dropout_flash_attention's gradients in f32 (TF32 off), the kernels on
+    the card against the plain versions on the CPU: the same mask from the
+    same seed, sums in other orders."""
+    _needs_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.RandomState(3)
+    arrays = [rng.randn(2, 3, 100, 64).astype(np.float32) for _ in range(3)]
+    grads = {}
+    for device in ("cuda", "cpu"):
+        ts = [torch.from_numpy(a).to(device).requires_grad_() for a in arrays]
+        out = port_attn.dropout_flash_attention(*ts, 11, 0.125, rate)
+        (out ** 2).sum().backward()
+        grads[device] = [t.grad.cpu() for t in ts]
+    for a, r in zip(grads["cuda"], grads["cpu"]):
+        assert (a - r).abs().max().item() <= 1e-5 * r.abs().max().item()

@@ -1,14 +1,37 @@
 """Checkpoints (counterpart of unet_torch_tpu/ckpt/__init__.py).
 
-The port reads the reference's own format: a torch `state_dict` saved with
-torch.save as models/best.pt (or epoch{N}.pt, last_epoch.pt). The JAX
-package's msgpack checkpoints go through ckpt/bridge.py first.
+The reference's format: a torch `state_dict` saved with torch.save as
+models/epoch{N}.pt, best.pt and last_epoch.pt (`save_weights`, read back
+strictly by `load_weights`). The JAX package writes flax msgpack under the
+same names; `state_dict_from_jax_payload` converts one, read into numpy by
+the caller, through ckpt/bridge.py.
+
+`save_full` / `restore_full` also keep the optimizer's state and the step,
+for an exact resume (the reference loses its optimizer moments across
+restarts).
 """
 
 from __future__ import annotations
 
+import os
+
 import torch
 from torch import nn
+
+from unet_torch_tpu_torch.ckpt.bridge import (
+    state_dict_from_flax,
+    transunet_state_dict_from_flax,
+)
+
+
+def _host_state_dict(model: nn.Module) -> dict:
+    return {k: v.detach().cpu() for k, v in model.state_dict().items()}
+
+
+def save_weights(path: str, model: nn.Module) -> None:
+    """The model's state_dict (on the CPU) to `path`."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    torch.save(_host_state_dict(model), path)
 
 
 def load_weights(path: str, model: nn.Module) -> nn.Module:
@@ -17,3 +40,32 @@ def load_weights(path: str, model: nn.Module) -> nn.Module:
     state_dict = torch.load(path, map_location="cpu", weights_only=True)
     model.load_state_dict(state_dict, strict=True)
     return model
+
+
+def save_full(path: str, model: nn.Module, opt: torch.optim.Optimizer,
+              step: int) -> None:
+    """Weights, optimizer state and step."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    torch.save({"model": _host_state_dict(model),
+                "optimizer": opt.state_dict(), "step": int(step)}, path)
+
+
+def restore_full(path: str, model: nn.Module,
+                 opt: torch.optim.Optimizer) -> int:
+    """Load what `save_full` wrote into `model` (strict) and `opt`; returns
+    the step. The optimizer's state follows its parameters' device."""
+    payload = torch.load(path, map_location="cpu", weights_only=True)
+    model.load_state_dict(payload["model"], strict=True)
+    opt.load_state_dict(payload["optimizer"])
+    return int(payload["step"])
+
+
+def state_dict_from_jax_payload(payload: dict) -> dict[str, torch.Tensor]:
+    """The port's state_dict from a JAX checkpoint payload
+    ({'params': ..., 'batch_stats': ...} as numpy trees, as the JAX
+    package's `ckpt.load_weights` returns it): a TransUnet's when the params
+    hold a `transformer`, else a UNet's."""
+    params, batch_stats = payload["params"], payload.get("batch_stats", {})
+    if "transformer" in params:
+        return transunet_state_dict_from_flax(params, batch_stats)
+    return state_dict_from_flax(params, batch_stats)

@@ -21,19 +21,12 @@ import os
 from unet_torch_tpu.cli.config import Config
 from unet_torch_tpu.data.io import get_image_list
 from unet_torch_tpu_torch.ckpt import load_weights
+from unet_torch_tpu_torch.core import not_ported
 from unet_torch_tpu_torch.core.device import resolve_device
 from unet_torch_tpu_torch.core.precision import resolve_precision
 from unet_torch_tpu_torch.eval import reports
 from unet_torch_tpu_torch.models.transunet.vit import build_transunet
 from unet_torch_tpu_torch.models.unet import build_model
-
-# eval modes of the JAX CLI that the port does not have yet
-_NOT_PORTED = {
-    "single": "queue 1 item 7",
-    "single_crop": "queue 1 item 7",
-    "reg": "queue 1 item 7",
-    "mt_reg": "queue 1 item 8",
-}
 
 
 def _auto_mode(model_type: str) -> str:
@@ -51,10 +44,7 @@ def run_eval(cfg: Config, checkpoint: str, test_path=None, mode="auto",
     m = cfg.model
     if mode == "auto":
         mode = _auto_mode(m.model_type)
-    if mode in _NOT_PORTED:
-        raise NotImplementedError(
-            f"eval mode {mode!r} is not ported yet "
-            f"(ROADMAP.md {_NOT_PORTED[mode]})")
+    not_ported.check(not_ported.EVAL_MODES, "eval mode", mode)
     if mode != "single_mc":
         raise ValueError(f"Unknown mode {mode!r}")
     dev = resolve_device(device)

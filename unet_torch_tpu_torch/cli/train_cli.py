@@ -1,0 +1,184 @@
+"""Train CLI of the port (counterpart of unet_torch_tpu/cli/train_cli.py).
+
+    python -m unet_torch_tpu_torch.cli.train_cli <config.yml> [--device cuda]
+
+The reference's run for `model_type` `single` (UNet) and `TransUnet`: a
+seed sweep with one directory per seed (`save_dir/<basename>_seed{N}`), the
+config snapshot (`config.json`), resume from a port checkpoint
+(`resume.flag`, `resume.path` a torch state_dict, training from
+`resume.epoch`), `Trainer.single_train`, the post-train test of the best
+model through `test_single_mc`, pruning of the epoch checkpoints and the
+cross-seed `results.csv`. The device defaults to cuda and raises where there
+is no GPU; `--device cpu` runs the plain versions of the kernels.
+
+The curves (`total.png`) and the post-train test's reports are drawn with
+matplotlib. Where it cannot be imported, the run trains and saves its
+checkpoints all the same, draws no curves and skips the post-train test with
+a warning naming the eval CLI command that runs it later.
+
+Datasets and loaders are the JAX package's numpy ones (`DataBinary`,
+`NumpyLoader`). Other model types, `random_crop` and `pretrained_npz` raise
+NotImplementedError naming their ROADMAP.md item.
+"""
+
+from __future__ import annotations
+
+import argparse
+import glob as globmod
+import importlib.util
+import os
+import warnings
+
+from unet_torch_tpu.cli.config import Config
+from unet_torch_tpu.data.datasets import DataBinary
+from unet_torch_tpu.data.io import get_image_list
+from unet_torch_tpu.data.loader import NumpyLoader
+from unet_torch_tpu_torch.ckpt import load_weights
+from unet_torch_tpu_torch.core import not_ported
+from unet_torch_tpu_torch.core.device import resolve_device
+from unet_torch_tpu_torch.core.precision import resolve_precision
+from unet_torch_tpu_torch.core.rng import seed_everything
+from unet_torch_tpu_torch.eval import reports
+from unet_torch_tpu_torch.models.transunet.vit import build_transunet
+from unet_torch_tpu_torch.models.unet import build_model
+from unet_torch_tpu_torch.train.trainer import Trainer
+
+# the JAX CLI loads Google's ViT weights from here when the file exists
+_DEFAULT_NPZ = "TransUnet/R50+ViT-B_16.npz"
+
+
+def _tpu_options(m) -> dict:
+    options = {}
+    if m.remat:
+        options["remat"] = True
+    if m.fold:
+        options["fold"] = True
+    return options
+
+
+def build_datasets_and_model(cfg: Config, seed: int, generator=None):
+    """(train DataBinary, val DataBinary, model) for `single` or
+    `TransUnet`; the model's weights are drawn from `generator`."""
+    m, d = cfg.model, cfg.dataset
+    mt = m.model_type
+    not_ported.check(not_ported.MODEL_TYPES, "model_type", mt)
+    not_ported.check(not_ported.TRAIN_OPTIONS, "model_type", mt)
+    if mt not in ("single", "TransUnet"):
+        raise ValueError(f'Invalid model_type "{mt}"')
+    if mt == "TransUnet" and d.random_crop:
+        not_ported.check(not_ported.TRAIN_OPTIONS, "option", "random_crop")
+    input_size = tuple(m.input_size)
+    common = dict(ch=m.channel, anydepth=m.anydepth, seed=seed)
+    train_ds = DataBinary(list(d.train_path), augmentation=d.augmentation,
+                          input_size=input_size, **common)
+    val_ds = DataBinary(list(d.val_path), augmentation=False,
+                        input_size=input_size, **common)
+    if mt == "TransUnet":
+        if ("pretrained_npz" in cfg.raw.get("model_config", {})
+                or os.path.exists(_DEFAULT_NPZ)):
+            not_ported.check(not_ported.TRAIN_OPTIONS, "option",
+                             "pretrained_npz")
+        model = build_transunet(mt, img_size=input_size[0],
+                                num_classes=m.num_class, generator=generator,
+                                **_tpu_options(m))
+    else:
+        model = build_model(mt, n_channels=m.channel, n_classes=m.num_class,
+                            base=m.initial_filter_size, dropout=m.dropout,
+                            dropout_p=m.drop_out_rate, generator=generator,
+                            **_tpu_options(m))
+    return train_ds, val_ds, model
+
+
+def run_training(cfg: Config, device="cuda"):
+    dev = resolve_device(device)
+    plot = importlib.util.find_spec("matplotlib") is not None
+    dtype = resolve_precision(cfg.train.precision)
+    save_dir = cfg.dataset.save_dir
+    os.makedirs(save_dir, exist_ok=True)
+    cfg.dump_snapshot(save_dir)
+    test_image_list = (get_image_list(cfg.dataset.test_path[0])
+                       if cfg.dataset.test_path else [])
+    results, trainers = {}, {}
+
+    for seed in cfg.train.seeds:
+        out_dir = os.path.join(save_dir,
+                               f"{os.path.basename(save_dir)}_seed{seed}")
+        os.makedirs(out_dir, exist_ok=True)
+        generator = seed_everything(seed)
+        train_ds, val_ds, model = build_datasets_and_model(cfg, seed,
+                                                           generator)
+        if cfg.resume.flag:
+            load_weights(cfg.resume.path, model)
+        print(f"Train set size: {len(train_ds)}")
+        print(f"Val set size: {len(val_ds)}")
+        print(f"Loss Function: {cfg.train.loss}")
+        dataloaders = {
+            "train": NumpyLoader(train_ds, cfg.train.batch_size, shuffle=True,
+                                 seed=seed, num_workers=cfg.train.num_workers),
+            "val": NumpyLoader(val_ds, 1, shuffle=False),
+        }
+        trainer = Trainer(
+            model, cfg.model.model_type, out_dir, dataloaders,
+            cfg.train.batch_size, cfg.train.optimizer, cfg.train.lr_rate,
+            cfg.train.weight_decay, patience=cfg.train.early_stop,
+            num_epochs=cfg.train.epochs, loss_function=cfg.train.loss,
+            accuracy_metric=cfg.train.accuracy,
+            num_classes=cfg.model.num_class,
+            lr_scheduler=cfg.train.adaptive_lr,
+            start_epoch=cfg.resume.epoch if cfg.resume.flag else 1,
+            seed=seed, fused_head=cfg.model.fused_head, device=dev,
+            dtype=dtype, plot=plot)
+        trainer.train()
+        trainers[seed] = trainer
+
+        if test_image_list:
+            if plot:
+                print("Testing best model:")
+                results[seed] = _post_train_test(trainer, cfg,
+                                                 test_image_list, out_dir)
+            else:
+                best = os.path.join(out_dir, "models", "best.pt")
+                warnings.warn(
+                    "matplotlib cannot be imported, so the post-train test "
+                    "is skipped; run it where matplotlib is installed: "
+                    "python -m unet_torch_tpu_torch.cli.test_cli <config.yml>"
+                    f" --checkpoint {best} --out-dir {out_dir}")
+            _delete_non_best(out_dir)
+
+    if results:
+        import pandas as pd
+
+        df = pd.DataFrame(results).transpose().sort_index()
+        df.to_csv(os.path.join(save_dir, "results.csv"))
+    return trainers, results
+
+
+def _post_train_test(trainer, cfg: Config, test_image_list, out_dir):
+    """The best model through the multi-class eval suite into `out_dir`;
+    binary heads (test_single) are not ported yet."""
+    m = cfg.model
+    if m.num_class <= 2:
+        not_ported.check(not_ported.EVAL_MODES, "eval mode", "single")
+    return reports.test_single_mc(trainer.model, trainer.device,
+                                  trainer.dtype, tuple(m.input_size),
+                                  m.channel, m.num_class, test_image_list,
+                                  out_dir)
+
+
+def _delete_non_best(out_dir):
+    """Prune the epoch checkpoints, keep best.pt and last_epoch.pt."""
+    for path in globmod.glob(os.path.join(out_dir, "models", "*epoch*")):
+        if os.path.basename(path) != "last_epoch.pt":
+            os.remove(path)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("config", help="the config path")
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+    run_training(Config.load(args.config), device=args.device)
+
+
+if __name__ == "__main__":
+    main()

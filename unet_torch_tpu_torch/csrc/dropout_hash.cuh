@@ -1,0 +1,43 @@
+// The attention-dropout keep mask, shared by the flash attention forward,
+// its backward and the mask probe: the counter hash of
+// unet_torch_tpu/kernels/attention.py (_mix32, _dropout_keep).
+//
+//   base = mix32(seed ^ (bh * 2654435761))
+//   keep = mix32((row * nk_p + col) ^ base) >= thr
+//
+// with mix32 murmur3's 32-bit finaliser and every product taken modulo
+// 2**32 (uint32 wraparound, as JAX's uint32 arithmetic). bh is the flat
+// batch*head index, row and col the global query and key indices, nk_p the
+// key count padded as the JAX package pads it (kernels/attention.py
+// dfa_nk_p), thr = min(int(rate * 2**32), 2**32 - 1). The mask is a function
+// of (seed, bh, row, col) alone, so every kernel regenerates the same bits
+// whatever tiles it walks.
+//
+// Included by csrc/*.cu; kernels/build.py hashes this header with each
+// source.
+
+#pragma once
+
+#include <cstdint>
+
+namespace {
+
+__device__ __forceinline__ uint32_t mix32(uint32_t x) {
+  x ^= x >> 16;
+  x *= 0x85EBCA6Bu;
+  x ^= x >> 13;
+  x *= 0xC2B2AE35u;
+  x ^= x >> 16;
+  return x;
+}
+
+__device__ __forceinline__ uint32_t dropout_base(uint32_t seed, uint32_t bh) {
+  return mix32(seed ^ (bh * 2654435761u));
+}
+
+__device__ __forceinline__ bool dropout_keep(uint32_t base, uint32_t row, uint32_t col,
+                                             uint32_t nk_p, uint32_t thr) {
+  return mix32((row * nk_p + col) ^ base) >= thr;
+}
+
+}  // namespace

@@ -1,24 +1,33 @@
 // Attention forward for NVIDIA Hopper (sm_90a): one flash kernel (online
 // softmax over key tiles) in bf16 on the tensor cores, and a plain f32 one on
-// the CUDA cores.
+// the CUDA cores. The eval call returns o; the train call also returns the
+// row log-sum-exp and may apply dropout to the probabilities.
 //
-// Replaces both TPU kernels of unet_torch_tpu/kernels/attention.py:
-// _attention_pallas (the whole sequence of one batch*head per grid cell) and
+// Replaces three TPU kernels of unet_torch_tpu/kernels/attention.py:
+// _attention_pallas (the whole sequence of one batch*head per grid cell),
 // _attention_flash (online softmax over Nk tiles, taken when the working set
-// passes 10 MB of VMEM). The two differ only in how much of the sequence the
-// TPU's VMEM holds; a Hopper block holds at most 227 KB of shared memory, so
-// here every size takes the tiled form:
+// passes 10 MB of VMEM) and _dropout_flash_fwd (the train forward: online
+// softmax, dropout on the normalised probabilities, o and lse). The first two
+// differ only in how much of the sequence the TPU's VMEM holds; a Hopper
+// block holds at most 227 KB of shared memory, so here every size takes the
+// tiled form:
 //
-//   o[b,h,i,:] = sum_j p_ij v[b,h,j,:],
-//   p_ij = softmax_j(scale * q[b,h,i,:] . k[b,h,j,:] + bias[b,j])
+//   o[b,h,i,:] = sum_j keep_ij / (1 - rate) * p_ij v[b,h,j,:],
+//   p_ij = softmax_j(scale * q[b,h,i,:] . k[b,h,j,:] + bias[b,j] - bmax[b]),
+//   lse[b*H+h, i] = log sum_j exp(scale * q . k + bias[b,j] - bmax[b])
 //
-// q, k are (B*H, N, Dqk) and v is (B*H, Nk, Dv), contiguous; Dqk and Dv are
+// keep_ij is the counter hash of dropout_hash.cuh (all ones at rate 0); the
+// row sums are taken before dropout, as _dropout_flash_fwd takes them. q, k
+// are (B*H, N, Dqk) and v is (B*H, Nk, Dv), contiguous; Dqk and Dv are
 // multiples of 16 up to 128 and may differ; Nq, Nk >= 1 are any size. The
 // optional bias is (B, Nk) f32 (-1e30 marks padding keys), shared by every
-// head and query. Columns past Nk get zero weight. A row whose real keys all
-// carry -1e30 sees equal scores and gets the mean of its Nk rows of v, as
-// _attention_pallas gives (_attention_flash would also average over its
-// zero-padded columns).
+// head and query, and bmax[b] = max_j bias[b,j] is subtracted after it: it
+// changes no probability, but a row whose keys are all padding keeps its
+// log-sum-exp (log Nk rather than a -1e30 that swallows it), so that the
+// backward recomputes its probabilities. Such a row sees equal scores and
+// gets the mean of its Nk rows of v, as _attention_pallas gives
+// (_attention_flash would also average over its zero-padded columns).
+// Columns past Nk get zero weight.
 //
 // bf16 design (FlashAttention-2 style): a block of 4 warps owns 64 query rows
 // of one batch*head, 16 per warp, and walks the keys in tiles of 64 rows.
@@ -31,7 +40,10 @@
 // product as bf16 without leaving registers. O is divided by the row sum
 // once, at the end, and written once. Head widths are padded to 64 or 128 in
 // shared memory (zeros add nothing), so four template instances cover every
-// width.
+// width. Dropout is a template flag: the eval and rate-0 train calls compile
+// no hash, as the JAX kernel's trace-time thr == 0 does. With dropout each
+// probability is masked in registers by the hash of its global (row, col),
+// which costs two multiplies and a few shifts per score and stores nothing.
 //
 // What bounds it on an H100: at the ViT's shape (B*H = 96, N = 1024, D = 64)
 // one call is 25.8 GFLOP, 50 MB of q, k, v and o in device memory, about
@@ -57,12 +69,26 @@
 
 #include <math_constants.h>
 
-#include "warp_mma.cuh"
+#include "dropout_hash.cuh"
+#include "flash_tiles.cuh"
 
 namespace {
 
 constexpr int THREADS = 128;
-constexpr float LOG2E = 1.4426950408889634f;
+
+struct FwdParams {
+  const void* q;
+  const void* k;
+  const void* v;
+  const float* bias;      // (B, Nk) or null
+  const float* bias_max;  // (B,), given with bias
+  void* o;
+  float* lse;  // (B*H, Nq) natural log, or null (eval)
+  int H, Nq, Nk, dqk, dv, q_tiles;
+  float scale;
+  uint32_t seed, thr, nk_p;  // dropout: keep = hash >= thr
+  float inv_keep;            // 1 / (1 - rate)
+};
 
 // ---------------------------------------------------------------------------
 // bf16: tensor cores
@@ -71,43 +97,14 @@ constexpr float LOG2E = 1.4426950408889634f;
 constexpr int BQ = 64;   // query rows per block, 16 per warp
 constexpr int BKV = 64;  // key rows per tile
 
-template <int D>
-struct Pitch {
-  static constexpr int LD = D + 8;  // rows stay 16-byte aligned, ldmatrix conflict-free
-};
-
 template <int DQK, int DV>
 constexpr int smem_bytes_bf16() {
   return (BQ * Pitch<DQK>::LD + 2 * BKV * Pitch<DQK>::LD + 2 * BKV * Pitch<DV>::LD) *
          static_cast<int>(sizeof(bf16));
 }
 
-// Queue the copy of rows [row0, row0 + ROWS) of a (n, d) row-major matrix
-// into a ROWS x D tile with pitch LD, zero-filling rows >= n and columns >= d.
-template <int ROWS, int D>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int row0, int n, int d,
-                                          int tid) {
-  constexpr int PER_ROW = D / 8;  // 16-byte chunks
-  constexpr int TOTAL = ROWS * PER_ROW;
-  static_assert(TOTAL % THREADS == 0, "whole chunks per thread");
-#pragma unroll
-  for (int i = 0; i < TOTAL / THREADS; ++i) {
-    const int c = tid + i * THREADS;
-    const int r = c / PER_ROW;
-    const int col = (c % PER_ROW) * 8;
-    const int row = row0 + r;
-    const bool ok = row < n && col < d;
-    cp_async_16(dst + r * Pitch<D>::LD + col,
-                ok ? src + static_cast<long long>(row) * d + col : src, ok);
-  }
-}
-
-template <int DQK, int DV>
-__global__ void __launch_bounds__(THREADS)
-    flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                   const bf16* __restrict__ v, const float* __restrict__ bias,
-                   bf16* __restrict__ o, int H, int Nq, int Nk, int dqk, int dv, int q_tiles,
-                   float scale) {
+template <int DQK, int DV, bool DROPOUT>
+__global__ void __launch_bounds__(THREADS) flash_fwd_bf16(const FwdParams p) {
   constexpr int LDQ = Pitch<DQK>::LD;
   constexpr int LDV = Pitch<DV>::LD;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -115,22 +112,26 @@ __global__ void __launch_bounds__(THREADS)
   bf16* Ks = Qs + BQ * LDQ;       // two tiles
   bf16* Vs = Ks + 2 * BKV * LDQ;  // two tiles
 
+  const int Nq = p.Nq, Nk = p.Nk, dqk = p.dqk, dv = p.dv;
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
   const int g = lane / 4;   // accumulator row (and row + 8)
   const int t4 = lane % 4;  // accumulator column pair
-  const int bh = blockIdx.x / q_tiles;
-  const int q0 = (blockIdx.x % q_tiles) * BQ;
-  const bf16* qg = q + static_cast<long long>(bh) * Nq * dqk;
-  const bf16* kg = k + static_cast<long long>(bh) * Nk * dqk;
-  const bf16* vg = v + static_cast<long long>(bh) * Nk * dv;
-  const float* bg = bias ? bias + static_cast<long long>(bh / H) * Nk : nullptr;
-  const float scale2 = scale * LOG2E;  // scores in the base-2 domain
+  const int bh = blockIdx.x / p.q_tiles;
+  const int q0 = (blockIdx.x % p.q_tiles) * BQ;
+  const bf16* qg = static_cast<const bf16*>(p.q) + static_cast<long long>(bh) * Nq * dqk;
+  const bf16* kg = static_cast<const bf16*>(p.k) + static_cast<long long>(bh) * Nk * dqk;
+  const bf16* vg = static_cast<const bf16*>(p.v) + static_cast<long long>(bh) * Nk * dv;
+  const float* bg = p.bias ? p.bias + static_cast<long long>(bh / p.H) * Nk : nullptr;
+  const float bmax2 = p.bias ? p.bias_max[bh / p.H] * LOG2E : 0.f;
+  const float scale2 = p.scale * LOG2E;  // scores in the base-2 domain
+  uint32_t base = 0;
+  if constexpr (DROPOUT) base = dropout_base(p.seed, static_cast<uint32_t>(bh));
 
-  load_tile<BQ, DQK>(Qs, qg, q0, Nq, dqk, tid);
-  load_tile<BKV, DQK>(Ks, kg, 0, Nk, dqk, tid);
-  load_tile<BKV, DV>(Vs, vg, 0, Nk, dv, tid);
+  load_tile<BQ, DQK, THREADS>(Qs, qg, q0, Nq, dqk, tid);
+  load_tile<BKV, DQK, THREADS>(Ks, kg, 0, Nk, dqk, tid);
+  load_tile<BKV, DV, THREADS>(Vs, vg, 0, Nk, dv, tid);
   cp_async_commit();
 
   uint32_t qf[DQK / 16][4];
@@ -146,8 +147,8 @@ __global__ void __launch_bounds__(THREADS)
   for (int t = 0; t < kv_tiles; ++t) {
     const int buf = t & 1;
     if (t + 1 < kv_tiles) {
-      load_tile<BKV, DQK>(Ks + (buf ^ 1) * BKV * LDQ, kg, (t + 1) * BKV, Nk, dqk, tid);
-      load_tile<BKV, DV>(Vs + (buf ^ 1) * BKV * LDV, vg, (t + 1) * BKV, Nk, dv, tid);
+      load_tile<BKV, DQK, THREADS>(Ks + (buf ^ 1) * BKV * LDQ, kg, (t + 1) * BKV, Nk, dqk, tid);
+      load_tile<BKV, DV, THREADS>(Vs + (buf ^ 1) * BKV * LDV, vg, (t + 1) * BKV, Nk, dv, tid);
     }
     cp_async_commit();
     cp_async_wait<1>();  // tile t (and, at t = 0, the Q tile) has landed
@@ -186,7 +187,8 @@ __global__ void __launch_bounds__(THREADS)
       for (int e = 0; e < 4; ++e) {
         const int col = k0 + j * 8 + 2 * t4 + (e & 1);
         float x = s[j][e] * scale2;
-        if (bg != nullptr && col < Nk) x += bg[col] * LOG2E;
+        // the bias first (a -1e30 swallows the score), then the row shift
+        if (bg != nullptr && col < Nk) x = (x + bg[col] * LOG2E) - bmax2;
         x = col < Nk ? x : -CUDART_INF_F;
         s[j][e] = x;
         m_new[e >> 1] = fmaxf(m_new[e >> 1], x);
@@ -205,9 +207,14 @@ __global__ void __launch_bounds__(THREADS)
     for (int j = 0; j < BKV / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const float p = exp2f(s[j][e] - m_new[e >> 1]);
-        s[j][e] = p;
-        l_run[e >> 1] += p;
+        float pr = exp2f(s[j][e] - m_new[e >> 1]);
+        l_run[e >> 1] += pr;  // the row sum is taken before dropout
+        if constexpr (DROPOUT) {
+          const uint32_t row = q0 + warp * 16 + g + 8 * (e >> 1);
+          const uint32_t col = k0 + j * 8 + 2 * t4 + (e & 1);
+          pr = dropout_keep(base, row, col, p.nk_p, p.thr) ? pr * p.inv_keep : 0.f;
+        }
+        s[j][e] = pr;
       }
 #pragma unroll
     for (int j = 0; j < DV / 8; ++j) {
@@ -239,16 +246,17 @@ __global__ void __launch_bounds__(THREADS)
   }
   cp_async_wait<0>();
 
-  float inv[2];
+  float l_row[2], inv[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     float l = l_run[i];
     l += __shfl_xor_sync(0xffffffffu, l, 1);
     l += __shfl_xor_sync(0xffffffffu, l, 2);
+    l_row[i] = l;
     inv[i] = 1.f / l;
   }
   const int row0 = q0 + warp * 16 + g;
-  bf16* og = o + static_cast<long long>(bh) * Nq * dv;
+  bf16* og = static_cast<bf16*>(p.o) + static_cast<long long>(bh) * Nq * dv;
 #pragma unroll
   for (int j = 0; j < DV / 8; ++j) {
     const int col = j * 8 + 2 * t4;
@@ -259,6 +267,14 @@ __global__ void __launch_bounds__(THREADS)
       if (row < Nq)
         *reinterpret_cast<uint32_t*>(og + static_cast<long long>(row) * dv + col) =
             pack_bf16x2(acc[j][2 * i] * inv[i], acc[j][2 * i + 1] * inv[i]);
+    }
+  }
+  if (p.lse != nullptr && t4 == 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = row0 + 8 * i;
+      if (row < Nq)
+        p.lse[static_cast<long long>(bh) * Nq + row] = (m_run[i] + log2f(l_row[i])) * LN2;
     }
   }
 }
@@ -276,11 +292,8 @@ inline int smem_bytes_f32(int dqk, int dv) {
          static_cast<int>(sizeof(float));
 }
 
-__global__ void __launch_bounds__(THREADS)
-    flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
-                  const float* __restrict__ v, const float* __restrict__ bias,
-                  float* __restrict__ o, int H, int Nq, int Nk, int dqk, int dv, int q_tiles,
-                  float scale) {
+__global__ void __launch_bounds__(THREADS) flash_fwd_f32(const FwdParams p) {
+  const int Nq = p.Nq, Nk = p.Nk, dqk = p.dqk, dv = p.dv;
   // odd pitches keep the four threads of a row and the rows of a warp on
   // different banks
   const int ldk = dqk + 1;
@@ -295,17 +308,16 @@ __global__ void __launch_bounds__(THREADS)
   const int tid = threadIdx.x;
   const int r = tid / 4;  // this thread's query row in the tile
   const int c = tid % 4;  // keys c, c+4, ...; output columns c, c+4, ...
-  const int bh = blockIdx.x / q_tiles;
-  const int q0 = (blockIdx.x % q_tiles) * BQ_F;
-  const float* qg = q + static_cast<long long>(bh) * Nq * dqk;
-  const float* kg = k + static_cast<long long>(bh) * Nk * dqk;
-  const float* vg = v + static_cast<long long>(bh) * Nk * dv;
-  const float* bg = bias ? bias + static_cast<long long>(bh / H) * Nk : nullptr;
+  const int bh = blockIdx.x / p.q_tiles;
+  const int q0 = (blockIdx.x % p.q_tiles) * BQ_F;
+  const float* qg = static_cast<const float*>(p.q) + static_cast<long long>(bh) * Nq * dqk;
+  const float* kg = static_cast<const float*>(p.k) + static_cast<long long>(bh) * Nk * dqk;
+  const float* vg = static_cast<const float*>(p.v) + static_cast<long long>(bh) * Nk * dv;
+  const float* bg = p.bias ? p.bias + static_cast<long long>(bh / p.H) * Nk : nullptr;
+  const float bmax = p.bias ? p.bias_max[bh / p.H] : 0.f;
+  const uint32_t base = dropout_base(p.seed, static_cast<uint32_t>(bh));
 
-  for (int i = tid; i < BQ_F * dqk; i += THREADS) {
-    const int row = q0 + i / dqk;
-    Qs[(i / dqk) * ldk + i % dqk] = row < Nq ? qg[static_cast<long long>(row) * dqk + i % dqk] : 0.f;
-  }
+  load_tile_f32<BQ_F, THREADS>(Qs, qg, q0, Nq, dqk, ldk, tid);
   float acc[DMAX / 4];
 #pragma unroll
   for (int j = 0; j < DMAX / 4; ++j) acc[j] = 0.f;
@@ -314,15 +326,8 @@ __global__ void __launch_bounds__(THREADS)
 
   for (int k0 = 0; k0 < Nk; k0 += BKV_F) {
     __syncthreads();  // the previous tile is consumed (and Qs is written)
-    for (int i = tid; i < BKV_F * dqk; i += THREADS) {
-      const int row = k0 + i / dqk;
-      Ks[(i / dqk) * ldk + i % dqk] =
-          row < Nk ? kg[static_cast<long long>(row) * dqk + i % dqk] : 0.f;
-    }
-    for (int i = tid; i < BKV_F * dv; i += THREADS) {
-      const int row = k0 + i / dv;
-      Vs[(i / dv) * ldv + i % dv] = row < Nk ? vg[static_cast<long long>(row) * dv + i % dv] : 0.f;
-    }
+    load_tile_f32<BKV_F, THREADS>(Ks, kg, k0, Nk, dqk, ldk, tid);
+    load_tile_f32<BKV_F, THREADS>(Vs, vg, k0, Nk, dv, ldv, tid);
     __syncthreads();
 
     float x[BKV_F / 4];
@@ -332,8 +337,8 @@ __global__ void __launch_bounds__(THREADS)
       const int key = c + 4 * jj;
       float dot = 0.f;
       for (int d = 0; d < dqk; ++d) dot = fmaf(Qs[r * ldk + d], Ks[key * ldk + d], dot);
-      float xv = dot * scale;
-      if (bg != nullptr && k0 + key < Nk) xv += bg[k0 + key];
+      float xv = dot * p.scale;
+      if (bg != nullptr && k0 + key < Nk) xv = (xv + bg[k0 + key]) - bmax;
       xv = k0 + key < Nk ? xv : -CUDART_INF_F;
       x[jj] = xv;
       m_new = fmaxf(m_new, xv);
@@ -345,9 +350,11 @@ __global__ void __launch_bounds__(THREADS)
     l_run *= corr;
 #pragma unroll
     for (int jj = 0; jj < BKV_F / 4; ++jj) {
-      const float p = expf(x[jj] - m_new);
-      l_run += p;
-      Ps[r * LDP + c + 4 * jj] = p;
+      float pr = expf(x[jj] - m_new);
+      l_run += pr;  // the row sum is taken before dropout
+      if (p.thr != 0u)
+        pr = dropout_keep(base, q0 + r, k0 + c + 4 * jj, p.nk_p, p.thr) ? pr * p.inv_keep : 0.f;
+      Ps[r * LDP + c + 4 * jj] = pr;
     }
     __syncwarp();  // a row's four threads are in one warp
 #pragma unroll
@@ -366,71 +373,91 @@ __global__ void __launch_bounds__(THREADS)
   l_run += __shfl_xor_sync(0xffffffffu, l_run, 2);
   const int row = q0 + r;
   if (row >= Nq) return;
-  float* og = o + (static_cast<long long>(bh) * Nq + row) * dv;
+  float* og = static_cast<float*>(p.o) + (static_cast<long long>(bh) * Nq + row) * dv;
 #pragma unroll
   for (int j = 0; j < DMAX / 4; ++j) {
     const int col = c + 4 * j;
     if (col < dv) og[col] = acc[j] / l_run;
   }
+  if (p.lse != nullptr && c == 0)
+    p.lse[static_cast<long long>(bh) * Nq + row] = m_run + logf(l_run);
 }
 
 // ---------------------------------------------------------------------------
 // Launch
 // ---------------------------------------------------------------------------
 
-template <int DQK, int DV>
-cudaError_t launch_bf16(const void* q, const void* k, const void* v, const float* bias, void* o,
-                        int BH, int H, int Nq, int Nk, int dqk, int dv, float scale,
-                        cudaStream_t stream) {
+template <int DQK, int DV, bool DROPOUT>
+cudaError_t launch_bf16(const FwdParams& p, int BH, cudaStream_t stream) {
   constexpr int smem = smem_bytes_bf16<DQK, DV>();
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_bf16<DQK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      flash_fwd_bf16<DQK, DV, DROPOUT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const int q_tiles = (Nq + BQ - 1) / BQ;
-  flash_fwd_bf16<DQK, DV><<<q_tiles * BH, THREADS, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v), bias,
-      static_cast<bf16*>(o), H, Nq, Nk, dqk, dv, q_tiles, scale);
+  flash_fwd_bf16<DQK, DV, DROPOUT><<<p.q_tiles * BH, THREADS, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
+template <int DQK, int DV>
+cudaError_t launch_bf16_drop(const FwdParams& p, int BH, cudaStream_t stream) {
+  return p.thr != 0u ? launch_bf16<DQK, DV, true>(p, BH, stream)
+                     : launch_bf16<DQK, DV, false>(p, BH, stream);
+}
+
 template <int DQK>
-cudaError_t launch_bf16_dv(const void* q, const void* k, const void* v, const float* bias,
-                           void* o, int BH, int H, int Nq, int Nk, int dqk, int dv, float scale,
-                           cudaStream_t stream) {
-  return dv <= 64 ? launch_bf16<DQK, 64>(q, k, v, bias, o, BH, H, Nq, Nk, dqk, dv, scale, stream)
-                  : launch_bf16<DQK, 128>(q, k, v, bias, o, BH, H, Nq, Nk, dqk, dv, scale, stream);
+cudaError_t launch_bf16_dv(const FwdParams& p, int BH, cudaStream_t stream) {
+  return p.dv <= 64 ? launch_bf16_drop<DQK, 64>(p, BH, stream)
+                    : launch_bf16_drop<DQK, 128>(p, BH, stream);
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. q (B*H, Nq, dqk), k (B*H, Nk, dqk),
 // v (B*H, Nk, dv) and o (B*H, Nq, dv) are contiguous and 16-byte aligned;
-// bias is null or a contiguous (B, Nk) float32 array; dqk and dv are
-// multiples of 16 in [16, 128]; Nq, Nk >= 1. The caller checks all of this.
-// Returns the launch's cudaError_t.
+// bias is null or a contiguous (B, Nk) float32 array with bias_max its (B,)
+// row maxima; lse is null (eval) or a (B*H, Nq) float32 array; dqk and dv
+// are multiples of 16 in [16, 128]; Nq, Nk >= 1. thr = 0 means no dropout;
+// otherwise keep = hash >= thr and survivors are scaled by inv_keep. The
+// caller checks all of this. Returns the launch's cudaError_t.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, const void* bias,
-                                   void* o, int B, int H, int Nq, int Nk, int dqk, int dv,
-                                   float scale, int dtype, void* stream) {
+                                   const void* bias_max, void* o, void* lse, int B, int H, int Nq,
+                                   int Nk, int dqk, int dv, float scale, unsigned seed,
+                                   unsigned thr, unsigned nk_p, float inv_keep, int dtype,
+                                   void* stream) {
   const int BH = B * H;
-  const float* bs = static_cast<const float*>(bias);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dqk < 16 || dqk > DMAX || dqk % 16 || dv < 16 || dv > DMAX || dv % 16 || Nq < 1 || Nk < 1)
+  if (dqk < 16 || dqk > DMAX || dqk % 16 || dv < 16 || dv > DMAX || dv % 16 || Nq < 1 || Nk < 1 ||
+      (bias != nullptr && bias_max == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
+  FwdParams p;
+  p.q = q;
+  p.k = k;
+  p.v = v;
+  p.bias = static_cast<const float*>(bias);
+  p.bias_max = static_cast<const float*>(bias_max);
+  p.o = o;
+  p.lse = static_cast<float*>(lse);
+  p.H = H;
+  p.Nq = Nq;
+  p.Nk = Nk;
+  p.dqk = dqk;
+  p.dv = dv;
+  p.scale = scale;
+  p.seed = seed;
+  p.thr = thr;
+  p.nk_p = nk_p;
+  p.inv_keep = inv_keep;
   cudaError_t err;
   if (dtype == 0) {
     const int smem = smem_bytes_f32(dqk, dv);
     err = cudaFuncSetAttribute(flash_fwd_f32, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err == cudaSuccess) {
-      const int q_tiles = (Nq + BQ_F - 1) / BQ_F;
-      flash_fwd_f32<<<q_tiles * BH, THREADS, smem, st>>>(
-          static_cast<const float*>(q), static_cast<const float*>(k),
-          static_cast<const float*>(v), bs, static_cast<float*>(o), H, Nq, Nk, dqk, dv, q_tiles,
-          scale);
+      p.q_tiles = (Nq + BQ_F - 1) / BQ_F;
+      flash_fwd_f32<<<p.q_tiles * BH, THREADS, smem, st>>>(p);
       err = cudaGetLastError();
     }
   } else if (dtype == 1) {
-    err = dqk <= 64 ? launch_bf16_dv<64>(q, k, v, bs, o, BH, H, Nq, Nk, dqk, dv, scale, st)
-                    : launch_bf16_dv<128>(q, k, v, bs, o, BH, H, Nq, Nk, dqk, dv, scale, st);
+    p.q_tiles = (Nq + BQ - 1) / BQ;
+    err = dqk <= 64 ? launch_bf16_dv<64>(p, BH, st) : launch_bf16_dv<128>(p, BH, st);
   } else {
     err = cudaErrorInvalidValue;
   }

@@ -1,9 +1,13 @@
 """TransUnet: ViT(-hybrid) encoder + cup decoder (counterpart of
 unet_torch_tpu/models/transunet/vit.py, which mirrors the reference's
-vit_seg_modeling.py). The eval forward of `VisionTransformer` is ported.
+vit_seg_modeling.py). The eval and train forwards of `VisionTransformer`
+are ported.
 
-  Attention          fused QKV projection, the attention kernel, out
-  Mlp                fc1, exact GELU, fc2
+  Attention          fused QKV projection, the attention kernel (eval:
+                     fused_attention; train: dropout_flash_attention, the
+                     train forward and backward kernels), out projection,
+                     dropout at attention_dropout_rate
+  Mlp                fc1, exact GELU, fc2, dropout
   Block / Encoder    pre-LN blocks (LayerNorm eps 1e-6), final LayerNorm
   Embeddings         ResNetV2 hybrid + 1x1 patch conv (or plain patches),
                      learned position embeddings
@@ -18,8 +22,15 @@ vit_seg_modeling.py). The eval forward of `VisionTransformer` is ported.
 as the JAX model does. The ResNetV2 and the encoder run on NCHW tensors in
 channels_last memory; the decoder runs on NHWC tensors, the fused conv
 kernel's layout. Parameters stay f32 and each layer computes in its input's
-dtype, so under bf16 the residual stream is bf16 too (the JAX model's is
-promoted to f32 by its f32 position embeddings).
+dtype, except the ViT's residual stream: as in the JAX model, the f32
+position embeddings promote it to f32, so twelve layers of updates are
+summed in f32; each block's LayerNorm output, and so its products, are in
+the compute dtype (the image's), and so is the encoder's output.
+
+In train mode every dropout draws from the generator that the train step
+binds (nn/dropout.py::set_dropout_generator), as the JAX model draws from
+the step's `rng`; Conv2dReLU runs torch's conv (weight in the input's
+dtype), BN (f32 statistics) and ReLU.
 
 The JAX package's W-folded decoder tail (FoldedDecoderTail, _FoldedHeadConv,
 _tail_fold_factor) is a TPU lane-padding workaround over the same parameters
@@ -36,7 +47,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from unet_torch_tpu_torch.kernels.attention import fused_attention
+from unet_torch_tpu_torch.core import not_ported
+from unet_torch_tpu_torch.kernels.attention import (
+    dropout_flash_attention,
+    fused_attention,
+)
 from unet_torch_tpu_torch.kernels.fused_conv import (
     fold_bn,
     fused_conv3x3_bn_relu,
@@ -44,13 +59,8 @@ from unet_torch_tpu_torch.kernels.fused_conv import (
 from unet_torch_tpu_torch.models.transunet.configs import CONFIGS
 from unet_torch_tpu_torch.models.transunet.resnetv2 import ResNetV2
 from unet_torch_tpu_torch.models.unet import ignore_tpu_options
+from unet_torch_tpu_torch.nn.dropout import Dropout
 
-# model types of the JAX build_transunet that the port does not have yet
-_NOT_PORTED = {
-    "regression_t": "queue 1 item 10",
-    "multi_task_regTU": "queue 1 item 10",
-    "multitask_em": "queue 1 item 10",
-}
 
 
 def bilinear_upsample_2x(x):
@@ -76,16 +86,26 @@ class LayerNorm(nn.LayerNorm):
 
 class Attention(nn.Module):
     """Multi-head self-attention. q, k and v come from one product with the
-    three weights stacked; the heads go through `fused_attention` as
-    (B, heads, N, d)."""
+    three weights stacked; the heads go through the attention kernels as
+    (B, heads, N, d).
 
-    def __init__(self, hidden_size: int, num_heads: int):
+    In train mode with autograd recording, `dropout_flash_attention` runs at
+    `attention_dropout_rate`; with a rate above 0 each call draws its mask
+    seed from the bound generator (one host read per layer and step: no
+    registry config sets the rate), at rate 0 it runs no hash. Otherwise
+    `fused_attention` runs the eval kernel. The out projection's dropout
+    runs at the same rate, as in the JAX model."""
+
+    def __init__(self, hidden_size: int, num_heads: int,
+                 attention_dropout_rate: float = 0.0):
         super().__init__()
         self.num_heads = num_heads
+        self.rate = attention_dropout_rate
         self.query = Linear(hidden_size, hidden_size)
         self.key = Linear(hidden_size, hidden_size)
         self.value = Linear(hidden_size, hidden_size)
         self.out = Linear(hidden_size, hidden_size)
+        self.dropout = Dropout(attention_dropout_rate)
 
     def forward(self, x):
         b, n, hidden = x.shape
@@ -96,8 +116,21 @@ class Attention(nn.Module):
         # (B, N, 3, heads, d) -> (3, B, heads, N, d): q, k, v contiguous
         qkv = qkv.view(b, n, 3, self.num_heads, d).permute(2, 0, 3, 1, 4)
         q, k, v = qkv.contiguous()
-        ctx = fused_attention(q, k, v, scale=1.0 / math.sqrt(d))
-        return self.out(ctx.permute(0, 2, 1, 3).reshape(b, n, hidden))
+        scale = 1.0 / math.sqrt(d)
+        if self.training and torch.is_grad_enabled():
+            seed = 0
+            if self.rate > 0.0:
+                gen = self.dropout.generator
+                if gen is None:
+                    raise RuntimeError("train-mode attention dropout needs a "
+                                       "generator: call set_dropout_generator")
+                seed = int(torch.randint(0, 2 ** 32, (), generator=gen,
+                                         device=gen.device))
+            ctx = dropout_flash_attention(q, k, v, seed, scale, self.rate)
+        else:
+            ctx = fused_attention(q, k, v, scale=scale)
+        out = self.out(ctx.permute(0, 2, 1, 3).reshape(b, n, hidden))
+        return self.dropout(out)
 
 
 class Mlp(nn.Module):
@@ -105,7 +138,7 @@ class Mlp(nn.Module):
         super().__init__()
         self.fc1 = Linear(hidden_size, mlp_dim)
         self.fc2 = Linear(mlp_dim, hidden_size)
-        self.dropout = nn.Dropout(dropout_rate)
+        self.dropout = Dropout(dropout_rate)
 
     def forward(self, x):
         x = self.dropout(F.gelu(self.fc1(x)))
@@ -119,11 +152,13 @@ class Block(nn.Module):
         self.attention_norm = LayerNorm(hidden, eps=1e-6)
         self.ffn_norm = LayerNorm(hidden, eps=1e-6)
         self.ffn = Mlp(hidden, t.mlp_dim, t.dropout_rate)
-        self.attn = Attention(hidden, t.num_heads)
+        self.attn = Attention(hidden, t.num_heads, t.attention_dropout_rate)
 
-    def forward(self, x):
-        x = x + self.attn(self.attention_norm(x))
-        return x + self.ffn(self.ffn_norm(x))
+    def forward(self, x, dtype):
+        """x: the residual stream (f32 under bf16); dtype: the compute
+        dtype of the LayerNorm outputs and the products."""
+        x = x + self.attn(self.attention_norm(x).to(dtype))
+        return x + self.ffn(self.ffn_norm(x).to(dtype))
 
 
 class Encoder(nn.Module):
@@ -133,10 +168,10 @@ class Encoder(nn.Module):
             Block(config) for _ in range(config.transformer.num_layers))
         self.encoder_norm = LayerNorm(config.hidden_size, eps=1e-6)
 
-    def forward(self, x):
+    def forward(self, x, dtype):
         for block in self.layer:
-            x = block(x)
-        return self.encoder_norm(x)
+            x = block(x, dtype)
+        return self.encoder_norm(x).to(dtype)
 
 
 class Embeddings(nn.Module):
@@ -160,9 +195,11 @@ class Embeddings(nn.Module):
                                           patch, stride=patch)
         self.position_embeddings = nn.Parameter(
             torch.zeros(1, n_patches, config.hidden_size))
-        self.dropout = nn.Dropout(config.transformer.dropout_rate)
+        self.dropout = Dropout(config.transformer.dropout_rate)
 
     def forward(self, x):
+        """NCHW image -> (tokens in f32 or the image's wider dtype: the
+        position embeddings promote them, as in the JAX model; skips)."""
         features = None
         if hasattr(self, "hybrid_model"):
             x, features = self.hybrid_model(x)
@@ -170,7 +207,7 @@ class Embeddings(nn.Module):
         x = F.conv2d(x, pe.weight.to(x.dtype), pe.bias.to(x.dtype),
                      stride=pe.stride)
         x = x.flatten(2).transpose(1, 2)
-        return self.dropout(x + self.position_embeddings.to(x.dtype)), features
+        return self.dropout(x + self.position_embeddings), features
 
 
 class Transformer(nn.Module):
@@ -180,15 +217,17 @@ class Transformer(nn.Module):
         self.encoder = Encoder(config)
 
     def forward(self, x):
+        dtype = x.dtype
         x, features = self.embeddings(x)
-        return self.encoder(x), features
+        return self.encoder(x, dtype), features
 
 
 class Conv2dReLU(nn.Sequential):
     """conv3x3 (no bias) -> BatchNorm -> ReLU on NHWC tensors, as `.0`, `.1`
     and `.2`. In eval mode BN folds its running statistics into a scale and
     bias and the three run as one fused_conv3x3_bn_relu call (the Hopper
-    kernel on a CUDA tensor); in train mode they run as torch's modules."""
+    kernel on a CUDA tensor); in train mode they run as torch's conv (the
+    weight cast to the input's dtype), BN and ReLU."""
 
     def __init__(self, in_channels: int, out_channels: int):
         super().__init__(
@@ -198,9 +237,11 @@ class Conv2dReLU(nn.Sequential):
         )
 
     def forward(self, x):
-        if self.training:
-            return super().forward(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
         conv, bn = self[0], self[1]
+        if self.training:
+            y = F.conv2d(x.permute(0, 3, 1, 2), conv.weight.to(x.dtype),
+                         padding=1)
+            return F.relu(bn(y)).permute(0, 2, 3, 1)
         scale, bias = fold_bn(bn.weight, bn.bias, bn.running_mean,
                               bn.running_var, bn.eps)
         w = conv.weight.permute(2, 3, 1, 0).to(x.dtype).contiguous()
@@ -316,10 +357,7 @@ def build_transunet(model_type: str, img_size: int, num_classes: int,
     build_transunet builds it by default. `fold` is accepted for config
     compatibility and ignored with a warning."""
     ignore_tpu_options(tpu_options)
-    if model_type in _NOT_PORTED:
-        raise NotImplementedError(
-            f"model_type {model_type!r} is not ported yet "
-            f"(ROADMAP.md {_NOT_PORTED[model_type]})")
+    not_ported.check(not_ported.MODEL_TYPES, "model_type", model_type)
     if model_type != "TransUnet":
         raise ValueError(f"Unknown TransUnet model_type {model_type!r}")
     config = copy.deepcopy(CONFIGS["R50-ViT-B_16"])

@@ -15,6 +15,7 @@ import warnings
 
 from torch import nn
 
+from unet_torch_tpu_torch.core import not_ported
 from unet_torch_tpu_torch.nn.blocks import (
     DoubleConv,
     Down,
@@ -26,12 +27,6 @@ from unet_torch_tpu_torch.nn.blocks import (
 # options of the JAX package that shape TPU layouts or memory; no meaning here
 _TPU_OPTIONS = ("fold", "remat", "head_dtype")
 
-_NOT_PORTED = {
-    "attention": "queue 1 item 8",
-    "multi_task": "queue 1 item 8",
-    "multi_task_reg": "queue 1 item 8",
-    "CLTR": "queue 1 item 11",
-}
 # built by models/transunet/vit.py::build_transunet, as in the JAX package
 _TRANSUNET_TYPES = ("TransUnet", "regression_t", "multi_task_regTU")
 
@@ -102,8 +97,5 @@ def build_model(model_type: str, *, n_channels: int, n_classes: int,
     if model_type in _TRANSUNET_TYPES:
         raise ValueError(f"model_type {model_type!r} is built by "
                          "models.transunet.build_transunet")
-    if model_type in _NOT_PORTED:
-        raise NotImplementedError(
-            f"model_type {model_type!r} is not ported yet "
-            f"(ROADMAP.md {_NOT_PORTED[model_type]})")
+    not_ported.check(not_ported.MODEL_TYPES, "model_type", model_type)
     raise ValueError(f"Invalid model_type {model_type!r}")

@@ -14,7 +14,10 @@ each layer computes in the dtype of its input and casts its weights to it.
 In eval mode each conv+BN+ReLU pair of DoubleConv folds its BN running
 statistics into a scale and bias and runs as one fused_conv3x3_bn_relu call
 (the Hopper kernel on a CUDA tensor). In train mode the pair runs torch's
-conv, BN and ReLU.
+conv (weight cast to the input's dtype), BN (batch statistics in f32, the
+running ones kept f32 with torch's unbiased variance update, as the
+reference's BatchNorm2d keeps them) and ReLU. Dropout draws from the
+generator bound by nn/dropout.py::set_dropout_generator.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ from unet_torch_tpu_torch.kernels.fused_conv import (
     fold_bn,
     fused_conv3x3_bn_relu,
 )
+from unet_torch_tpu_torch.nn.dropout import Dropout
 
 
 def reset_parameters(module: nn.Module, generator=None) -> None:
@@ -71,7 +75,11 @@ class DoubleConv(nn.Module):
 
     def forward(self, x):
         if self.training:
-            return self.double_conv(x)
+            for conv, bn in ((self.double_conv[0], self.double_conv[1]),
+                             (self.double_conv[3], self.double_conv[4])):
+                x = F.relu(bn(F.conv2d(x, conv.weight.to(x.dtype),
+                                       padding=1)))
+            return x
         h = x.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
         for conv, bn in ((self.double_conv[0], self.double_conv[1]),
                          (self.double_conv[3], self.double_conv[4])):
@@ -90,12 +98,11 @@ class Down(nn.Module):
         super().__init__()
         self.maxpool_conv = nn.Sequential(
             nn.MaxPool2d(2), DoubleConv(in_channels, out_channels))
-        self.dropout_p = dropout_p if dropout else 0.0
+        self.dropout = Dropout(dropout_p if dropout else 0.0)
 
     def forward(self, x):
         x = self.maxpool_conv[0](x)
-        x = F.dropout(x, self.dropout_p, self.training)
-        return self.maxpool_conv[1](x)
+        return self.maxpool_conv[1](self.dropout(x))
 
 
 class Up(nn.Module):
@@ -108,7 +115,7 @@ class Up(nn.Module):
         self.up = nn.ConvTranspose2d(in_channels, in_channels // 2, 2,
                                      stride=2)
         self.conv = DoubleConv(in_channels, out_channels)
-        self.dropout_p = dropout_p if dropout else 0.0
+        self.dropout = Dropout(dropout_p if dropout else 0.0)
 
     def forward(self, x1, x2):
         x1 = F.conv_transpose2d(x1, self.up.weight.to(x1.dtype),
@@ -117,9 +124,7 @@ class Up(nn.Module):
         dw = x2.shape[3] - x1.shape[3]
         if dh or dw:
             x1 = F.pad(x1, [dw // 2, dw - dw // 2, dh // 2, dh - dh // 2])
-        x = torch.cat([x2, x1], dim=1)
-        x = F.dropout(x, self.dropout_p, self.training)
-        return self.conv(x)
+        return self.conv(self.dropout(torch.cat([x2, x1], dim=1)))
 
 
 class OutConv(nn.Module):
