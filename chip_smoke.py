@@ -7,7 +7,7 @@ Builds the Hopper kernels from unet_torch_tpu_torch/csrc, then:
   1. device     the card's name and power limit; fails without a GPU
   2. build      nvcc of every kernel source (fused conv3x3+BN+ReLU, flash
                 attention forward, flash attention backward, dropout keep
-                mask), one process each, all at once; timed
+                mask, min-plus product), one process each, all at once; timed
   3. kernel     the fused conv against its plain PyTorch version at every
                 distinct conv shape of the UNet-64 eval forward (batch 8,
                 512x512 input), in bf16 and in f32 with TF32 off; errors and
@@ -50,10 +50,42 @@ Builds the Hopper kernels from unet_torch_tpu_torch/csrc, then:
                 8 on seeded synthetic batches, its checkpoints in a temporary
                 directory; best.pt reloads strictly into a fresh model whose
                 eval forward runs the two eval kernels
+ M1. min-plus   the min-plus kernel against its plain version, bit for bit,
+                at the Hausdorff-DT loss's shapes (32, 512, 512) x (512, 512)
+                in both broadcast directions, at a ragged (3, 100, 77) x
+                (3, 77, 130), with the 1e12 sentinel in the data; median
+                times and the share of the bound reached
+ M2. EDT        euclidean_distance_transform_sq on the card against scipy's
+                distance_transform_edt squared, on seeded 512x512 blob masks,
+                an all-zero and an all-one mask
+ M3. binary     binary UNet-64 train step through make_single_steps, bf16,
+     main       batch 8 at 512x512, Adam (lr 1e-3, weight decay 1e-4), poly
+                LR, HausdorffDTLoss, on one fixed seeded batch: min-plus
+                launches per step, the loss finite and falling, img/s with
+                the kernel and with the plain min-plus, peak memory; the same
+                step under dice_bce beside it; then its eval forward (18
+                fused-conv launches) with test_single's sigmoid threshold
+ M4. multitask  UNetMultitask base 64 as configs/multitask_reg.yml trains it
+     main       (multi_task_loss: uncertainty combine, Adam 5e-4), bf16, batch
+                8 at 512x512: loss finite and falling, log_vars moving, img/s,
+                peak memory; its eval forward on the fused-conv kernel (26
+                launches); the attention UNet's eval forward (18 launches),
+                and one image through it in f32, card against CPU
+ M5. trainer    Trainer.train() for multi_task_reg, 2 epochs of 2 steps on
+                seeded numpy batches; best.pt (with log_vars) reloads
+                strictly into a fresh model and is served
+  L. library    one PyTorch library call beside each kernel that has one, for
+                the time only (nothing in the port calls them): cuDNN
+                conv2d with the scale folded into its weights, a bias and a
+                ReLU at the conv shapes; scaled_dot_product_attention at the
+                ViT's shape, forward, and forward + backward under autograd
+                at dropout 0 and 0.1
 
 Any failure raises and the script exits nonzero. The last line of stdout is
 {"ok": true, "device": {...}}; the line before it is one JSON object with the
-kernels' numbers; the line before that is nvidia-smi's name and power limit.
+kernels' numbers (launches on the main paths, error, kernel / plain / library
+times, and the bound: the larger of bytes over the card's memory rate and
+operations over its peak rate); the line before that is nvidia-smi's name and power limit.
 Weights are random, from a seed; nothing is downloaded.
 """
 
@@ -136,6 +168,29 @@ TRAIN_STEPS = 10
 T4_BATCH, T4_SIZE = 2, 224
 T4_LOSS_REL_TOL = 1e-5
 T4_NOISE_RATIO = 10.0
+
+
+# M1: (a shape, b shape, sentinel) of the min-plus product. The first two are
+# the distance transform's launches for a batch of 8: 32 masks (two tensors,
+# two fields each), the squared-distance table shared by the batch.
+MINPLUS_CASES = [((4 * BATCH, SIZE, SIZE), (SIZE, SIZE), False),
+                 ((SIZE, SIZE), (4 * BATCH, SIZE, SIZE), True),
+                 ((3, 100, 77), (3, 77, 130), False),
+                 ((3, 100, 77), (3, 77, 130), True)]
+# M2: against scipy's EDT (f64) squared. The squared distances are integers
+# below 2**24, exact in f32; scipy squares a rounded root.
+EDT_REL_TOL = 1e-4
+# M4: the attention UNet in f32, card against CPU, relative to the logits'
+# peak, as the UNet's bound (the gates add 1x1 convs and BN, sums in other
+# orders)
+ATT_UNET_REL_TOL = 1e-5
+# published peaks of one H100 SXM (NVIDIA's data sheet): dense bf16 tensor
+# cores, f32 outside them (an FMA counts as two, so adds and mins run at
+# half of it), HBM3
+PEAK_BF16 = 989e12
+PEAK_F32 = 67e12
+PEAK_F32_NO_FMA = PEAK_F32 / 2
+PEAK_BYTES = 3.35e12
 
 
 def phase(name, msg):
@@ -557,22 +612,27 @@ class PlainAttention(torch.autograd.Function):
         return (*grads, None, None, None)
 
 
+def _wrappers(at, fc):
+    from unet_torch_tpu_torch.kernels import minplus as mp
+
+    return {"fused_attention": at.fused_attention,
+            "attention_train_forward": at.attention_train_forward,
+            "attention_backward": at.attention_backward,
+            "dropout_keep_mask": at.dropout_keep_mask,
+            "fused_conv3x3_bn_relu": fc.fused_conv3x3_bn_relu,
+            "minplus": mp.minplus}
+
+
 def reset_counts(at, fc):
-    for fn in (at.fused_attention, at.attention_train_forward,
-               at.attention_backward, at.dropout_keep_mask,
-               fc.fused_conv3x3_bn_relu):
+    for fn in _wrappers(at, fc).values():
         fn.launches = 0
 
 
 def counts(at, fc):
-    return {"fused_attention": at.fused_attention.launches,
-            "attention_train_forward": at.attention_train_forward.launches,
-            "attention_backward": at.attention_backward.launches,
-            "dropout_keep_mask": at.dropout_keep_mask.launches,
-            "fused_conv3x3_bn_relu": fc.fused_conv3x3_bn_relu.launches}
+    return {name: fn.launches for name, fn in _wrappers(at, fc).items()}
 
 
-def train_steps(train_step, model, opt, x, y, gen, n, it0=0):
+def train_steps(train_step, model, opt, x, y, gen, n, it0=0, lr=0.01):
     """n steps on one batch; (host seconds per step, ending in a sync;
     losses)."""
     from unet_torch_tpu_torch.train.optim import poly_lr
@@ -580,7 +640,7 @@ def train_steps(train_step, model, opt, x, y, gen, n, it0=0):
     times, losses = [], []
     for it in range(it0, it0 + n):
         t0 = time.perf_counter()
-        loss = train_step(model, opt, x, y, poly_lr(0.01, it, 1000), gen)
+        loss = train_step(model, opt, x, y, poly_lr(lr, it, 1000), gen)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         losses.append(loss.item())
@@ -608,7 +668,7 @@ def check_train_step(at, fc, vit, dev):
     launches = counts(at, fc)
     want = {"fused_attention": 0, "attention_train_forward": n_layers,
             "attention_backward": n_layers, "dropout_keep_mask": 0,
-            "fused_conv3x3_bn_relu": 0}
+            "fused_conv3x3_bn_relu": 0, "minplus": 0}
     if launches != want:
         raise AssertionError(f"one TransUnet train step launched {launches}, "
                              f"expected {want}")
@@ -752,6 +812,456 @@ def check_trainer(at, fc, dev, xs):
     return launches
 
 
+def density_batch(rng, batch, size):
+    """`batch` synthetic cell images with the two density-map targets of the
+    two-head regression models, as DataRegMT yields them: each class's dots
+    through a Gaussian (sigma 3), times 200."""
+    from scipy.ndimage import gaussian_filter
+
+    x, y = train_batch(rng, batch, size)
+    maps = []
+    for cls in (1, 2):
+        dots = np.zeros((batch, size, size), np.float32)
+        for b in range(batch):
+            # one dot per disk: the pixels whose 8 neighbours are all of the
+            # class and whose coordinates are multiples of 8 stand in for
+            # the centres
+            inner = y[b] == cls
+            inner[1:] &= inner[:-1]
+            inner[:, 1:] &= inner[:, :-1]
+            dots[b, ::8, ::8] = inner[::8, ::8]
+        maps.append(np.stack([gaussian_filter(d, 3.0) for d in dots])
+                    .astype(np.float32) * 200.0)
+    return x, maps[0], maps[1]
+
+
+def minplus_bound(sa, sb):
+    """(least ms, what bounds it) of one min-plus product: an add and a min
+    per (i, k, j) on the f32 CUDA cores against each operand read once (a
+    shared one once for the whole batch) and the result written once."""
+    bt = sa[0] if len(sa) == 3 else sb[0] if len(sb) == 3 else 1
+    (m, k), n = sa[-2:], sb[-1]
+    ops_ms = 2 * bt * m * k * n / PEAK_F32_NO_FMA * 1e3
+    bytes_ms = 4 * (np.prod(sa) + np.prod(sb) + bt * m * n) / PEAK_BYTES * 1e3
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms
+                                   else "bytes")
+
+
+def conv_bound(shapes):
+    """(least ms, what bounds most of it) of the bf16 fused convs at
+    `shapes`, summed: 2 * 9 * Cin * Cout operations a pixel on the tensor
+    cores against x, w, scale and bias read once and y written once."""
+    total, by = 0.0, {"operations": 0.0, "bytes": 0.0}
+    for h, cin, cout in shapes:
+        pixels = BATCH * h * h
+        ops_ms = 2 * 9 * cin * cout * pixels / PEAK_BF16 * 1e3
+        bytes_ms = (2 * pixels * (cin + cout) + 2 * 9 * cin * cout
+                    + 8 * cout) / PEAK_BYTES * 1e3
+        kind = "operations" if ops_ms >= bytes_ms else "bytes"
+        by[kind] += max(ops_ms, bytes_ms)
+        total += max(ops_ms, bytes_ms)
+    return total, max(by, key=by.get)
+
+
+def attention_bound(shape, backward=False, lse=False):
+    """(least ms, what bounds it) of one bf16 attention call at `shape`.
+    Forward: the two products QK^T and PV. Backward: those recomputed scores
+    and the four products of dV, dP, dQ and dK. Bytes: q, k, v and o (and
+    the f32 lse) once; the backward also reads g and writes dq, dk, dv."""
+    b, h, nq, nk, dqk, dv = shape
+    products = (3 * dqk + 2 * dv) if backward else (dqk + dv)
+    ops_ms = 2 * b * h * nq * nk * products / PEAK_BF16 * 1e3
+    qkvo = 2 * b * h * (nq * dqk + nk * dqk + nk * dv + nq * dv)
+    nbytes = qkvo + (4 * b * h * nq if lse or backward else 0)
+    if backward:
+        nbytes += 2 * b * h * nq * dv + 2 * b * h * (nq * dqk + nk * dqk
+                                                      + nk * dv)
+    bytes_ms = nbytes / PEAK_BYTES * 1e3
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms
+                                   else "bytes")
+
+
+def check_minplus(mp, dev):
+    """M1. Returns [(mismatches, ms, plain_ms, bound_ms, bound_by)] by
+    case."""
+    gen = torch.Generator().manual_seed(SEED)
+    results = []
+    for sa, sb, sentinel in MINPLUS_CASES:
+        a = (torch.rand(sa, generator=gen) * 1000).to(dev)
+        b = (torch.rand(sb, generator=gen) * 1000).to(dev)
+        if sentinel:  # the distance transform's "no source here" entries
+            b = torch.where(b > 400, 1e12, 0.0).float()
+        out = mp.minplus(a, b)
+        torch.cuda.synchronize()
+        ref = mp.minplus_reference(a, b)
+        bad = int((out != ref).sum().item())
+        if (out.shape != ref.shape or out.dtype != torch.float32 or bad
+                or not torch.isfinite(out).all()):
+            raise AssertionError(f"min-plus kernel differs from plain at "
+                                 f"{sa} x {sb}: {bad} elements")
+        ms = median_ms(lambda: mp.minplus(a, b))
+        plain_ms = median_ms(lambda: mp.minplus_reference(a, b))
+        bound_ms, bound_by = minplus_bound(sa, sb)
+        results.append((bad, ms, plain_ms, bound_ms, bound_by))
+        phase("M1 min-plus", f"{sa} x {sb} sentinel={sentinel}: bit-exact "
+              f"with plain; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"bound {bound_ms:.4f} ms by {bound_by} "
+              f"({100 * bound_ms / ms:.1f}% of it reached)")
+        del a, b, out, ref
+    return results
+
+
+def check_edt(dev):
+    """M2: the distance transform on the card against scipy's."""
+    from scipy.ndimage import distance_transform_edt
+
+    from unet_torch_tpu_torch.losses.functional import (
+        euclidean_distance_transform_sq,
+    )
+
+    _, y = train_batch(np.random.RandomState(SEED + 4), 4, SIZE)
+    masks = np.concatenate([(y > 0).astype(np.float32),
+                            np.zeros((1, SIZE, SIZE), np.float32),
+                            np.ones((1, SIZE, SIZE), np.float32)])
+    out = euclidean_distance_transform_sq(
+        torch.from_numpy(masks).to(dev)).cpu().numpy()
+    worst = 0.0
+    for mask, ours in zip(masks[:5], out[:5]):  # the blobs and the all-zero
+        ref = distance_transform_edt(mask) ** 2
+        worst = max(worst, float(np.abs(ours - ref).max()
+                                 / max(ref.max(), 1.0)))
+    if worst > EDT_REL_TOL or out[4].any() or not (out[5] == 1e12).all():
+        raise AssertionError(f"distance transform on the card: rel err "
+                             f"{worst} (bound {EDT_REL_TOL}), all-zero max "
+                             f"{out[4].max()}, all-one min {out[5].min()}")
+    phase("M2 EDT", f"4 blob masks and an all-zero one {SIZE}x{SIZE} against "
+          f"scipy's EDT squared: max rel err {worst:.2e} (bound "
+          f"{EDT_REL_TOL:.0e}), largest squared distance "
+          f"{out[:4].max():.0f}; the all-one mask gives the 1e12 sentinel")
+    return worst
+
+
+def falling(losses):
+    return (all(np.isfinite(losses)) and losses[-1] < losses[0]
+            and np.mean(losses[-3:]) < np.mean(losses[:3]))
+
+
+def check_binary_unet(at, fc, mp, dev, xs):
+    """M3. Returns (min-plus launches of one step, step seconds with the
+    kernel, with the plain min-plus, under dice_bce, eval launches)."""
+    from unet_torch_tpu_torch.core.rng import seed_everything
+    from unet_torch_tpu_torch.eval.reports import make_predict_fn
+    from unet_torch_tpu_torch.losses import functional as lf
+    from unet_torch_tpu_torch.models.unet import build_model
+    from unet_torch_tpu_torch.train.optim import make_optimizer
+    from unet_torch_tpu_torch.train.steps import make_single_steps
+
+    model = build_model("single", n_channels=3, n_classes=1, base=BASE,
+                        generator=seed_everything(SEED)).to(dev)
+    xs_train, ys = train_batch(np.random.RandomState(SEED + 5), BATCH, SIZE)
+    x = torch.from_numpy(xs_train).to(dev, torch.bfloat16)
+    y = torch.from_numpy((ys > 0).astype(np.float32)).to(dev)
+    lr, out = 1e-3, {}
+    for loss_name in ("HausdorffDTLoss", "dice_bce"):
+        m = copy.deepcopy(model)
+        opt = make_optimizer("Adam", m.parameters(), lr, 1e-4)
+        train_step, _ = make_single_steps(loss_name, "dice_bce", 1)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts(at, fc)
+        _, first = train_steps(train_step, m, opt, x, y, gen, 1, lr=lr)
+        launches = counts(at, fc)
+        want = dict.fromkeys(launches, 0)
+        want["minplus"] = 2 if loss_name == "HausdorffDTLoss" else 0
+        if launches != want:
+            raise AssertionError(f"one binary UNet {loss_name} train step "
+                                 f"launched {launches}, expected {want}")
+        times, losses = train_steps(train_step, m, opt, x, y, gen,
+                                    TRAIN_WARMUP - 1 + TRAIN_STEPS, it0=1,
+                                    lr=lr)
+        losses = first + losses
+        if not falling(losses):
+            raise AssertionError(f"{loss_name} train loss not finite and "
+                                 f"falling: {losses}")
+        out[loss_name] = (launches, statistics.median(
+            times[TRAIN_WARMUP - 1:]), losses,
+            torch.cuda.max_memory_allocated(dev), m)
+    launches, step_s, losses, peak, trained = out["HausdorffDTLoss"]
+    # the same step with the plain min-plus in place of the kernel, for
+    # comparison only
+    train_step, _ = make_single_steps("HausdorffDTLoss", "dice_bce", 1)
+    opt = make_optimizer("Adam", trained.parameters(), lr, 1e-4)
+    lf.minplus = mp.minplus_reference
+    try:
+        plain_times, _ = train_steps(
+            train_step, trained, opt, x, y,
+            torch.Generator(device=dev).manual_seed(SEED), 2 + TRAIN_STEPS,
+            it0=len(losses), lr=lr)
+    finally:
+        lf.minplus = mp.minplus
+    plain_s = statistics.median(plain_times[2:])
+    dice_s, dice_losses = out["dice_bce"][1], out["dice_bce"][2]
+    phase("M3 binary main",
+          f"binary UNet-{BASE} train step bf16 B={BATCH} {SIZE}x{SIZE} Adam "
+          f"HausdorffDTLoss: {launches['minplus']} min-plus launches per "
+          f"step; loss {losses[0]:.5f} -> {losses[-1]:.5f} over "
+          f"{len(losses)} steps on one batch; median {step_s * 1e3:.2f} ms "
+          f"= {BATCH / step_s:.1f} img/s (plain min-plus "
+          f"{plain_s * 1e3:.2f} ms = {BATCH / plain_s:.1f} img/s; dice_bce "
+          f"step {dice_s * 1e3:.2f} ms = {BATCH / dice_s:.1f} img/s, loss "
+          f"{dice_losses[0]:.5f} -> {dice_losses[-1]:.5f}); peak device "
+          f"memory {peak / 2**30:.2f} GiB (dice_bce "
+          f"{out['dice_bce'][3] / 2**30:.2f} GiB)")
+    # served as test_single serves it: sigmoid and threshold on the device
+    predict = make_predict_fn(trained, dev, torch.bfloat16, binary=True)
+    reset_counts(at, fc)
+    mask = predict(xs)
+    torch.cuda.synchronize()
+    eval_launches = counts(at, fc)
+    want = dict.fromkeys(eval_launches, 0)
+    want["fused_conv3x3_bn_relu"] = len(conv_shapes(BASE, SIZE))
+    mask = mask.cpu().numpy()
+    if (eval_launches != want or mask.shape != (BATCH, SIZE, SIZE)
+            or mask.dtype != np.uint8 or mask.max() > 1):
+        raise AssertionError(f"binary UNet eval: launches {eval_launches}, "
+                             f"mask {mask.shape} {mask.dtype}")
+    fwd_s = forward_s(predict, xs)
+    phase("M3 binary main",
+          f"its eval forward with the sigmoid threshold: "
+          f"{eval_launches['fused_conv3x3_bn_relu']} fused conv launches, "
+          f"foreground share {mask.mean():.4f}, median {fwd_s * 1e3:.2f} ms "
+          f"= {BATCH / fwd_s:.1f} img/s")
+    return launches, step_s, plain_s, dice_s, eval_launches
+
+
+def multitask_conv_shapes(base, size):
+    """(H, Cin, Cout) of the 26 conv3x3+BN+ReLU layers of a UNetMultitask
+    forward: the encoder's 10, then each decoder's 8."""
+    shapes = conv_shapes(base, size)
+    return shapes[:10] + 2 * shapes[10:]
+
+
+def check_multitask(at, fc, dev, xs):
+    """M4. Returns (step seconds, eval launches of the two-head model, of
+    the attention UNet)."""
+    from unet_torch_tpu_torch.core.rng import seed_everything
+    from unet_torch_tpu_torch.eval.reports import make_predict_fn
+    from unet_torch_tpu_torch.models.unet import build_model
+    from unet_torch_tpu_torch.train.optim import make_optimizer, poly_lr
+    from unet_torch_tpu_torch.train.steps import make_multitask_steps
+
+    # configs/multitask_reg.yml: one input channel there (hematoxylin);
+    # three here, the synthetic images' (the first conv only)
+    model = build_model("multi_task_reg", n_channels=3, n_classes=1,
+                        base=BASE, generator=seed_everything(SEED)).to(dev)
+    model.add_log_vars()
+    lr = 5e-4
+    opt = make_optimizer("Adam", model.parameters(), lr, 0.0)
+    train_step, _ = make_multitask_steps("multi_task_loss", 1,
+                                         combine="uncertainty")
+    xs_train, y1, y2 = density_batch(np.random.RandomState(SEED + 6), BATCH,
+                                     SIZE)
+    x = torch.from_numpy(xs_train).to(dev, torch.bfloat16)
+    y1, y2 = (torch.from_numpy(a).to(dev) for a in (y1, y2))
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    flag = torch.tensor(False, device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts(at, fc)
+    times, losses, heads = [], [], []
+    for it in range(TRAIN_WARMUP + TRAIN_STEPS):
+        t0 = time.perf_counter()
+        loss, l1, l2 = train_step(model, opt, x, y1, y2,
+                                  poly_lr(lr, it, 1000), gen, flag)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+        heads.append((l1.item(), l2.item()))
+    launches = counts(at, fc)
+    peak = torch.cuda.max_memory_allocated(dev)
+    log_vars = model.log_vars.detach().cpu().tolist()
+    if any(launches.values()):
+        raise AssertionError(f"the two-head train steps launched {launches}")
+    if not falling(losses) or not all(abs(v) > 1e-4 for v in log_vars):
+        raise AssertionError(f"two-head train loss not finite and falling, "
+                             f"or log_vars still: {losses}, {log_vars}")
+    step_s = statistics.median(times[TRAIN_WARMUP:])
+    phase("M4 multitask main",
+          f"UNetMultitask-{BASE} train step bf16 B={BATCH} {SIZE}x{SIZE} "
+          f"Adam 5e-4 multi_task_loss (uncertainty): loss {losses[0]:.5f} "
+          f"-> {losses[-1]:.5f} over {len(losses)} steps on one batch, head "
+          f"losses {heads[0][0]:.4f}, {heads[0][1]:.4f} -> "
+          f"{heads[-1][0]:.4f}, {heads[-1][1]:.4f}, log_vars {log_vars}; "
+          f"median {step_s * 1e3:.2f} ms = {BATCH / step_s:.1f} img/s; peak "
+          f"device memory {peak / 2**30:.2f} GiB")
+
+    predict = make_predict_fn(model, dev, torch.bfloat16)
+    reset_counts(at, fc)
+    o1, o2 = predict(xs)
+    torch.cuda.synchronize()
+    mt_launches = counts(at, fc)
+    want = dict.fromkeys(mt_launches, 0)
+    want["fused_conv3x3_bn_relu"] = len(multitask_conv_shapes(BASE, SIZE))
+    if mt_launches != want or not all(
+            o.shape == (BATCH, SIZE, SIZE, 1) and torch.isfinite(o).all()
+            for o in (o1, o2)):
+        raise AssertionError(f"two-head eval forward: launches "
+                             f"{mt_launches}, outputs {o1.shape} {o2.shape}")
+    fwd_s = forward_s(predict, xs)
+    phase("M4 multitask main",
+          f"its eval forward: {mt_launches['fused_conv3x3_bn_relu']} fused "
+          f"conv launches (10 encoder + 2 x 8 decoder), median "
+          f"{fwd_s * 1e3:.2f} ms = {BATCH / fwd_s:.1f} img/s")
+    del model, opt, x, y1, y2, o1, o2
+
+    gen_cpu = seed_everything(SEED)
+    att = seed_bn_stats(build_model("attention", n_channels=3,
+                                    n_classes=N_CLASSES, base=BASE,
+                                    generator=gen_cpu), gen_cpu)
+    cpu_att = copy.deepcopy(att).eval()
+    predict = make_predict_fn(att, dev, torch.bfloat16, classes=True)
+    reset_counts(at, fc)
+    classes = predict(xs)
+    torch.cuda.synchronize()
+    att_launches = counts(at, fc)
+    want["fused_conv3x3_bn_relu"] = len(conv_shapes(BASE, SIZE))
+    if att_launches != want:
+        raise AssertionError(f"attention UNet eval forward launched "
+                             f"{att_launches}")
+    hist = check_classes(classes)
+    fwd_s = forward_s(predict, xs)
+    phase("M4 multitask main",
+          f"attention UNet-{BASE} eval forward bf16 B={BATCH} {SIZE}x{SIZE}:"
+          f" {att_launches['fused_conv3x3_bn_relu']} fused conv launches, "
+          f"class histogram {hist.tolist()}, median {fwd_s * 1e3:.2f} ms = "
+          f"{BATCH / fwd_s:.1f} img/s")
+    check_model_f32(f"attention UNet-{BASE}", att, cpu_att, xs, dev,
+                    ATT_UNET_REL_TOL)
+    return step_s, mt_launches, att_launches
+
+
+def check_multitask_trainer(at, fc, dev, xs):
+    """M5: Trainer.train() for multi_task_reg under multi_task_loss, then
+    best.pt, which holds log_vars, served. Returns the eval launches."""
+    from unet_torch_tpu_torch.ckpt import load_weights
+    from unet_torch_tpu_torch.core.rng import seed_everything
+    from unet_torch_tpu_torch.eval.reports import make_predict_fn
+    from unet_torch_tpu_torch.models.unet import build_model
+    from unet_torch_tpu_torch.train.trainer import Trainer
+
+    start = time.perf_counter()
+    rng = np.random.RandomState(SEED + 7)
+
+    def batches(n, batch):
+        out = []
+        for _ in range(n):
+            x, y1, y2 = density_batch(rng, batch, SIZE)
+            out.append((x, (y1, y2)))
+        return out
+
+    loaders = {"train": batches(2, BATCH), "val": batches(2, 1)}
+    kw = dict(n_channels=3, n_classes=1, base=BASE)
+    with tempfile.TemporaryDirectory() as tmp:
+        run = os.path.join(tmp, "run")
+        trainer = Trainer(build_model("multi_task_reg", **kw,
+                                      generator=seed_everything(SEED)),
+                          "multi_task_reg", run, loaders, BATCH, "Adam", 1e-3,
+                          1e-4, patience=25, num_epochs=2,
+                          loss_function="multi_task_loss",
+                          accuracy_metric="multi_task_loss", num_classes=1,
+                          lr_scheduler=True, seed=SEED, device=dev,
+                          dtype=torch.bfloat16, plot=False)
+        trainer.train()
+        losses = (trainer.train_loss_list + trainer.val_loss_list
+                  + trainer.train_loss_list_1 + trainer.val_loss_list_2)
+        if len(trainer.train_loss_list) != 2 or not np.isfinite(losses).all():
+            raise AssertionError(f"two-head trainer losses {losses}")
+        log = open(os.path.join(run, "logs.txt")).read()
+        if "sigmas: [" not in log or trainer.base_lr != 5e-4:
+            raise AssertionError("the uncertainty loop did not run")
+        for name in ("models/best.pt", "models/last_epoch.pt"):
+            if not os.path.exists(os.path.join(run, name)):
+                raise AssertionError(f"trainer wrote no {name}")
+        served = load_weights(os.path.join(run, "models", "best.pt"),
+                              build_model("multi_task_reg", **kw))
+    if not served.log_vars.detach().abs().max() > 0:
+        raise AssertionError("best.pt came back without trained log_vars")
+    predict = make_predict_fn(served, dev, torch.bfloat16)
+    reset_counts(at, fc)
+    o1, o2 = predict(xs)
+    torch.cuda.synchronize()
+    launches = counts(at, fc)
+    if (launches["fused_conv3x3_bn_relu"] != len(multitask_conv_shapes(
+            BASE, SIZE)) or not torch.isfinite(o1).all()
+            or not torch.isfinite(o2).all()):
+        raise AssertionError(f"the trained two-head model's eval forward "
+                             f"launched {launches}")
+    phase("M5 trainer",
+          f"Trainer.train multi_task_reg multi_task_loss bf16 B={BATCH} "
+          f"{SIZE}x{SIZE}, 2 epochs x 2 steps: train loss "
+          f"{trainer.train_loss_list}, val loss {trainer.val_loss_list}, "
+          f"log_vars {served.log_vars.tolist()}; best.pt reloaded strictly "
+          f"with log_vars, its eval forward launched "
+          f"{launches['fused_conv3x3_bn_relu']} fused conv kernels; "
+          f"{time.perf_counter() - start:.1f} s")
+    return launches
+
+
+def library_conv_ms(shapes, dev):
+    """L. {(H, Cin, Cout): ms} of cuDNN at the bf16 conv shapes: conv2d on
+    channels_last tensors with the BN scale folded into the weights, the
+    bias, and an in-place ReLU; cuDNN picks its algorithm by benchmark."""
+    import torch.nn.functional as F
+
+    from unet_torch_tpu_torch.kernels.fused_conv import fold_bn
+
+    gen = torch.Generator().manual_seed(SEED)
+    was = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True
+    out = {}
+    try:
+        for h, cin, cout in dict.fromkeys(shapes):
+            x, w, bn = kernel_inputs(BATCH, h, cin, cout, torch.bfloat16, gen)
+            scale, bias = (t.to(dev) for t in fold_bn(*bn))
+            x = x.to(dev, torch.bfloat16).permute(0, 3, 1, 2)
+            w = (w.to(dev) * scale).permute(3, 2, 0, 1).to(
+                torch.bfloat16).contiguous(memory_format=torch.channels_last)
+            bias = bias.to(torch.bfloat16)
+            with torch.inference_mode():
+                out[(h, cin, cout)] = median_ms(
+                    lambda: torch.relu_(F.conv2d(x, w, bias, padding=1)))
+            del x, w
+    finally:
+        torch.backends.cudnn.benchmark = was
+    return out
+
+
+def library_attention_ms(dev):
+    """L. torch's scaled_dot_product_attention at the ViT's bf16 shape:
+    {"fwd": ms under inference_mode, ("train_fwd", rate): ms with autograd
+    recording, ("bwd", rate): ms of the backward alone}. Its dropout draws
+    another mask than the port's: the times only."""
+    import torch.nn.functional as F
+
+    b, h, nq, nk, dqk, dv = ATTN_CASES[0][0]
+    gen = torch.Generator().manual_seed(SEED)
+    q = torch.randn(b, h, nq, dqk, generator=gen).to(dev, torch.bfloat16)
+    k = torch.randn(b, h, nk, dqk, generator=gen).to(dev, torch.bfloat16)
+    v = torch.randn(b, h, nk, dv, generator=gen).to(dev, torch.bfloat16)
+    g = torch.randn(b, h, nq, dv, generator=gen).to(dev, torch.bfloat16)
+    out = {}
+    with torch.inference_mode():
+        out["fwd"] = median_ms(
+            lambda: F.scaled_dot_product_attention(q, k, v))
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    for rate in (0.0, 0.1):
+        out[("train_fwd", rate)] = median_ms(
+            lambda: F.scaled_dot_product_attention(q, k, v, dropout_p=rate))
+        o = F.scaled_dot_product_attention(q, k, v, dropout_p=rate)
+        out[("bwd", rate)] = median_ms(
+            lambda: torch.autograd.grad(o, (q, k, v), g, retain_graph=True))
+    return out
+
+
 def main():
     # 1. device
     if not torch.cuda.is_available():
@@ -770,13 +1280,16 @@ def main():
     from unet_torch_tpu_torch.kernels import attention as at
     from unet_torch_tpu_torch.kernels import build
     from unet_torch_tpu_torch.kernels import fused_conv as fc
+    from unet_torch_tpu_torch.kernels import minplus as mp
     from unet_torch_tpu_torch.models.transunet import vit
     from unet_torch_tpu_torch.nn import blocks
 
     # 2. build
     start = time.perf_counter()
     libs = build.build_all(["fused_conv3x3_bn_relu", "flash_attention_fwd",
-                            "flash_attention_bwd", "dropout_keep_mask"])
+                            "flash_attention_bwd", "dropout_keep_mask",
+                            "minplus"])
+    mp._library()
     fc._library()
     at._library()
     at._bwd_library()
@@ -893,6 +1406,29 @@ def main():
     # T5. the trainer and a served checkpoint
     t5_launches = check_trainer(at, fc, dev, xs)
 
+    # M1-M5: the min-plus kernel, the binary, two-head and attention UNets
+    mpres = check_minplus(mp, dev)
+    check_edt(dev)
+    m3_launches, dt_step_s, dt_plain_s, dice_step_s, m3_eval = \
+        check_binary_unet(at, fc, mp, dev, xs)
+    mt_step_s, mt_eval, att_eval = check_multitask(at, fc, dev, xs)
+    m5_eval = check_multitask_trainer(at, fc, dev, xs)
+
+    # L. the library calls beside the kernels, for their times only
+    lib_conv = library_conv_ms(shapes + tu_shapes, dev)
+    lib_attn = library_attention_ms(dev)
+    phase("L library", "cuDNN conv2d (scale folded) + bias + ReLU, bf16 "
+          f"B={BATCH}: UNet's 18 shapes "
+          f"{sum(lib_conv[s] for s in shapes):.4f} ms, TransUnet decoder's 9 "
+          f"{sum(lib_conv[s] for s in tu_shapes):.4f} ms; per shape "
+          + ", ".join(f"{s}: {ms:.4f}" for s, ms in lib_conv.items()))
+    phase("L library", "scaled_dot_product_attention bf16 (B,H,Nq,Nk,Dqk,Dv)"
+          f"={ATTN_CASES[0][0]}: forward {lib_attn['fwd']:.4f} ms; with "
+          f"autograd forward {lib_attn[('train_fwd', 0.0)]:.4f} ms, backward "
+          f"{lib_attn[('bwd', 0.0)]:.4f} ms; at dropout 0.1 forward "
+          f"{lib_attn[('train_fwd', 0.1)]:.4f} ms, backward "
+          f"{lib_attn[('bwd', 0.1)]:.4f} ms")
+
     # the port's main paths import no JAX and nothing of the JAX package
     jax_side = sorted(m for m in sys.modules if m.split(".")[0] in (
         "jax", "jaxlib", "flax", "optax", "unet_torch_tpu"))
@@ -906,6 +1442,14 @@ def main():
     vit_train = train_bf16[TRAIN_ATTN_CASES[0]]  # the ViT's shape at rate 0
     n_fwd = t3_launches["attention_train_forward"]
     n_bwd = t3_launches["attention_backward"]
+    conv_bound_ms, conv_bound_by = conv_bound(shapes + tu_shapes)
+    fwd_bound_ms, fwd_bound_by = attention_bound(vit_shape)
+    tfwd_bound_ms, tfwd_bound_by = attention_bound(vit_shape, lse=True)
+    bwd_bound_ms, bwd_bound_by = attention_bound(vit_shape, backward=True)
+    mask_shape = MASK_CASES[0][0]
+    n_minplus = m3_launches["minplus"]
+    # the step's two launches are M1's first two cases, in the other order
+    step_minplus = mpres[:2]
     print(smi)
     print(json.dumps({"kernels": [{
         "name": "fused_conv3x3_bn_relu",
@@ -915,12 +1459,21 @@ def main():
         "also_replaces": "unet_torch_tpu/kernels/fused_conv.py:92",
         # the UNet's 18 and the TransUnet's 9 launches of one forward each
         "launches": unet_launches + tu_conv_launches,
-        "launches_by_path": {"unet": unet_launches,
-                             "transunet": tu_conv_launches},
+        "launches_by_path": {
+            "unet": unet_launches, "transunet": tu_conv_launches,
+            "binary_unet": m3_eval["fused_conv3x3_bn_relu"],
+            "multitask_unet": mt_eval["fused_conv3x3_bn_relu"],
+            "attention_unet": att_eval["fused_conv3x3_bn_relu"],
+            "multitask_unet_after_training":
+                m5_eval["fused_conv3x3_bn_relu"]},
         "max_abs_err": max(e for e, _, _ in conv_bf16.values()),
         # bf16, summed over those 27 launches
         "ms": sum(conv_bf16[s][1] for s in shapes + tu_shapes),
         "plain_ms": sum(conv_bf16[s][2] for s in shapes + tu_shapes),
+        "bound_ms": conv_bound_ms,
+        "bound_by": conv_bound_by,
+        # cuDNN conv2d with the scale folded in, bias, ReLU
+        "library_ms": sum(lib_conv[s] for s in shapes + tu_shapes),
     }, {
         "name": "flash_attention_fwd",
         "route": "cuda",
@@ -933,6 +1486,10 @@ def main():
         # bf16, the ViT's shape, summed over the 12 launches of a forward
         "ms": attn_launches * attn_bf16[vit_shape][1],
         "plain_ms": attn_launches * attn_bf16[vit_shape][2],
+        "bound_ms": attn_launches * fwd_bound_ms,
+        "bound_by": fwd_bound_by,
+        # scaled_dot_product_attention under inference_mode
+        "library_ms": attn_launches * lib_attn["fwd"],
     }, {
         "name": "flash_attention_fwd_train",
         "route": "cuda",
@@ -945,6 +1502,10 @@ def main():
         # bf16, the ViT's shape at rate 0, summed over the 12 launches
         "ms": n_fwd * vit_train[1],
         "plain_ms": n_fwd * vit_train[2],
+        "bound_ms": n_fwd * tfwd_bound_ms,
+        "bound_by": tfwd_bound_by,
+        # scaled_dot_product_attention with autograd recording, rate 0
+        "library_ms": n_fwd * lib_attn[("train_fwd", 0.0)],
     }, {
         "name": "flash_attention_bwd",
         "route": "cuda",
@@ -957,21 +1518,54 @@ def main():
         "max_abs_err": max(e[3] for e in train_bf16.values()),
         "ms": n_bwd * vit_train[4],
         "plain_ms": n_bwd * vit_train[5],
+        "bound_ms": n_bwd * bwd_bound_ms,
+        "bound_by": bwd_bound_by,
+        # the backward of scaled_dot_product_attention, rate 0
+        "library_ms": n_bwd * lib_attn[("bwd", 0.0)],
     }, {
         "name": "dropout_keep_mask",
         "route": "cuda",
         "source": "unet_torch_tpu_torch/csrc/dropout_keep_mask.cu",
-        "replaces": "unet_torch_tpu/benchmarks/tpu_dfa_check.py:41",
+        "replaces": "benchmarks/tpu_dfa_check.py:41",
         # a probe: its own path (T1, one mask per case), not the train step
         "launches": mask_launches,
         "launches_by_path": {"mask_probe": mask_launches},
         # elements that differ from the plain hash
         "max_abs_err": max(r[0] for r in mres.values()),
-        "ms": mres[MASK_CASES[0][0]][1],
-        "plain_ms": mres[MASK_CASES[0][0]][2],
+        "ms": mres[mask_shape][1],
+        "plain_ms": mres[mask_shape][2],
+        # one byte written per element
+        "bound_ms": float(np.prod(mask_shape)) / PEAK_BYTES * 1e3,
+        "bound_by": "bytes",
+        "library_ms": None,
+    }, {
+        "name": "minplus",
+        "route": "cuda",
+        "source": "unet_torch_tpu_torch/csrc/minplus.cu",
+        "replaces": "unet_torch_tpu/kernels/minplus.py:37",
+        # the binary UNet's HausdorffDTLoss train step, one step
+        "launches": n_minplus,
+        "launches_by_path": {"binary_unet_train": n_minplus},
+        # elements that differ from the plain version
+        "max_abs_err": max(r[0] for r in mpres),
+        # f32, the step's two launches: 32 masks of 512x512 against the
+        # shared squared-distance table, either side
+        "ms": sum(r[1] for r in step_minplus),
+        "plain_ms": sum(r[2] for r in step_minplus),
+        "bound_ms": sum(r[3] for r in step_minplus),
+        "bound_by": step_minplus[0][4],
+        "library_ms": None,
     }], "train_step": {
         "img_s": BATCH / step_s, "plain_attention_img_s": BATCH / plain_step_s,
-        "eval_launches_after_training": t5_launches}}))
+        "eval_launches_after_training": t5_launches,
+        "binary_unet_hausdorff_dt_img_s": BATCH / dt_step_s,
+        "binary_unet_plain_minplus_img_s": BATCH / dt_plain_s,
+        "binary_unet_dice_bce_img_s": BATCH / dice_step_s,
+        "multitask_unet_img_s": BATCH / mt_step_s},
+        "peaks": {"card": "NVIDIA H100 SXM data sheet",
+                  "bf16_flops": PEAK_BF16, "f32_flops": PEAK_F32,
+                  "f32_add_min_ops": PEAK_F32_NO_FMA,
+                  "bytes_per_s": PEAK_BYTES}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -1,5 +1,6 @@
-"""The port imports no JAX: every module of unet_torch_tpu_torch loads in a
-process where jax, flax and optax cannot be imported."""
+"""The port imports no JAX and nothing of the JAX package: every module of
+unet_torch_tpu_torch loads in a process where jax, flax, optax and
+unet_torch_tpu cannot be imported."""
 
 import subprocess
 import sys
@@ -8,7 +9,7 @@ from pathlib import Path
 _CHECK = r"""
 import importlib, pkgutil, sys
 
-BLOCKED = ("jax", "jaxlib", "flax", "optax")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "unet_torch_tpu")
 
 def blocked(name):
     return name.split(".")[0] in BLOCKED
@@ -35,14 +36,13 @@ print(len(names))
 """
 
 
-# the modules chip_smoke.py drives on the card: they load nothing of the JAX
-# package either (only the CLIs and the report side reuse its numpy code)
+# the modules chip_smoke.py drives on the card
 _MAIN_PATH = r"""
 import sys
 from unet_torch_tpu_torch import ckpt, losses
 from unet_torch_tpu_torch.core.rng import seed_everything
 from unet_torch_tpu_torch.eval.reports import make_predict_fn
-from unet_torch_tpu_torch.kernels import attention, build, fused_conv
+from unet_torch_tpu_torch.kernels import attention, build, fused_conv, minplus
 from unet_torch_tpu_torch.models.transunet import configs, resnetv2, vit
 from unet_torch_tpu_torch.models.unet import build_model
 from unet_torch_tpu_torch.nn import blocks, dropout
@@ -52,18 +52,24 @@ loaded = sorted(m for m in sys.modules if m.split(".")[0] in (
 assert not loaded, loaded
 """
 
-# the train CLI reads its config and datasets with the JAX package's
-# framework-free modules: they load no JAX
+# the CLIs read their configs and datasets, and write their reports, with
+# the port's own copies of the framework-free modules
 _DATA_MODULES = r"""
 import sys
-from unet_torch_tpu.cli.config import Config
-from unet_torch_tpu.data.datasets import DataBinary
-from unet_torch_tpu.data.io import get_image_list
-from unet_torch_tpu.data.loader import NumpyLoader
+from unet_torch_tpu_torch.cli import test_cli, train_cli
+from unet_torch_tpu_torch.cli.config import Config
+from unet_torch_tpu_torch.data import nested, synthetic
+from unet_torch_tpu_torch.data.datasets import DataBinary, DataRegMT
+from unet_torch_tpu_torch.data.io import get_image_list
+from unet_torch_tpu_torch.data.loader import NumpyLoader
+from unet_torch_tpu_torch.eval import matching, peaks, results
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in (
-    "jax", "jaxlib", "flax", "optax"))
+    "jax", "jaxlib", "flax", "optax", "unet_torch_tpu", "matplotlib"))
 assert not loaded, loaded
 """
+
+_GREP = ("import unet_torch_tpu ", "import unet_torch_tpu.",
+         "from unet_torch_tpu ", "from unet_torch_tpu.")
 
 
 def _run(code):
@@ -76,7 +82,7 @@ def _run(code):
 
 def test_port_imports_no_jax():
     # every module of the slice was imported
-    assert int(_run(_CHECK).split()[-1]) >= 32
+    assert int(_run(_CHECK).split()[-1]) >= 45
 
 
 def test_main_path_imports_no_jax_package():
@@ -85,3 +91,13 @@ def test_main_path_imports_no_jax_package():
 
 def test_data_modules_import_no_jax():
     _run(_DATA_MODULES)
+
+
+def test_no_source_line_imports_the_jax_package():
+    root = Path(__file__).resolve().parents[1]
+    files = [root / "chip_smoke.py",
+             *sorted((root / "unet_torch_tpu_torch").rglob("*.py"))]
+    hits = [f"{f.relative_to(root)}:{i}" for f in files
+            for i, line in enumerate(f.read_text().splitlines(), 1)
+            if any(g in line + " " for g in _GREP)]
+    assert not hits, hits

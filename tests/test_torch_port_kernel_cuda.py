@@ -1,5 +1,6 @@
 """The Hopper kernels (fused conv3x3+BN+ReLU, flash attention forward in
-its eval and train calls, flash attention backward, dropout keep-mask probe)
+its eval and train calls, flash attention backward, dropout keep-mask probe,
+min-plus product)
 against their plain PyTorch versions, on a CUDA card. Skips without one: the
 kernels have no CPU mode.
 
@@ -14,6 +15,7 @@ import torch
 
 from unet_torch_tpu_torch.kernels import attention as port_attn
 from unet_torch_tpu_torch.kernels import fused_conv as port_fc
+from unet_torch_tpu_torch.kernels import minplus as port_mp
 
 # (B, H, W, Cin, Cout): tests/test_fused_conv.py's shapes (odd H in the
 # second), the ragged Cin=3 of the UNet's first conv with an odd W, odd H and
@@ -269,3 +271,72 @@ def test_autograd_on_card_matches_cpu(rate):
         grads[device] = [t.grad.cpu() for t in ts]
     for a, r in zip(grads["cuda"], grads["cpu"]):
         assert (a - r).abs().max().item() <= 1e-5 * r.abs().max().item()
+
+
+# (a shape, b shape): 2-D, batched, each side shared by the batch, sizes off
+# the 128 x 128 x 16 tiles, a single row and a single column
+MINPLUS_SHAPES = [((100, 77), (77, 130)), ((3, 100, 77), (3, 77, 130)),
+                  ((64, 64), (5, 64, 40)), ((5, 129, 17), (17, 257)),
+                  ((2, 1, 300), (2, 300, 1)), ((4, 128, 128), (128, 128))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sentinel", [False, True])
+@pytest.mark.parametrize("shapes", MINPLUS_SHAPES)
+def test_minplus_kernel_equals_plain_on_card(shapes, sentinel):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the Hopper kernel has no CPU mode")
+    rng = np.random.RandomState(0)
+    a, b = (torch.from_numpy((rng.rand(*s) * 1000).astype(np.float32)).cuda()
+            for s in shapes)
+    if sentinel:  # the distance transform's 1e12 "no source here" entries
+        b = torch.where(b > 400, 1e12, 0.0).float()
+    before = port_mp.minplus.launches
+    out = port_mp.minplus(a, b)
+    torch.cuda.synchronize()
+    assert port_mp.minplus.launches == before + 1
+    ref = port_mp.minplus_reference(a, b)
+    # one rounded add per candidate and an exact minimum: bit for bit
+    assert out.shape == ref.shape and torch.equal(out, ref)
+    assert torch.equal(out.cpu(), port_mp.minplus(a.cpu(), b.cpu()))
+
+
+@pytest.mark.cuda
+def test_minplus_kernel_rejects_what_it_does_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the Hopper kernel has no CPU mode")
+    a = torch.rand(4, 8, 6, device="cuda")
+    b = torch.rand(6, 5, device="cuda")
+    with pytest.raises(TypeError):
+        port_mp.minplus(a.double(), b)
+    with pytest.raises(ValueError):
+        port_mp.minplus(a, torch.rand(7, 5, device="cuda"))
+    with pytest.raises(ValueError):
+        port_mp.minplus(a.transpose(1, 2), torch.rand(8, 5, device="cuda"))
+    with pytest.raises(ValueError):
+        port_mp.minplus(a, b.cpu())
+    with pytest.raises(RuntimeError):
+        port_mp.minplus(a.requires_grad_(), b)
+    before = port_mp.minplus.launches
+    with torch.no_grad():
+        port_mp.minplus(a, b)
+    assert port_mp.minplus.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_distance_transform_on_card_matches_scipy():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the Hopper kernel has no CPU mode")
+    from scipy.ndimage import distance_transform_edt
+
+    from unet_torch_tpu_torch.losses.functional import (
+        euclidean_distance_transform_sq,
+    )
+
+    rng = np.random.RandomState(1)
+    masks = (rng.rand(3, 70, 45) > 0.2).astype(np.float32)
+    out = euclidean_distance_transform_sq(
+        torch.from_numpy(masks).cuda()).cpu().numpy()
+    for m, o in zip(masks, out):
+        np.testing.assert_allclose(o, distance_transform_edt(m) ** 2,
+                                   rtol=1e-6)

@@ -1,8 +1,10 @@
 """End to end on the CPU: synthetic dataset -> the port's train CLI ->
 checkpoints, logs, resume and the post-train eval CSVs (modelled on
 tests/test_train_e2e.py), for `single` (UNet base 8) and `TransUnet` (the
-small config swapped into the registry, as test_torch_port_eval.py does);
-and a JAX msgpack checkpoint converted into the port."""
+small config swapped into the registry, as test_torch_port_eval.py does),
+for the rest of the UNet family (`multi_task_reg` in its three combine
+modes, `multi_task`, `regression`, `attention`, binary `single` under
+HausdorffDTLoss); and a JAX msgpack checkpoint converted into the port."""
 
 import functools
 import os
@@ -29,9 +31,25 @@ from unet_torch_tpu_torch.models.transunet.vit import (
     VisionTransformer,
     build_transunet,
 )
-from unet_torch_tpu_torch.models.unet import UNet
+from unet_torch_tpu_torch.models.unet import (
+    UNet,
+    UNetAttention,
+    UNetMultitask,
+)
 
 from test_torch_port_transunet import small_config
+
+
+@pytest.fixture
+def few_threads():
+    """Two intra-op threads for the duration of a test: the suite runs in
+    several worker processes at once, and the small CPU models of these
+    tests otherwise fight over the cores. Tests that do not ask for it keep
+    the process's default."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -162,9 +180,9 @@ def test_train_cli_without_matplotlib(dataset_root, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("change,match", [
-    ({"model_type": "multi_task"}, "queue 1 item 8"),
+    ({"model_type": "multitask_em"}, "queue 1 item 10"),
     ({"model_type": "CLTR"}, "queue 1 item 11"),
-    ({"model_type": "regression"}, "queue 1 item 8"),
+    ({"model_type": "regression_t"}, "queue 1 item 10"),
     ({"model_type": "TransUnet", "random_crop": True}, "queue 1 item 10"),
     ({"model_type": "TransUnet", "pretrained_npz": "vit.npz"},
      "queue 1 item 10"),
@@ -179,6 +197,98 @@ def test_train_cli_names_what_is_not_ported(dataset_root, tmp_path,
         raw[section][key] = value
     with pytest.raises(NotImplementedError, match=match):
         train_cli.run_training(Config.from_dict(raw), device="cpu")
+
+
+def _family_cfg(root, save_dir, model_type, num_class, loss, accuracy=None,
+                epochs=2, **train):
+    raw = _cfg(root, save_dir, epochs=epochs)
+    raw["model_config"].update(model_type=model_type, num_class=num_class,
+                               dropout=False)
+    raw["train_config"].update(loss=loss, accuracy=accuracy or loss,
+                               optimizer="Adam", precision="f32", **train)
+    return raw
+
+
+@pytest.mark.usefixtures("few_threads")
+@pytest.mark.parametrize("model_type,num_class,loss,fresh,csv", [
+    ("single", 1, "HausdorffDTLoss", lambda: UNet(3, 1, base=8),
+     "resultsData.csv"),
+    ("attention", 3, "dice_bce_mc", lambda: UNetAttention(3, 3, base=8),
+     "resultsData.csv"),
+    ("regression", 2, "mseMC", lambda: UNet(3, 2, base=8),
+     "resultsDataMean.csv"),
+])
+def test_train_cli_e2e_single_head_family(dataset_root, tmp_path, model_type,
+                                          num_class, loss, fresh, csv):
+    """The other single-head runs: the binary UNet under the Hausdorff-DT
+    loss (post-train test_single), the attention UNet (test_single_mc) and
+    the regression UNet on DataReg with ReLU on its logits
+    (test_single_reg)."""
+    save_dir = tmp_path / "run"
+    raw = _family_cfg(dataset_root, save_dir, model_type, num_class, loss,
+                      accuracy="dice_bce" if num_class == 1 else None)
+    trainers, results = train_cli.run_training(Config.from_dict(raw),
+                                               device="cpu")
+    seed_dir = save_dir / "run_seed7"
+    tr = trainers[7]
+    assert tr.relu_output == (model_type == "regression")
+    assert len(tr.train_loss_list) == 2 and len(tr.val_loss_list) == 2
+    assert np.isfinite(tr.train_loss_list + tr.val_loss_list).all()
+    load_weights(str(seed_dir / "models" / "best.pt"), fresh())
+    assert (seed_dir / csv).exists() and results[7]
+    assert (save_dir / "results.csv").exists()
+
+
+@pytest.mark.usefixtures("few_threads")
+@pytest.mark.parametrize("loss,combine", [("multi_task_loss", "uncertainty"),
+                                          ("multi_task_loss_ratio", "ratio"),
+                                          ("mse", "sum")])
+def test_train_cli_e2e_multi_task_reg(dataset_root, tmp_path, loss, combine):
+    """configs/multitask_reg.yml's model type on DataRegMT: the two-head
+    loop in each combine mode, the per-head loss lists and curves, the
+    post-train test_multiple_reg. `multi_task_loss` learns log_vars, logs the
+    sigmas, trains with a fresh Adam at 5e-4 and keeps log_vars in its
+    checkpoints; the ratio loop validates from epoch 6 only."""
+    save_dir = tmp_path / "run"
+    epochs = 6 if combine == "ratio" else 2
+    raw = _family_cfg(dataset_root, save_dir, "multi_task_reg", 1, loss,
+                      epochs=epochs, adaptive_lr=combine != "ratio")
+    trainers, results = train_cli.run_training(Config.from_dict(raw),
+                                               device="cpu")
+    seed_dir = save_dir / "run_seed7"
+    tr = trainers[7]
+    n_val = epochs - 5 if combine == "ratio" else epochs
+    assert len(tr.train_loss_list) == len(tr.train_loss_list_1) == epochs
+    assert len(tr.val_loss_list) == len(tr.val_loss_list_2) == n_val
+    assert np.isfinite(tr.train_loss_list + tr.val_loss_list
+                       + tr.train_loss_list_1 + tr.train_loss_list_2).all()
+    log = (seed_dir / "logs.txt").read_text()
+    assert ("sigmas: [" in log) == (combine == "uncertainty")
+    assert "saving best model" in log
+    best = torch.load(seed_dir / "models" / "best.pt", weights_only=True)
+    assert ("log_vars" in best) == (combine == "uncertainty")
+    if combine == "uncertainty":
+        assert tr.base_lr == 5e-4
+        assert best["log_vars"].shape == (2,) and best["log_vars"].any()
+    fresh = load_weights(str(seed_dir / "models" / "best.pt"),
+                         UNetMultitask(3, 1, base=8))
+    for key, value in tr.model.state_dict().items():
+        assert torch.equal(value.cpu(), fresh.state_dict()[key]), key
+    for png in ("total.png", "bce.png", "mse.png"):
+        assert (seed_dir / png).exists(), png
+    assert (seed_dir / "resultsDataMean.csv").exists() and results[7]
+
+
+@pytest.mark.usefixtures("few_threads")
+def test_train_cli_e2e_multi_task(dataset_root, tmp_path):
+    """`multi_task` on DataRegBinary (mask, density map): the sum loop; no
+    post-train test, as in the JAX CLI."""
+    raw = _family_cfg(dataset_root, tmp_path / "run", "multi_task", 1, "mse",
+                      epochs=1)
+    trainers, results = train_cli.run_training(Config.from_dict(raw),
+                                               device="cpu")
+    assert results == {7: {}}
+    assert len(trainers[7].train_loss_list_2) == 1
 
 
 def test_train_cli_needs_a_gpu_for_cuda(dataset_root, tmp_path):

@@ -4,7 +4,10 @@ batch: the loss, every gradient, the parameters after an SGD and an Adam
 step, and the BN running statistics; for the small TransUnet (both JAX
 decoder tails) and UNet base 8. Also the repaired train-mode faults:
 bf16 train mode, seeded dropout, the attention dropouts and the f32
-residual stream; and the optimizer and checkpoint helpers."""
+residual stream; and the optimizer and checkpoint helpers. Then the two-head
+step (sum, uncertainty with log_vars, ratio off and on) of UNetMultitask
+against make_multitask_steps, and a HausdorffDTLoss step of the binary
+UNet."""
 
 import copy
 import functools
@@ -20,9 +23,11 @@ from unet_torch_tpu.losses import calc_loss as jax_calc_loss
 from unet_torch_tpu.models.transunet import CONFIGS as JAX_CONFIGS
 from unet_torch_tpu.models.transunet import VisionTransformer as JaxViT
 from unet_torch_tpu.models.unet import UNet as JaxUNet
+from unet_torch_tpu.models.unet import UNetMultitask as JaxUNetMultitask
 from unet_torch_tpu.train.optim import make_optimizer as jax_make_optimizer
 from unet_torch_tpu.train.state import TrainState
 from unet_torch_tpu.train.steps import _apply
+from unet_torch_tpu.train.steps import make_multitask_steps as jax_mt_steps
 from unet_torch_tpu.train.steps import make_single_steps as jax_steps
 from unet_torch_tpu_torch import ckpt
 from unet_torch_tpu_torch.ckpt.bridge import (
@@ -34,14 +39,29 @@ from unet_torch_tpu_torch.models.transunet.vit import (
     Attention,
     VisionTransformer,
 )
-from unet_torch_tpu_torch.models.unet import UNet
+from unet_torch_tpu_torch.models.unet import UNet, UNetMultitask
 from unet_torch_tpu_torch.nn.dropout import Dropout, set_dropout_generator
 from unet_torch_tpu_torch.train.optim import (
     ReduceLROnPlateau,
     make_optimizer,
     poly_lr,
 )
-from unet_torch_tpu_torch.train.steps import make_single_steps
+from unet_torch_tpu_torch.train.steps import (
+    make_multitask_steps,
+    make_single_steps,
+)
+
+
+@pytest.fixture
+def few_threads():
+    """Two intra-op threads for the duration of a test: the suite runs in
+    several worker processes at once, and the small CPU models of these
+    tests otherwise fight over the cores. Tests that do not ask for it keep
+    the process's default."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
 
 from test_torch_port_transunet import IMG, _seeded_stats, small_config
 
@@ -357,3 +377,199 @@ def test_full_checkpoint_round_trip(tmp_path):
     assert la == lb
     for a, b in zip(port.parameters(), fresh.parameters()):
         assert torch.equal(a, b)
+
+
+def _drawn(variables, rng):
+    """(params, batch_stats) as numpy, BN scales, biases and statistics
+    drawn away from their init."""
+    def draw(path, a):
+        a = np.asarray(a)
+        if path[-1].key == "scale":
+            return (rng.rand(*a.shape) + 0.5).astype(np.float32)
+        if path[-1].key == "bias":
+            return (rng.randn(*a.shape) * 0.1).astype(np.float32)
+        return a
+
+    return (jax.tree_util.tree_map_with_path(draw, variables["params"]),
+            _seeded_stats(rng, variables["batch_stats"]))
+
+
+def _assert_step_matches(port, optimizer, lr, wd, ref_grads, before, after):
+    """Every gradient and the parameters after the step, as
+    test_train_step_matches_jax holds them (Adam: where the decayed gradient
+    is within the gradient bound of 0 either sign is right, and the move
+    stays within lr)."""
+    for name, p in port.named_parameters():
+        if name == "log_vars":
+            continue
+        g = ref_grads[name].numpy()
+        np.testing.assert_allclose(p.grad.numpy(), g, err_msg=f"grad {name}",
+                                   **TOL)
+        ours, ref = p.detach().numpy(), after[name].numpy()
+        if optimizer == "Adam":
+            decayed = g + wd * before[name].numpy()
+            free = np.abs(decayed) <= TOL["atol"] + TOL["rtol"] * np.abs(g)
+            moved = np.abs(ours - before[name].numpy())
+            assert (moved[free] <= lr * (1 + 1e-3)).all(), name
+            ours, ref = ours[~free], ref[~free]
+        np.testing.assert_allclose(ours, ref, err_msg=f"param {name}", **TOL)
+
+
+@pytest.mark.usefixtures("few_threads")
+@pytest.mark.parametrize("combine,use_ratio", [
+    ("sum", False), ("uncertainty", False), ("ratio", False),
+    ("ratio", True)])
+def test_multitask_train_step_matches_jax(combine, use_ratio):
+    """One step of each combine mode on density-map targets: the combined
+    loss, both head losses, every gradient and the parameters after it; for
+    `uncertainty` also the log-variances, which ride the same Adam (5e-4, no
+    weight decay, as the trainer sets it). fused_head is off on the JAX side
+    (the port has no planes form)."""
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.RandomState(1)
+    x = rng.randn(2, 64, 64, 3).astype(np.float32)
+    y1, y2 = (rng.rand(2, 64, 64).astype(np.float32) * s for s in (2.0, 3.0))
+    model = JaxUNetMultitask(3, 1, base=8, fold=False)
+    variables = jax.jit(functools.partial(model.init, train=False))(
+        jax.random.key(0), jnp.asarray(x))
+    params, batch_stats = _drawn(variables, rng)
+    log_vars = np.array([0.3, -0.2], np.float32)
+    optimizer, lr, wd = (("Adam", 5e-4, 0.0) if combine == "uncertainty"
+                         else ("SGD", 0.01, WD))
+
+    tx = jax_make_optimizer(optimizer, lr, wd)
+    train_step, eval_step = jax_mt_steps(model, tx, "mse", 1, combine=combine)
+    jparams = ({"model": params, "log_vars": jnp.asarray(log_vars)}
+               if combine == "uncertainty" else params)
+    state = TrainState.create(jparams, batch_stats, tx)
+    jargs = tuple(jnp.asarray(a) for a in (x, y1, y2))
+    jflag = jnp.asarray(use_ratio)
+
+    def objective(p):
+        pm = p["model"] if combine == "uncertainty" else p
+        (o1, o2), _ = _apply(model, pm, batch_stats, jargs[0], train=True)
+        o1, o2 = jax.nn.relu(o1), jax.nn.relu(o2)
+        l1 = jax_calc_loss(o1, jargs[1], loss_type="mse", num_classes=1)
+        l2 = jax_calc_loss(o2, jargs[2], loss_type="mse", num_classes=1)
+        if combine == "uncertainty":
+            stds = jnp.exp(p["log_vars"]) ** 0.5
+            c = 1.0 / (2.0 * stds ** 2)
+            return (c[0] * l1 + jnp.log(stds[0]) + c[1] * l2
+                    + jnp.log(stds[1]))
+        if combine == "ratio" and use_ratio:
+            s = [jnp.sum(a, axis=(1, 2)) for a in
+                 (jargs[1], o1[..., 0], jargs[2], o2[..., 0])]
+            acc = jnp.mean(jnp.abs(s[0] / (s[0] + s[2])
+                                   - s[1] / (s[1] + s[3])))
+            return (l1 + l2) * (1.0 + 10.0 * acc)
+        return l1 + l2
+
+    jgrads = jax.tree_util.tree_map(np.asarray, jax.grad(objective)(jparams))
+    jeval = eval_step(state, *jargs, jflag)
+    jobjective = float(objective(jparams))
+    # the step donates its state: nothing of it is read after this line
+    state, jloss, jl1, jl2 = train_step(state, *jargs, lr, jax.random.key(0),
+                                        jflag)
+    # the written-out objective above is the step's own
+    np.testing.assert_allclose(jobjective, float(jloss), rtol=1e-6)
+    jafter = jax.tree_util.tree_map(np.asarray, state.params)
+    jstats = jax.tree_util.tree_map(np.asarray, state.batch_stats)
+
+    port = UNetMultitask(3, 1, base=8)
+    port.load_state_dict(state_dict_from_flax(params, batch_stats),
+                         strict=True)
+    if combine == "uncertainty":
+        port.add_log_vars()
+        with torch.no_grad():
+            port.log_vars.copy_(torch.from_numpy(log_vars))
+    opt = make_optimizer(optimizer, port.parameters(), lr, wd)
+    step, port_eval = make_multitask_steps("mse", 1, combine=combine)
+    targs = tuple(torch.from_numpy(a) for a in (x, y1, y2))
+    flag = torch.tensor(use_ratio)
+    eloss, el1, el2, eo1, eo2 = port_eval(port, *targs, flag)
+    for ours, ref in zip((eloss, el1, el2, eo1, eo2), jeval):
+        np.testing.assert_allclose(ours.numpy(), np.asarray(ref), **TOL)
+    loss, l1, l2 = step(port, opt, *targs, lr, None, flag)
+    for ours, ref in ((loss, jloss), (l1, jl1), (l2, jl2)):
+        assert ours.dim() == 0 and not ours.requires_grad
+        np.testing.assert_allclose(ours.item(), float(ref), **TOL)
+    if combine == "ratio":
+        assert (float(jloss) > float(jl1) + float(jl2) + 1e-3) == use_ratio
+
+    model_of = (lambda p: p["model"]) if combine == "uncertainty" \
+        else (lambda p: p)
+    _assert_step_matches(port, optimizer, lr, wd,
+                         state_dict_from_flax(model_of(jgrads), batch_stats),
+                         state_dict_from_flax(params, batch_stats),
+                         state_dict_from_flax(model_of(jafter), jstats))
+    if combine == "uncertainty":
+        np.testing.assert_allclose(port.log_vars.grad.numpy(),
+                                   jgrads["log_vars"], **TOL)
+        np.testing.assert_allclose(port.log_vars.detach().numpy(),
+                                   jafter["log_vars"], **TOL)
+        assert not np.array_equal(jafter["log_vars"], log_vars)
+
+
+def test_multitask_steps_reject_an_unknown_combine_and_warn_on_fused_head():
+    with pytest.raises(ValueError):
+        make_multitask_steps("mse", 1, combine="product")
+    with pytest.warns(UserWarning, match="fused_head"):
+        make_multitask_steps("mse", 1, fused_head=True)
+    with pytest.raises(NotImplementedError, match="item 12"):
+        make_multitask_steps("TopoLoss", 1)
+
+
+@pytest.mark.usefixtures("few_threads")
+def test_hausdorff_dt_train_step_matches_jax():
+    """One Adam step of the binary UNet (one logit channel) under
+    HausdorffDTLoss, whose distance fields come from the min-plus products
+    of the thresholded sigmoid: the loss, every gradient and the
+    parameters. A logit within round-off of 0 would put its pixel on either
+    side of the 0.5 threshold in the two frameworks, and the distance fields
+    with it; the seed is one whose logits keep away from 0, and the test
+    says so."""
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.RandomState(6)
+    x = rng.randn(2, 64, 64, 3).astype(np.float32)
+    yy, xx = np.mgrid[:64, :64]
+    y = np.stack([((yy - cy) ** 2 + (xx - cx) ** 2 <= r * r)
+                  for cy, cx, r in ((20, 24, 9), (40, 30, 14))]).astype(
+                      np.float32)
+    model = JaxUNet(3, 1, base=8)
+    variables = jax.jit(functools.partial(model.init, train=False))(
+        jax.random.key(0), jnp.asarray(x))
+    params, batch_stats = _drawn(variables, rng)
+    lr = 1e-3
+    tx = jax_make_optimizer("Adam", lr, WD)
+    train_step, _ = jax_steps(model, tx, "HausdorffDTLoss", "dice_bce", 1)
+    jx, jy = jnp.asarray(x), jnp.asarray(y)
+
+    def objective(p):
+        out, _ = _apply(model, p, batch_stats, jx, train=True)
+        return jax_calc_loss(out, jy, loss_type="HausdorffDTLoss",
+                             num_classes=1)
+
+    jgrads = jax.tree_util.tree_map(np.asarray, jax.grad(objective)(params))
+    logits, _ = _apply(model, params, batch_stats, jx, train=True)
+    assert np.abs(np.asarray(logits)).min() > 1e-4
+    state = TrainState.create(params, batch_stats, tx)
+    state, jloss = train_step(state, jx, jy, lr, jax.random.key(0))
+    jafter = jax.tree_util.tree_map(np.asarray, state.params)
+    jstats = jax.tree_util.tree_map(np.asarray, state.batch_stats)
+
+    port = UNet(3, 1, base=8)
+    port.load_state_dict(state_dict_from_flax(params, batch_stats),
+                         strict=True)
+    opt = make_optimizer("Adam", port.parameters(), lr, WD)
+    step, eval_step = make_single_steps("HausdorffDTLoss", "dice_bce", 1)
+    loss = step(port, opt, torch.from_numpy(x), torch.from_numpy(y), lr, None)
+    assert float(jloss) > 0
+    np.testing.assert_allclose(loss.item(), float(jloss), **TOL)
+    _assert_step_matches(port, "Adam", lr, WD,
+                         state_dict_from_flax(jgrads, batch_stats),
+                         state_dict_from_flax(params, batch_stats),
+                         state_dict_from_flax(jafter, jstats))
+    vloss, vscore, out = eval_step(port, torch.from_numpy(x),
+                                   torch.from_numpy(y))
+    assert torch.isfinite(vloss) and torch.isfinite(vscore)
+    assert out.shape == (2, 64, 64, 1)

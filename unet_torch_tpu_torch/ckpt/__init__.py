@@ -19,6 +19,7 @@ import torch
 from torch import nn
 
 from unet_torch_tpu_torch.ckpt.bridge import (
+    attention_state_dict_from_flax,
     state_dict_from_flax,
     transunet_state_dict_from_flax,
 )
@@ -36,8 +37,12 @@ def save_weights(path: str, model: nn.Module) -> None:
 
 def load_weights(path: str, model: nn.Module) -> nn.Module:
     """Read a state_dict `.pt` and load it into `model`; every key must
-    match (strict), and every shape."""
+    match (strict), and every shape. A two-head checkpoint trained with the
+    uncertainty-weighted loss holds `log_vars`; the model gets that parameter
+    first (UNetMultitask.add_log_vars)."""
     state_dict = torch.load(path, map_location="cpu", weights_only=True)
+    if "log_vars" in state_dict and hasattr(model, "add_log_vars"):
+        model.add_log_vars()
     model.load_state_dict(state_dict, strict=True)
     return model
 
@@ -64,8 +69,13 @@ def state_dict_from_jax_payload(payload: dict) -> dict[str, torch.Tensor]:
     """The port's state_dict from a JAX checkpoint payload
     ({'params': ..., 'batch_stats': ...} as numpy trees, as the JAX
     package's `ckpt.load_weights` returns it): a TransUnet's when the params
-    hold a `transformer`, else a UNet's."""
+    hold a `transformer`, a UNetAttention's when they hold `att1`, else a
+    UNet's or (with `decoder1` and `decoder2`) a UNetMultitask's. The JAX
+    trainer saves the model's params only, so a multitask run's `log_vars`
+    are not in the payload."""
     params, batch_stats = payload["params"], payload.get("batch_stats", {})
     if "transformer" in params:
         return transunet_state_dict_from_flax(params, batch_stats)
+    if "att1" in params:
+        return attention_state_dict_from_flax(params, batch_stats)
     return state_dict_from_flax(params, batch_stats)

@@ -1,7 +1,9 @@
 """The weights bridge: the JAX package's trees -> the port's state_dicts.
 
 `state_dict_from_flax` undoes, step by step,
-unet_torch_tpu/ckpt/torch_import.py::load_torch_unet, and
+unet_torch_tpu/ckpt/torch_import.py::load_torch_unet (for the UNet, and for
+the UNetMultitask with heads `_decod1` / `_decod2`),
+`attention_state_dict_from_flax` undoes ::load_torch_unet_attention, and
 `transunet_state_dict_from_flax` undoes ::load_torch_transunet:
 
   conv kernels        HWIO -> OIHW
@@ -11,8 +13,8 @@ unet_torch_tpu/ckpt/torch_import.py::load_torch_unet, and
                       num_batches_tracked = 0
   GroupNorm/LayerNorm scale/bias -> weight/bias
 
-The trees are the `params` and `batch_stats` of the JAX `UNet` or
-`VisionTransformer`, as numpy arrays or anything numpy can read. The names
+The trees are the `params` and `batch_stats` of the JAX `UNet`,
+`UNetMultitask`, `UNetAttention` or `VisionTransformer`, as numpy arrays or anything numpy can read. The names
 are the reference's, so the result loads into the port's model, and into
 the reference's own.
 """
@@ -57,24 +59,58 @@ def _double_conv(sd, prefix, p, bs):
         _bn(sd, f"{prefix}.{bi}", p[f"BatchNorm_{i}"], bs[f"BatchNorm_{i}"])
 
 
-def state_dict_from_flax(params, batch_stats) -> dict[str, torch.Tensor]:
-    """The port's UNet state_dict from a JAX UNet's (params, batch_stats)."""
-    sd: dict[str, torch.Tensor] = {}
-    enc_p, enc_b = params["encoder"], batch_stats["encoder"]
+def _encoder(sd, enc_p, enc_b):
     _double_conv(sd, "inc.double_conv", enc_p["inc"], enc_b["inc"])
     for i in range(1, 5):
         _double_conv(sd, f"down{i}.maxpool_conv.1.double_conv",
                      enc_p[f"down{i}"]["DoubleConv_0"],
                      enc_b[f"down{i}"]["DoubleConv_0"])
-    dec_p, dec_b = params["decoder"], batch_stats["decoder"]
+
+
+def _decoder(sd, dec_p, dec_b, suffix=""):
+    """up1..4 and outc of one decoder; `suffix` is the reference's head
+    suffix (`_decod1`, `_decod2`) or empty."""
     for i in range(1, 5):
         up = dec_p[f"up{i}"]
-        sd[f"up{i}.up.weight"] = _conv_t(up["ConvTranspose_0"]["kernel"])
-        sd[f"up{i}.up.bias"] = _tensor(up["ConvTranspose_0"]["bias"])
-        _double_conv(sd, f"up{i}.conv.double_conv", up["DoubleConv_0"],
-                     dec_b[f"up{i}"]["DoubleConv_0"])
-    sd["outc.conv.weight"] = _conv(dec_p["outc"]["Conv_0"]["kernel"])
-    sd["outc.conv.bias"] = _tensor(dec_p["outc"]["Conv_0"]["bias"])
+        sd[f"up{i}{suffix}.up.weight"] = _conv_t(up["ConvTranspose_0"]["kernel"])
+        sd[f"up{i}{suffix}.up.bias"] = _tensor(up["ConvTranspose_0"]["bias"])
+        _double_conv(sd, f"up{i}{suffix}.conv.double_conv",
+                     up["DoubleConv_0"], dec_b[f"up{i}"]["DoubleConv_0"])
+    sd[f"outc{suffix}.conv.weight"] = _conv(dec_p["outc"]["Conv_0"]["kernel"])
+    sd[f"outc{suffix}.conv.bias"] = _tensor(dec_p["outc"]["Conv_0"]["bias"])
+
+
+def state_dict_from_flax(params, batch_stats) -> dict[str, torch.Tensor]:
+    """The port's UNet state_dict from a JAX UNet's (params, batch_stats), or
+    the port's UNetMultitask state_dict from a JAX UNetMultitask's (trees
+    with `decoder1` and `decoder2`)."""
+    sd: dict[str, torch.Tensor] = {}
+    _encoder(sd, params["encoder"], batch_stats["encoder"])
+    if "decoder" in params:
+        _decoder(sd, params["decoder"], batch_stats["decoder"])
+    else:
+        for n in (1, 2):
+            _decoder(sd, params[f"decoder{n}"], batch_stats[f"decoder{n}"],
+                     f"_decod{n}")
+    return sd
+
+
+def attention_state_dict_from_flax(params,
+                                   batch_stats) -> dict[str, torch.Tensor]:
+    """The port's UNetAttention state_dict from a JAX UNetAttention's
+    (params, batch_stats): the up blocks and the head sit at the top of the
+    trees, the gates `att1..4` become the reference's `attenion1..4`."""
+    sd: dict[str, torch.Tensor] = {}
+    _encoder(sd, params["encoder"], batch_stats["encoder"])
+    _decoder(sd, params, batch_stats)
+    for i in range(1, 5):
+        gp, gb, name = params[f"att{i}"], batch_stats[f"att{i}"], f"attenion{i}"
+        sd[f"{name}.up.weight"] = _conv_t(gp["ConvTranspose_0"]["kernel"])
+        sd[f"{name}.up.bias"] = _tensor(gp["ConvTranspose_0"]["bias"])
+        for proj in ("W_q", "W_x", "psi"):
+            sd[f"{name}.{proj}.0.weight"] = _conv(gp[f"{proj}_conv"]["kernel"])
+            sd[f"{name}.{proj}.0.bias"] = _tensor(gp[f"{proj}_conv"]["bias"])
+            _bn(sd, f"{name}.{proj}.1", gp[f"{proj}_bn"], gb[f"{proj}_bn"])
     return sd
 
 

@@ -2,7 +2,8 @@
 
     python -m unet_torch_tpu_torch.cli.test_cli <config.yml> \
         --checkpoint run/seedN/models/best.pt [--test-path DIR] \
-        [--mode auto|single_mc] [--out-dir DIR] [--device cuda]
+        [--mode auto|single|single_crop|single_mc|reg|mt_reg] \
+        [--crop-size N] [--out-dir DIR] [--device cuda]
 
 Builds the config's model, loads the torch state_dict checkpoint (strict)
 and runs the matching eval suite into <save_dir>/eval/. The device defaults
@@ -18,15 +19,18 @@ from __future__ import annotations
 import argparse
 import os
 
-from unet_torch_tpu.cli.config import Config
-from unet_torch_tpu.data.io import get_image_list
+from unet_torch_tpu_torch import losses
 from unet_torch_tpu_torch.ckpt import load_weights
-from unet_torch_tpu_torch.core import not_ported
+from unet_torch_tpu_torch.cli.config import Config
 from unet_torch_tpu_torch.core.device import resolve_device
 from unet_torch_tpu_torch.core.precision import resolve_precision
+from unet_torch_tpu_torch.data.io import get_image_list
 from unet_torch_tpu_torch.eval import reports
 from unet_torch_tpu_torch.models.transunet.vit import build_transunet
 from unet_torch_tpu_torch.models.unet import build_model
+
+
+_MODES = ("single", "single_crop", "single_mc", "reg", "mt_reg")
 
 
 def _auto_mode(model_type: str) -> str:
@@ -40,14 +44,14 @@ def _auto_mode(model_type: str) -> str:
 
 
 def run_eval(cfg: Config, checkpoint: str, test_path=None, mode="auto",
-             out_dir=None, device="cuda"):
+             out_dir=None, device="cuda", crop_size=256):
     m = cfg.model
     if mode == "auto":
         mode = _auto_mode(m.model_type)
-    not_ported.check(not_ported.EVAL_MODES, "eval mode", mode)
-    if mode != "single_mc":
+    if mode not in _MODES:
         raise ValueError(f"Unknown mode {mode!r}")
     dev = resolve_device(device)
+    losses.set_class_number(m.num_class)
 
     tpu_options = {}
     if m.remat:
@@ -74,8 +78,18 @@ def run_eval(cfg: Config, checkpoint: str, test_path=None, mode="auto",
     out_dir = out_dir or os.path.join(cfg.dataset.save_dir, "eval")
     os.makedirs(out_dir, exist_ok=True)
 
-    results = reports.test_single_mc(model, dev, dtype, input_size, m.channel,
-                                     m.num_class, image_list, out_dir)
+    args = (model, dev, dtype, input_size, m.channel, m.num_class)
+    if mode == "single_mc":
+        results = reports.test_single_mc(*args, image_list, out_dir)
+    elif mode == "single":
+        results = reports.test_single(*args, image_list, out_dir)
+    elif mode == "single_crop":
+        results = reports.test_single_crop(*args, crop_size, image_list,
+                                           out_dir)
+    elif mode == "reg":
+        results = reports.test_single_reg(*args, image_list, out_dir)
+    else:
+        results = reports.test_multiple_reg(*args, image_list, out_dir)
     print(results)
     return results
 
@@ -85,13 +99,14 @@ def main(argv=None):
     ap.add_argument("config")
     ap.add_argument("--checkpoint", required=True)
     ap.add_argument("--test-path", default=None)
-    ap.add_argument("--mode", default="auto", choices=["auto", "single_mc"])
+    ap.add_argument("--mode", default="auto", choices=["auto", *_MODES])
     ap.add_argument("--out-dir", default=None)
+    ap.add_argument("--crop-size", type=int, default=256)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     cfg = Config.load(args.config)
     run_eval(cfg, args.checkpoint, args.test_path, args.mode, args.out_dir,
-             args.device)
+             args.device, args.crop_size)
 
 
 if __name__ == "__main__":

@@ -2,22 +2,28 @@
 
     python -m unet_torch_tpu_torch.cli.train_cli <config.yml> [--device cuda]
 
-The reference's run for `model_type` `single` (UNet) and `TransUnet`: a
-seed sweep with one directory per seed (`save_dir/<basename>_seed{N}`), the
-config snapshot (`config.json`), resume from a port checkpoint
-(`resume.flag`, `resume.path` a torch state_dict, training from
-`resume.epoch`), `Trainer.single_train`, the post-train test of the best
-model through `test_single_mc`, pruning of the epoch checkpoints and the
-cross-seed `results.csv`. The device defaults to cuda and raises where there
-is no GPU; `--device cpu` runs the plain versions of the kernels.
+The reference's run: a seed sweep with one directory per seed
+(`save_dir/<basename>_seed{N}`), the config snapshot (`config.json`), resume
+from a port checkpoint (`resume.flag`, `resume.path` a torch state_dict,
+training from `resume.epoch`), `Trainer.train`, the post-train test of the
+best model, pruning of the epoch checkpoints and the cross-seed
+`results.csv`. The device defaults to cuda and raises where there is no GPU;
+`--device cpu` runs the plain versions of the kernels.
+
+  model_type                dataset         loop                 post-train test
+  single, attention         DataBinary      single_train         test_single (num_class <= 2) or test_single_mc
+  TransUnet                 DataBinary      single_train         as single
+  regression                DataReg         single_train (ReLU)  test_single_reg
+  multi_task                DataRegBinary   two-head loop        none
+  multi_task_reg            DataRegMT       two-head loop        test_multiple_reg
 
 The curves (`total.png`) and the post-train test's reports are drawn with
 matplotlib. Where it cannot be imported, the run trains and saves its
 checkpoints all the same, draws no curves and skips the post-train test with
 a warning naming the eval CLI command that runs it later.
 
-Datasets and loaders are the JAX package's numpy ones (`DataBinary`,
-`NumpyLoader`). Other model types, `random_crop` and `pretrained_npz` raise
+Datasets and loaders are the port's numpy ones (data/). The other model
+types, the topological losses, `random_crop` and `pretrained_npz` raise
 NotImplementedError naming their ROADMAP.md item.
 """
 
@@ -29,15 +35,21 @@ import importlib.util
 import os
 import warnings
 
-from unet_torch_tpu.cli.config import Config
-from unet_torch_tpu.data.datasets import DataBinary
-from unet_torch_tpu.data.io import get_image_list
-from unet_torch_tpu.data.loader import NumpyLoader
+from unet_torch_tpu_torch import losses
 from unet_torch_tpu_torch.ckpt import load_weights
+from unet_torch_tpu_torch.cli.config import Config
 from unet_torch_tpu_torch.core import not_ported
 from unet_torch_tpu_torch.core.device import resolve_device
 from unet_torch_tpu_torch.core.precision import resolve_precision
 from unet_torch_tpu_torch.core.rng import seed_everything
+from unet_torch_tpu_torch.data.datasets import (
+    DataBinary,
+    DataReg,
+    DataRegBinary,
+    DataRegMT,
+)
+from unet_torch_tpu_torch.data.io import get_image_list
+from unet_torch_tpu_torch.data.loader import NumpyLoader
 from unet_torch_tpu_torch.eval import reports
 from unet_torch_tpu_torch.models.transunet.vit import build_transunet
 from unet_torch_tpu_torch.models.unet import build_model
@@ -56,23 +68,46 @@ def _tpu_options(m) -> dict:
     return options
 
 
+def get_points_from_tsv(tsv_path):
+    """Map image stem -> tsv annotation path."""
+    if not tsv_path:
+        return {}
+    dataset = {}
+    for label in globmod.glob(os.path.join(tsv_path, "*.tsv")):
+        name = label.split(".tsv")[0].split(".png-points")[0].split("/")[-1]
+        name = name.split("-he")[0].split("-HE")[0].split("/")[-1]
+        dataset[name] = label
+    return dataset
+
+
 def build_datasets_and_model(cfg: Config, seed: int, generator=None):
-    """(train DataBinary, val DataBinary, model) for `single` or
-    `TransUnet`; the model's weights are drawn from `generator`."""
+    """(train dataset, val dataset, model) by `model_type`; the model's
+    weights are drawn from `generator`."""
     m, d = cfg.model, cfg.dataset
     mt = m.model_type
     not_ported.check(not_ported.MODEL_TYPES, "model_type", mt)
-    not_ported.check(not_ported.TRAIN_OPTIONS, "model_type", mt)
-    if mt not in ("single", "TransUnet"):
-        raise ValueError(f'Invalid model_type "{mt}"')
-    if mt == "TransUnet" and d.random_crop:
-        not_ported.check(not_ported.TRAIN_OPTIONS, "option", "random_crop")
     input_size = tuple(m.input_size)
-    common = dict(ch=m.channel, anydepth=m.anydepth, seed=seed)
-    train_ds = DataBinary(list(d.train_path), augmentation=d.augmentation,
-                          input_size=input_size, **common)
-    val_ds = DataBinary(list(d.val_path), augmentation=False,
-                        input_size=input_size, **common)
+    common = dict(ch=m.channel, anydepth=m.anydepth, seed=seed,
+                  input_size=input_size)
+    if mt in ("single", "attention", "TransUnet"):
+        if mt == "TransUnet" and d.random_crop:
+            not_ported.check(not_ported.TRAIN_OPTIONS, "option", "random_crop")
+        train_ds = DataBinary(list(d.train_path), augmentation=d.augmentation,
+                              **common)
+        val_ds = DataBinary(list(d.val_path), augmentation=False, **common)
+    elif mt == "regression":
+        train_ds = DataReg(list(d.train_path), augmentation=d.augmentation,
+                           photometric=d.photometric, **common)
+        val_ds = DataReg(list(d.val_path), augmentation=False, **common)
+    elif mt == "multi_task":
+        train_ds = DataRegBinary(list(d.train_path), **common)
+        val_ds = DataRegBinary(list(d.val_path), **common)
+    elif mt == "multi_task_reg":
+        train_ds = DataRegMT(list(d.train_path), augmentation=d.augmentation,
+                             **common)
+        val_ds = DataRegMT(list(d.val_path), augmentation=False, **common)
+    else:
+        raise ValueError(f'Invalid model_type "{mt}"')
     if mt == "TransUnet":
         if ("pretrained_npz" in cfg.raw.get("model_config", {})
                 or os.path.exists(_DEFAULT_NPZ)):
@@ -93,6 +128,7 @@ def run_training(cfg: Config, device="cuda"):
     dev = resolve_device(device)
     plot = importlib.util.find_spec("matplotlib") is not None
     dtype = resolve_precision(cfg.train.precision)
+    losses.set_class_number(cfg.model.num_class)
     save_dir = cfg.dataset.save_dir
     os.makedirs(save_dir, exist_ok=True)
     cfg.dump_snapshot(save_dir)
@@ -154,15 +190,23 @@ def run_training(cfg: Config, device="cuda"):
 
 
 def _post_train_test(trainer, cfg: Config, test_image_list, out_dir):
-    """The best model through the multi-class eval suite into `out_dir`;
-    binary heads (test_single) are not ported yet."""
+    """The best model through the eval suite of its model type into
+    `out_dir`; `multi_task` has none, as in the JAX CLI."""
     m = cfg.model
-    if m.num_class <= 2:
-        not_ported.check(not_ported.EVAL_MODES, "eval mode", "single")
-    return reports.test_single_mc(trainer.model, trainer.device,
-                                  trainer.dtype, tuple(m.input_size),
-                                  m.channel, m.num_class, test_image_list,
-                                  out_dir)
+    mt = m.model_type
+    args = (trainer.model, trainer.device, trainer.dtype,
+            tuple(m.input_size), m.channel, m.num_class, test_image_list,
+            out_dir)
+    tsv_files = get_points_from_tsv(cfg.dataset.dot_annotation_path)
+    if mt in ("attention", "single", "TransUnet"):
+        if m.num_class <= 2:
+            return reports.test_single(*args)
+        return reports.test_single_mc(*args)
+    if mt == "multi_task_reg":
+        return reports.test_multiple_reg(*args, tsv_files=tsv_files)
+    if mt == "regression":
+        return reports.test_single_reg(*args, tsv_files=tsv_files)
+    return {}
 
 
 def _delete_non_best(out_dir):

@@ -8,38 +8,18 @@ same NotImplementedError naming the same item.
 from __future__ import annotations
 
 MODEL_TYPES = {
-    "attention": "queue 1 item 8",
-    "multi_task": "queue 1 item 8",
-    "multi_task_reg": "queue 1 item 8",
     "regression_t": "queue 1 item 10",
     "multi_task_regTU": "queue 1 item 10",
     "multitask_em": "queue 1 item 10",
     "CLTR": "queue 1 item 11",
 }
 
-EVAL_MODES = {
-    "single": "queue 1 item 7",
-    "single_crop": "queue 1 item 7",
-    "reg": "queue 1 item 7",
-    "mt_reg": "queue 1 item 8",
-}
-
-LOSSES = {
-    **{name: "queue 1 item 8" for name in (
-        "mse", "mseMC", "rmse", "l1loss")},
-    **{name: "queue 1 item 9" for name in (
-        "BCE", "TopK", "BCE_HEM", "FL", "dice", "dice_bce",
-        "log_cosh_dice_loss", "HausdorffDTLoss", "HausdorffERLoss",
-        "ActiveContourLoss", "Tversky")},
-    **{name: "queue 1 item 12" for name in (
-        "TopoLoss", "MyTopoLoss1", "MyTopoLoss2", "MyTopoLossGraph",
-        "MyTopoLossVR", "TopoCount", "TopoCount2", "TopoLoss2",
-        "myTopoLoss")},
-}
+LOSSES = {name: "queue 1 item 12" for name in (
+    "TopoLoss", "MyTopoLoss1", "MyTopoLoss2", "MyTopoLossGraph",
+    "MyTopoLossVR", "TopoCount", "TopoCount2", "TopoLoss2", "myTopoLoss")}
 
 # training options of the JAX CLI and trainer
 TRAIN_OPTIONS = {
-    "regression": "queue 1 item 8",  # trains on DataReg
     "random_crop": "queue 1 item 10",  # DataRandomCrop tiling
     "pretrained_npz": "queue 1 item 10",  # load_npz_into_params
 }

@@ -1,11 +1,12 @@
 """Loss dispatch by the reference's config strings (counterpart of
 unet_torch_tpu/losses/__init__.py::calc_loss).
 
-The port carries the main path's keys: `CE`, `dice_bce_mc` (the loss of
-configs/segmentation_mc.yml and configs/transunet.yml, which also use it as
-their accuracy), `dice_score_mc` and `dice_score`. Every other key of the
-JAX dispatch raises NotImplementedError naming its ROADMAP.md item
-(core/not_ported.py); an unknown key raises KeyError, as in the JAX package.
+The port carries every key of the JAX dispatch except the topological names
+(`TopoLoss`, `MyTopoLoss*`, `TopoCount`), which raise NotImplementedError
+naming their ROADMAP.md item (core/not_ported.py); an unknown key raises
+KeyError, as in the JAX package. `CLASS_NUMBER` / `set_class_number` are the
+reference-compatible module global that `calc_loss` falls back on when no
+`num_classes` is passed.
 """
 
 from __future__ import annotations
@@ -14,16 +15,56 @@ import functools
 
 from unet_torch_tpu_torch.core import not_ported
 from unet_torch_tpu_torch.losses.functional import (
+    active_contour_loss,
+    bce_hem_loss,
+    bce_loss,
+    binary_dice_loss,
+    dice_bce_loss,
     dice_bce_mc_loss,
     dice_score,
+    focal_loss,
+    focal_tversky_loss,
+    hausdorff_dt_loss,
+    hausdorff_er_loss,
+    l1_loss,
+    log_cosh_dice_loss,
+    mse_loss,
+    mse_mc_loss,
+    rmse_loss,
     softmax_cross_entropy,
+    topk_bce_loss,
 )
 
+# reference-compatible module global (the reference's train.py writes it)
+CLASS_NUMBER: int = 2
+
+
+def set_class_number(n: int) -> None:
+    global CLASS_NUMBER
+    CLASS_NUMBER = int(n)
+
+
 _DISPATCH = {
+    "BCE": lambda p, t, w, n: bce_loss(p, t),
+    "TopK": lambda p, t, w, n: topk_bce_loss(p, t),
+    "BCE_HEM": lambda p, t, w, n: bce_hem_loss(p, t),
     "CE": lambda p, t, w, n: softmax_cross_entropy(p, t, n),
+    "FL": lambda p, t, w, n: focal_loss(p, t, gamma=2.0),
+    "mse": lambda p, t, w, n: mse_loss(p, t),
+    "mseMC": lambda p, t, w, n: mse_mc_loss(p, t),
+    "rmse": lambda p, t, w, n: rmse_loss(p, t),
+    "l1loss": lambda p, t, w, n: l1_loss(p, t),
+    "dice": lambda p, t, w, n: binary_dice_loss(p, t),
+    "dice_bce": lambda p, t, w, n: dice_bce_loss(p, t, w),
     "dice_bce_mc": lambda p, t, w, n: dice_bce_mc_loss(p, t, n, w),
     "dice_score": lambda p, t, w, n: dice_score(p, t),
     "dice_score_mc": lambda p, t, w, n: dice_score(p, t, n),
+    "log_cosh_dice_loss": lambda p, t, w, n: log_cosh_dice_loss(p, t, n),
+    "HausdorffDTLoss": lambda p, t, w, n: hausdorff_dt_loss(p, t),
+    "HausdorffERLoss": lambda p, t, w, n: hausdorff_er_loss(p, t),
+    "ActiveContourLoss": lambda p, t, w, n: active_contour_loss(p, t),
+    "Tversky": lambda p, t, w, n: focal_tversky_loss(p, t, alpha=0.4,
+                                                     beta=0.6),
 }
 
 
@@ -35,11 +76,12 @@ def _check_key(loss_type: str) -> None:
                    f"{sorted(_DISPATCH)}")
 
 
-def calc_loss(pred, target, bce_weight: float = 0.5, loss_type: str = "CE",
-              num_classes: int = 2):
+def calc_loss(pred, target, bce_weight: float = 0.5, loss_type: str = "mse",
+              num_classes: int | None = None):
     """String-dispatch loss; NHWC logits, f32 result."""
     _check_key(loss_type)
-    return _DISPATCH[loss_type](pred, target, bce_weight, num_classes)
+    n = num_classes if num_classes is not None else CLASS_NUMBER
+    return _DISPATCH[loss_type](pred, target, bce_weight, n)
 
 
 def get_loss_fn(loss_type: str, num_classes: int, bce_weight: float = 0.5):

@@ -1,6 +1,11 @@
-"""U-Net (counterpart of unet_torch_tpu/models/unet.py).
+"""The U-Net family (counterpart of unet_torch_tpu/models/unet.py).
 
-`UNet` takes NHWC input (B,H,W,C_in) and returns NHWC logits
+  UNet           4-down / 4-up encoder-decoder
+  UNetMultitask  shared encoder, two independent decoders and heads; returns
+                 (logits1, logits2)
+  UNetAttention  UNet with an attention gate on each skip before its Up block
+
+Each model takes NHWC input (B,H,W,C_in) and returns NHWC logits
 (B,H,W,n_classes), as the JAX model does, computed in the input's dtype.
 Inside, the NHWC input is viewed as NCHW in channels_last memory (a permute,
 no copy).
@@ -13,10 +18,12 @@ from __future__ import annotations
 
 import warnings
 
+import torch
 from torch import nn
 
 from unet_torch_tpu_torch.core import not_ported
 from unet_torch_tpu_torch.nn.blocks import (
+    AttentionGate,
     DoubleConv,
     Down,
     OutConv,
@@ -71,6 +78,89 @@ class UNet(nn.Module):
         return self.outc(x).permute(0, 2, 3, 1)
 
 
+class UNetMultitask(nn.Module):
+    """Shared encoder and two independent decoders; returns (logits1,
+    logits2). The decoders carry the reference's names: `up{i}_decod1`,
+    `outc_decod1`, `up{i}_decod2`, `outc_decod2`.
+
+    As in the JAX package, this model has no dropout: `dropout` and
+    `dropout_p` are accepted for the factory's signature and not used."""
+
+    def __init__(self, n_channels: int, n_classes: int, base: int = 64,
+                 dropout: bool = False, dropout_p: float = 0.5,
+                 generator=None):
+        super().__init__()
+        self.inc = DoubleConv(n_channels, base)
+        for i in range(1, 5):
+            setattr(self, f"down{i}", Down(base << (i - 1), base << i))
+        for head in ("_decod1", "_decod2"):
+            for i in range(1, 5):
+                setattr(self, f"up{i}{head}",
+                        Up(base << (5 - i), base << (4 - i)))
+            setattr(self, f"outc{head}", OutConv(base, n_classes))
+        reset_parameters(self, generator)
+
+    def add_log_vars(self) -> None:
+        """Register `log_vars`, the two learned log-variances of the
+        uncertainty-weighted loss (zeros), unless the model has them. They
+        are a parameter of the model, so they ride its optimizer and its
+        state_dict."""
+        if not hasattr(self, "log_vars"):
+            device = next(self.parameters()).device
+            self.log_vars = nn.Parameter(torch.zeros(2, device=device))
+
+    def _decode(self, feats, head):
+        x1, x2, x3, x4, x = feats
+        for i, skip in enumerate((x4, x3, x2, x1), start=1):
+            x = getattr(self, f"up{i}{head}")(x, skip)
+        return getattr(self, f"outc{head}")(x).permute(0, 2, 3, 1)
+
+    def forward(self, x):
+        feats = [self.inc(x.permute(0, 3, 1, 2))]
+        for i in range(1, 5):
+            feats.append(getattr(self, f"down{i}")(feats[-1]))
+        return self._decode(feats, "_decod1"), self._decode(feats, "_decod2")
+
+
+class UNetAttention(nn.Module):
+    """U-Net with attention gates applied to each skip before the Up block.
+    The gates carry the reference's names, `attenion1..4` (sic)."""
+
+    def __init__(self, n_channels: int, n_classes: int, base: int = 64,
+                 dropout: bool = False, dropout_p: float = 0.5,
+                 generator=None):
+        super().__init__()
+        b = base
+        self.inc = DoubleConv(n_channels, b)
+        self.down1 = Down(b, b * 2, dropout, dropout_p)
+        self.down2 = Down(b * 2, b * 4, dropout, dropout_p)
+        self.down3 = Down(b * 4, b * 8, dropout, dropout_p)
+        self.down4 = Down(b * 8, b * 16, dropout, dropout_p)
+        # gate i: (channels of the gating feature, of the skip, hidden)
+        self.attenion4 = AttentionGate(b * 16, b * 8, b * 4)
+        self.attenion3 = AttentionGate(b * 8, b * 4, b * 2)
+        self.attenion2 = AttentionGate(b * 4, b * 2, b)
+        self.attenion1 = AttentionGate(b * 2, b, b // 2)
+        self.up1 = Up(b * 16, b * 8, dropout, dropout_p)
+        self.up2 = Up(b * 8, b * 4, dropout, dropout_p)
+        self.up3 = Up(b * 4, b * 2, dropout, dropout_p)
+        self.up4 = Up(b * 2, b, dropout, dropout_p)
+        self.outc = OutConv(b, n_classes)
+        reset_parameters(self, generator)
+
+    def forward(self, x):
+        x1 = self.inc(x.permute(0, 3, 1, 2))
+        x2 = self.down1(x1)
+        x3 = self.down2(x2)
+        x4 = self.down3(x3)
+        x5 = self.down4(x4)
+        x = self.up1(x5, self.attenion4(x5, x4))
+        x = self.up2(x, self.attenion3(x, x3))
+        x = self.up3(x, self.attenion2(x, x2))
+        x = self.up4(x, self.attenion1(x, x1))
+        return self.outc(x).permute(0, 2, 3, 1)
+
+
 def ignore_tpu_options(tpu_options: dict) -> None:
     """Warn about each TPU option (`fold`, `remat`, `head_dtype`) of the JAX
     package, which the port accepts for config compatibility and ignores;
@@ -85,8 +175,8 @@ def ignore_tpu_options(tpu_options: dict) -> None:
 def build_model(model_type: str, *, n_channels: int, n_classes: int,
                 base: int = 64, dropout: bool = False, dropout_p: float = 0.5,
                 generator=None, **tpu_options):
-    """Model factory for the ported part of the UNet family
-    (`TransUnet_unet_fallback` is the plain UNet, as in the JAX package).
+    """Model factory for the UNet family (`TransUnet_unet_fallback` is the
+    plain UNet, as in the JAX package).
 
     `fold`, `remat` and `head_dtype` are accepted for config compatibility
     with the JAX package and ignored with a warning."""
@@ -94,6 +184,12 @@ def build_model(model_type: str, *, n_channels: int, n_classes: int,
     if model_type in ("single", "regression", "TransUnet_unet_fallback"):
         return UNet(resolve_channels(n_channels), n_classes, base, dropout,
                     dropout_p, generator=generator)
+    if model_type in ("multi_task", "multi_task_reg"):
+        return UNetMultitask(resolve_channels(n_channels), n_classes, base,
+                             dropout, dropout_p, generator=generator)
+    if model_type == "attention":
+        return UNetAttention(resolve_channels(n_channels), n_classes, base,
+                             dropout, dropout_p, generator=generator)
     if model_type in _TRANSUNET_TYPES:
         raise ValueError(f"model_type {model_type!r} is built by "
                          "models.transunet.build_transunet")

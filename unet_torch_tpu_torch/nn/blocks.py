@@ -7,6 +7,8 @@ The modules carry the reference's state_dict names, so that a reference
   Down        maxpool_conv.0 MaxPool2d(2), maxpool_conv.1 DoubleConv
   Up          up ConvTranspose2d(C, C/2, 2, stride 2), conv DoubleConv
   OutConv     conv Conv2d 1x1 with bias
+  AttentionGate  up ConvTranspose2d(Cq, Cq, 2, stride 2); W_q, W_x, psi each
+              {0} Conv2d 1x1 with bias, {1} BatchNorm2d
 
 Activations are NCHW tensors in channels_last memory. Parameters stay f32;
 each layer computes in the dtype of its input and casts its weights to it.
@@ -137,3 +139,32 @@ class OutConv(nn.Module):
     def forward(self, x):
         return F.conv2d(x, self.conv.weight.to(x.dtype),
                         self.conv.bias.to(x.dtype))
+
+
+class AttentionGate(nn.Module):
+    """Additive attention gate on a skip connection.
+
+    q: the coarse gating feature (Cq, H, W); x: the skip feature
+    (Cx, 2H, 2W). up(q) -> W_q and W_x (1x1 conv + BN each) ->
+    ReLU(q1 + x1) -> psi (1x1 conv + BN) -> sigmoid -> x * a."""
+
+    def __init__(self, q_channels: int, x_channels: int, hidden: int):
+        super().__init__()
+        self.up = nn.ConvTranspose2d(q_channels, q_channels, 2, stride=2)
+        self.W_q = nn.Sequential(nn.Conv2d(q_channels, hidden, 1),
+                                 nn.BatchNorm2d(hidden))
+        self.W_x = nn.Sequential(nn.Conv2d(x_channels, hidden, 1),
+                                 nn.BatchNorm2d(hidden))
+        self.psi = nn.Sequential(nn.Conv2d(hidden, 1, 1), nn.BatchNorm2d(1))
+
+    @staticmethod
+    def _proj(seq, v):
+        conv, bn = seq[0], seq[1]
+        return bn(F.conv2d(v, conv.weight.to(v.dtype),
+                           conv.bias.to(v.dtype)))
+
+    def forward(self, q, x):
+        q = F.conv_transpose2d(q, self.up.weight.to(q.dtype),
+                               self.up.bias.to(q.dtype), stride=2)
+        e = F.relu(self._proj(self.W_q, q) + self._proj(self.W_x, x))
+        return x * torch.sigmoid(self._proj(self.psi, e))

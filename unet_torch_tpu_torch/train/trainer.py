@@ -1,27 +1,32 @@
-"""The epoch loop (counterpart of unet_torch_tpu/train/trainer.py).
+"""The epoch loops (counterpart of unet_torch_tpu/train/trainer.py).
 
-`Trainer.single_train` is the JAX package's loop for one-head models
-(`single`, `TransUnet`, and `regression` with ReLU on the logits), with the
-reference's run artifacts:
+`Trainer.train` dispatches as the JAX trainer does: `single`, `TransUnet`,
+`regression` (ReLU on the logits) and `attention` run `single_train`;
+`multi_task` and `multi_task_reg` run the two-head loop as
+`multi_task_train` (sum), `multi_task_uc_train` (loss `multi_task_loss`:
+learned uncertainty weights, a fresh Adam at 5e-4 without weight decay) or
+`multi_task_train_ratio` (loss `multi_task_loss_ratio`: plateau LR unless
+the poly LR is on, the ratio term and validation from epoch 6). The run
+artifacts are the reference's:
 
   * append-only `logs.txt`
   * checkpoints `models/epoch{N}.pt` and `models/best.pt` when the val score
     improves, `models/last_epoch.pt` after every train phase (torch
-    state_dicts, ckpt.save_weights)
+    state_dicts, ckpt.save_weights; an uncertainty run's hold `log_vars`)
   * per-iteration poly LR decay when `adaptive_lr`
   * early stopping after `patience` epochs without improvement; `dice_score`
     and `dice_score_mc` are higher-better (the reference's comparison, which
     never saves for them, is not copied)
   * the best weights restored at the end
-  * the loss and accuracy curves as `total.png`, with `plot=True`
-    (matplotlib, imported there)
+  * the loss and accuracy curves as `total.png`, and the two heads' as
+    `bce.png` and `mse.png`, with `plot=True` (matplotlib, imported there)
 
 The batches reach the device by non_blocking copies from pinned memory, and
 the step's losses stay on the device: the loop reads them once per epoch.
 Dropout draws from a generator on the device, seeded from `seed`.
 
-The other loops of the JAX trainer raise NotImplementedError naming their
-ROADMAP.md item.
+The topological losses' loop and the CLTR loop raise NotImplementedError
+naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -34,15 +39,24 @@ import torch
 
 from unet_torch_tpu_torch import ckpt
 from unet_torch_tpu_torch.core import not_ported
-from unet_torch_tpu_torch.train.optim import make_optimizer, poly_lr
-from unet_torch_tpu_torch.train.steps import make_single_steps
+from unet_torch_tpu_torch.train.optim import (
+    ReduceLROnPlateau,
+    make_optimizer,
+    poly_lr,
+)
+from unet_torch_tpu_torch.train.steps import (
+    make_multitask_steps,
+    make_single_steps,
+)
 
-_SINGLE_TYPES = ("single", "TransUnet", "regression")
-_LOOPS_NOT_PORTED = {
-    **not_ported.MODEL_TYPES,
-    **{name: item for name, item in not_ported.LOSSES.items()
-       if item == "queue 1 item 12"},
-}
+_SINGLE_TYPES = ("single", "TransUnet", "regression", "attention")
+_MULTITASK_TYPES = ("multi_task", "multi_task_reg")
+_LOOPS_NOT_PORTED = {**not_ported.MODEL_TYPES, **not_ported.LOSSES}
+
+
+def _mean(values) -> float:
+    """The mean of a list of 0-d device tensors, read on the host."""
+    return torch.stack(values).mean().item()
 
 
 class Trainer:
@@ -65,6 +79,7 @@ class Trainer:
         self.adaptive_lr = bool(lr_scheduler)
         self.start_epoch = start_epoch
         self.base_lr = lr_rate
+        self._lr = lr_rate  # the plateau scheduler's, when poly LR is off
         self.optimizer_name = optimizer_name
         self.weight_decay = weight_decay
         self.device = torch.device(device)
@@ -84,6 +99,8 @@ class Trainer:
         self.early_stop_counter = 0
         self.train_loss_list, self.val_loss_list = [], []
         self.val_score_list = []
+        self.train_loss_list_1, self.val_loss_list_1 = [], []
+        self.train_loss_list_2, self.val_loss_list_2 = [], []
         self.save_dir_model = os.path.join(output_save_dir, "models")
         os.makedirs(self.save_dir_model, exist_ok=True)
         self.best_state = None
@@ -97,7 +114,7 @@ class Trainer:
     def _current_lr(self):
         if self.adaptive_lr:
             return poly_lr(self.base_lr, self.iter_num, self.max_iterations)
-        return self.base_lr
+        return self._lr
 
     def _device_mem(self) -> str:
         if self.device.type != "cuda":
@@ -106,14 +123,15 @@ class Trainer:
         total = torch.cuda.get_device_properties(self.device).total_memory
         return f"{used:.3g}G peak/{total / 1e9:.3g}G"
 
-    def _to_device(self, batch):
-        """(x, y) numpy -> device tensors: x in the compute dtype, y as
-        given. From pinned memory without blocking the host on a card."""
-        x, y = (torch.from_numpy(np.ascontiguousarray(a)) for a in batch[:2])
+    def _to_device(self, *arrays):
+        """numpy (x, y, ...) -> device tensors: x in the compute dtype, the
+        others as given. From pinned memory without blocking the host on a
+        card."""
+        tensors = [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
         if self.device.type == "cuda":
-            x, y = x.pin_memory(), y.pin_memory()
-        x = x.to(self.device, non_blocking=True).to(self.dtype)
-        return x, y.to(self.device, non_blocking=True)
+            tensors = [t.pin_memory() for t in tensors]
+        tensors = [t.to(self.device, non_blocking=True) for t in tensors]
+        return (tensors[0].to(self.dtype), *tensors[1:])
 
     def _save_best(self, epoch):
         self.best_state = {k: v.detach().clone()
@@ -158,16 +176,38 @@ class Trainer:
         fig.savefig(os.path.join(self.output_save_dir, f"{name}.png"))
         plt.close(fig)
 
+        # the two heads' curves; the val lists may be shorter than the
+        # train ones (the ratio loop appends none through epoch 5)
+        for series_t, series_v, fname in (
+                (self.train_loss_list_1, self.val_loss_list_1, "bce"),
+                (self.train_loss_list_2, self.val_loss_list_2, "mse")):
+            if series_t:
+                plt.figure(figsize=(8, 4))
+                plt.xlabel("epoch")
+                plt.ylabel("loss")
+                plt.plot(np.arange(len(series_t)), series_t,
+                         label="train loss")
+                plt.plot(np.arange(len(series_v)), series_v, label="val loss")
+                plt.grid(True)
+                plt.legend()
+                plt.savefig(os.path.join(self.output_save_dir, f"{fname}.png"))
+                plt.close()
+
     def train(self):
-        """The JAX trainer's dispatch; only the single-head loop is
-        ported."""
+        """The JAX trainer's dispatch."""
         not_ported.check(_LOOPS_NOT_PORTED, "training loop for",
                          self.loss_function)
         not_ported.check(_LOOPS_NOT_PORTED, "training loop for",
                          self.model_type)
-        if self.model_type not in _SINGLE_TYPES:
-            raise ValueError(f'Invalid model_type "{self.model_type}"')
-        return self.single_train()
+        if self.model_type in _SINGLE_TYPES:
+            return self.single_train()
+        if self.model_type in _MULTITASK_TYPES:
+            if self.loss_function == "multi_task_loss":
+                return self.multi_task_uc_train()
+            if self.loss_function == "multi_task_loss_ratio":
+                return self.multi_task_train_ratio()
+            return self.multi_task_train()
+        raise ValueError(f'Invalid model_type "{self.model_type}"')
 
     def single_train(self):
         model = self.model
@@ -184,11 +224,11 @@ class Trainer:
             self._log(f"LR {self._current_lr()}")
             losses = []
             for batch in self.dataloader["train"]:
-                x, y = self._to_device(batch)
+                x, y = self._to_device(*batch[:2])
                 losses.append(train_step(model, opt, x, y,
                                          self._current_lr(), self.generator))
                 self.iter_num += 1
-            epoch_loss = torch.stack(losses).mean().item()  # one sync
+            epoch_loss = _mean(losses)  # one sync
             time_elapsed = time.time() - since
             totaltime += time_elapsed
             mean_epoch = totaltime / max(1, epoch - self.start_epoch + 1)
@@ -205,12 +245,12 @@ class Trainer:
 
             vlosses, vscores = [], []
             for batch in self.dataloader["val"]:
-                x, y = self._to_device(batch)
+                x, y = self._to_device(*batch[:2])
                 loss, score, _ = eval_step(model, x, y)
                 vlosses.append(loss)
                 vscores.append(score)
-            val_loss = torch.stack(vlosses).mean().item()
-            val_score = torch.stack(vscores).mean().item()
+            val_loss = _mean(vlosses)
+            val_score = _mean(vscores)
             self.val_loss_list.append(val_loss)
             self.val_score_list.append(val_score)
             self._log(f"Val loss on epoch {epoch}: {val_loss}",
@@ -237,3 +277,95 @@ class Trainer:
         self.plot_loss_functions("total")
         self._restore_best()
         return self
+
+    def _multi_task_loop(self, combine: str, optimizer_name=None, lr=None):
+        """The two-head loop; batches are (x, (y1, y2))."""
+        model = self.model
+        optimizer_name = optimizer_name or self.optimizer_name
+        if lr is not None:
+            self.base_lr = self._lr = lr
+        if combine == "uncertainty":
+            model.add_log_vars()
+        opt = make_optimizer(optimizer_name, model.parameters(), self.base_lr,
+                             0.0 if combine == "uncertainty"
+                             else self.weight_decay)
+        train_step, eval_step = make_multitask_steps(
+            self.loss_function, self.num_classes, combine=combine,
+            fused_head=self.fused_head)
+        plateau = (ReduceLROnPlateau(self.base_lr) if combine == "ratio"
+                   and not self.adaptive_lr else None)
+        self.best_val_score = 1e15
+
+        for epoch in range(self.start_epoch, self.num_epochs + 1):
+            self._log(f"Epoch {epoch}/{self.num_epochs}", "-" * 10)
+            since = time.time()
+            use_ratio = torch.tensor(epoch > 5, device=self.device)
+
+            self._log(f"LR {self._current_lr()}")
+            losses, l1s, l2s = [], [], []
+            for x, (y1, y2) in self.dataloader["train"]:
+                x, y1, y2 = self._to_device(x, y1, y2)
+                loss, l1, l2 = train_step(model, opt, x, y1, y2,
+                                          self._current_lr(), self.generator,
+                                          use_ratio)
+                self.iter_num += 1
+                losses.append(loss)
+                l1s.append(l1)
+                l2s.append(l2)
+            epoch_loss = _mean(losses)  # the epoch's first sync
+            self.train_loss_list.append(epoch_loss)
+            self.train_loss_list_1.append(_mean(l1s))
+            self.train_loss_list_2.append(_mean(l2s))
+            if combine == "uncertainty":
+                stds = torch.exp(model.log_vars.detach()) ** 0.5
+                self._log(f"sigmas: {stds.tolist()}")
+            time_elapsed = time.time() - since
+            self._log(f"Train loss on epoch {epoch}: {epoch_loss}",
+                      "Training Time for this epoch: {:.0f}m {:.0f}s".format(
+                          time_elapsed // 60, time_elapsed % 60))
+            ckpt.save_weights(os.path.join(self.save_dir_model,
+                                           "last_epoch.pt"), model)
+
+            vlosses, v1s, v2s = [], [], []
+            for x, (y1, y2) in self.dataloader["val"]:
+                x, y1, y2 = self._to_device(x, y1, y2)
+                loss, l1, l2, _, _ = eval_step(model, x, y1, y2, use_ratio)
+                vlosses.append(loss)
+                v1s.append(l1)
+                v2s.append(l2)
+            val_loss = _mean(vlosses)
+            if combine == "ratio" and epoch <= 5:
+                continue  # the reference validates from epoch 6
+            if plateau is not None:
+                self._lr = plateau.step(val_loss)
+            self.val_loss_list.append(val_loss)
+            self.val_loss_list_1.append(_mean(v1s))
+            self.val_loss_list_2.append(_mean(v2s))
+            self.val_score_list.append(val_loss)
+            self._log(f"Val loss on epoch {epoch}: {val_loss}")
+
+            if val_loss < self.best_val_score:
+                self.early_stop_counter = 0
+                self.best_val_score = val_loss
+                self.best_loss = val_loss
+                self._log("saving best model")
+                self._save_best(epoch)
+            else:
+                self.early_stop_counter += 1
+            if self.early_stop_counter > self.patience:
+                self._log("Early stopping")
+                break
+        self.plot_loss_functions("total")
+        self._restore_best()
+        return self
+
+    def multi_task_train(self):
+        return self._multi_task_loop("sum")
+
+    def multi_task_uc_train(self):
+        # a fresh Adam(5e-4) over the parameters and the log-variances
+        return self._multi_task_loop("uncertainty", optimizer_name="Adam",
+                                     lr=5e-4)
+
+    def multi_task_train_ratio(self):
+        return self._multi_task_loop("ratio")
