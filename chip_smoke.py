@@ -1,13 +1,17 @@
 """Drive the PyTorch port's main paths once on one CUDA GPU and check them.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --cltr-profile   (build, then C3 under torch.profiler)
+    python3 chip_smoke.py --cltr-two-batches   (build, then the CLTR step's
+                                    losses over six steps on one and two batches)
 
 Builds the Hopper kernels from unet_torch_tpu_torch/csrc, then:
 
   1. device     the card's name and power limit; fails without a GPU
   2. build      nvcc of every kernel source (fused conv3x3+BN+ReLU, flash
                 attention forward, flash attention backward, dropout keep
-                mask, min-plus product), one process each, all at once; timed
+                mask, min-plus product, auction assignment, packed two-head
+                attention probe), one process each, all at once; timed
   3. kernel     the fused conv against its plain PyTorch version at every
                 distinct conv shape of the UNet-64 eval forward (batch 8,
                 512x512 input), in bf16 and in f32 with TF32 off; errors and
@@ -74,12 +78,43 @@ Builds the Hopper kernels from unet_torch_tpu_torch/csrc, then:
  M5. trainer    Trainer.train() for multi_task_reg, 2 epochs of 2 steps on
                 seeded numpy batches; best.pt (with log_vars) reloads
                 strictly into a fresh model and is served
+ C1. auction    the auction kernel against its plain version: equal matches,
+                round counts and bid counts at a CLTR train step's launch
+                (96 instances, 2000 queries, 64, 32 and 128 target slots), at
+                a ragged (5, 77, 13), with an instance that has no target, at
+                T = Q, and with max_iters too low to converge (the greedy
+                tail); every instance's cost within T * eps of scipy's
+                optimum; costs made as SetCriterion.cost_matrix makes them;
+                times of the kernel, the plain version and scipy on the host
+ C2. CLTR       the eval forward, train forward (o, lse) and backward kernels
+     attention  against their plain versions at CLTR's three shapes (encoder
+                self-, decoder self-, decoder cross-attention with Dqk 64
+                against Dv 32; bias and dropout 0.1 together), bf16 and f32;
+                compared and timed at the whole batch of 16
+ C3. CLTR       configs/cltr.yml's model (ResNet-50, 6 + 6 layers, 2000
+     main       queries) train step through train/cltr_steps.py, bf16, batch
+                16 of 256x256 crops with seeded points (two crops with none),
+                Adam, clip 0.1, matcher "auction": 18 train-forward, 18
+                backward and 1 auction launch a step, no host sync inside
+                the step, the loss finite and falling, img/s (also with the
+                scipy matcher), peak memory; the auction kernel on the costs
+                of one step's own launch against its plain version and scipy,
+                with its times and bound
+ C4. CLTR       one f32 step at batch 2, full width, 2 + 2 layers, dropout
+     model      off, card against CPU: the same matches, the loss, and every
+                gradient by T4's bound
+ C5. CLTR       Trainer.train() for CLTR, 2 epochs of 2 steps on seeded numpy
+     trainer    batches, val MAE / MRE; best.pt reloads strictly into a fresh
+                model; infer_step on 9 patches runs the 18 eval kernels
+ C6. packed     the packed two-head attention probe against its plain version
+     probe      at the ViT's shape and a ragged one, timed in turns with the
+                flash forward
   L. library    one PyTorch library call beside each kernel that has one, for
                 the time only (nothing in the port calls them): cuDNN
                 conv2d with the scale folded into its weights, a bias and a
                 ReLU at the conv shapes; scaled_dot_product_attention at the
                 ViT's shape, forward, and forward + backward under autograd
-                at dropout 0 and 0.1
+                at dropout 0 and 0.1, and at CLTR's three shapes
 
 Any failure raises and the script exits nonzero. The last line of stdout is
 {"ok": true, "device": {...}}; the line before it is one JSON object with the
@@ -184,6 +219,34 @@ EDT_REL_TOL = 1e-4
 # peak, as the UNet's bound (the gates add 1x1 convs and BN, sums in other
 # orders)
 ATT_UNET_REL_TOL = 1e-5
+# C1: (instances, queries, target slots, max_iters, how many targets are
+# valid) of the auction. The first three are one CLTR train step's launch:
+# 6 decoder levels x 16 crops, 2000 queries, the target count bucketed to 64
+# (C3's batch), 32 or 128. Then ragged T and Q, an instance without targets
+# among others, T = Q, and max_iters too low to converge (the greedy tail
+# runs).
+AUCTION_CASES = [(96, 2000, 64, 20000, "mixed"),
+                 (96, 2000, 32, 20000, "mixed"),
+                 (96, 2000, 128, 20000, "mixed"),
+                 (5, 77, 13, 20000, "mixed"),
+                 (4, 48, 48, 20000, "all"),
+                 (3, 40, 12, 1, "all")]
+# C2: CLTR's three attention calls at configs/cltr.yml's widths (batch 16,
+# 8 heads of 32, 2000 queries, an 8x8 memory): encoder self-attention,
+# decoder self-attention, decoder cross-attention (Dqk 64 against Dv 32).
+# The two that see the memory take the key-padding bias; dropout 0.1.
+CLTR_BATCH, CLTR_QUERIES, CLTR_CROP = 16, 2000, 256
+CLTR_ATTN_CASES = [((CLTR_BATCH, 8, 64, 64, 32, 32), True),
+                   ((CLTR_BATCH, 8, CLTR_QUERIES, CLTR_QUERIES, 32, 32),
+                    False),
+                   ((CLTR_BATCH, 8, CLTR_QUERIES, 64, 64, 32), True)]
+CLTR_TRAIN_ATTN_CASES = [(shape, masked, 0.1)
+                         for shape, masked in CLTR_ATTN_CASES]
+# The kernels are held against their plain versions at these whole shapes,
+# every batch row: the plain versions' f32 and int64 (B, H, 2000, 2000)
+# intermediates come to some tens of GiB, which the card holds. They are
+# timed over fewer turns than the kernels.
+CLTR_PLAIN_REPS = 3
 # published peaks of one H100 SXM (NVIDIA's data sheet): dense bf16 tensor
 # cores, f32 outside them (an FMA counts as two, so adds and mins run at
 # half of it), HBM3
@@ -359,13 +422,14 @@ def attention_inputs(shape, masked, gen):
     return q, k, v, mask
 
 
-def check_attention(at, dev):
-    """Phase 6. Returns {dtype: {shape: (err, ms, plain_ms)}}."""
+def check_attention(at, dev, cases=ATTN_CASES, tag="attention",
+                    plain_reps=REPS):
+    """Phase 6 and C2. Returns {dtype: {shape: (err, ms, plain_ms)}}."""
     gen = torch.Generator().manual_seed(SEED)
     results = {}
     for dtype in (torch.bfloat16, torch.float32):
         per_shape = {}
-        for shape, masked in ATTN_CASES:
+        for shape, masked in cases:
             b, h, nq, nk, dqk, dv = shape
             q, k, v, mask = attention_inputs(shape, masked, gen)
             q, k, v = (t.to(dev, dtype) for t in (q, k, v))
@@ -387,10 +451,11 @@ def check_attention(at, dev):
                 ms = median_ms(lambda: at.fused_attention(
                     q, k, v, key_padding_mask=mask))
                 plain_ms = median_ms(
-                    lambda: at.attention_reference(q, k, v, scale, bias))
+                    lambda: at.attention_reference(q, k, v, scale, bias),
+                    reps=plain_reps)
             per_shape[shape] = (err, ms, plain_ms)
             tflops = 2 * b * h * nq * nk * (dqk + dv) / ms / 1e9
-            phase("attention",
+            phase(tag,
                   f"{str(dtype)[6:]} (B,H,Nq,Nk,Dqk,Dv)={shape} "
                   f"masked={mask is not None} max_abs_err={err:.3e} (bound "
                   f"{bound:.3e}) kernel {ms:.4f} ms ({tflops:.1f} TFLOP/s) "
@@ -515,15 +580,16 @@ def check_mask(at, dev):
     return results, launches
 
 
-def check_train_attention(at, dev):
-    """T2. Returns {dtype: {(shape, masked, rate): (o_err, fwd_ms,
+def check_train_attention(at, dev, cases=TRAIN_ATTN_CASES,
+                          tag="T2 train kernels", plain_reps=REPS):
+    """T2 and C2. Returns {dtype: {(shape, masked, rate): (o_err, fwd_ms,
     fwd_plain_ms, grad_err, bwd_ms, bwd_plain_ms)}}, grad_err the largest
     absolute error of dq, dk and dv."""
     gen = torch.Generator().manual_seed(SEED)
     results = {}
     for dtype in (torch.bfloat16, torch.float32):
         per_case = {}
-        for shape, masked, rate in TRAIN_ATTN_CASES:
+        for shape, masked, rate in cases:
             b, h, nq, nk, dqk, dv = shape
             q, k, v, mask = attention_inputs(shape, masked, gen)
             g = torch.randn(b, h, nq, dv, generator=gen)
@@ -564,16 +630,16 @@ def check_train_attention(at, dev):
                 abs_err.append(err)
             fwd_ms = median_ms(lambda: at.attention_train_forward(*args))
             fwd_plain_ms = median_ms(lambda: at.attention_train_reference(
-                *args))
+                *args), reps=plain_reps)
             bwd_ms = median_ms(lambda: at.attention_backward(*bwd_args))
             bwd_plain_ms = median_ms(lambda: at.attention_backward_reference(
-                *bwd_args))
+                *bwd_args), reps=plain_reps)
             per_case[(shape, masked, rate)] = (o_err, fwd_ms, fwd_plain_ms,
                                                max(abs_err), bwd_ms,
                                                bwd_plain_ms)
             fwd_tf = 2 * b * h * nq * nk * (dqk + dv) / fwd_ms / 1e9
             bwd_tf = 2 * b * h * nq * nk * (3 * dqk + 2 * dv) / bwd_ms / 1e9
-            phase("T2 train kernels",
+            phase(tag,
                   f"{str(dtype)[6:]} (B,H,Nq,Nk,Dqk,Dv)={shape} masked="
                   f"{masked} rate {rate}: forward o max_abs_err {o_err:.3e} "
                   f"(bound {o_bound:.3e}) lse {lse_err:.3e}, kernel "
@@ -583,6 +649,8 @@ def check_train_attention(at, dev):
                   f"{GRAD_REL_TOL[dtype]:.2e}), kernel {bwd_ms:.4f} ms "
                   f"({bwd_tf:.1f} TFLOP/s) plain {bwd_plain_ms:.4f} ms")
             del q, k, v, g, o, lse, ref_o, ref_lse, grads, refs
+            del args, bwd_args
+            torch.cuda.empty_cache()
         results[dtype] = per_case
     return results
 
@@ -613,9 +681,11 @@ class PlainAttention(torch.autograd.Function):
 
 
 def _wrappers(at, fc):
+    from unet_torch_tpu_torch.kernels import auction as au
     from unet_torch_tpu_torch.kernels import minplus as mp
 
-    return {"fused_attention": at.fused_attention,
+    return {"auction_lsap": au.auction_lsap,
+            "fused_attention": at.fused_attention,
             "attention_train_forward": at.attention_train_forward,
             "attention_backward": at.attention_backward,
             "dropout_keep_mask": at.dropout_keep_mask,
@@ -666,9 +736,9 @@ def check_train_step(at, fc, vit, dev):
     reset_counts(at, fc)
     _, first = train_steps(train_step, model, opt, x, y, gen, 1)
     launches = counts(at, fc)
-    want = {"fused_attention": 0, "attention_train_forward": n_layers,
-            "attention_backward": n_layers, "dropout_keep_mask": 0,
-            "fused_conv3x3_bn_relu": 0, "minplus": 0}
+    want = dict.fromkeys(launches, 0)
+    want.update(attention_train_forward=n_layers,
+                attention_backward=n_layers)
     if launches != want:
         raise AssertionError(f"one TransUnet train step launched {launches}, "
                              f"expected {want}")
@@ -697,6 +767,25 @@ def check_train_step(at, fc, vit, dev):
           f"{plain_s * 1e3:.2f} ms = {BATCH / plain_s:.1f} img/s); peak "
           f"device memory {peak / 2**30:.2f} GiB")
     return launches, step_s, plain_s, peak
+
+
+def gradient_noise_ratio(g_gpu, g_cpu, g64):
+    """T4 and C4: the card's f32 gradients against a CPU f64 step's, each
+    error as a multiple of the larger of the CPU's own f32 error and 1e-6 of
+    the gradient's peak. Returns (the worst ratio, its parameter, its error
+    as a share of the peak)."""
+    worst, worst_name, worst_rel = 0.0, None, 0.0
+    for n, ref in g64.items():
+        if not torch.isfinite(g_gpu[n]).all():
+            raise AssertionError(f"non-finite card gradient of {n}")
+        peak = ref.abs().max().item()
+        card_err = (g_gpu[n] - ref).abs().max().item()
+        cpu_err = (g_cpu[n] - ref).abs().max().item()
+        ratio = card_err / max(cpu_err, 1e-6 * peak, 1e-30)
+        if ratio > worst:
+            worst, worst_name, worst_rel = ratio, n, card_err / max(peak,
+                                                                    1e-30)
+    return worst, worst_name, worst_rel
 
 
 def check_train_step_f32(dev):
@@ -728,17 +817,7 @@ def check_train_step_f32(dev):
     (loss_gpu, g_gpu), (loss_cpu, g_cpu) = out["card"], out["cpu"]
     g64 = out["cpu64"][1]
     loss_err = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
-    worst, worst_name, worst_rel = 0.0, None, 0.0
-    for n, ref in g64.items():
-        if not torch.isfinite(g_gpu[n]).all():
-            raise AssertionError(f"non-finite card gradient of {n}")
-        peak = ref.abs().max().item()
-        card_err = (g_gpu[n] - ref).abs().max().item()
-        cpu_err = (g_cpu[n] - ref).abs().max().item()
-        ratio = card_err / max(cpu_err, 1e-6 * peak, 1e-30)
-        if ratio > worst:
-            worst, worst_name, worst_rel = ratio, n, card_err / max(peak,
-                                                                    1e-30)
+    worst, worst_name, worst_rel = gradient_noise_ratio(g_gpu, g_cpu, g64)
     if loss_err > T4_LOSS_REL_TOL or worst > T4_NOISE_RATIO:
         raise AssertionError(f"f32 train step card vs CPU: loss rel err "
                              f"{loss_err} (bound {T4_LOSS_REL_TOL}), "
@@ -1206,6 +1285,551 @@ def check_multitask_trainer(at, fc, dev, xs):
     return launches
 
 
+def auction_inputs(b, q, t, kind, gen, dev):
+    """Costs (b, q, t) as SetCriterion.cost_matrix makes them (focal class
+    cost plus L1 point cost, 1e9 at invalid slots) from seeded predictions
+    near the focal prior and uniform points, and the valid mask: `all`
+    slots, or `mixed`: a random count per instance, instance 1 with none."""
+    from unet_torch_tpu_torch.models.cltr.criterion import SetCriterion
+
+    logits = torch.randn(b, q, 2, generator=gen) - 4.6
+    points = torch.rand(b, q, 3, generator=gen)
+    tgt_points = torch.rand(b, t, 3, generator=gen)
+    n = torch.full((b,), t)
+    if kind == "mixed":
+        n = torch.randint(1, t + 1, (b,), generator=gen)
+        n[1] = 0
+    valid = torch.arange(t)[None, :] < n[:, None]
+    labels = torch.ones(b, t, dtype=torch.long)
+    costs = SetCriterion().cost_matrix(
+        logits.to(dev), points.to(dev), labels.to(dev), tgt_points.to(dev),
+        valid.to(dev))
+    return costs.contiguous(), valid.to(dev)
+
+
+def check_auction(au, dev):
+    """C1. Returns auction_case's numbers by case."""
+    gen = torch.Generator().manual_seed(SEED)
+    return [auction_case(au, *auction_inputs(b, q, t, kind, gen, dev),
+                         max_iters, f"valid {kind}")
+            for b, q, t, max_iters, kind in AUCTION_CASES]
+
+
+def auction_case(au, costs, valid, max_iters, label, tag="C1 auction"):
+    """The auction kernel on costs (B, Q, T) and valid (B, T) against its
+    plain version (equal matches, rounds and bids) and against scipy (every
+    instance feasible and within T * eps of the optimum); times of the three
+    and the bound from the bids this data needed. Returns (mismatches, ms,
+    plain_ms, scipy_ms, bound_ms, bound_by, rounds, bids)."""
+    from scipy.optimize import linear_sum_assignment
+
+    b, q, t = costs.shape
+    match, rounds, bids = au.auction_lsap(costs, valid, max_iters,
+                                          stats=True)
+    torch.cuda.synchronize()
+    ref, ref_rounds, ref_bids = au.auction_lsap_reference(
+        costs, valid, max_iters, stats=True)
+    bad = int((match != ref).sum() + (rounds != ref_rounds).sum()
+              + (bids != ref_bids).sum())
+    if (match.shape != (b, t) or match.dtype != torch.int32 or bad):
+        raise AssertionError(
+            f"auction kernel differs from plain at (B,Q,T)=({b},{q},{t})"
+            f" max_iters {max_iters}: {bad} of matches, rounds and bids")
+    # feasible, and each instance within T * eps of scipy's optimum
+    t0 = time.perf_counter()
+    host_costs = costs.cpu().numpy()
+    n_valid = valid.sum(dim=1).cpu().numpy()
+    optimum = []
+    for z in range(b):
+        r, c = linear_sum_assignment(host_costs[z][:, :n_valid[z]])
+        optimum.append(host_costs[z][r, c].sum())
+    scipy_ms = (time.perf_counter() - t0) * 1e3
+    host_match = match.cpu().numpy()
+    worst = 0.0
+    for z in range(b):
+        n = int(n_valid[z])
+        m = host_match[z]
+        if len(set(m[:n].tolist())) != n or m[n:].any() or (
+                n == 0 and rounds[z].item()):
+            raise AssertionError(f"auction: infeasible match or a round "
+                                 f"without targets at instance {z}")
+        if n == 0 or max_iters < 20000:
+            continue
+        eps = 1e-4 * max(float(np.abs(host_costs[z][:, :n]).max()), 1e-6)
+        gap = float(host_costs[z][m[:n], np.arange(n)].sum()
+                    - optimum[z])
+        # T * eps, and a few f32 ulps of the summed costs
+        if gap > n * eps + 1e-5 * abs(optimum[z]):
+            raise AssertionError(f"auction instance {z}: cost {gap} over "
+                                 f"scipy's optimum, bound {n * eps}")
+        worst = max(worst, gap / (n * eps))
+    ms = median_ms(lambda: au.auction_lsap(costs, valid, max_iters))
+    plain_ms = median_ms(lambda: au.auction_lsap_reference(
+        costs, valid, max_iters), reps=3, warmup=1)
+    # the rows read in all rounds (a bid reads one row of Q floats) over
+    # the memory rate, against a subtract, two compares and a max per
+    # candidate over the f32 rate without FMA
+    n_bids = int(bids.sum().item())
+    bytes_ms = 4 * n_bids * q / PEAK_BYTES * 1e3
+    ops_ms = 4 * n_bids * q / PEAK_F32_NO_FMA * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
+    bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+    phase(tag,
+          f"(B,Q,T)=({b},{q},{t}) max_iters {max_iters} {label}: "
+          f"matches, rounds and bids equal the plain version's; rounds "
+          f"{int(rounds.min())}..{int(rounds.max())} (median "
+          f"{int(rounds.median())}), {n_bids} bids in all; worst cost gap "
+          f"{worst:.3f} of T*eps over scipy's optimum; kernel {ms:.4f} "
+          f"ms, plain {plain_ms:.2f} ms, scipy on the host with the copy "
+          f"{scipy_ms:.2f} ms; bound {bound_ms:.5f} ms by {bound_by}")
+    return (bad, ms, plain_ms, scipy_ms, bound_ms, bound_by,
+            rounds.cpu().tolist(), n_bids)
+
+
+def cltr_config():
+    """configs/cltr.yml's `cltr_config` with its train precision, as the
+    train CLI hands it to build_cltr."""
+    from unet_torch_tpu_torch.cli.config import Config
+
+    cfg = Config.load(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                   "configs", "cltr.yml"))
+    args = dict(cfg.raw["cltr_config"])
+    args.setdefault("precision", cfg.train.precision)
+    return cfg, args
+
+
+def seeded_cltr(gen, **overrides):
+    """(model, criterion) of configs/cltr.yml with seeded weights and seeded,
+    non-trivial frozen-BN tensors. Each bottleneck's last BN is scaled by
+    0.25, as a trained ResNet's residual branches are small: with identity
+    statistics sixteen residual sums would double the variance each."""
+    from unet_torch_tpu_torch.models.cltr.backbone import FrozenBatchNorm
+    from unet_torch_tpu_torch.models.cltr.model import build_cltr
+
+    _, args = cltr_config()
+    args.update(overrides)
+    model, criterion, _ = build_cltr(args, gen)
+    for name, m in model.named_modules():
+        if isinstance(m, FrozenBatchNorm):
+            n = m.weight.numel()
+            last = name.endswith(("bn3", "downsample.1"))
+            m.weight.copy_((torch.rand(n, generator=gen) + 0.5)
+                           * (0.25 if last else 1.0))
+            m.bias.copy_(torch.randn(n, generator=gen) * 0.1)
+            m.running_mean.copy_(torch.randn(n, generator=gen) * 0.1)
+            m.running_var.copy_(torch.rand(n, generator=gen) + 0.5)
+    return model, criterion
+
+
+def cltr_batch(rng, batch, size, max_points=60, empty=(1, 5)):
+    """`batch` synthetic crops of size x size with point targets as
+    DataPointReg yields them: dark disks on a noisy light background, one
+    point per disk, (y, x, mean distance to the 3 nearest points) / size;
+    the crops listed in `empty` have no point. Returns (images, targets)."""
+    yy, xx = np.mgrid[:size, :size]
+    x = 200.0 + 10.0 * rng.standard_normal((batch, size, size, 3))
+    targets = []
+    for i, img in enumerate(x):
+        n = 0 if i in empty else int(rng.randint(3, max_points + 1))
+        pts = rng.randint(0, size, (n, 2)).astype(np.float64)
+        for cy, cx in pts:
+            img[(yy - cy) ** 2 + (xx - cx) ** 2 <= 16] = rng.uniform(40, 160,
+                                                                     3)
+        knn = np.zeros((n, 1))
+        if n > 1:
+            dist = np.sqrt(((pts[:, None] - pts[None]) ** 2).sum(-1))
+            knn = np.sort(dist, axis=1)[:, 1:4].mean(axis=1, keepdims=True)
+        points = (np.concatenate([pts, knn], axis=1) / size).astype(
+            np.float32)
+        targets.append({"labels": np.ones(n, np.int64), "points": points,
+                        "points_macher": points})
+    x = x.astype(np.float32)
+    mean = x.mean(axis=(1, 2), keepdims=True)
+    std = x.std(axis=(1, 2), keepdims=True)
+    return (x - mean) / std, targets
+
+
+def cltr_step_inputs(rng, batch, model, dev, dtype):
+    """One padded train batch on the device, as the CLTR loop makes it."""
+    from unet_torch_tpu_torch.models.cltr.criterion import pad_targets
+    from unet_torch_tpu_torch.train.cltr_loop import _bucket
+
+    xs, targets = cltr_batch(rng, batch, CLTR_CROP)
+    t = _bucket(max(len(tg["labels"]) for tg in targets))
+    labels, points, _, valid = pad_targets(targets, t, model.channel_point)
+    return (torch.from_numpy(xs).to(dev, dtype),
+            *(torch.from_numpy(a).to(dev) for a in (labels, points, valid)))
+
+
+def run_cltr_steps(model, criterion, opt, batch, gens, matcher, n):
+    """n CLTR train steps on one batch; (host seconds per step, ending in a
+    sync; losses)."""
+    from unet_torch_tpu_torch.train.cltr_steps import train_step
+
+    times, losses = [], []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        loss, _ = train_step(model, criterion, opt, *batch, 1e-4, *gens,
+                             matcher)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+    return times, losses
+
+
+def check_cltr_train_step(at, fc, au, dev, profile=False):
+    """C3. Returns (launches of one step, step seconds with the auction,
+    with scipy, peak bytes, auction_case's numbers on the costs of a step's
+    own auction launch). With `profile` the timed steps run under
+    torch.profiler and the device time is printed by kernel name."""
+    from unet_torch_tpu_torch.core.rng import seed_everything
+    from unet_torch_tpu_torch.train import cltr_steps
+    from unet_torch_tpu_torch.train.cltr_steps import train_step
+    from unet_torch_tpu_torch.train.optim import make_optimizer
+
+    cfg, args = cltr_config()
+    model, criterion = seeded_cltr(seed_everything(SEED))
+    model.to(dev)
+    opt = make_optimizer(cfg.train.optimizer, model.parameters(),
+                         cfg.train.lr_rate, cfg.train.weight_decay,
+                         clip_max_norm=float(args["clip_max_norm"]))
+    batch = cltr_step_inputs(np.random.RandomState(SEED + 8), CLTR_BATCH,
+                             model, dev, model.dtype)
+    t = batch[1].shape[1]
+    gens = (torch.Generator(device=dev).manual_seed(SEED),
+            torch.Generator().manual_seed(SEED))
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts(at, fc)
+    _, first = run_cltr_steps(model, criterion, opt, batch, gens, "auction",
+                              1)
+    launches = counts(at, fc)
+    n_attn = args["enc_layers"] + 2 * args["dec_layers"]
+    want = dict.fromkeys(launches, 0)
+    want.update(attention_train_forward=n_attn, attention_backward=n_attn,
+                auction_lsap=1)
+    if launches != want:
+        raise AssertionError(f"one CLTR train step launched {launches}, "
+                             f"expected {want}")
+    times, losses = run_cltr_steps(model, criterion, opt, batch, gens,
+                                   "auction", TRAIN_WARMUP - 1 + TRAIN_STEPS)
+    losses = first + losses
+    peak = torch.cuda.max_memory_allocated(dev)
+    if not falling(losses):
+        raise AssertionError(f"CLTR train loss not finite and falling: "
+                             f"{losses}")
+    step_s = statistics.median(times[TRAIN_WARMUP - 1:])
+    # the step reads nothing back: any implicit device-to-host sync raises.
+    # The costs and the valid mask that this step hands its auction launch
+    # are kept, for the kernel's numbers on the model's own costs.
+    step_launch = []
+
+    def keep_inputs(costs, valid):
+        step_launch.append((costs, valid))
+        return au.auction_lsap_batched(costs, valid)
+
+    cltr_steps.auction_lsap_batched = keep_inputs
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        train_step(model, criterion, opt, *batch, 1e-4, *gens, "auction")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        cltr_steps.auction_lsap_batched = au.auction_lsap_batched
+    torch.cuda.synchronize()
+    (costs, valid), = step_launch
+    step_auction = auction_case(
+        au, costs.flatten(0, 1).contiguous(), valid.flatten(0, 1), 20000,
+        "the costs of one train step's launch (6 levels x 16 crops)",
+        "C3 CLTR auction")
+    del costs, valid, step_launch
+    if profile:
+        profile_cltr_step(model, criterion, opt, batch, gens, step_s)
+    # the same step with scipy on the host in place of the auction, for
+    # comparison only
+    scipy_times, _ = run_cltr_steps(model, criterion, opt, batch, gens,
+                                    "scipy", 2 + TRAIN_STEPS)
+    scipy_s = statistics.median(scipy_times[2:])
+    phase("C3 CLTR train main",
+          f"CLTR (ResNet-50, 6+6 layers, 2000 queries) train step bf16 "
+          f"B={CLTR_BATCH} {CLTR_CROP}x{CLTR_CROP} Adam, T={t} target slots, "
+          f"{int(batch[3].sum())} points: launches per step {launches}, no "
+          f"host sync inside the step; loss {losses[0]:.5f} -> "
+          f"{losses[-1]:.5f} over {len(losses)} steps on one batch (largest "
+          f"{max(losses):.2f} at step {int(np.argmax(losses)) + 1}); median "
+          f"{step_s * 1e3:.2f} ms = {CLTR_BATCH / step_s:.1f} img/s (scipy "
+          f"matcher {scipy_s * 1e3:.2f} ms = {CLTR_BATCH / scipy_s:.1f} "
+          f"img/s); peak device memory {peak / 2**30:.2f} GiB")
+    return launches, step_s, scipy_s, peak, step_auction
+
+
+def profile_cltr_step(model, criterion, opt, batch, gens, step_s, n=3):
+    """Device time of n CLTR train steps by kernel name, the busy share of
+    the unprofiled step, and the share of the hand-written kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from unet_torch_tpu_torch.train.cltr_steps import train_step
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            train_step(model, criterion, opt, *batch, 1e-4, *gens, "auction")
+        torch.cuda.synchronize()
+    # the device's own kernels and copies only: an operator's row and an
+    # annotated range (the optimizer's step) repeat their kernels
+    rows = [(e.key, e.self_device_time_total / 1e3 / n, e.count / n)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and e.self_device_time_total > 0]
+    rows.sort(key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows)
+    ours = [r for r in rows if any(k in r[0] for k in (
+        "flash", "attention", "auction", "dkdv", "dq_kernel"))]
+    phase("C3 profile",
+          f"device busy {busy:.2f} ms a step (sum of kernel times) against "
+          f"an unprofiled step of {step_s * 1e3:.2f} ms: idle "
+          f"{100 * (1 - busy / (step_s * 1e3)):.1f}%; "
+          f"{sum(r[2] for r in rows):.0f} device events a step; "
+          f"hand-written kernels {sum(r[1] for r in ours):.2f} ms: "
+          + "; ".join(f"{k[:60]} {ms:.3f} ms x{c:.0f}" for k, ms, c in ours))
+    for key, ms, count in rows[:40]:
+        phase("C3 profile", f"{ms:8.3f} ms x{count:6.1f}  {key[:110]}")
+
+
+def cltr_two_batches(dev, n=6):
+    """Diagnostic, not a check: the full-width bf16 CLTR train step from the
+    same seeded weights over n steps on one batch (A A ...), on two in turn
+    (A B ..., B A ...), on two with the backbone's parameters held, and on
+    two at a tenth of the learning rate. Prints each step's loss before its
+    update, with the last level's focal and point terms."""
+    from unet_torch_tpu_torch.core.rng import seed_everything
+    from unet_torch_tpu_torch.train.cltr_steps import train_step
+    from unet_torch_tpu_torch.train.optim import make_optimizer
+
+    cfg, args = cltr_config()
+    batches = {}
+    for i, name in enumerate("AB"):
+        model, _ = seeded_cltr(seed_everything(SEED))
+        batches[name] = cltr_step_inputs(
+            np.random.RandomState(SEED + 8 + i), CLTR_BATCH, model, dev,
+            model.dtype)
+    for label, order, lr, hold_backbone in (
+            ("one batch", "AAAAAA", 1e-4, False),
+            ("two batches", "ABABAB", 1e-4, False),
+            ("two batches, B first", "BABABA", 1e-4, False),
+            ("two batches, backbone held", "ABABAB", 1e-4, True),
+            ("two batches, lr 1e-5", "ABABAB", 1e-5, False)):
+        model, criterion = seeded_cltr(seed_everything(SEED))
+        model.to(dev)
+        if hold_backbone:
+            model.backbone.requires_grad_(False)
+        opt = make_optimizer(
+            cfg.train.optimizer,
+            [p for p in model.parameters() if p.requires_grad],
+            cfg.train.lr_rate, cfg.train.weight_decay,
+            clip_max_norm=float(args["clip_max_norm"]))
+        gens = (torch.Generator(device=dev).manual_seed(SEED),
+                torch.Generator().manual_seed(SEED))
+        rows = []
+        for name in order[:n]:
+            loss, parts = train_step(model, criterion, opt, *batches[name],
+                                     lr, *gens, "auction")
+            rows.append(f"{name} {loss.item():.3f} (focal "
+                        f"{parts['loss_ce'].item():.4f}, point "
+                        f"{parts['loss_point'].item():.4f})")
+        phase("CLTR two batches", f"{label}, Adam lr {lr}: " + "; ".join(rows))
+        del model, opt
+
+
+def check_cltr_step_f32(dev):
+    """C4: one f32 CLTR train step at batch 2, full width, two encoder and
+    two decoder layers, dropout off (the card and the CPU would draw other
+    masks), on the card (kernels) against the CPU (plain versions) in f32
+    and in f64: the matches, the loss and every gradient, by T4's bound."""
+    from unet_torch_tpu_torch.core.rng import seed_everything
+    from unet_torch_tpu_torch.train.cltr_steps import match_targets, train_step
+    from unet_torch_tpu_torch.train.optim import make_optimizer
+
+    model, criterion = seeded_cltr(seed_everything(SEED), enc_layers=2,
+                                   dec_layers=2, dropout=0.0,
+                                   precision="f32")
+    rng = np.random.RandomState(SEED + 9)
+    cpu = torch.device("cpu")
+    host_batch = cltr_step_inputs(rng, 2, model, cpu, torch.float32)
+    out = {}
+    for side, device, dtype in (("card", dev, torch.float32),
+                                ("cpu", cpu, torch.float32),
+                                ("cpu64", cpu, torch.float64)):
+        m = copy.deepcopy(model).to(device, dtype)
+        m.dtype = dtype
+        x, labels, points, valid = (a.to(device) for a in host_batch)
+        points = points.to(dtype)
+        opt = make_optimizer("Adam", m.parameters(), 1e-4, 1e-4)
+        with torch.no_grad():
+            match = match_targets(criterion, m.train()(x), labels, points,
+                                  valid).cpu()
+        loss, _ = train_step(m, criterion, opt, x, labels, points, valid,
+                             1e-4, None, None, "auction")
+        out[side] = (loss.item(), {n: p.grad.detach().cpu().double()
+                                   for n, p in m.named_parameters()}, match)
+    (loss_gpu, g_gpu, m_gpu), (loss_cpu, g_cpu, m_cpu) = (out["card"],
+                                                          out["cpu"])
+    g64 = out["cpu64"][1]
+    if not torch.equal(m_gpu, m_cpu):
+        raise AssertionError(f"CLTR f32 step: the card and the CPU picked "
+                             f"{int((m_gpu != m_cpu).sum())} other matches")
+    loss_err = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
+    worst, worst_name, worst_rel = gradient_noise_ratio(g_gpu, g_cpu, g64)
+    if loss_err > T4_LOSS_REL_TOL or worst > T4_NOISE_RATIO:
+        raise AssertionError(f"CLTR f32 train step card vs CPU: loss rel err "
+                             f"{loss_err} (bound {T4_LOSS_REL_TOL}), "
+                             f"gradient {worst_name} {worst} times the CPU's "
+                             f"f32 error (bound {T4_NOISE_RATIO})")
+    phase("C4 CLTR model",
+          f"CLTR f32 train step B=2 {CLTR_CROP}x{CLTR_CROP}, 2+2 layers, "
+          f"2000 queries, card vs CPU: the same {m_gpu.numel()} matches; "
+          f"loss {loss_gpu:.7f} vs {loss_cpu:.7f} (rel err {loss_err:.2e}, "
+          f"bound {T4_LOSS_REL_TOL:.0e}); {len(g64)} gradients against the "
+          f"CPU's f64 step: the worst is {worst_name}, {worst:.2f} times the "
+          f"CPU's f32 error (bound {T4_NOISE_RATIO:.0f}; {worst_rel:.2e} of "
+          f"its peak)")
+    return loss_err, worst
+
+
+def check_cltr_trainer(at, fc, dev):
+    """C5: the CLTR loop through Trainer.train() on seeded numpy batches,
+    then best.pt reloaded strictly and served by infer_step. Returns the
+    launches of that eval forward."""
+    from unet_torch_tpu_torch.ckpt import load_weights
+    from unet_torch_tpu_torch.core.rng import seed_everything
+    from unet_torch_tpu_torch.models.cltr.model import build_cltr
+    from unet_torch_tpu_torch.train.cltr_loop import cltr_topk_count
+    from unet_torch_tpu_torch.train.cltr_steps import infer_step
+    from unet_torch_tpu_torch.train.trainer import Trainer
+
+    start = time.perf_counter()
+    rng = np.random.RandomState(SEED + 10)
+    cfg, args = cltr_config()
+
+    def val_item():
+        # one 768x768 image as the val dataset tiles it: 9 patches and
+        # their dot maps
+        xs, targets = cltr_batch(rng, 9, CLTR_CROP, empty=())
+        dots = np.zeros((9, CLTR_CROP, CLTR_CROP), np.float32)
+        for d, tg in zip(dots, targets):
+            yx = np.rint(tg["points"][:, :2] * CLTR_CROP).astype(int)
+            d[yx[:, 0].clip(0, CLTR_CROP - 1),
+              yx[:, 1].clip(0, CLTR_CROP - 1)] = 1
+        return xs, dots
+
+    loaders = {"train": [cltr_batch(rng, CLTR_BATCH, CLTR_CROP)
+                         for _ in range(2)],
+               "val": [val_item() for _ in range(2)]}
+    with tempfile.TemporaryDirectory() as tmp:
+        run = os.path.join(tmp, "run")
+        model, criterion = seeded_cltr(seed_everything(SEED))
+        trainer = Trainer(model, "CLTR", run, loaders, CLTR_BATCH,
+                          cfg.train.optimizer, cfg.train.lr_rate,
+                          cfg.train.weight_decay, patience=25, num_epochs=2,
+                          loss_function=cfg.train.loss,
+                          accuracy_metric=cfg.train.accuracy, num_classes=2,
+                          lr_scheduler=cfg.train.adaptive_lr, seed=SEED,
+                          device=dev, dtype=model.dtype, plot=False)
+        trainer.criterion = criterion
+        trainer.cltr_clip_max_norm = float(args["clip_max_norm"])
+        reset_counts(at, fc)
+        trainer.train()
+        train_launches = counts(at, fc)
+        losses = (trainer.train_loss_list + trainer.val_loss_list
+                  + trainer.val_score_list)
+        if len(trainer.train_loss_list) != 2 or not np.isfinite(losses).all():
+            raise AssertionError(f"CLTR trainer losses {losses}")
+        if train_launches["auction_lsap"] != 4:
+            raise AssertionError(f"the CLTR loop launched {train_launches}")
+        for name in ("logs.txt", "models/best.pt", "models/last_epoch.pt"):
+            if not os.path.exists(os.path.join(run, name)):
+                raise AssertionError(f"trainer wrote no {name}")
+        served = load_weights(os.path.join(run, "models", "best.pt"),
+                              build_cltr(args)[0]).to(dev)
+    x = torch.from_numpy(loaders["val"][0][0]).to(dev)
+    reset_counts(at, fc)
+    logits, points = infer_step(served, x)
+    torch.cuda.synchronize()
+    launches = counts(at, fc)
+    want = dict.fromkeys(launches, 0)
+    want["fused_attention"] = args["enc_layers"] + 2 * args["dec_layers"]
+    if (launches != want or logits.shape != (9, CLTR_QUERIES, 2)
+            or points.shape != (9, CLTR_QUERIES, 3)
+            or logits.dtype != torch.float32
+            or not torch.isfinite(logits).all()
+            or not ((points >= 0) & (points <= 1)).all()):
+        raise AssertionError(f"the trained CLTR's eval forward: launches "
+                             f"{launches}, logits {logits.shape}")
+    count = cltr_topk_count(logits.cpu().numpy())
+    fwd_s = forward_s(lambda t: infer_step(served, t), x)
+    phase("C5 CLTR trainer",
+          f"Trainer.train CLTR bf16 B={CLTR_BATCH} {CLTR_CROP}x{CLTR_CROP}, "
+          f"2 epochs x 2 steps: train loss {trainer.train_loss_list}, val "
+          f"MAE {trainer.val_loss_list}, MRE {trainer.val_score_list}; "
+          f"best.pt reloaded strictly; infer_step on 9 patches launched "
+          f"{launches['fused_attention']} eval attention kernels, count "
+          f"{count}, median {fwd_s * 1e3:.2f} ms = {9 / fwd_s:.1f} patches/s;"
+          f" {time.perf_counter() - start:.1f} s")
+    return launches, fwd_s
+
+
+def check_packed2(at, dev):
+    """C6, a probe on its own path: the packed two-head forward at the ViT's
+    shape and at a ragged one against its plain version, and its time beside
+    the flash forward's in turns. Returns ((err, ms, plain_ms, flash_ms),
+    launches of the probe's own run)."""
+    gen = torch.Generator().manual_seed(SEED)
+    b, h, n, _, d, _ = ATTN_CASES[0][0]
+    out = None
+    at.packed2_attention.launches = 0
+    ran = []
+    for shape in ((b, h, n, n), (3, 4, 100, 77)):
+        bb, hh, nq, nk = shape
+        q = torch.randn(bb, hh, nq, d, generator=gen).to(dev, torch.bfloat16)
+        k = torch.randn(bb, hh, nk, d, generator=gen).to(dev, torch.bfloat16)
+        v = torch.randn(bb, hh, nk, d, generator=gen).to(dev, torch.bfloat16)
+        with torch.inference_mode():
+            o = at.packed2_attention(q, k, v)
+            torch.cuda.synchronize()
+            ran.append((shape, q, k, v, o))
+    launches = at.packed2_attention.launches
+    if launches != 2:
+        raise AssertionError(f"{launches} packed probe launches for 2 calls")
+    for shape, q, k, v, o in ran:
+        with torch.inference_mode():
+            ref = at.attention_reference(q, k, v, d ** -0.5)
+            err = (o.float() - ref.float()).abs().max().item()
+            bound = ATTN_REL_TOL[torch.bfloat16] * v.float().abs().max().item()
+            if not (o.shape == ref.shape and o.dtype == torch.bfloat16
+                    and torch.isfinite(o).all() and err <= bound):
+                raise AssertionError(f"packed probe disagrees with plain at "
+                                     f"{shape}: {err} > {bound}")
+            if out is None:
+                # flash, packed, packed, flash: the medians of each pair
+                runs = [median_ms(lambda: fn(q, k, v)) for fn in (
+                    at.fused_attention, at.packed2_attention,
+                    at.packed2_attention, at.fused_attention)]
+                plain_ms = median_ms(
+                    lambda: at.attention_reference(q, k, v, d ** -0.5))
+                out = (err, (runs[1] + runs[2]) / 2, plain_ms,
+                       (runs[0] + runs[3]) / 2)
+                phase("C6 packed probe",
+                      f"(B,H,N,D)=({b},{h},{n},{d}) bf16: max_abs_err "
+                      f"{err:.3e} (bound {bound:.3e}); packed {runs[1]:.4f} "
+                      f"and {runs[2]:.4f} ms, flash forward {runs[0]:.4f} and "
+                      f"{runs[3]:.4f} ms, plain {plain_ms:.4f} ms: "
+                      f"{'packed' if out[1] < out[3] else 'flash'} wins")
+            else:
+                phase("C6 packed probe", f"ragged (B,H,Nq,Nk)={shape}: "
+                      f"max_abs_err {err:.3e} (bound {bound:.3e})")
+    return out, launches
+
+
 def library_conv_ms(shapes, dev):
     """L. {(H, Cin, Cout): ms} of cuDNN at the bf16 conv shapes: conv2d on
     channels_last tensors with the BN scale folded into the weights, the
@@ -1262,7 +1886,62 @@ def library_attention_ms(dev):
     return out
 
 
-def main():
+def library_cltr_attention_ms(dev):
+    """L. scaled_dot_product_attention at CLTR's three bf16 shapes, the
+    key-padding bias as its additive mask: {shape: (forward ms under
+    inference_mode, forward ms with autograd at dropout 0.1, backward ms)}.
+    The times only."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator().manual_seed(SEED)
+    out = {}
+    for shape, masked in CLTR_ATTN_CASES:
+        b, h, nq, nk, dqk, dv = shape
+        q, k, v, mask = attention_inputs(shape, masked, gen)
+        g = torch.randn(b, h, nq, dv, generator=gen).to(dev, torch.bfloat16)
+        q, k, v = (t.to(dev, torch.bfloat16) for t in (q, k, v))
+        bias = None
+        if mask is not None:  # finite, so that a fully padded row has no NaN
+            bias = torch.zeros(b, 1, 1, nk).masked_fill(
+                mask[:, None, None, :], -1e4).to(dev, torch.bfloat16)
+        with torch.inference_mode():
+            fwd = median_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=bias))
+        q, k, v = (t.requires_grad_() for t in (q, k, v))
+        train_fwd = median_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=bias, dropout_p=0.1))
+        o = F.scaled_dot_product_attention(q, k, v, attn_mask=bias,
+                                           dropout_p=0.1)
+        bwd = median_ms(lambda: torch.autograd.grad(o, (q, k, v), g,
+                                                    retain_graph=True))
+        out[shape] = (fwd, train_fwd, bwd)
+        del q, k, v, g, o
+    return out
+
+
+def cltr_attention_numbers(results, index, lib, lib_index, layers,
+                           backward=False, lse=False):
+    """The CLTR part of an attention kernel's entry: kernel, plain, bound and
+    library ms summed over one forward's or step's launches (each shape once
+    per layer), and by shape. `results` maps a case to its tuple of numbers,
+    `index` = (error, ms, plain ms) positions in it."""
+    by_shape, total = {}, dict.fromkeys(("ms", "plain_ms", "bound_ms",
+                                         "library_ms"), 0.0)
+    for (case, numbers), n in zip(results.items(), layers):
+        shape = case[0] if isinstance(case[0], tuple) else case
+        bound_ms, bound_by = attention_bound(shape, backward=backward,
+                                             lse=lse)
+        row = {"launches": n, "max_abs_err": numbers[index[0]],
+               "ms": numbers[index[1]], "plain_ms": numbers[index[2]],
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "library_ms": lib[shape][lib_index]}
+        by_shape[str(shape)] = row
+        for key in total:
+            total[key] += n * row[key]
+    return {**total, "by_shape": by_shape}
+
+
+def main(cltr_profile=False, cltr_two_batches_only=False):
     # 1. device
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -1278,6 +1957,7 @@ def main():
     from unet_torch_tpu_torch.core.rng import seed_everything
     from unet_torch_tpu_torch.eval.reports import make_predict_fn
     from unet_torch_tpu_torch.kernels import attention as at
+    from unet_torch_tpu_torch.kernels import auction as au
     from unet_torch_tpu_torch.kernels import build
     from unet_torch_tpu_torch.kernels import fused_conv as fc
     from unet_torch_tpu_torch.kernels import minplus as mp
@@ -1288,7 +1968,10 @@ def main():
     start = time.perf_counter()
     libs = build.build_all(["fused_conv3x3_bn_relu", "flash_attention_fwd",
                             "flash_attention_bwd", "dropout_keep_mask",
-                            "minplus"])
+                            "minplus", "auction_lsap",
+                            "packed2_attention_fwd"])
+    au._library()
+    at._packed2_library()
     mp._library()
     fc._library()
     at._library()
@@ -1297,6 +1980,12 @@ def main():
     build_s = time.perf_counter() - start
     phase("build", f"{', '.join(p.name for p in libs)} built and loaded in "
           f"{build_s:.2f} s")
+    if cltr_profile:
+        check_cltr_train_step(at, fc, au, dev, profile=True)
+        return
+    if cltr_two_batches_only:
+        cltr_two_batches(dev)
+        return
 
     # 3. fused conv against plain, at the UNet's shapes
     shapes = conv_shapes(BASE, SIZE)
@@ -1414,9 +2103,30 @@ def main():
     mt_step_s, mt_eval, att_eval = check_multitask(at, fc, dev, xs)
     m5_eval = check_multitask_trainer(at, fc, dev, xs)
 
+    # C1-C6: the auction kernel, the attention kernels at CLTR's shapes,
+    # the CLTR train step, model, trainer, and the packed two-head probe
+    aures = check_auction(au, dev)
+    cres = check_attention(at, dev, CLTR_ATTN_CASES, "C2 CLTR attention",
+                           CLTR_PLAIN_REPS)
+    cres2 = check_train_attention(at, dev, CLTR_TRAIN_ATTN_CASES,
+                                  "C2 CLTR train kernels", CLTR_PLAIN_REPS)
+    c3_launches, cltr_step_s, cltr_scipy_s, cltr_peak, step_auction = \
+        check_cltr_train_step(at, fc, au, dev)
+    start = time.perf_counter()
+    check_cltr_step_f32(dev)
+    phase("C4 CLTR model", f"card + CPU f32 train step took "
+          f"{time.perf_counter() - start:.1f} s")
+    c5_launches, cltr_infer_s = check_cltr_trainer(at, fc, dev)
+    p2res, p2_launches = check_packed2(at, dev)
+
     # L. the library calls beside the kernels, for their times only
     lib_conv = library_conv_ms(shapes + tu_shapes, dev)
     lib_attn = library_attention_ms(dev)
+    lib_cltr = library_cltr_attention_ms(dev)
+    phase("L library", "scaled_dot_product_attention bf16 at CLTR's shapes, "
+          "forward / forward with autograd at dropout 0.1 / backward ms: "
+          + "; ".join(f"{s}: {a:.4f} / {b:.4f} / {c:.4f}"
+                      for s, (a, b, c) in lib_cltr.items()))
     phase("L library", "cuDNN conv2d (scale folded) + bias + ReLU, bf16 "
           f"B={BATCH}: UNet's 18 shapes "
           f"{sum(lib_conv[s] for s in shapes):.4f} ms, TransUnet decoder's 9 "
@@ -1450,6 +2160,11 @@ def main():
     n_minplus = m3_launches["minplus"]
     # the step's two launches are M1's first two cases, in the other order
     step_minplus = mpres[:2]
+    # CLTR: each of the three attention shapes once per layer
+    _, cltr_args = cltr_config()
+    cltr_layers = [cltr_args["enc_layers"], cltr_args["dec_layers"],
+                   cltr_args["dec_layers"]]
+    cltr_bf16, cltr_train_bf16 = cres[torch.bfloat16], cres2[torch.bfloat16]
     print(smi)
     print(json.dumps({"kernels": [{
         "name": "fused_conv3x3_bn_relu",
@@ -1481,7 +2196,12 @@ def main():
         "replaces": "unet_torch_tpu/kernels/attention.py:68",
         "also_replaces": "unet_torch_tpu/kernels/attention.py:140",
         "launches": attn_launches,
-        "launches_by_path": {"transunet": attn_launches},
+        "launches_by_path": {"transunet": attn_launches,
+                             "cltr_eval": c5_launches["fused_attention"]},
+        # CLTR's eval forward: 6 encoder, 6 decoder self- and 6
+        # cross-attentions at batch 16 (the trained model served 9 patches)
+        "cltr": cltr_attention_numbers(cltr_bf16, (0, 1, 2), lib_cltr, 0,
+                                       cltr_layers),
         "max_abs_err": max(e for e, _, _ in attn_bf16.values()),
         # bf16, the ViT's shape, summed over the 12 launches of a forward
         "ms": attn_launches * attn_bf16[vit_shape][1],
@@ -1497,7 +2217,12 @@ def main():
         "replaces": "unet_torch_tpu/kernels/attention.py:442",
         # the TransUnet train step's, one step
         "launches": n_fwd,
-        "launches_by_path": {"transunet_train": n_fwd},
+        "launches_by_path": {
+            "transunet_train": n_fwd,
+            "cltr_train": c3_launches["attention_train_forward"]},
+        # one CLTR train step's 18 launches, bias and dropout 0.1 together
+        "cltr": cltr_attention_numbers(cltr_train_bf16, (0, 1, 2), lib_cltr,
+                                       1, cltr_layers, lse=True),
         "max_abs_err": max(e[0] for e in train_bf16.values()),
         # bf16, the ViT's shape at rate 0, summed over the 12 launches
         "ms": n_fwd * vit_train[1],
@@ -1514,7 +2239,11 @@ def main():
         "also_replaces": ["unet_torch_tpu/kernels/attention.py:561",
                           "unet_torch_tpu/kernels/attention.py:256"],
         "launches": n_bwd,
-        "launches_by_path": {"transunet_train": n_bwd},
+        "launches_by_path": {
+            "transunet_train": n_bwd,
+            "cltr_train": c3_launches["attention_backward"]},
+        "cltr": cltr_attention_numbers(cltr_train_bf16, (3, 4, 5), lib_cltr,
+                                       2, cltr_layers, backward=True),
         "max_abs_err": max(e[3] for e in train_bf16.values()),
         "ms": n_bwd * vit_train[4],
         "plain_ms": n_bwd * vit_train[5],
@@ -1555,13 +2284,64 @@ def main():
         "bound_ms": sum(r[3] for r in step_minplus),
         "bound_by": step_minplus[0][4],
         "library_ms": None,
+    }, {
+        "name": "auction_lsap",
+        "route": "cuda",
+        "source": "unet_torch_tpu_torch/csrc/auction_lsap.cu",
+        "replaces": "unet_torch_tpu/kernels/auction.py:130",
+        # one CLTR train step
+        "launches": c3_launches["auction_lsap"],
+        "launches_by_path": {"cltr_train": c3_launches["auction_lsap"]},
+        # matches, round counts and bid counts that differ from the plain
+        # version, over all C1 cases and the step's own launch
+        "max_abs_err": max(r[0] for r in aures + [step_auction]),
+        # on the costs that one C3 train step handed its launch (96
+        # instances, 2000 queries, the batch's T): the wrapper with its
+        # preparation (negate, transpose, eps), and the bound from the bids
+        # those costs needed
+        "ms": step_auction[1],
+        "plain_ms": step_auction[2],
+        "bound_ms": step_auction[4],
+        "bound_by": step_auction[5],
+        "library_ms": None,
+        # no library call computes it on the card; scipy on the host, with
+        # the copy of the costs, for the same instances
+        "scipy_host_ms": step_auction[3],
+        "rounds_max": max(step_auction[6]),
+        "bids": step_auction[7],
+        # C1's first case, (96, 2000, 64): costs of logits near the focal
+        # prior and uniform points
+        "synthetic_costs_ms": aures[0][1],
+        "synthetic_costs_bids": aures[0][7],
+    }, {
+        "name": "packed2_attention_fwd",
+        "route": "cuda",
+        "source": "unet_torch_tpu_torch/csrc/packed2_attention_fwd.cu",
+        "replaces": "benchmarks/r8_attn_ab.py:204",
+        # a probe: its own path (C6, one call per case), no model runs it
+        "launches": p2_launches,
+        "launches_by_path": {"packed_probe": p2_launches},
+        "max_abs_err": p2res[0],
+        # bf16, the ViT's shape, one call
+        "ms": p2res[1],
+        "plain_ms": p2res[2],
+        "bound_ms": fwd_bound_ms,
+        "bound_by": fwd_bound_by,
+        # scaled_dot_product_attention under inference_mode
+        "library_ms": lib_attn["fwd"],
+        # the port's flash forward in the same turns
+        "flash_forward_ms": p2res[3],
     }], "train_step": {
         "img_s": BATCH / step_s, "plain_attention_img_s": BATCH / plain_step_s,
         "eval_launches_after_training": t5_launches,
         "binary_unet_hausdorff_dt_img_s": BATCH / dt_step_s,
         "binary_unet_plain_minplus_img_s": BATCH / dt_plain_s,
         "binary_unet_dice_bce_img_s": BATCH / dice_step_s,
-        "multitask_unet_img_s": BATCH / mt_step_s},
+        "multitask_unet_img_s": BATCH / mt_step_s,
+        "cltr_img_s": CLTR_BATCH / cltr_step_s,
+        "cltr_scipy_matcher_img_s": CLTR_BATCH / cltr_scipy_s,
+        "cltr_peak_gib": cltr_peak / 2**30,
+        "cltr_infer_patches_s": 9 / cltr_infer_s},
         "peaks": {"card": "NVIDIA H100 SXM data sheet",
                   "bf16_flops": PEAK_BF16, "f32_flops": PEAK_F32,
                   "f32_add_min_ops": PEAK_F32_NO_FMA,
@@ -1572,4 +2352,16 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    import argparse
+
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument(
+        "--cltr-profile", action="store_true",
+        help="build, then only the CLTR train step (C3) with torch.profiler "
+             "over three steps: device time by kernel, idle share")
+    parser.add_argument(
+        "--cltr-two-batches", action="store_true",
+        help="build, then only a diagnostic: the CLTR train step's losses "
+             "over six steps on one batch and on two batches in turn")
+    cli = parser.parse_args()
+    main(cli.cltr_profile, cli.cltr_two_batches)

@@ -42,11 +42,17 @@ import sys
 from unet_torch_tpu_torch import ckpt, losses
 from unet_torch_tpu_torch.core.rng import seed_everything
 from unet_torch_tpu_torch.eval.reports import make_predict_fn
-from unet_torch_tpu_torch.kernels import attention, build, fused_conv, minplus
+from unet_torch_tpu_torch.cli.config import Config
+from unet_torch_tpu_torch.kernels import attention, auction, build, fused_conv
+from unet_torch_tpu_torch.kernels import minplus
+from unet_torch_tpu_torch.models.cltr import backbone, box_ops, criterion
+from unet_torch_tpu_torch.models.cltr import model, position_encoding
+from unet_torch_tpu_torch.models.cltr import segmentation, transformer
 from unet_torch_tpu_torch.models.transunet import configs, resnetv2, vit
 from unet_torch_tpu_torch.models.unet import build_model
 from unet_torch_tpu_torch.nn import blocks, dropout
-from unet_torch_tpu_torch.train import optim, steps, trainer
+from unet_torch_tpu_torch.train import cltr_loop, cltr_steps, optim, steps
+from unet_torch_tpu_torch.train import trainer
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in (
     "jax", "jaxlib", "flax", "optax", "unet_torch_tpu"))
 assert not loaded, loaded
@@ -59,7 +65,8 @@ import sys
 from unet_torch_tpu_torch.cli import test_cli, train_cli
 from unet_torch_tpu_torch.cli.config import Config
 from unet_torch_tpu_torch.data import nested, synthetic
-from unet_torch_tpu_torch.data.datasets import DataBinary, DataRegMT
+from unet_torch_tpu_torch.data.datasets import DataBinary, DataPointReg
+from unet_torch_tpu_torch.data.datasets import DataRegMT
 from unet_torch_tpu_torch.data.io import get_image_list
 from unet_torch_tpu_torch.data.loader import NumpyLoader
 from unet_torch_tpu_torch.eval import matching, peaks, results
@@ -82,7 +89,7 @@ def _run(code):
 
 def test_port_imports_no_jax():
     # every module of the slice was imported
-    assert int(_run(_CHECK).split()[-1]) >= 45
+    assert int(_run(_CHECK).split()[-1]) >= 56
 
 
 def test_main_path_imports_no_jax_package():

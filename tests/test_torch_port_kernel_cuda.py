@@ -340,3 +340,88 @@ def test_distance_transform_on_card_matches_scipy():
     for m, o in zip(masks, out):
         np.testing.assert_allclose(o, distance_transform_edt(m) ** 2,
                                    rtol=1e-6)
+
+
+# (B, Q, T, max_iters, share of valid slots): ragged sizes, one query, T = Q
+# (hundreds of rounds), more targets than one pass of the block's threads,
+# and max_iters too low to converge (the greedy tail)
+AUCTION_SHAPES = [(5, 77, 13, 20000, 0.7), (3, 1, 1, 20000, 1.0),
+                  (2, 40, 40, 20000, 1.0), (2, 2000, 1100, 20000, 0.9),
+                  (4, 40, 12, 1, 1.0), (3, 300, 64, 3, 0.5)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", AUCTION_SHAPES)
+def test_auction_kernel_equals_plain_on_card(shape):
+    _needs_card()
+    from unet_torch_tpu_torch.kernels import auction as port_au
+
+    b, q, t, max_iters, share = shape
+    rng = np.random.RandomState(q * 100 + t)
+    costs = torch.from_numpy((rng.rand(b, q, t) * 10).astype(np.float32))
+    valid = torch.from_numpy(rng.rand(b, t) < share)
+    valid[0] = False  # an instance without targets leaves at once
+    costs = torch.where(valid[:, None, :], costs, 1e9).cuda()
+    valid = valid.cuda()
+    before = port_au.auction_lsap.launches
+    out = port_au.auction_lsap(costs, valid, max_iters, stats=True)
+    torch.cuda.synchronize()
+    assert port_au.auction_lsap.launches == before + 1
+    ref = port_au.auction_lsap_reference(costs, valid, max_iters, stats=True)
+    # the same rounds in the same f32 order: equal, not close
+    for o, r in zip(out, ref):
+        assert o.dtype == torch.int32 and torch.equal(o, r)
+    match, rounds, _ = out
+    assert rounds[0] == 0 and not match[0].any()
+    for z in range(b):
+        n = int(valid[z].sum())
+        picked = match[z][valid[z]].tolist()
+        assert len(set(picked)) == n and all(0 <= p < q for p in picked)
+    cpu = port_au.auction_lsap(costs.cpu(), valid.cpu(), max_iters)
+    assert torch.equal(match.cpu(), cpu)
+
+
+@pytest.mark.cuda
+def test_auction_kernel_rejects_what_it_does_not_take():
+    _needs_card()
+    from unet_torch_tpu_torch.kernels import auction as port_au
+
+    costs = torch.rand(2, 9, 4, device="cuda")
+    valid = torch.ones(2, 4, dtype=torch.bool, device="cuda")
+    with pytest.raises(TypeError):
+        port_au.auction_lsap(costs.double(), valid)
+    with pytest.raises(TypeError):
+        port_au.auction_lsap(costs, valid.float())
+    with pytest.raises(ValueError):
+        port_au.auction_lsap(costs, valid.cpu())
+    with pytest.raises(ValueError):  # 16 bytes a query: past shared memory
+        port_au.auction_lsap(torch.rand(1, 20000, 2, device="cuda"),
+                             valid[:1, :2])
+    # costs under autograd are detached, as the JAX step stops the gradient
+    out = port_au.auction_lsap_batched(costs.view(1, 2, 9, 4).requires_grad_(),
+                                       valid.view(1, 2, 4))
+    assert out.shape == (1, 2, 4) and not out.requires_grad
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 4, 200, 200), (1, 2, 100, 77),
+                                   (3, 2, 64, 1), (1, 6, 1, 130)])
+def test_packed_attention_probe_matches_plain_on_card(shape):
+    _needs_card()
+    b, h, nq, nk = shape
+    rng = np.random.RandomState(nq)
+    q, k, v = (torch.from_numpy(rng.randn(b, h, n, 64).astype(np.float32))
+               .cuda().bfloat16() for n in (nq, nk, nk))
+    before = port_attn.packed2_attention.launches
+    out = port_attn.packed2_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert port_attn.packed2_attention.launches == before + 1
+    ref = port_attn.attention_reference(q, k, v, 0.125)
+    # as the flash forward: 2**-7 of max|v| in bf16
+    bound = 2.0 ** -7 * v.float().abs().max().item()
+    assert out.dtype == torch.bfloat16 and out.shape == ref.shape
+    assert (out.float() - ref.float()).abs().max().item() <= bound
+    with pytest.raises(ValueError):  # an odd number of heads
+        port_attn.packed2_attention(q[:, :1], k[:, :1], v[:, :1])
+    with pytest.raises((ValueError, TypeError)):
+        port_attn.packed2_attention(q.float(), k.float(), v.float())

@@ -181,7 +181,7 @@ def test_train_cli_without_matplotlib(dataset_root, tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("change,match", [
     ({"model_type": "multitask_em"}, "queue 1 item 10"),
-    ({"model_type": "CLTR"}, "queue 1 item 11"),
+    ({"model_type": "multi_task_regTU"}, "queue 1 item 10"),
     ({"model_type": "regression_t"}, "queue 1 item 10"),
     ({"model_type": "TransUnet", "random_crop": True}, "queue 1 item 10"),
     ({"model_type": "TransUnet", "pretrained_npz": "vit.npz"},

@@ -20,6 +20,9 @@ from torch import nn
 
 from unet_torch_tpu_torch.ckpt.bridge import (
     attention_state_dict_from_flax,
+    cltr_flax_from_state_dict,
+    cltr_state_dict_from_flax,
+    load_pretrained_resnet50,
     state_dict_from_flax,
     transunet_state_dict_from_flax,
 )
@@ -65,15 +68,24 @@ def restore_full(path: str, model: nn.Module,
     return int(payload["step"])
 
 
+def load_resnet50_checkpoint(path: str) -> dict:
+    """A torchvision resnet50 state_dict from a `torch.save` file;
+    `load_pretrained_resnet50` installs it."""
+    return dict(torch.load(path, map_location="cpu", weights_only=True))
+
+
 def state_dict_from_jax_payload(payload: dict) -> dict[str, torch.Tensor]:
     """The port's state_dict from a JAX checkpoint payload
     ({'params': ..., 'batch_stats': ...} as numpy trees, as the JAX
-    package's `ckpt.load_weights` returns it): a TransUnet's when the params
-    hold a `transformer`, a UNetAttention's when they hold `att1`, else a
+    package's `ckpt.load_weights` returns it): a ConditionalDETR's when the
+    params hold `query_embed`, a TransUnet's when they hold a `transformer`,
+    a UNetAttention's when they hold `att1`, else a
     UNet's or (with `decoder1` and `decoder2`) a UNetMultitask's. The JAX
     trainer saves the model's params only, so a multitask run's `log_vars`
     are not in the payload."""
     params, batch_stats = payload["params"], payload.get("batch_stats", {})
+    if "query_embed" in params:
+        return cltr_state_dict_from_flax(params, batch_stats)
     if "transformer" in params:
         return transunet_state_dict_from_flax(params, batch_stats)
     if "att1" in params:

@@ -177,3 +177,172 @@ def transunet_state_dict_from_flax(params,
     sd["segmentation_head.0.weight"] = _conv(head["kernel"])
     sd["segmentation_head.0.bias"] = _tensor(head["bias"])
     return sd
+
+
+# ---------------------------------------------------------------------------
+# CLTR (ConditionalDETR)
+# ---------------------------------------------------------------------------
+
+_FROZEN_BN = ("weight", "bias", "running_mean", "running_var")
+
+
+def _cltr_entries(params):
+    """Every tensor of a JAX ConditionalDETR (or DETRsegm) as (tree, path,
+    state_dict name, kind): `tree` is "params" or "batch_stats" (the
+    frozen-BN tensors, named after the params' layers), `kind` how the array
+    turns into the port's tensor (`conv` HWIO -> OIHW, `dense` transposed,
+    `raw` as it is). The encoder's q/k/v projections are left out: they
+    stack into `in_proj_weight` and `in_proj_bias`."""
+    def dense(path, name):
+        yield "params", path + ("kernel",), f"{name}.weight", "dense"
+        yield "params", path + ("bias",), f"{name}.bias", "raw"
+
+    def norm(path, name):
+        yield "params", path + ("scale",), f"{name}.weight", "raw"
+        yield "params", path + ("bias",), f"{name}.bias", "raw"
+
+    def mlp(path, name, tree):
+        for key in sorted(tree):
+            yield from dense(path + (key,),
+                             f"{name}.layers.{key[len('layer'):]}")
+
+    def frozen_bn(path, name):
+        for key in _FROZEN_BN:
+            yield "batch_stats", path + (key,), f"{name}.{key}", "raw"
+
+    bb = params["backbone"]
+    yield "params", ("backbone", "conv1", "kernel"), "backbone.conv1.weight", \
+        "conv"
+    yield from frozen_bn(("backbone", "bn1"), "backbone.bn1")
+    for key in sorted(k for k in bb if k.startswith("layer")):
+        li, b = key[len("layer"):].split("_block")
+        path, name = ("backbone", key), f"backbone.layer{li}.{b}"
+        for i in "123":
+            yield "params", path + (f"conv{i}", "kernel"), \
+                f"{name}.conv{i}.weight", "conv"
+            yield from frozen_bn(path + (f"bn{i}",), f"{name}.bn{i}")
+        if "downsample_conv" in bb[key]:
+            yield "params", path + ("downsample_conv", "kernel"), \
+                f"{name}.downsample.0.weight", "conv"
+            yield from frozen_bn(path + ("downsample_bn",),
+                                 f"{name}.downsample.1")
+    yield "params", ("input_proj", "kernel"), "input_proj.weight", "conv"
+    yield "params", ("input_proj", "bias"), "input_proj.bias", "raw"
+    yield "params", ("query_embed",), "query_embed.weight", "raw"
+    if "pos_embed" in params:
+        for emb in ("row_embed", "col_embed"):
+            yield "params", ("pos_embed", emb, "embedding"), \
+                f"pos_embed.{emb}.weight", "raw"
+    yield from dense(("class_embed",), "class_embed")
+    yield from mlp(("point_embed",), "point_embed", params["point_embed"])
+    if "mask_head" in params:  # a DETRsegm's trees
+        for proj in ("q_linear", "k_linear"):
+            yield from dense(("bbox_attention", proj),
+                             f"bbox_attention.{proj}")
+        for key in sorted(params["mask_head"]):
+            path, name = ("mask_head", key), f"mask_head.{key}"
+            if key.startswith("gn"):
+                yield from norm(path, name)
+            else:
+                yield "params", path + ("kernel",), f"{name}.weight", "conv"
+                yield "params", path + ("bias",), f"{name}.bias", "raw"
+
+    tr = params["transformer"]
+    for key in sorted(tr):
+        path = ("transformer", key)
+        if key.startswith("encoder_layer"):
+            name = f"transformer.encoder.layers.{key[len('encoder_layer'):]}"
+            yield from dense(path + ("self_attn", "out_proj"),
+                             f"{name}.self_attn.out_proj")
+            subs = ("linear1", "linear2")
+            norms = ("norm1", "norm2")
+        elif key.startswith("decoder_layer"):
+            name = f"transformer.decoder.layers.{key[len('decoder_layer'):]}"
+            for attn in ("self_attn", "cross_attn"):
+                yield from dense(path + (attn, "out_proj"),
+                                 f"{name}.{attn}.out_proj")
+            subs = sorted(k for k in tr[key]
+                          if k.startswith(("sa_", "ca_", "linear")))
+            norms = ("norm1", "norm2", "norm3")
+        else:
+            continue
+        for sub in subs:
+            yield from dense(path + (sub,), f"{name}.{sub}")
+        for n in norms:
+            yield from norm(path + (n,), f"{name}.{n}")
+    yield from norm(("transformer", "decoder_norm"),
+                    "transformer.decoder.norm")
+    for head in ("ref_point_head", "query_scale"):
+        yield from mlp(("transformer", head), f"transformer.decoder.{head}",
+                       tr[head])
+
+
+def _encoder_attn_names(params):
+    for key in sorted(params["transformer"]):
+        if key.startswith("encoder_layer"):
+            yield (params["transformer"][key]["self_attn"],
+                   f"transformer.encoder.layers.{key[len('encoder_layer'):]}"
+                   ".self_attn")
+
+
+def _get(tree, path):
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
+def cltr_state_dict_from_flax(params, batch_stats) -> dict[str, torch.Tensor]:
+    """The port's ConditionalDETR (or DETRsegm) state_dict from the JAX
+    model's (params, batch_stats). The frozen-BN tensors of `batch_stats`
+    become the backbone's buffers under torchvision's names; the encoder's
+    q, k and v projections stack into `in_proj_weight` / `in_proj_bias`,
+    the reference's layout."""
+    trees = {"params": params, "batch_stats": batch_stats}
+    to_tensor = {"conv": _conv, "dense": _dense, "raw": _tensor}
+    sd = {name: to_tensor[kind](_get(trees[tree], path))
+          for tree, path, name, kind in _cltr_entries(params)}
+    for attn, name in _encoder_attn_names(params):
+        projs = [attn[p] for p in ("q_proj", "k_proj", "v_proj")]
+        sd[f"{name}.in_proj_weight"] = torch.cat(
+            [_dense(p["kernel"]) for p in projs])
+        sd[f"{name}.in_proj_bias"] = torch.cat(
+            [_tensor(p["bias"]) for p in projs])
+    return sd
+
+
+def cltr_flax_from_state_dict(state_dict, params, batch_stats):
+    """The inverse: fill copies of a JAX ConditionalDETR's (params,
+    batch_stats) trees, as numpy, from the port's state_dict. A round trip
+    through both is exact."""
+    def copy(tree):
+        return ({k: copy(v) for k, v in tree.items()}
+                if isinstance(tree, dict) else np.array(tree))
+
+    trees = {"params": copy(params), "batch_stats": copy(batch_stats)}
+    from_tensor = {"conv": lambda w: w.transpose(2, 3, 1, 0),
+                   "dense": lambda w: w.T, "raw": lambda w: w}
+    sd = {k: v.detach().cpu().numpy() for k, v in state_dict.items()}
+    for tree, path, name, kind in _cltr_entries(params):
+        _get(trees[tree], path[:-1])[path[-1]] = np.ascontiguousarray(
+            from_tensor[kind](sd[name]))
+    for attn, name in _encoder_attn_names(trees["params"]):
+        weights = np.split(sd[f"{name}.in_proj_weight"], 3)
+        biases = np.split(sd[f"{name}.in_proj_bias"], 3)
+        for proj, w, b in zip(("q_proj", "k_proj", "v_proj"), weights,
+                              biases):
+            attn[proj]["kernel"] = np.ascontiguousarray(w.T)
+            attn[proj]["bias"] = b.copy()
+    return trees["params"], trees["batch_stats"]
+
+
+def load_pretrained_resnet50(model, state_dict, prefix: str = "") -> None:
+    """Install a torchvision-layout resnet50 state_dict as `model.backbone`'s
+    weights and frozen-BN buffers, in place. Only keys under `prefix` (for
+    example "backbone.0.body.") are taken, with it stripped; the classifier
+    (`fc.*`) and `num_batches_tracked` are dropped; everything else must
+    match the backbone strictly."""
+    sd = {k[len(prefix):]: torch.as_tensor(v).float()
+          for k, v in state_dict.items() if k.startswith(prefix)}
+    sd = {k: v for k, v in sd.items()
+          if not k.startswith("fc.") and not k.endswith("num_batches_tracked")}
+    model.backbone.load_state_dict(sd, strict=True)

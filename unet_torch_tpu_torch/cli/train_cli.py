@@ -16,6 +16,15 @@ best model, pruning of the epoch checkpoints and the cross-seed
   regression                DataReg         single_train (ReLU)  test_single_reg
   multi_task                DataRegBinary   two-head loop        none
   multi_task_reg            DataRegMT       two-head loop        test_multiple_reg
+  CLTR                      DataPointReg    cltr_train_loop      none
+
+`CLTR` reads the flat `cltr_config` keys (model sizes, loss coefficients,
+`crop_size`, `num_knn`, `dot_shape`, `clip_max_norm`, `pretrained_resnet50`:
+a torchvision resnet50 state_dict for a fresh model's backbone, installed
+before a resume checkpoint is loaded);
+`train_config.precision` is its compute dtype unless `cltr_config` names one.
+Its train loader flattens the per-image crops (`cltr_collate`), its val
+loader yields one image's tiled patches at a time.
 
 The curves (`total.png`) and the post-train test's reports are drawn with
 matplotlib. Where it cannot be imported, the run trains and saves its
@@ -36,7 +45,11 @@ import os
 import warnings
 
 from unet_torch_tpu_torch import losses
-from unet_torch_tpu_torch.ckpt import load_weights
+from unet_torch_tpu_torch.ckpt import (
+    load_pretrained_resnet50,
+    load_resnet50_checkpoint,
+    load_weights,
+)
 from unet_torch_tpu_torch.cli.config import Config
 from unet_torch_tpu_torch.core import not_ported
 from unet_torch_tpu_torch.core.device import resolve_device
@@ -44,6 +57,7 @@ from unet_torch_tpu_torch.core.precision import resolve_precision
 from unet_torch_tpu_torch.core.rng import seed_everything
 from unet_torch_tpu_torch.data.datasets import (
     DataBinary,
+    DataPointReg,
     DataReg,
     DataRegBinary,
     DataRegMT,
@@ -51,8 +65,10 @@ from unet_torch_tpu_torch.data.datasets import (
 from unet_torch_tpu_torch.data.io import get_image_list
 from unet_torch_tpu_torch.data.loader import NumpyLoader
 from unet_torch_tpu_torch.eval import reports
+from unet_torch_tpu_torch.models.cltr.model import build_cltr
 from unet_torch_tpu_torch.models.transunet.vit import build_transunet
 from unet_torch_tpu_torch.models.unet import build_model
+from unet_torch_tpu_torch.train.cltr_loop import cltr_collate
 from unet_torch_tpu_torch.train.trainer import Trainer
 
 # the JAX CLI loads Google's ViT weights from here when the file exists
@@ -82,7 +98,8 @@ def get_points_from_tsv(tsv_path):
 
 def build_datasets_and_model(cfg: Config, seed: int, generator=None):
     """(train dataset, val dataset, model) by `model_type`; the model's
-    weights are drawn from `generator`."""
+    weights are drawn from `generator`. A CLTR model carries its criterion
+    as `model.criterion`."""
     m, d = cfg.model, cfg.dataset
     mt = m.model_type
     not_ported.check(not_ported.MODEL_TYPES, "model_type", mt)
@@ -106,6 +123,19 @@ def build_datasets_and_model(cfg: Config, seed: int, generator=None):
         train_ds = DataRegMT(list(d.train_path), augmentation=d.augmentation,
                              **common)
         val_ds = DataRegMT(list(d.val_path), augmentation=False, **common)
+    elif mt == "CLTR":
+        tsv_files = get_points_from_tsv(d.dot_annotation_path)
+        cltr_args = dict(cfg.raw.get("cltr_config", {}))
+        point_kw = dict(
+            ch=m.channel, anydepth=m.anydepth, seed=seed,
+            crop_size=int(cltr_args.get("crop_size", 256)),
+            num_knn=int(cltr_args.get("num_knn", 4)),
+            dot_shape=tuple(cltr_args.get("dot_shape", (768, 768))))
+        train_ds = DataPointReg(list(d.train_path), tsv_files,
+                                augmentation=d.augmentation, train=True,
+                                **point_kw)
+        val_ds = DataPointReg(list(d.val_path), tsv_files, augmentation=False,
+                              train=False, **point_kw)
     else:
         raise ValueError(f'Invalid model_type "{mt}"')
     if mt == "TransUnet":
@@ -116,6 +146,17 @@ def build_datasets_and_model(cfg: Config, seed: int, generator=None):
         model = build_transunet(mt, img_size=input_size[0],
                                 num_classes=m.num_class, generator=generator,
                                 **_tpu_options(m))
+    elif mt == "CLTR":
+        cltr_args.setdefault("precision", cfg.train.precision)
+        model, criterion, _ = build_cltr(cltr_args, generator)
+        model.criterion = criterion
+        # a fresh model's backbone only: a resumed run loads its checkpoint
+        # over it afterwards
+        pretrained = cltr_args.get("pretrained_resnet50")
+        if pretrained:
+            load_pretrained_resnet50(model,
+                                     load_resnet50_checkpoint(pretrained))
+            print(f"loaded pretrained resnet50 from {pretrained}")
     else:
         model = build_model(mt, n_channels=m.channel, n_classes=m.num_class,
                             base=m.initial_filter_size, dropout=m.dropout,
@@ -148,10 +189,15 @@ def run_training(cfg: Config, device="cuda"):
         print(f"Train set size: {len(train_ds)}")
         print(f"Val set size: {len(val_ds)}")
         print(f"Loss Function: {cfg.train.loss}")
+        is_cltr = cfg.model.model_type == "CLTR"
         dataloaders = {
             "train": NumpyLoader(train_ds, cfg.train.batch_size, shuffle=True,
-                                 seed=seed, num_workers=cfg.train.num_workers),
-            "val": NumpyLoader(val_ds, 1, shuffle=False),
+                                 seed=seed, num_workers=cfg.train.num_workers,
+                                 **({"collate_fn": cltr_collate}
+                                    if is_cltr else {})),
+            "val": NumpyLoader(val_ds, 1, shuffle=False,
+                               **({"collate_fn": lambda items: items[0]}
+                                  if is_cltr else {})),
         }
         trainer = Trainer(
             model, cfg.model.model_type, out_dir, dataloaders,
@@ -164,6 +210,11 @@ def run_training(cfg: Config, device="cuda"):
             start_epoch=cfg.resume.epoch if cfg.resume.flag else 1,
             seed=seed, fused_head=cfg.model.fused_head, device=dev,
             dtype=dtype, plot=plot)
+        if is_cltr:
+            cltr_args = cfg.raw.get("cltr_config", {})
+            trainer.criterion = model.criterion
+            trainer.cltr_clip_max_norm = float(
+                cltr_args.get("clip_max_norm", 0.0))
         trainer.train()
         trainers[seed] = trainer
 

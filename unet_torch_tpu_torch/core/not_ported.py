@@ -11,7 +11,6 @@ MODEL_TYPES = {
     "regression_t": "queue 1 item 10",
     "multi_task_regTU": "queue 1 item 10",
     "multitask_em": "queue 1 item 10",
-    "CLTR": "queue 1 item 11",
 }
 
 LOSSES = {name: "queue 1 item 12" for name in (

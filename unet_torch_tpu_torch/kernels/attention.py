@@ -1,7 +1,7 @@
 """Attention: the Hopper flash kernels and their plain PyTorch versions.
 
 The JAX package's Pallas kernels (unet_torch_tpu/kernels/attention.py) are
-ported as three hand-written CUDA sources:
+ported as four hand-written CUDA sources:
 
   csrc/flash_attention_fwd.cu  `_attention_pallas` and `_attention_flash`
                                (eval forward), `_dropout_flash_fwd` (train
@@ -12,6 +12,8 @@ ported as three hand-written CUDA sources:
                                kernels' custom VJPs
   csrc/dropout_keep_mask.cu    the keep-mask probe of
                                benchmarks/tpu_dfa_check.py
+  csrc/packed2_attention_fwd.cu  the packed two-head forward probe of
+                               benchmarks/r8_attn_ab.py (`packed2_attention`)
 
     o = softmax(q @ k^T * scale + bias) @ v
 
@@ -230,6 +232,11 @@ def _mask_library() -> ctypes.CDLL:
     return _load("dropout_keep_mask", [_P, _I, _I, _I, _U, _U, _U, _P])
 
 
+@functools.cache
+def _packed2_library() -> ctypes.CDLL:
+    return _load("packed2_attention_fwd", [_P] * 4 + [_I] * 3 + [_F, _P])
+
+
 def _raise_on(lib, name: str, err: int) -> None:
     if err:
         msg = getattr(lib, f"{name}_error_string")(err).decode()
@@ -402,6 +409,37 @@ def dropout_keep_mask(n_bh: int, nq: int, nk: int, seed: int, rate: float,
 
 
 dropout_keep_mask.launches = 0
+
+
+def packed2_attention(q, k, v, scale=None):
+    """softmax(q k^T * scale) v with two heads per block, a probe (the JAX
+    package's `packed2_fwd`): bf16, head width 64, an even number of heads,
+    no bias, no dropout, no gradient. A CPU tensor takes the plain version
+    (`attention_reference`); a CUDA tensor launches the kernel
+    (csrc/packed2_attention_fwd.cu) or raises."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if q.device.type == "cpu":
+        return attention_reference(q, k, v, scale)
+    _cuda_only(q)
+    _check(q, k, v, None)
+    b, h, nq, d = q.shape
+    if q.dtype != torch.bfloat16 or d != 64 or v.shape[3] != 64 or h % 2:
+        raise ValueError("the packed kernel takes bfloat16, head width 64 "
+                         f"and an even number of heads, got {q.dtype}, "
+                         f"q {tuple(q.shape)}, v {tuple(v.shape)}")
+    o = torch.empty_like(q)
+    lib = _packed2_library()
+    with torch.cuda.device(q.device):
+        err = lib.packed2_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b * h,
+            nq, k.shape[2], float(scale), _stream(q.device))
+    _raise_on(lib, "packed2_attention_fwd", err)
+    packed2_attention.launches += 1
+    return o
+
+
+packed2_attention.launches = 0
 
 
 class FlashAttention(torch.autograd.Function):

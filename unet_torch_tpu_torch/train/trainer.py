@@ -25,8 +25,9 @@ The batches reach the device by non_blocking copies from pinned memory, and
 the step's losses stay on the device: the loop reads them once per epoch.
 Dropout draws from a generator on the device, seeded from `seed`.
 
-The topological losses' loop and the CLTR loop raise NotImplementedError
-naming their ROADMAP.md item.
+`CLTR` runs train/cltr_loop.py::cltr_train_loop on this trainer. The
+topological losses' loop raises NotImplementedError naming its ROADMAP.md
+item.
 """
 
 from __future__ import annotations
@@ -201,6 +202,10 @@ class Trainer:
                          self.model_type)
         if self.model_type in _SINGLE_TYPES:
             return self.single_train()
+        if self.model_type == "CLTR":
+            from unet_torch_tpu_torch.train.cltr_loop import cltr_train_loop
+
+            return cltr_train_loop(self)
         if self.model_type in _MULTITASK_TYPES:
             if self.loss_function == "multi_task_loss":
                 return self.multi_task_uc_train()
