@@ -4,6 +4,8 @@
     python3 chip_smoke.py --cltr-profile   (build, then C3 under torch.profiler)
     python3 chip_smoke.py --cltr-two-batches   (build, then the CLTR step's
                                     losses over six steps on one and two batches)
+    python3 chip_smoke.py --attention-ab   (build, then T3 and C3 on the wgmma
+                                    and on the mma.sync attention kernels, in turns)
 
 Builds the Hopper kernels from unet_torch_tpu_torch/csrc, then:
 
@@ -11,7 +13,8 @@ Builds the Hopper kernels from unet_torch_tpu_torch/csrc, then:
   2. build      nvcc of every kernel source (fused conv3x3+BN+ReLU, flash
                 attention forward, flash attention backward, dropout keep
                 mask, min-plus product, auction assignment, packed two-head
-                attention probe), one process each, all at once; timed
+                attention probe), one process each, all at once; timed; the
+                registers and spills ptxas reports for the wgmma kernels
   3. kernel     the fused conv against its plain PyTorch version at every
                 distinct conv shape of the UNet-64 eval forward (batch 8,
                 512x512 input), in bf16 and in f32 with TF32 off; errors and
@@ -23,8 +26,11 @@ Builds the Hopper kernels from unet_torch_tpu_torch/csrc, then:
                 (kernel) and on the CPU (plain version); logits and class maps
                 must agree
   6. attention  the attention kernel against its plain version at the ViT's
-                shape (8, 12, 1024, 64) and at a ragged masked shape, in bf16
-                and f32; errors, median times, TFLOP/s
+                shape (8, 12, 1024, 64), at a ragged masked shape and at
+                widths (Dqk 128, Dv 16) that only the general mma.sync kernel
+                takes, in bf16 and f32; each case's route (wgmma, mma.sync or
+                f32), errors, median times of one launch and of launches back
+                to back, the wgmma cases also on the mma.sync kernel, TFLOP/s
   7. kernel     the fused conv at the nine conv shapes of the TransUnet
                 decoder (batch 8, 512x512 input), as in phase 3
   8. main       TransUnet R50-ViT-B/16 eval forward through
@@ -37,9 +43,10 @@ Builds the Hopper kernels from unet_torch_tpu_torch/csrc, then:
  T1. mask       the dropout keep-mask probe against the plain hash, bit for
                 bit, at (96, 1024, 1024) rate 0.1 and (12, 100, 77) rate 0.3
  T2. train      the train forward (o, lse) and the backward (dq, dk, dv)
-     kernels    against their plain versions at the ViT's shape and at a
-                ragged masked Dqk != Dv shape, rates 0 and 0.1, bf16 and f32;
-                errors, median times
+     kernels    against their plain versions at the ViT's shape, at a ragged
+                masked Dqk != Dv shape and at the general route's widths,
+                rates 0 and 0.1, bf16 and f32; routes, errors and times as in
+                phase 6
  T3. train      TransUnet R50-ViT-B/16 train step through make_single_steps,
      main       bf16, batch 8 at 512x512, SGD (lr 0.01, momentum 0.9,
                 weight decay 1e-4), poly LR, dice_bce_mc, as
@@ -89,8 +96,9 @@ Builds the Hopper kernels from unet_torch_tpu_torch/csrc, then:
  C2. CLTR       the eval forward, train forward (o, lse) and backward kernels
      attention  against their plain versions at CLTR's three shapes (encoder
                 self-, decoder self-, decoder cross-attention with Dqk 64
-                against Dv 32; bias and dropout 0.1 together), bf16 and f32;
-                compared and timed at the whole batch of 16
+                against Dv 32; bias and dropout 0.1 together), bf16 (all
+                three on the wgmma kernels) and f32; compared and timed at
+                the whole batch of 16
  C3. CLTR       configs/cltr.yml's model (ResNet-50, 6 + 6 layers, 2000
      main       queries) train step through train/cltr_steps.py, bf16, batch
                 16 of 256x256 crops with seeded points (two crops with none),
@@ -120,12 +128,16 @@ Any failure raises and the script exits nonzero. The last line of stdout is
 {"ok": true, "device": {...}}; the line before it is one JSON object with the
 kernels' numbers (launches on the main paths, error, kernel / plain / library
 times, and the bound: the larger of bytes over the card's memory rate and
-operations over its peak rate); the line before that is nvidia-smi's name and power limit.
+operations over its peak rate, for the attention kernels the larger of the
+tensor cores' and the exp unit's; the three attention entries also carry the
+times of launches back to back, of the mma.sync kernels and of the library
+call in this run); the line before that is nvidia-smi's name and power limit.
 Weights are random, from a seed; nothing is downloaded.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import os
@@ -164,9 +176,13 @@ MIN_PIXEL_AGREEMENT = 0.999
 ATTN_REL_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
 # ((B, H, Nq, Nk, Dqk, Dv), masked): the ViT's attention at 512x512, and
 # CLTR's kind of call: Dqk != Dv, Nq and Nk off the 64-row tiles, a padding
-# mask
+# mask. Both run the bf16 wgmma kernels; the third case has widths that only
+# the general mma.sync kernels take (ragged and masked too), so that route
+# stays held against the plain version.
+GENERAL_ROUTE_CASE = ((2, 3, 100, 77, 128, 16), True)
 ATTN_CASES = [((BATCH, 12, 1024, 1024, 64, 64), False),
-              ((3, 4, 100, 77, 64, 32), True)]
+              ((3, 4, 100, 77, 64, 32), True),
+              GENERAL_ROUTE_CASE]
 # TransUnet, whole model, f32, card against CPU, relative to the logits'
 # peak: 16 bottlenecks, 12 ViT layers and 10 decoder convs of sums in other
 # orders. Read on an H100: 6.9e-5 against a peak of 6.6, 1.05e-5 of it. The
@@ -178,7 +194,8 @@ MASK_CASES = [((BATCH * 12, 1024, 1024), 0.1), ((3 * 4, 100, 77), 0.3)]
 TRAIN_ATTN_CASES = [(ATTN_CASES[0][0], False, 0.0),
                     (ATTN_CASES[0][0], False, 0.1),
                     (ATTN_CASES[1][0], True, 0.0),
-                    (ATTN_CASES[1][0], True, 0.1)]
+                    (ATTN_CASES[1][0], True, 0.1),
+                    (GENERAL_ROUTE_CASE[0], True, 0.1)]
 # T2 bounds. o: as ATTN_REL_TOL, times 1/(1 - rate), since the kept
 # probabilities are scaled up by that. lse: both sum the same f32 scores
 # exponentiated in other orders (read: 1.4e-6); 1e-4 absolute. Gradients,
@@ -254,10 +271,22 @@ PEAK_BF16 = 989e12
 PEAK_F32 = 67e12
 PEAK_F32_NO_FMA = PEAK_F32 / 2
 PEAK_BYTES = 3.35e12
+# exponentials a second: the special-function units give 16 results a clock
+# an SM against the 128 FMAs (256 f32 operations) a clock an SM behind
+# PEAK_F32 (NVIDIA's CUDA C++ programming documentation, the table of
+# arithmetic instruction throughput, compute capability 9.0): 4.19e12
+PEAK_EXP = PEAK_F32 / 256 * 16
+# how many launches go between two CUDA events when a kernel is timed "back
+# to back": the queue stays full, so the host's launch cost drops out
+BURST = 10
+
+
+START = time.perf_counter()
 
 
 def phase(name, msg):
-    print(f"[{name}] {msg}", flush=True)
+    """One line of the run's log, with the seconds since the script began."""
+    print(f"[{name}] (+{time.perf_counter() - START:.0f} s) {msg}", flush=True)
 
 
 def nvidia_smi() -> str:
@@ -281,7 +310,10 @@ def conv_shapes(base: int, size: int):
     return shapes
 
 
-def median_ms(fn, reps=REPS, warmup=2):
+def median_ms(fn, reps=REPS, warmup=2, burst=1):
+    """Median over `reps` of the time of `burst` calls between two CUDA
+    events, per call. With burst 1 the time holds the host's launch cost of
+    one call; with more the device runs them back to back."""
     for _ in range(warmup):
         fn()
     times = []
@@ -289,11 +321,58 @@ def median_ms(fn, reps=REPS, warmup=2):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(burst):
+            fn()
         end.record()
         torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / burst)
     return statistics.median(times)
+
+
+@contextlib.contextmanager
+def mma_sync_route(at):
+    """Within it every bf16 attention call goes to the general mma.sync
+    kernels, whatever its widths: the earlier design beside the wgmma one in
+    the same run. For times only."""
+    route = at.attention_route
+    at.attention_route = lambda dtype, dqk, dv: (
+        "f32" if dtype == torch.float32 else "mma.sync")
+    try:
+        yield
+    finally:
+        at.attention_route = route
+
+
+def on_mma_sync(at, fn):
+    """fn's median ms (one launch, launches back to back) on the mma.sync
+    kernels."""
+    with mma_sync_route(at):
+        return median_ms(fn), median_ms(fn, burst=BURST)
+
+
+def ptxas_report(build, names, match="wgmma"):
+    """Phase 2: what ptxas reported for each kernel of csrc/<names>.cu whose
+    name holds `match` (registers, stack, spills), and every warning of those
+    builds. A wgmma that the compiler had to serialize (it inserted waits
+    because registers of an accumulator in flight were touched) fails."""
+    import re
+
+    for name in names:
+        kernel = None
+        for line in build.compile_log(name).splitlines():
+            found = re.search(r"Compiling entry function '(\S+)'", line)
+            if found:  # a mangled template instance: keep name and arguments
+                kernel = re.sub(r".*_cu_[0-9a-f]+\d\d", "",
+                                found.group(1))[:40]
+            if "serialized" in line:
+                raise AssertionError(f"{name}.cu: {line.strip()}")
+            if "warning" in line.lower():
+                phase("build", f"{name}.cu: {line.strip()}")
+            elif kernel and match in kernel and (
+                    "Used" in line or ("spill" in line and
+                                       "0 bytes spill stores" not in line)):
+                phase("build", f"ptxas {kernel}: "
+                      + line.replace("ptxas info    :", "").strip())
 
 
 def kernel_inputs(b, h, cin, cout, dtype, gen):
@@ -424,7 +503,9 @@ def attention_inputs(shape, masked, gen):
 
 def check_attention(at, dev, cases=ATTN_CASES, tag="attention",
                     plain_reps=REPS):
-    """Phase 6 and C2. Returns {dtype: {shape: (err, ms, plain_ms)}}."""
+    """Phase 6 and C2. Returns {dtype: {shape: (err, ms, plain_ms,
+    back-to-back ms, the mma.sync kernel's (one launch, back-to-back) ms or
+    None)}}."""
     gen = torch.Generator().manual_seed(SEED)
     results = {}
     for dtype in (torch.bfloat16, torch.float32):
@@ -453,13 +534,27 @@ def check_attention(at, dev, cases=ATTN_CASES, tag="attention",
                 plain_ms = median_ms(
                     lambda: at.attention_reference(q, k, v, scale, bias),
                     reps=plain_reps)
-            per_shape[shape] = (err, ms, plain_ms)
-            tflops = 2 * b * h * nq * nk * (dqk + dv) / ms / 1e9
+                route = at.attention_route(dtype, dqk, dv)
+                # the f32 kernels serve the card-against-CPU checks: one
+                # launch's time is all that is read of them
+                burst_ms = ms if route == "f32" else median_ms(
+                    lambda: at.fused_attention(q, k, v,
+                                               key_padding_mask=mask),
+                    burst=BURST)
+                old_ms = None
+                if route == "wgmma":
+                    old_ms = on_mma_sync(at, lambda: at.fused_attention(
+                        q, k, v, key_padding_mask=mask))
+            per_shape[shape] = (err, ms, plain_ms, burst_ms, old_ms)
+            tflops = 2 * b * h * nq * nk * (dqk + dv) / burst_ms / 1e9
             phase(tag,
-                  f"{str(dtype)[6:]} (B,H,Nq,Nk,Dqk,Dv)={shape} "
+                  f"{str(dtype)[6:]} (B,H,Nq,Nk,Dqk,Dv)={shape} route {route} "
                   f"masked={mask is not None} max_abs_err={err:.3e} (bound "
-                  f"{bound:.3e}) kernel {ms:.4f} ms ({tflops:.1f} TFLOP/s) "
-                  f"plain {plain_ms:.4f} ms")
+                  f"{bound:.3e}) kernel {ms:.4f} ms, back to back "
+                  f"{burst_ms:.4f} ms ({tflops:.1f} TFLOP/s"
+                  + (f"; on mma.sync {old_ms[0]:.4f} ms, back to back "
+                     f"{old_ms[1]:.4f} ms" if old_ms else "")
+                  + f") plain {plain_ms:.4f} ms")
             del q, k, v, out, ref
         results[dtype] = per_shape
     return results
@@ -583,8 +678,10 @@ def check_mask(at, dev):
 def check_train_attention(at, dev, cases=TRAIN_ATTN_CASES,
                           tag="T2 train kernels", plain_reps=REPS):
     """T2 and C2. Returns {dtype: {(shape, masked, rate): (o_err, fwd_ms,
-    fwd_plain_ms, grad_err, bwd_ms, bwd_plain_ms)}}, grad_err the largest
-    absolute error of dq, dk and dv."""
+    fwd_plain_ms, grad_err, bwd_ms, bwd_plain_ms, forward and backward
+    back-to-back ms, the mma.sync kernels' (one launch, back-to-back) ms or
+    None)}},
+    grad_err the largest absolute error of dq, dk and dv."""
     gen = torch.Generator().manual_seed(SEED)
     results = {}
     for dtype in (torch.bfloat16, torch.float32):
@@ -634,20 +731,41 @@ def check_train_attention(at, dev, cases=TRAIN_ATTN_CASES,
             bwd_ms = median_ms(lambda: at.attention_backward(*bwd_args))
             bwd_plain_ms = median_ms(lambda: at.attention_backward_reference(
                 *bwd_args), reps=plain_reps)
+            route = at.attention_route(dtype, dqk, dv)
+            fwd_burst, bwd_burst = fwd_ms, bwd_ms
+            if route != "f32":  # f32: one launch's time is all that is read
+                fwd_burst = median_ms(
+                    lambda: at.attention_train_forward(*args), burst=BURST)
+                bwd_burst = median_ms(
+                    lambda: at.attention_backward(*bwd_args), burst=BURST)
+            fwd_old = bwd_old = None
+            if route == "wgmma":
+                fwd_old = on_mma_sync(
+                    at, lambda: at.attention_train_forward(*args))
+                bwd_old = on_mma_sync(
+                    at, lambda: at.attention_backward(*bwd_args))
             per_case[(shape, masked, rate)] = (o_err, fwd_ms, fwd_plain_ms,
                                                max(abs_err), bwd_ms,
-                                               bwd_plain_ms)
-            fwd_tf = 2 * b * h * nq * nk * (dqk + dv) / fwd_ms / 1e9
-            bwd_tf = 2 * b * h * nq * nk * (3 * dqk + 2 * dv) / bwd_ms / 1e9
+                                               bwd_plain_ms, fwd_burst,
+                                               bwd_burst, fwd_old, bwd_old)
+            fwd_tf = 2 * b * h * nq * nk * (dqk + dv) / fwd_burst / 1e9
+            bwd_tf = (2 * b * h * nq * nk * (3 * dqk + 2 * dv) / bwd_burst
+                      / 1e9)
             phase(tag,
-                  f"{str(dtype)[6:]} (B,H,Nq,Nk,Dqk,Dv)={shape} masked="
-                  f"{masked} rate {rate}: forward o max_abs_err {o_err:.3e} "
-                  f"(bound {o_bound:.3e}) lse {lse_err:.3e}, kernel "
-                  f"{fwd_ms:.4f} ms ({fwd_tf:.1f} TFLOP/s) plain "
-                  f"{fwd_plain_ms:.4f} ms; backward dq/dk/dv rel err "
-                  f"{rel[0]:.2e}/{rel[1]:.2e}/{rel[2]:.2e} (bound "
-                  f"{GRAD_REL_TOL[dtype]:.2e}), kernel {bwd_ms:.4f} ms "
-                  f"({bwd_tf:.1f} TFLOP/s) plain {bwd_plain_ms:.4f} ms")
+                  f"{str(dtype)[6:]} (B,H,Nq,Nk,Dqk,Dv)={shape} route {route} "
+                  f"masked={masked} rate {rate}: forward o max_abs_err "
+                  f"{o_err:.3e} (bound {o_bound:.3e}) lse {lse_err:.3e}, "
+                  f"kernel {fwd_ms:.4f} ms, back to back {fwd_burst:.4f} ms "
+                  f"({fwd_tf:.1f} TFLOP/s"
+                  + (f"; on mma.sync {fwd_old[0]:.4f} ms, back to back "
+                     f"{fwd_old[1]:.4f} ms" if fwd_old else "")
+                  + f") plain {fwd_plain_ms:.4f} ms; backward dq/dk/dv rel "
+                  f"err {rel[0]:.2e}/{rel[1]:.2e}/{rel[2]:.2e} (bound "
+                  f"{GRAD_REL_TOL[dtype]:.2e}), kernel {bwd_ms:.4f} ms, back "
+                  f"to back {bwd_burst:.4f} ms ({bwd_tf:.1f} TFLOP/s"
+                  + (f"; on mma.sync {bwd_old[0]:.4f} ms, back to back "
+                     f"{bwd_old[1]:.4f} ms" if bwd_old else "")
+                  + f") plain {bwd_plain_ms:.4f} ms")
             del q, k, v, g, o, lse, ref_o, ref_lse, grads, refs
             del args, bwd_args
             torch.cuda.empty_cache()
@@ -943,21 +1061,27 @@ def conv_bound(shapes):
 
 
 def attention_bound(shape, backward=False, lse=False):
-    """(least ms, what bounds it) of one bf16 attention call at `shape`.
-    Forward: the two products QK^T and PV. Backward: those recomputed scores
-    and the four products of dV, dP, dQ and dK. Bytes: q, k, v and o (and
-    the f32 lse) once; the backward also reads g and writes dq, dk, dv."""
+    """(least ms, "operations" or "bytes", which unit) of one bf16 attention
+    call at `shape`: the largest of three times. Tensor cores: the forward's
+    two products QK^T and PV; the backward's five (S, dP, dV, dK, dQ).
+    Exp unit: one exponential a score, forward and backward alike (the
+    backward kernel that is kept recomputes each probability once). Bytes: q,
+    k, v and o (and the f32 lse) once; the backward also reads g and writes
+    dq, dk, dv."""
     b, h, nq, nk, dqk, dv = shape
     products = (3 * dqk + 2 * dv) if backward else (dqk + dv)
-    ops_ms = 2 * b * h * nq * nk * products / PEAK_BF16 * 1e3
+    mma_ms = 2 * b * h * nq * nk * products / PEAK_BF16 * 1e3
+    exp_ms = b * h * nq * nk / PEAK_EXP * 1e3
     qkvo = 2 * b * h * (nq * dqk + nk * dqk + nk * dv + nq * dv)
     nbytes = qkvo + (4 * b * h * nq if lse or backward else 0)
     if backward:
         nbytes += 2 * b * h * nq * dv + 2 * b * h * (nq * dqk + nk * dqk
                                                       + nk * dv)
     bytes_ms = nbytes / PEAK_BYTES * 1e3
-    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms
-                                   else "bytes")
+    ms, by, unit = max((mma_ms, "operations", "tensor cores"),
+                       (exp_ms, "operations", "exp unit"),
+                       (bytes_ms, "bytes", "device memory"))
+    return ms, by, unit
 
 
 def check_minplus(mp, dev):
@@ -1584,7 +1708,7 @@ def profile_cltr_step(model, criterion, opt, batch, gens, step_s, n=3):
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
     ours = [r for r in rows if any(k in r[0] for k in (
-        "flash", "attention", "auction", "dkdv", "dq_kernel"))]
+        "flash", "attention", "auction", "rowsum_go", "scale_cast_dq"))]
     phase("C3 profile",
           f"device busy {busy:.2f} ms a step (sum of kernel times) against "
           f"an unprofiled step of {step_s * 1e3:.2f} ms: idle "
@@ -1862,8 +1986,9 @@ def library_conv_ms(shapes, dev):
 def library_attention_ms(dev):
     """L. torch's scaled_dot_product_attention at the ViT's bf16 shape:
     {"fwd": ms under inference_mode, ("train_fwd", rate): ms with autograd
-    recording, ("bwd", rate): ms of the backward alone}. Its dropout draws
-    another mask than the port's: the times only."""
+    recording, ("bwd", rate): ms of the backward alone}, and each under
+    "..._burst" with the calls back to back. Its dropout draws another mask
+    than the port's: the times only."""
     import torch.nn.functional as F
 
     b, h, nq, nk, dqk, dv = ATTN_CASES[0][0]
@@ -1873,24 +1998,28 @@ def library_attention_ms(dev):
     v = torch.randn(b, h, nk, dv, generator=gen).to(dev, torch.bfloat16)
     g = torch.randn(b, h, nq, dv, generator=gen).to(dev, torch.bfloat16)
     out = {}
+    def both(key, rate, fn):
+        out[key if rate is None else (key, rate)] = median_ms(fn)
+        out[f"{key}_burst" if rate is None else (f"{key}_burst", rate)] = \
+            median_ms(fn, burst=BURST)
+
     with torch.inference_mode():
-        out["fwd"] = median_ms(
-            lambda: F.scaled_dot_product_attention(q, k, v))
+        both("fwd", None, lambda: F.scaled_dot_product_attention(q, k, v))
     q, k, v = (t.requires_grad_() for t in (q, k, v))
     for rate in (0.0, 0.1):
-        out[("train_fwd", rate)] = median_ms(
-            lambda: F.scaled_dot_product_attention(q, k, v, dropout_p=rate))
+        both("train_fwd", rate, lambda: F.scaled_dot_product_attention(
+            q, k, v, dropout_p=rate))
         o = F.scaled_dot_product_attention(q, k, v, dropout_p=rate)
-        out[("bwd", rate)] = median_ms(
-            lambda: torch.autograd.grad(o, (q, k, v), g, retain_graph=True))
+        both("bwd", rate, lambda: torch.autograd.grad(
+            o, (q, k, v), g, retain_graph=True))
     return out
 
 
 def library_cltr_attention_ms(dev):
     """L. scaled_dot_product_attention at CLTR's three bf16 shapes, the
     key-padding bias as its additive mask: {shape: (forward ms under
-    inference_mode, forward ms with autograd at dropout 0.1, backward ms)}.
-    The times only."""
+    inference_mode, forward ms with autograd at dropout 0.1, backward ms,
+    then the same three with the calls back to back)}. The times only."""
     import torch.nn.functional as F
 
     gen = torch.Generator().manual_seed(SEED)
@@ -1904,17 +2033,25 @@ def library_cltr_attention_ms(dev):
         if mask is not None:  # finite, so that a fully padded row has no NaN
             bias = torch.zeros(b, 1, 1, nk).masked_fill(
                 mask[:, None, None, :], -1e4).to(dev, torch.bfloat16)
+        def fwd():
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=bias)
+
+        def train_fwd():
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=bias,
+                                                  dropout_p=0.1)
+
         with torch.inference_mode():
-            fwd = median_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, attn_mask=bias))
+            fwd_ms = median_ms(fwd), median_ms(fwd, burst=BURST)
         q, k, v = (t.requires_grad_() for t in (q, k, v))
-        train_fwd = median_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, attn_mask=bias, dropout_p=0.1))
-        o = F.scaled_dot_product_attention(q, k, v, attn_mask=bias,
-                                           dropout_p=0.1)
-        bwd = median_ms(lambda: torch.autograd.grad(o, (q, k, v), g,
-                                                    retain_graph=True))
-        out[shape] = (fwd, train_fwd, bwd)
+        train_fwd_ms = median_ms(train_fwd), median_ms(train_fwd, burst=BURST)
+        o = train_fwd()
+
+        def bwd():
+            return torch.autograd.grad(o, (q, k, v), g, retain_graph=True)
+
+        bwd_ms = median_ms(bwd), median_ms(bwd, burst=BURST)
+        out[shape] = (fwd_ms[0], train_fwd_ms[0], bwd_ms[0],
+                      fwd_ms[1], train_fwd_ms[1], bwd_ms[1])
         del q, k, v, g, o
     return out
 
@@ -1924,24 +2061,50 @@ def cltr_attention_numbers(results, index, lib, lib_index, layers,
     """The CLTR part of an attention kernel's entry: kernel, plain, bound and
     library ms summed over one forward's or step's launches (each shape once
     per layer), and by shape. `results` maps a case to its tuple of numbers,
-    `index` = (error, ms, plain ms) positions in it."""
-    by_shape, total = {}, dict.fromkeys(("ms", "plain_ms", "bound_ms",
-                                         "library_ms"), 0.0)
+    `index` = (error, ms, plain ms, back-to-back ms, the mma.sync kernel's
+    (one launch, back-to-back) ms) positions in it; `lib_index` the place of
+    the library call's one-launch ms in `lib`'s rows, its back-to-back ms
+    three further on."""
+    by_shape, total = {}, dict.fromkeys((
+        "ms", "plain_ms", "back_to_back_ms", "mma_sync_ms",
+        "mma_sync_back_to_back_ms", "bound_ms", "library_ms",
+        "library_back_to_back_ms"), 0.0)
     for (case, numbers), n in zip(results.items(), layers):
         shape = case[0] if isinstance(case[0], tuple) else case
-        bound_ms, bound_by = attention_bound(shape, backward=backward,
-                                             lse=lse)
+        bound_ms, bound_by, bound_unit = attention_bound(
+            shape, backward=backward, lse=lse)
         row = {"launches": n, "max_abs_err": numbers[index[0]],
                "ms": numbers[index[1]], "plain_ms": numbers[index[2]],
+               "back_to_back_ms": numbers[index[3]],
+               "mma_sync_ms": numbers[index[4]][0],
+               "mma_sync_back_to_back_ms": numbers[index[4]][1],
                "bound_ms": bound_ms, "bound_by": bound_by,
-               "library_ms": lib[shape][lib_index]}
+               "bound_unit": bound_unit,
+               "library_ms": lib[shape][lib_index],
+               "library_back_to_back_ms": lib[shape][lib_index + 3]}
         by_shape[str(shape)] = row
         for key in total:
             total[key] += n * row[key]
     return {**total, "by_shape": by_shape}
 
 
-def main(cltr_profile=False, cltr_two_batches_only=False):
+def attention_ab(at, fc, au, vit, dev):
+    """Diagnostic, not a check: the host clock of the TransUnet and CLTR
+    train steps with the bf16 attention on its own route (wgmma) and with
+    every call sent to the mma.sync kernels, in turns within one process
+    (wgmma, mma.sync, mma.sync, wgmma): two designs are compared only inside
+    one call, and both steps are bound by the host's launch rate."""
+    for name in ("wgmma", "mma.sync", "mma.sync", "wgmma"):
+        with (mma_sync_route(at) if name == "mma.sync"
+              else contextlib.nullcontext()):
+            cltr_s = check_cltr_train_step(at, fc, au, dev)[1]
+            tu_s = check_train_step(at, fc, vit, dev)[1]
+        phase("attention A/B", f"attention on {name}: CLTR step "
+              f"{cltr_s * 1e3:.2f} ms, TransUnet step {tu_s * 1e3:.2f} ms")
+
+
+def main(cltr_profile=False, cltr_two_batches_only=False,
+         attention_ab_only=False):
     # 1. device
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -1980,11 +2143,15 @@ def main(cltr_profile=False, cltr_two_batches_only=False):
     build_s = time.perf_counter() - start
     phase("build", f"{', '.join(p.name for p in libs)} built and loaded in "
           f"{build_s:.2f} s")
+    ptxas_report(build, ("flash_attention_fwd", "flash_attention_bwd"))
     if cltr_profile:
         check_cltr_train_step(at, fc, au, dev, profile=True)
         return
     if cltr_two_batches_only:
         cltr_two_batches(dev)
+        return
+    if attention_ab_only:
+        attention_ab(at, fc, au, vit, dev)
         return
 
     # 3. fused conv against plain, at the UNet's shapes
@@ -2124,20 +2291,26 @@ def main(cltr_profile=False, cltr_two_batches_only=False):
     lib_attn = library_attention_ms(dev)
     lib_cltr = library_cltr_attention_ms(dev)
     phase("L library", "scaled_dot_product_attention bf16 at CLTR's shapes, "
-          "forward / forward with autograd at dropout 0.1 / backward ms: "
-          + "; ".join(f"{s}: {a:.4f} / {b:.4f} / {c:.4f}"
-                      for s, (a, b, c) in lib_cltr.items()))
+          "forward / forward with autograd at dropout 0.1 / backward ms, one "
+          "call (back to back): "
+          + "; ".join(f"{s}: {r[0]:.4f} ({r[3]:.4f}) / {r[1]:.4f} "
+                      f"({r[4]:.4f}) / {r[2]:.4f} ({r[5]:.4f})"
+                      for s, r in lib_cltr.items()))
     phase("L library", "cuDNN conv2d (scale folded) + bias + ReLU, bf16 "
           f"B={BATCH}: UNet's 18 shapes "
           f"{sum(lib_conv[s] for s in shapes):.4f} ms, TransUnet decoder's 9 "
           f"{sum(lib_conv[s] for s in tu_shapes):.4f} ms; per shape "
           + ", ".join(f"{s}: {ms:.4f}" for s, ms in lib_conv.items()))
     phase("L library", "scaled_dot_product_attention bf16 (B,H,Nq,Nk,Dqk,Dv)"
-          f"={ATTN_CASES[0][0]}: forward {lib_attn['fwd']:.4f} ms; with "
-          f"autograd forward {lib_attn[('train_fwd', 0.0)]:.4f} ms, backward "
-          f"{lib_attn[('bwd', 0.0)]:.4f} ms; at dropout 0.1 forward "
-          f"{lib_attn[('train_fwd', 0.1)]:.4f} ms, backward "
-          f"{lib_attn[('bwd', 0.1)]:.4f} ms")
+          f"={ATTN_CASES[0][0]}, one call (back to back): forward "
+          f"{lib_attn['fwd']:.4f} ({lib_attn['fwd_burst']:.4f}) ms; "
+          + "; ".join(
+              f"with autograd at dropout {rate} forward "
+              f"{lib_attn[('train_fwd', rate)]:.4f} "
+              f"({lib_attn[('train_fwd_burst', rate)]:.4f}) ms, backward "
+              f"{lib_attn[('bwd', rate)]:.4f} "
+              f"({lib_attn[('bwd_burst', rate)]:.4f}) ms"
+              for rate in (0.0, 0.1)))
 
     # the port's main paths import no JAX and nothing of the JAX package
     jax_side = sorted(m for m in sys.modules if m.split(".")[0] in (
@@ -2153,9 +2326,11 @@ def main(cltr_profile=False, cltr_two_batches_only=False):
     n_fwd = t3_launches["attention_train_forward"]
     n_bwd = t3_launches["attention_backward"]
     conv_bound_ms, conv_bound_by = conv_bound(shapes + tu_shapes)
-    fwd_bound_ms, fwd_bound_by = attention_bound(vit_shape)
-    tfwd_bound_ms, tfwd_bound_by = attention_bound(vit_shape, lse=True)
-    bwd_bound_ms, bwd_bound_by = attention_bound(vit_shape, backward=True)
+    fwd_bound_ms, fwd_bound_by, fwd_bound_unit = attention_bound(vit_shape)
+    tfwd_bound_ms, tfwd_bound_by, tfwd_bound_unit = attention_bound(
+        vit_shape, lse=True)
+    bwd_bound_ms, bwd_bound_by, bwd_bound_unit = attention_bound(
+        vit_shape, backward=True)
     mask_shape = MASK_CASES[0][0]
     n_minplus = m3_launches["minplus"]
     # the step's two launches are M1's first two cases, in the other order
@@ -2200,16 +2375,24 @@ def main(cltr_profile=False, cltr_two_batches_only=False):
                              "cltr_eval": c5_launches["fused_attention"]},
         # CLTR's eval forward: 6 encoder, 6 decoder self- and 6
         # cross-attentions at batch 16 (the trained model served 9 patches)
-        "cltr": cltr_attention_numbers(cltr_bf16, (0, 1, 2), lib_cltr, 0,
-                                       cltr_layers),
-        "max_abs_err": max(e for e, _, _ in attn_bf16.values()),
+        "cltr": cltr_attention_numbers(cltr_bf16, (0, 1, 2, 3, 4), lib_cltr,
+                                       0, cltr_layers),
+        "max_abs_err": max(r[0] for r in attn_bf16.values()),
         # bf16, the ViT's shape, summed over the 12 launches of a forward
         "ms": attn_launches * attn_bf16[vit_shape][1],
         "plain_ms": attn_launches * attn_bf16[vit_shape][2],
+        "back_to_back_ms": attn_launches * attn_bf16[vit_shape][3],
+        "mma_sync_ms": attn_launches * attn_bf16[vit_shape][4][0],
+        "mma_sync_back_to_back_ms": attn_launches * attn_bf16[vit_shape][4][1],
+        "instruction_by_shape": {
+            str(s): at.attention_route(torch.bfloat16, *s[4:])
+            for s in list(attn_bf16) + list(cltr_bf16)},
         "bound_ms": attn_launches * fwd_bound_ms,
         "bound_by": fwd_bound_by,
+        "bound_unit": fwd_bound_unit,
         # scaled_dot_product_attention under inference_mode
         "library_ms": attn_launches * lib_attn["fwd"],
+        "library_back_to_back_ms": attn_launches * lib_attn["fwd_burst"],
     }, {
         "name": "flash_attention_fwd_train",
         "route": "cuda",
@@ -2221,16 +2404,22 @@ def main(cltr_profile=False, cltr_two_batches_only=False):
             "transunet_train": n_fwd,
             "cltr_train": c3_launches["attention_train_forward"]},
         # one CLTR train step's 18 launches, bias and dropout 0.1 together
-        "cltr": cltr_attention_numbers(cltr_train_bf16, (0, 1, 2), lib_cltr,
-                                       1, cltr_layers, lse=True),
+        "cltr": cltr_attention_numbers(cltr_train_bf16, (0, 1, 2, 6, 8),
+                                       lib_cltr, 1, cltr_layers, lse=True),
         "max_abs_err": max(e[0] for e in train_bf16.values()),
         # bf16, the ViT's shape at rate 0, summed over the 12 launches
         "ms": n_fwd * vit_train[1],
         "plain_ms": n_fwd * vit_train[2],
+        "back_to_back_ms": n_fwd * vit_train[6],
+        "mma_sync_ms": n_fwd * vit_train[8][0],
+        "mma_sync_back_to_back_ms": n_fwd * vit_train[8][1],
         "bound_ms": n_fwd * tfwd_bound_ms,
         "bound_by": tfwd_bound_by,
+        "bound_unit": tfwd_bound_unit,
         # scaled_dot_product_attention with autograd recording, rate 0
         "library_ms": n_fwd * lib_attn[("train_fwd", 0.0)],
+        "library_back_to_back_ms":
+            n_fwd * lib_attn[("train_fwd_burst", 0.0)],
     }, {
         "name": "flash_attention_bwd",
         "route": "cuda",
@@ -2242,15 +2431,21 @@ def main(cltr_profile=False, cltr_two_batches_only=False):
         "launches_by_path": {
             "transunet_train": n_bwd,
             "cltr_train": c3_launches["attention_backward"]},
-        "cltr": cltr_attention_numbers(cltr_train_bf16, (3, 4, 5), lib_cltr,
-                                       2, cltr_layers, backward=True),
+        "cltr": cltr_attention_numbers(cltr_train_bf16, (3, 4, 5, 7, 9),
+                                       lib_cltr, 2, cltr_layers,
+                                       backward=True),
         "max_abs_err": max(e[3] for e in train_bf16.values()),
         "ms": n_bwd * vit_train[4],
         "plain_ms": n_bwd * vit_train[5],
+        "back_to_back_ms": n_bwd * vit_train[7],
+        "mma_sync_ms": n_bwd * vit_train[9][0],
+        "mma_sync_back_to_back_ms": n_bwd * vit_train[9][1],
         "bound_ms": n_bwd * bwd_bound_ms,
         "bound_by": bwd_bound_by,
+        "bound_unit": bwd_bound_unit,
         # the backward of scaled_dot_product_attention, rate 0
         "library_ms": n_bwd * lib_attn[("bwd", 0.0)],
+        "library_back_to_back_ms": n_bwd * lib_attn[("bwd_burst", 0.0)],
     }, {
         "name": "dropout_keep_mask",
         "route": "cuda",
@@ -2327,6 +2522,7 @@ def main(cltr_profile=False, cltr_two_batches_only=False):
         "plain_ms": p2res[2],
         "bound_ms": fwd_bound_ms,
         "bound_by": fwd_bound_by,
+        "bound_unit": fwd_bound_unit,
         # scaled_dot_product_attention under inference_mode
         "library_ms": lib_attn["fwd"],
         # the port's flash forward in the same turns
@@ -2345,7 +2541,7 @@ def main(cltr_profile=False, cltr_two_batches_only=False):
         "peaks": {"card": "NVIDIA H100 SXM data sheet",
                   "bf16_flops": PEAK_BF16, "f32_flops": PEAK_F32,
                   "f32_add_min_ops": PEAK_F32_NO_FMA,
-                  "bytes_per_s": PEAK_BYTES}}))
+                  "exp_per_s": PEAK_EXP, "bytes_per_s": PEAK_BYTES}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))
@@ -2363,5 +2559,10 @@ if __name__ == "__main__":
         "--cltr-two-batches", action="store_true",
         help="build, then only a diagnostic: the CLTR train step's losses "
              "over six steps on one batch and on two batches in turn")
+    parser.add_argument(
+        "--attention-ab", action="store_true",
+        help="build, then only a diagnostic: the TransUnet and CLTR train "
+             "steps' host clock with the attention on wgmma and on mma.sync, "
+             "in turns")
     cli = parser.parse_args()
-    main(cli.cltr_profile, cli.cltr_two_batches)
+    main(cli.cltr_profile, cli.cltr_two_batches, cli.attention_ab)

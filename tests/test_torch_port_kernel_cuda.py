@@ -1,7 +1,7 @@
 """The Hopper kernels (fused conv3x3+BN+ReLU, flash attention forward in
-its eval and train calls, flash attention backward, dropout keep-mask probe,
-min-plus product)
-against their plain PyTorch versions, on a CUDA card. Skips without one: the
+its eval and train calls and flash attention backward on their wgmma,
+mma.sync and f32 routes, dropout keep-mask probe, min-plus product, auction,
+packed attention probe) against their plain PyTorch versions, on a CUDA card. Skips without one: the
 kernels have no CPU mode.
 
 This file imports no JAX, so that it runs where only the port is installed:
@@ -425,3 +425,195 @@ def test_packed_attention_probe_matches_plain_on_card(shape):
         port_attn.packed2_attention(q[:, :1], k[:, :1], v[:, :1])
     with pytest.raises((ValueError, TypeError)):
         port_attn.packed2_attention(q.float(), k.float(), v.float())
+
+
+# The bf16 wgmma kernels: (Dqk, Dv) of the ViT, of CLTR's self-attentions and
+# of CLTR's cross-attention, each compiled at its own widths. Nq and Nk run
+# over one row, sizes off the 64- and 128-row tiles, exactly one key tile
+# (CLTR's memory) and CLTR's 2000 queries.
+WGMMA_WIDTHS = [(64, 64), (32, 32), (64, 32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("nk", [1, 64, 77, 2000])
+@pytest.mark.parametrize("nq", [1, 100, 129, 2000])
+@pytest.mark.parametrize("widths", WGMMA_WIDTHS)
+def test_wgmma_kernels_match_plain_on_card(widths, nq, nk, masked):
+    """The eval forward, the train forward (o, lse) and the backward (dq, dk,
+    dv) of each wgmma instance against the plain versions, at rate 0 and at
+    rate 0.1 under two seeds, with and without the key-padding bias (batch
+    row 1 then has every key padded), at chip_smoke.py T2's bounds: o within
+    2**-7 / (1 - rate) of max|v|, lse within 1e-4, each gradient within 2**-6
+    of its peak (of its inputs' scale at Nk = 1, where dS cancels)."""
+    _needs_card()
+    dqk, dv = widths
+    dtype = torch.bfloat16
+    assert port_attn.attention_route(dtype, dqk, dv) == "wgmma"
+    shape = (2, 2, nq, nk, dqk, dv, masked)
+    q, k, v, g, bias = _train_inputs(shape, dtype)
+    scale = dqk ** -0.5
+    vmax = v.float().abs().max().item()
+
+    def amax(t):
+        return t.float().abs().max().item()
+
+    with torch.inference_mode():
+        mask = None if bias is None else bias < -1.0
+        out = port_attn.fused_attention(q, k, v, key_padding_mask=mask)
+        ref = port_attn.attention_reference(q, k, v, scale, bias)
+    assert out.shape == ref.shape and out.dtype == dtype
+    assert torch.isfinite(out).all()
+    assert (out.float() - ref.float()).abs().max().item() <= 2 ** -7 * vmax
+    if masked:  # every key of row 1 is padding: the mean of v
+        mean = v[1].float().mean(dim=1, keepdim=True).expand(2, nq, dv)
+        assert (out[1].float() - mean).abs().max().item() <= 2 ** -7 * vmax
+
+    one_hot = nk == 1
+    floor = {"dq": scale * amax(g) * amax(v) * amax(k) if one_hot else 0.0,
+             "dk": scale * amax(g) * amax(v) * amax(q) if one_hot else 0.0,
+             "dv": 0.0}
+    for rate, seed in ((0.0, 0), (0.1, 77), (0.1, 1234)):
+        args = (q, k, v, scale, bias, seed, rate)
+        before = (port_attn.attention_train_forward.launches,
+                  port_attn.attention_backward.launches)
+        o, lse = port_attn.attention_train_forward(*args)
+        ref_o, ref_lse = port_attn.attention_train_reference(*args)
+        bwd_args = (q, k, v, ref_o, ref_lse, g, scale, bias, seed, rate)
+        grads = port_attn.attention_backward(*bwd_args)
+        refs = port_attn.attention_backward_reference(*bwd_args)
+        torch.cuda.synchronize()
+        assert (port_attn.attention_train_forward.launches,
+                port_attn.attention_backward.launches) == (before[0] + 1,
+                                                           before[1] + 1)
+        assert o.shape == ref_o.shape and o.dtype == dtype
+        assert lse.shape == ref_lse.shape == (4, nq)
+        o_err = (o.float() - ref_o.float()).abs().max().item()
+        assert o_err <= 2 ** -7 / (1 - rate) * vmax, (rate, seed, o_err)
+        assert (lse - ref_lse).abs().max().item() <= 1e-4, (rate, seed)
+        for name, a, r in zip(("dq", "dk", "dv"), grads, refs):
+            assert a.shape == r.shape and a.dtype == dtype, name
+            assert torch.isfinite(a).all(), (name, rate, seed)
+            err = (a.float() - r.float()).abs().max().item()
+            assert err <= 2 ** -6 * max(amax(r), floor[name]), (
+                name, rate, seed, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_general_route_matches_plain_on_card(rate):
+    """Widths that only the mma.sync kernels take (Dqk 128, Dv 16), ragged
+    and masked: forward, train forward and backward against the plain
+    versions at T2's bounds."""
+    _needs_card()
+    dtype = torch.bfloat16
+    assert port_attn.attention_route(dtype, 128, 16) == "mma.sync"
+    q, k, v, g, bias = _train_inputs((2, 3, 100, 77, 128, 16, True), dtype)
+    scale, seed = 128 ** -0.5, 5
+    vmax = v.float().abs().max().item()
+    args = (q, k, v, scale, bias, seed, rate)
+    o, lse = port_attn.attention_train_forward(*args)
+    ref_o, ref_lse = port_attn.attention_train_reference(*args)
+    bwd_args = (q, k, v, ref_o, ref_lse, g, scale, bias, seed, rate)
+    grads = port_attn.attention_backward(*bwd_args)
+    refs = port_attn.attention_backward_reference(*bwd_args)
+    torch.cuda.synchronize()
+    assert (o.float() - ref_o.float()).abs().max().item() <= (
+        2 ** -7 / (1 - rate) * vmax)
+    assert (lse - ref_lse).abs().max().item() <= 1e-4
+    for name, a, r in zip(("dq", "dk", "dv"), grads, refs):
+        err = (a.float() - r.float()).abs().max().item()
+        assert err <= 2 ** -6 * r.float().abs().max().item(), (name, err)
+    if rate == 0.0:
+        with torch.inference_mode():
+            out = port_attn.fused_attention(q, k, v,
+                                            key_padding_mask=bias < -1.0)
+        assert (out.float() - ref_o.float()).abs().max().item() <= (
+            2 ** -7 * vmax)
+
+
+@pytest.mark.cuda
+def test_wgmma_autograd_on_card_matches_cpu():
+    """dropout_flash_attention's gradients through the bf16 wgmma kernels on
+    the card against the plain versions on the CPU in bf16: the same mask
+    from the same seed; dq's f32 sums arrive in any order."""
+    _needs_card()
+    rng = np.random.RandomState(4)
+    arrays = [rng.randn(2, 3, 200, 32).astype(np.float32) for _ in range(3)]
+    grads = {}
+    for device in ("cuda", "cpu"):
+        ts = [torch.from_numpy(a).to(device, torch.bfloat16).requires_grad_()
+              for a in arrays]
+        out = port_attn.dropout_flash_attention(*ts, 11, 32 ** -0.5, 0.1)
+        (out.float() ** 2).sum().backward()
+        grads[device] = [t.grad.float().cpu() for t in ts]
+    for a, r in zip(grads["cuda"], grads["cpu"]):
+        assert (a - r).abs().max().item() <= 2 ** -5 * r.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("widths", WGMMA_WIDTHS)
+def test_wgmma_kernels_take_a_negative_scale_on_card(widths):
+    """A scale <= 0 reverses the order of the scores, so the wgmma kernels
+    may not fold it into the exponent: they take their general instance, as
+    with a bias. Forward, train forward and backward at T2's bounds."""
+    _needs_card()
+    dqk, dv = widths
+    dtype = torch.bfloat16
+    q, k, v, g, _ = _train_inputs((2, 2, 100, 77, dqk, dv, False), dtype)
+    scale, seed, rate = -(dqk ** -0.5), 3, 0.1
+    vmax = v.float().abs().max().item()
+    args = (q, k, v, scale, None, seed, rate)
+    o, lse = port_attn.attention_train_forward(*args)
+    ref_o, ref_lse = port_attn.attention_train_reference(*args)
+    bwd_args = (q, k, v, ref_o, ref_lse, g, scale, None, seed, rate)
+    grads = port_attn.attention_backward(*bwd_args)
+    refs = port_attn.attention_backward_reference(*bwd_args)
+    torch.cuda.synchronize()
+    assert (o.float() - ref_o.float()).abs().max().item() <= (
+        2 ** -7 / (1 - rate) * vmax)
+    assert (lse - ref_lse).abs().max().item() <= 1e-4
+    for name, a, r in zip(("dq", "dk", "dv"), grads, refs):
+        err = (a.float() - r.float()).abs().max().item()
+        assert err <= 2 ** -6 * r.float().abs().max().item(), (name, err)
+    with torch.inference_mode():
+        out = port_attn.fused_attention(q, k, v, scale)
+        ref = port_attn.attention_reference(q, k, v, scale)
+    assert (out.float() - ref.float()).abs().max().item() <= 2 ** -7 * vmax
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("widths", WGMMA_WIDTHS)
+def test_wgmma_backward_with_a_very_negative_lse_on_card(widths):
+    """Scores near -140 or lower put every row's lse below -90, and Nk = 77
+    leaves key rows of the last tile past Nk: there K is zero and the
+    backward's recomputed probability exp(-lse) overflows to inf. Those rows
+    must reach no result: dq, dk and dv finite and at T2's bounds (dq = dS K
+    cancels against the keys' common offset, as at Nk = 1, so it is held to
+    its inputs' scale; lse to 1e-4 of its size, f32 sums of 25 a product)."""
+    _needs_card()
+    dqk, dv = widths
+    dtype = torch.bfloat16
+    q, k, v, g, _ = _train_inputs((2, 2, 100, 77, dqk, dv, False), dtype)
+    q, k = (0.1 * q - 5.0).to(dtype), (0.1 * k + 5.0).to(dtype)
+    scale, seed = dqk ** -0.5, 9
+    for rate in (0.0, 0.1):
+        args = (q, k, v, scale, None, seed, rate)
+        o, lse = port_attn.attention_train_forward(*args)
+        ref_o, ref_lse = port_attn.attention_train_reference(*args)
+        assert ref_lse.max().item() < -90.0
+        assert (lse - ref_lse).abs().max().item() <= (
+            1e-4 * ref_lse.abs().max().item())
+        bwd_args = (q, k, v, ref_o, ref_lse, g, scale, None, seed, rate)
+        grads = port_attn.attention_backward(*bwd_args)
+        refs = port_attn.attention_backward_reference(*bwd_args)
+        torch.cuda.synchronize()
+        for name, a, r in zip(("dq", "dk", "dv"), grads, refs):
+            assert torch.isfinite(a).all(), (name, rate)
+            err = (a.float() - r.float()).abs().max().item()
+            peak = r.float().abs().max().item()
+            if name == "dq":
+                peak = max(peak, scale * g.float().abs().max().item()
+                           * v.float().abs().max().item()
+                           * k.float().abs().max().item())
+            assert err <= 2 ** -6 * peak, (name, rate, err)

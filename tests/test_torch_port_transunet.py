@@ -1,8 +1,8 @@
 """The port's TransUnet (unet_torch_tpu_torch/models/transunet) against the JAX
 package's: the config registry, the ResNetV2 backbone, the align-corners
-upsample, the weights bridge and the eval forward, at a small size (hidden
-16, 2 layers, 2 heads, ResNet (1, 1, 1), 64x64, as tests/test_transunet.py
-builds it)."""
+upsample, the weights bridge and the eval forward in f32 and in bf16, at a
+small size (hidden 16, 2 layers, 2 heads, ResNet (1, 1, 1), 64x64, as
+tests/test_transunet.py builds it)."""
 
 import copy
 import dataclasses
@@ -21,6 +21,7 @@ from unet_torch_tpu.models.transunet import VisionTransformer as JaxViT
 from unet_torch_tpu.models.transunet import bilinear_upsample_2x as jax_up
 from unet_torch_tpu.models.transunet.vit import _tail_fold_factor
 from unet_torch_tpu_torch.ckpt.bridge import transunet_state_dict_from_flax
+from unet_torch_tpu_torch.eval.reports import make_predict_fn
 from unet_torch_tpu_torch.models.transunet.configs import CONFIGS
 from unet_torch_tpu_torch.models.transunet.resnetv2 import ResNetV2
 from unet_torch_tpu_torch.models.transunet.vit import (
@@ -176,6 +177,40 @@ def test_eval_forward_matches_jax(decoder_last, channels, hybrid):
     assert out.dtype == torch.float32
     # the bound of tests/test_torch_port_unet.py (JAX against torch, f32)
     np.testing.assert_allclose(out.numpy(), ref, atol=2e-4, rtol=1e-3)
+
+
+@pytest.mark.parametrize("decoder_last", [16, 24])
+def test_bf16_eval_forward_matches_jax_bf16(decoder_last):
+    """The bf16 eval forward through make_predict_fn against the JAX
+    VisionTransformer with dtype=bfloat16, same weights and input, for JAX's
+    folded and unfolded decoder tails. The two round at other places (JAX's
+    decoder BN applies its affine in bf16 after a bf16 conv, the port's fused
+    conv in f32, rounding once), so they are held to each other within 8
+    bf16 ulps of the logits' peak (read: 2.7 and 3.0), and the port's
+    distance from the f32 forward to twice JAX's own plus an ulp (read: 2.7
+    against 2.4 and 1.9 against 2.0 ulps): a difference beyond rounding would
+    break the second bound."""
+    jax_cfg = small_config(JAX_CONFIGS, decoder_last, True)
+    model, x, params, batch_stats = _jax_vit(jax_cfg, 3)
+    variables = {"params": params, "batch_stats": batch_stats}
+    ref32 = np.asarray(model.apply(variables, jnp.asarray(x), train=False))
+    ref16 = JaxViT(jax_cfg, img_size=IMG, num_classes=3,
+                   dtype=jnp.bfloat16).apply(variables, jnp.asarray(x),
+                                             train=False)
+    assert ref16.dtype == jnp.bfloat16
+    ref16 = np.asarray(ref16.astype(jnp.float32))
+    port = VisionTransformer(small_config(CONFIGS, decoder_last, True), IMG,
+                             3)
+    port.load_state_dict(transunet_state_dict_from_flax(params, batch_stats),
+                         strict=True)
+    predict = make_predict_fn(port.to(torch.bfloat16), "cpu", torch.bfloat16)
+    out = predict(x)
+    assert out.dtype == torch.bfloat16 and out.shape == ref16.shape
+    out = out.float().numpy()
+    ulp = 2.0 ** (np.floor(np.log2(np.abs(ref32).max())) - 7)
+    assert np.abs(out - ref16).max() <= 8 * ulp
+    assert (np.abs(out - ref32).max()
+            <= 2 * np.abs(ref16 - ref32).max() + ulp)
 
 
 def test_build_transunet_contract():

@@ -1,5 +1,6 @@
 """The port's UNet (unet_torch_tpu_torch) against the JAX package's: the
-weights bridge, the eval forward on the CPU, and build_model's contract."""
+weights bridge, the eval forward on the CPU in f32 and in bf16, and
+build_model's contract."""
 
 import numpy as np
 import pytest
@@ -12,6 +13,7 @@ from unet_torch_tpu.ckpt.torch_import import load_torch_unet
 from unet_torch_tpu.models.unet import UNet as JaxUNet
 from unet_torch_tpu_torch.ckpt.bridge import state_dict_from_flax
 from unet_torch_tpu_torch.core.rng import seed_everything
+from unet_torch_tpu_torch.eval.reports import make_predict_fn
 from unet_torch_tpu_torch.models.unet import UNet, build_model
 
 
@@ -69,6 +71,41 @@ def test_eval_forward_matches_jax(fold, hw):
     assert out.shape == ref.shape and out.dtype == torch.float32
     # the bound of tests/test_torch_parity.py (JAX against torch, f32)
     np.testing.assert_allclose(out.numpy(), ref, atol=2e-4, rtol=1e-3)
+
+
+def bf16_ulp(peak):
+    """The spacing of bfloat16 values at `peak` (8 significant bits)."""
+    return 2.0 ** (np.floor(np.log2(peak)) - 7)
+
+
+@pytest.mark.parametrize("fold", [False, True])
+def test_bf16_eval_forward_matches_jax_bf16(fold):
+    """The bf16 eval forward through make_predict_fn against the JAX UNet
+    with dtype=bfloat16, same weights and input. The two round at other
+    places (JAX's TPUBatchNorm applies the affine in bf16 after a bf16 conv;
+    the port's fused conv applies it in f32 and rounds once), so they are
+    held to each other within 8 bf16 ulps of the logits' peak (read: 4.0),
+    and the port's distance from the f32 forward to twice JAX's own plus an
+    ulp (read: 2.3 against 2.1-2.5 ulps): a difference beyond rounding would
+    break the second bound."""
+    model, x, params, batch_stats = _jax_unet(fold, (64, 64))
+    variables = {"params": params, "batch_stats": batch_stats}
+    ref32 = np.asarray(model.apply(variables, jnp.asarray(x), train=False))
+    ref16 = JaxUNet(3, 3, base=8, fold=fold, dtype=jnp.bfloat16).apply(
+        variables, jnp.asarray(x), train=False)
+    assert ref16.dtype == jnp.bfloat16
+    ref16 = np.asarray(ref16.astype(jnp.float32))
+    port = UNet(3, 3, base=8)
+    port.load_state_dict(state_dict_from_flax(params, batch_stats),
+                         strict=True)
+    predict = make_predict_fn(port.to(torch.bfloat16), "cpu", torch.bfloat16)
+    out = predict(x)
+    assert out.dtype == torch.bfloat16 and out.shape == ref16.shape
+    out = out.float().numpy()
+    ulp = bf16_ulp(np.abs(ref32).max())
+    assert np.abs(out - ref16).max() <= 8 * ulp
+    assert (np.abs(out - ref32).max()
+            <= 2 * np.abs(ref16 - ref32).max() + ulp)
 
 
 def test_init_is_seeded_by_the_generator():

@@ -40,4 +40,18 @@ __device__ __forceinline__ bool dropout_keep(uint32_t base, uint32_t row, uint32
   return mix32((row * nk_p + col) ^ base) >= thr;
 }
 
+// The same bit from idx = row * nk_p + col and folded = base ^ (base >> 16):
+// mix32's first step on idx ^ base is idx ^ (idx >> 16) ^ folded, one
+// instruction less a score in the attention kernels' inner loops.
+__device__ __forceinline__ uint32_t dropout_fold(uint32_t base) { return base ^ (base >> 16); }
+
+__device__ __forceinline__ bool dropout_keep_idx(uint32_t folded, uint32_t idx, uint32_t thr) {
+  uint32_t x = idx ^ (idx >> 16) ^ folded;
+  x *= 0x85EBCA6Bu;
+  x ^= x >> 13;
+  x *= 0xC2B2AE35u;
+  x ^= x >> 16;
+  return x >= thr;
+}
+
 }  // namespace

@@ -1,7 +1,8 @@
-// Attention forward for NVIDIA Hopper (sm_90a): one flash kernel (online
-// softmax over key tiles) in bf16 on the tensor cores, and a plain f32 one on
-// the CUDA cores. The eval call returns o; the train call also returns the
-// row log-sum-exp and may apply dropout to the probabilities.
+// Attention forward for NVIDIA Hopper (sm_90a): flash kernels (online
+// softmax over key tiles) in bf16 on the tensor cores, through wgmma and TMA
+// at the models' head widths and through mma.sync at any other, and a plain
+// f32 one on the CUDA cores. The eval call returns o; the train call also
+// returns the row log-sum-exp and may apply dropout to the probabilities.
 //
 // Replaces three TPU kernels of unet_torch_tpu/kernels/attention.py:
 // _attention_pallas (the whole sequence of one batch*head per grid cell),
@@ -29,8 +30,45 @@
 // (_attention_flash would also average over its zero-padded columns).
 // Columns past Nk get zero weight.
 //
-// bf16 design (FlashAttention-2 style): a block of 4 warps owns 64 query rows
-// of one batch*head, 16 per warp, and walks the keys in tiles of 64 rows.
+// bf16, two kernels; which one a call launches is a function of the head
+// widths alone (the wrapper's attention_route):
+//
+// wgmma design, compiled at the width pairs (Dqk, Dv) = (64, 64) (the ViT),
+// (32, 32) and (64, 32) (CLTR), nothing padded. A block of 288 threads owns
+// 128 query rows: two consumer warpgroups of 64 rows each and one producer
+// warp, whose first lane keeps a ring of three 64-key K and V tiles in
+// flight with TMA loads (3-D tensor maps (D, N, B*H), boxes of (D, 64, 1),
+// 128-byte swizzle at D = 64 and 64-byte at D = 32, rows past N arriving as
+// zeros) that complete on mbarriers; each consumer warp hands a stage back
+// when its products have read it. S = Q K^T is one wgmma m64n64k16 chain with
+// both operands read from shared memory; P stays in the accumulator
+// registers, is rounded to bf16 there and is the register A operand of
+// O += P V, with V read as an MN-major B operand, so nothing is transposed
+// in memory and no thread spends an instruction on a copy or a fragment
+// load. The accumulator puts rows and columns where mma.sync does, so the
+// softmax and the mask carry over with their global (row, column). What the
+// softmax costs a score is cut to a maximum, one FMA (the scale folded into
+// the exponent), ex2.approx, an add and half a pack: the bias and a scale
+// <= 0 take a GENERAL instance, columns past Nk are masked on the last tile
+// only, the dropout's 1 / (1 - rate) is applied once to O, and the hash
+// starts from a per-row index (dropout_keep_idx). 96 registers a thread and
+// 65 KB of shared memory at D = 64 let two blocks, 16 consumer warps, share
+// an SM, and their softmax and products overlap as the warp schedulers find
+// them. The 96 are the launch bound's doing: two blocks of nine warps put
+// five warps on one of the SM's four register files of 16 K, and 16384 / 5
+// / 32 = 102 rounds down to 96. At (32, 32) and (64, 32) nothing spills; at
+// (64, 64) a thread holds 32 f32 of O, 32 of S, 16 words of packed P and the
+// rows' maxima, sums and hash indices, which is 16-48 bytes more than 96
+// registers hold: ptxas keeps them on the stack (the build's log says how
+// many; the backward at 168 registers spills none). Ordering the two
+// warpgroups' turns with named barriers (FlashAttention-3's ping-pong) was
+// measured and dropped: with two blocks an SM it changed nothing at width 32
+// and cost 2-4% at width 64; one block an SM with 120-147 registers was 27%
+// slower at the ViT's shape (PERF.md).
+//
+// mma.sync design (FlashAttention-2 style), every other width pair: a block
+// of 4 warps owns 64 query rows of one batch*head, 16 per warp, and walks the
+// keys in tiles of 64 rows.
 // K and V tiles are double-buffered in shared memory with cp.async (the next
 // tile is in flight while the current one is multiplied; rows past Nk and
 // columns past D are zero-filled). S = Q K^T and O += P V run on the tensor
@@ -46,18 +84,22 @@
 // which costs two multiplies and a few shifts per score and stores nothing.
 //
 // What bounds it on an H100: at the ViT's shape (B*H = 96, N = 1024, D = 64)
-// one call is 25.8 GFLOP, 50 MB of q, k, v and o in device memory, about
-// 400 MB of K and V re-read from L2 (once per 64-row query tile) and 100 M
-// exponentials: at the card's peaks about 0.026 ms of tensor-core work,
-// 0.015 ms of device memory and 0.024 ms of the exp unit. The plain version
-// instead writes and reads the (B,H,Nq,Nk) f32 scores several times, about
-// 3 GB. The design keeps S and P out of memory altogether and overlaps the
-// next tile's copy with the current tile's products. Measured on an NVIDIA
-// H100 80GB HBM3 at 700 W it takes 0.15-0.19 ms (136-174 TFLOP/s), above
-// all three bounds: latency bounds it. Each warp runs S, the softmax and
-// P V one after the other, and 168 registers a thread leave room for three
-// 4-warp blocks an SM. wgmma, TMA and two warpgroups that take turns
-// between softmax and products are the known next steps.
+// one call is 25.8 GFLOP, 50 MB of q, k, v and o in device memory and 100 M
+// exponentials: 0.026 ms of tensor-core work at the card's peak, 0.015 ms of
+// device memory and 0.024 ms of the exp unit (16 a clock an SM). At width 32
+// (CLTR's decoder self-attention, B*H = 128, N = 2000) the exp unit's 0.12 ms
+// is twice the tensor cores' 0.066, and with dropout the hash's eleven
+// integer instructions a score cost more than either. The schedulers'
+// instruction rate is what the wgmma kernel runs into: about 270
+// instructions a 64 x 64 tile and warp, four warps a tile, is 270 cycles an
+// SM at best (four schedulers, one instruction a clock each) against the exp
+// unit's 256 and the tensor cores' 190. Measured on an NVIDIA H100 80GB HBM3
+// at 700 W, launches back to back: 0.082 ms at the ViT's shape (315 TFLOP/s;
+// the mma.sync kernel 0.154, scaled_dot_product_attention 0.072), 0.29 ms at
+// the decoder self-attention at rate 0 and 0.51 at rate 0.1 (0.73 and 0.88;
+// 0.34 and 0.81). The next steps are the next tile's S started before this
+// tile's softmax ends (it needs 32 more registers a thread than two blocks
+// an SM leave) and a 128-key tile.
 //
 // f32 design: a block of 128 threads owns 32 query rows, four threads a
 // row; key and value tiles of 32 rows go through shared memory, scores and
@@ -71,6 +113,7 @@
 
 #include "dropout_hash.cuh"
 #include "flash_tiles.cuh"
+#include "hopper_mma.cuh"
 
 namespace {
 
@@ -91,7 +134,7 @@ struct FwdParams {
 };
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores
+// bf16: mma.sync, any head widths (multiples of 16 up to 128)
 // ---------------------------------------------------------------------------
 
 constexpr int BQ = 64;   // query rows per block, 16 per warp
@@ -280,6 +323,228 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_bf16(const FwdParams p) {
 }
 
 // ---------------------------------------------------------------------------
+// bf16: wgmma, head widths (64, 64), (32, 32), (64, 32)
+// ---------------------------------------------------------------------------
+
+constexpr int WG_BQ = 128;       // query rows per block, 64 per consumer warpgroup
+constexpr int WG_STAGES = 3;     // K/V tiles in flight
+constexpr int WG_CONSUMERS = 256;  // threads of the two consumer warpgroups
+constexpr int WG_THREADS = WG_CONSUMERS + 32;  // and one producer warp
+
+template <int DQK, int DV>
+constexpr int smem_bytes_wgmma() {
+  return 2 * tile_bytes<64, DQK>() + WG_STAGES * (tile_bytes<BKV, DQK>() + tile_bytes<BKV, DV>()) +
+         1024 /* alignment */ + 64 /* barriers */;
+}
+
+// One 64 x 64 tile of the online softmax on the raw S accumulators: on
+// return s holds the unnormalised probabilities (dropped ones zero, the
+// survivors not yet scaled by 1 / (1 - rate)), m_run and l_run are updated
+// and corr holds the factors by which the earlier sums shrink. GENERAL: a
+// bias or a scale <= 0 (x = s * scale2 is formed before the maximum);
+// otherwise the scale is folded into the exponent's FMA. MASKED: the tile
+// holds columns >= Nk.
+template <bool GENERAL, bool MASKED, bool DROPOUT>
+__device__ __forceinline__ void softmax_tile(float (&s)[32], float (&m_run)[2], float (&l_run)[2],
+                                             float (&corr)[2], const FwdParams& p,
+                                             const float* bg, float bmax2, float scale2, int k0,
+                                             int t4, const uint32_t (&row)[2], uint32_t folded) {
+  float m_new[2] = {m_run[0], m_run[1]};
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = k0 + j * 8 + 2 * t4 + (e & 1);
+      float x = s[4 * j + e];
+      if constexpr (GENERAL) {
+        x *= scale2;
+        // the bias first (a -1e30 swallows the score), then the row shift
+        if (bg != nullptr && (!MASKED || col < p.Nk)) x = (x + bg[col] * LOG2E) - bmax2;
+      }
+      if constexpr (MASKED) x = col < p.Nk ? x : -CUDART_INF_F;
+      s[4 * j + e] = x;
+      m_new[e >> 1] = fmaxf(m_new[e >> 1], x);
+    }
+  float shift[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    m_new[i] = fmaxf(m_new[i], __shfl_xor_sync(0xffffffffu, m_new[i], 1));
+    m_new[i] = fmaxf(m_new[i], __shfl_xor_sync(0xffffffffu, m_new[i], 2));
+    // every tile holds a real key, so m_new is finite; exp2(-inf) = 0
+    const float f = GENERAL ? 1.f : scale2;
+    corr[i] = fast_exp2((m_run[i] - m_new[i]) * f);
+    shift[i] = m_new[i] * f;
+    m_run[i] = m_new[i];
+    l_run[i] *= corr[i];
+  }
+  uint32_t idx0[2] = {0u, 0u};
+  if constexpr (DROPOUT) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) idx0[i] = row[i] * p.nk_p + static_cast<uint32_t>(k0 + 2 * t4);
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float pr = GENERAL ? fast_exp2(s[4 * j + e] - shift[e >> 1])
+                         : fast_exp2(fmaf(s[4 * j + e], scale2, -shift[e >> 1]));
+      l_run[e >> 1] += pr;  // the row sum is taken before dropout
+      if constexpr (DROPOUT)
+        pr = dropout_keep_idx(folded, idx0[e >> 1] + static_cast<uint32_t>(j * 8 + (e & 1)), p.thr)
+                 ? pr
+                 : 0.f;
+      s[4 * j + e] = pr;
+    }
+}
+
+template <int DQK, int DV, bool GENERAL, bool DROPOUT>
+__global__ void __launch_bounds__(WG_THREADS, 2)
+    flash_fwd_wgmma(const FwdParams p, const __grid_constant__ CUtensorMap map_q,
+                    const __grid_constant__ CUtensorMap map_k,
+                    const __grid_constant__ CUtensorMap map_v) {
+  constexpr int QB = tile_bytes<64, DQK>();
+  constexpr int KB = tile_bytes<BKV, DQK>();
+  constexpr int VB = tile_bytes<BKV, DV>();
+  extern __shared__ __align__(1024) unsigned char wsmem[];
+  unsigned char* Qs = align_1024(wsmem);       // two tiles, one a consumer warpgroup
+  unsigned char* Ks = Qs + 2 * QB;             // WG_STAGES tiles
+  unsigned char* Vs = Ks + WG_STAGES * KB;     // WG_STAGES tiles
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(Vs + WG_STAGES * VB);
+  uint64_t* full = q_full + 1;                 // WG_STAGES: the tile has landed
+  uint64_t* empty = full + WG_STAGES;          // WG_STAGES: both warpgroups are done with it
+
+  const int Nq = p.Nq, Nk = p.Nk;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int bh = blockIdx.x / p.q_tiles;
+  const int q0 = (blockIdx.x % p.q_tiles) * WG_BQ;
+  const int kv_tiles = (Nk + BKV - 1) / BKV;
+
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+    for (int i = 0; i < WG_STAGES; ++i) {
+      mbar_init(full + i, 1);
+      mbar_init(empty + i, WG_CONSUMERS / 32);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp == WG_CONSUMERS / 32) {
+    // producer: one thread keeps the ring full
+    if (lane == 0) {
+      mbar_expect_tx(q_full, 2 * QB);
+      tma_load_3d(Qs, &map_q, q_full, 0, q0, bh);
+      tma_load_3d(Qs + QB, &map_q, q_full, 0, q0 + 64, bh);
+      for (int t = 0; t < kv_tiles; ++t) {
+        const int stage = t % WG_STAGES;
+        mbar_wait(empty + stage, ((t / WG_STAGES) & 1) ^ 1);
+        mbar_expect_tx(full + stage, KB + VB);
+        tma_load_3d(Ks + stage * KB, &map_k, full + stage, 0, t * BKV, bh);
+        tma_load_3d(Vs + stage * VB, &map_v, full + stage, 0, t * BKV, bh);
+      }
+    }
+    return;
+  }
+
+  // consumers
+  const int wg = warp / 4;
+  const int w = warp % 4;   // warp within the warpgroup: rows 16 w .. 16 w + 15
+  const int g = lane / 4;   // accumulator row (and row + 8)
+  const int t4 = lane % 4;  // accumulator column pair
+  const float* bg = p.bias ? p.bias + static_cast<long long>(bh / p.H) * Nk : nullptr;
+  const float bmax2 = p.bias ? p.bias_max[bh / p.H] * LOG2E : 0.f;
+  const float scale2 = p.scale * LOG2E;  // scores in the base-2 domain
+  const int row0 = q0 + wg * 64 + w * 16 + g;
+  const uint32_t row[2] = {static_cast<uint32_t>(row0), static_cast<uint32_t>(row0 + 8)};
+  uint32_t folded = 0;
+  if constexpr (DROPOUT) folded = dropout_fold(dropout_base(p.seed, static_cast<uint32_t>(bh)));
+
+  mbar_wait(q_full, 0);
+  const unsigned char* Qt = Qs + wg * QB;
+
+  float acc[DV / 2];
+#pragma unroll
+  for (int i = 0; i < DV / 2; ++i) acc[i] = 0.f;
+  float m_run[2] = {-CUDART_INF_F, -CUDART_INF_F};  // rows g, g + 8
+  float l_run[2] = {0.f, 0.f};  // this thread's share of the row sums
+
+  for (int t = 0; t < kv_tiles; ++t) {
+    const int stage = t % WG_STAGES;
+    mbar_wait(full + stage, (t / WG_STAGES) & 1);
+    const unsigned char* Kt = Ks + stage * KB;
+    const unsigned char* Vt = Vs + stage * VB;
+
+    // S = Q K^T: both operands read from shared memory by the tensor cores
+    float s[BKV / 2];
+    wgmma_fence();
+    wgmma_ss_tile<DQK>(s, Qt, Kt);
+    wgmma_commit();
+    wgmma_wait<0>();
+    keep_regs(s);
+
+    float corr[2];
+    if (t == kv_tiles - 1 && (Nk % BKV) != 0)
+      softmax_tile<GENERAL, true, DROPOUT>(s, m_run, l_run, corr, p, bg, bmax2, scale2, t * BKV, t4,
+                                           row, folded);
+    else
+      softmax_tile<GENERAL, false, DROPOUT>(s, m_run, l_run, corr, p, bg, bmax2, scale2, t * BKV,
+                                            t4, row, folded);
+#pragma unroll
+    for (int j = 0; j < DV / 8; ++j) {
+      acc[4 * j + 0] *= corr[0];
+      acc[4 * j + 1] *= corr[0];
+      acc[4 * j + 2] *= corr[1];
+      acc[4 * j + 3] *= corr[1];
+    }
+
+    // O += P V: P goes from the S accumulators to the register A operand as
+    // bf16; V lies [key][d] and is read as the MN-major B operand
+    uint32_t pa[4][4];
+    pack_a(pa, s);
+    wgmma_fence();
+    wgmma_rs_tile<DV>(acc, pa, Vt);
+    wgmma_commit();
+    wgmma_wait<0>();
+    keep_regs(acc);
+    keep_regs(pa);
+    if (lane == 0) mbar_arrive(empty + stage);  // this warp is done with the stage
+  }
+
+  float l_row[2], inv[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float l = l_run[i];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    l_row[i] = l;
+    inv[i] = (DROPOUT ? p.inv_keep : 1.f) / l;
+  }
+  bf16* og = static_cast<bf16*>(p.o) + static_cast<long long>(bh) * Nq * DV;
+#pragma unroll
+  for (int j = 0; j < DV / 8; ++j) {
+    const int col = j * 8 + 2 * t4;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = row0 + 8 * i;
+      if (r < Nq)
+        *reinterpret_cast<uint32_t*>(og + static_cast<long long>(r) * DV + col) =
+            pack_bf16x2(acc[4 * j + 2 * i] * inv[i], acc[4 * j + 2 * i + 1] * inv[i]);
+    }
+  }
+  if (p.lse != nullptr && t4 == 0) {
+    const float f = GENERAL ? 1.f : scale2;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = row0 + 8 * i;
+      if (r < Nq)
+        p.lse[static_cast<long long>(bh) * Nq + r] = (m_run[i] * f + log2f(l_row[i])) * LN2;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // f32: CUDA cores
 // ---------------------------------------------------------------------------
 
@@ -409,6 +674,32 @@ cudaError_t launch_bf16_dv(const FwdParams& p, int BH, cudaStream_t stream) {
                     : launch_bf16_drop<DQK, 128>(p, BH, stream);
 }
 
+template <int DQK, int DV, bool GENERAL, bool DROPOUT>
+cudaError_t launch_wgmma(const FwdParams& p, int BH, cudaStream_t stream) {
+  constexpr int smem = smem_bytes_wgmma<DQK, DV>();
+  auto kernel = flash_fwd_wgmma<DQK, DV, GENERAL, DROPOUT>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  CUtensorMap map_q, map_k, map_v;
+  if ((err = make_tile_map<DQK>(&map_q, p.q, p.Nq, BH)) != cudaSuccess) return err;
+  if ((err = make_tile_map<DQK>(&map_k, p.k, p.Nk, BH)) != cudaSuccess) return err;
+  if ((err = make_tile_map<DV>(&map_v, p.v, p.Nk, BH)) != cudaSuccess) return err;
+  kernel<<<p.q_tiles * BH, WG_THREADS, smem, stream>>>(p, map_q, map_k, map_v);
+  return cudaGetLastError();
+}
+
+template <int DQK, int DV>
+cudaError_t launch_wgmma_widths(const FwdParams& p, int BH, cudaStream_t stream) {
+  // the scale can be folded into the exponent only without a bias and when
+  // it keeps the order of the scores
+  const bool general = p.bias != nullptr || !(p.scale > 0.f);
+  if (p.thr != 0u)
+    return general ? launch_wgmma<DQK, DV, true, true>(p, BH, stream)
+                   : launch_wgmma<DQK, DV, false, true>(p, BH, stream);
+  return general ? launch_wgmma<DQK, DV, true, false>(p, BH, stream)
+                 : launch_wgmma<DQK, DV, false, false>(p, BH, stream);
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. q (B*H, Nq, dqk), k (B*H, Nk, dqk),
@@ -417,12 +708,15 @@ cudaError_t launch_bf16_dv(const FwdParams& p, int BH, cudaStream_t stream) {
 // row maxima; lse is null (eval) or a (B*H, Nq) float32 array; dqk and dv
 // are multiples of 16 in [16, 128]; Nq, Nk >= 1. thr = 0 means no dropout;
 // otherwise keep = hash >= thr and survivors are scaled by inv_keep. The
-// caller checks all of this. Returns the launch's cudaError_t.
+// caller checks all of this. route names the kernel: 0 the f32 CUDA-core one
+// (dtype 0), 1 the bf16 mma.sync one (any widths), 2 the bf16 wgmma one (the
+// width pairs (64, 64), (32, 32) and (64, 32) only); the wrapper derives it
+// from the dtype and the widths alone. Returns the launch's cudaError_t.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, const void* bias,
                                    const void* bias_max, void* o, void* lse, int B, int H, int Nq,
                                    int Nk, int dqk, int dv, float scale, unsigned seed,
                                    unsigned thr, unsigned nk_p, float inv_keep, int dtype,
-                                   void* stream) {
+                                   int route, void* stream) {
   const int BH = B * H;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dqk < 16 || dqk > DMAX || dqk % 16 || dv < 16 || dv > DMAX || dv % 16 || Nq < 1 || Nk < 1 ||
@@ -447,7 +741,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   p.nk_p = nk_p;
   p.inv_keep = inv_keep;
   cudaError_t err;
-  if (dtype == 0) {
+  if (dtype == 0 && route == 0) {
     const int smem = smem_bytes_f32(dqk, dv);
     err = cudaFuncSetAttribute(flash_fwd_f32, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err == cudaSuccess) {
@@ -455,9 +749,19 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
       flash_fwd_f32<<<p.q_tiles * BH, THREADS, smem, st>>>(p);
       err = cudaGetLastError();
     }
-  } else if (dtype == 1) {
+  } else if (dtype == 1 && route == 1) {
     p.q_tiles = (Nq + BQ - 1) / BQ;
     err = dqk <= 64 ? launch_bf16_dv<64>(p, BH, st) : launch_bf16_dv<128>(p, BH, st);
+  } else if (dtype == 1 && route == 2) {
+    p.q_tiles = (Nq + WG_BQ - 1) / WG_BQ;
+    if (dqk == 64 && dv == 64)
+      err = launch_wgmma_widths<64, 64>(p, BH, st);
+    else if (dqk == 32 && dv == 32)
+      err = launch_wgmma_widths<32, 32>(p, BH, st);
+    else if (dqk == 64 && dv == 32)
+      err = launch_wgmma_widths<64, 32>(p, BH, st);
+    else
+      err = cudaErrorInvalidValue;
   } else {
     err = cudaErrorInvalidValue;
   }

@@ -10,6 +10,11 @@ ported as four hand-written CUDA sources:
   csrc/flash_attention_bwd.cu  `_dropout_flash_bwd` and `_dropout_flash_bwd1`
                                (dq, dk, dv), also the backward of the eval
                                kernels' custom VJPs
+                               Both hold three kernels, and `attention_route`
+                               says which a call launches from its dtype and
+                               head widths alone: bf16 on wgmma + TMA at the
+                               models' widths, bf16 on mma.sync at any other,
+                               f32 on the CUDA cores.
   csrc/dropout_keep_mask.cu    the keep-mask probe of
                                benchmarks/tpu_dfa_check.py
   csrc/packed2_attention_fwd.cu  the packed two-head forward probe of
@@ -52,6 +57,11 @@ import torch
 from unet_torch_tpu_torch.kernels import build
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# which kernel of a source a call launches, as its C entry point numbers them
+_ROUTE_CODE = {"f32": 0, "mma.sync": 1, "wgmma": 2}
+# (Dqk, Dv) of the wgmma instances: the ViT, CLTR's two self-attentions and
+# CLTR's cross-attention
+WGMMA_WIDTHS = frozenset({(64, 64), (32, 32), (64, 32)})
 # -1e30 marks padding keys, as in the JAX package
 PAD_BIAS = -1e30
 _U32 = 0xFFFFFFFF
@@ -201,6 +211,19 @@ def attention_backward_reference(q, k, v, o, lse, g, scale, bias=None,
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
+def attention_route(dtype: torch.dtype, dqk: int, dv: int) -> str:
+    """Which kernel of csrc/flash_attention_{fwd,bwd}.cu a call launches, a
+    function of the dtype and the head widths alone: "f32" (CUDA cores) for
+    float32; for bfloat16 "wgmma" at the width pairs of `WGMMA_WIDTHS`,
+    compiled at their own widths, and "mma.sync" (widths padded to 64 or
+    128) at every other pair `_check` takes."""
+    if dtype == torch.float32:
+        return "f32"
+    if dtype != torch.bfloat16:
+        raise TypeError(f"no attention kernel for {dtype}")
+    return "wgmma" if (dqk, dv) in WGMMA_WIDTHS else "mma.sync"
+
+
 def _load(name: str, nargs: list) -> ctypes.CDLL:
     lib = build.load(name)
     fn = getattr(lib, name)
@@ -218,13 +241,13 @@ _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 @functools.cache
 def _library() -> ctypes.CDLL:
     return _load("flash_attention_fwd",
-                 [_P] * 7 + [_I] * 6 + [_F, _U, _U, _U, _F, _I, _P])
+                 [_P] * 7 + [_I] * 6 + [_F, _U, _U, _U, _F, _I, _I, _P])
 
 
 @functools.cache
 def _bwd_library() -> ctypes.CDLL:
     return _load("flash_attention_bwd",
-                 [_P] * 11 + [_I] * 6 + [_F, _U, _U, _U, _F, _I, _P])
+                 [_P] * 13 + [_I] * 6 + [_F, _U, _U, _U, _F, _I, _I, _P])
 
 
 @functools.cache
@@ -312,7 +335,9 @@ def _flash_forward(q, k, v, scale, bias, lse, seed, rate):
             o.data_ptr(), None if lse is None else lse.data_ptr(),
             b, h, nq, nk, dqk, dv, float(scale), int(seed) & _U32,
             dropout_threshold(rate), dfa_nk_p(nk), 1.0 / (1.0 - rate),
-            _DTYPE_CODE[q.dtype], _stream(q.device))
+            _DTYPE_CODE[q.dtype],
+            _ROUTE_CODE[attention_route(q.dtype, dqk, dv)],
+            _stream(q.device))
     del keep_alive
     _raise_on(lib, "flash_attention_fwd", err)
     return o
@@ -339,9 +364,9 @@ attention_train_forward.launches = 0
 def attention_backward(q, k, v, o, lse, g, scale, bias=None, seed=0,
                        rate=0.0):
     """(dq, dk, dv) of the train forward: the plain version on a CPU tensor,
-    the flash backward kernels (csrc/flash_attention_bwd.cu: dk and dv, then
-    dq) on a CUDA tensor. D = rowsum(g * o) is a small f32 reduction here,
-    outside the kernels, as `_dfa_bwd` takes it outside the Pallas kernel."""
+    the flash backward kernels (csrc/flash_attention_bwd.cu: D = rowsum(g *
+    o), which `_dfa_bwd` takes outside its Pallas kernel, then dk and dv,
+    then dq) on a CUDA tensor."""
     if q.device.type == "cpu":
         return attention_backward_reference(q, k, v, o, lse, g, scale, bias,
                                             seed, rate)
@@ -358,20 +383,26 @@ def attention_backward(q, k, v, o, lse, g, scale, bias=None, seed=0,
         raise TypeError(f"g and o must be {q.dtype}, got {g.dtype} and "
                         f"{o.dtype}")
     _check(q, k, v, bias, extra=(("g", g), ("o", o), ("lse", lse)))
-    dsum = (g.float() * o.float()).sum(dim=-1).reshape(b * h, nq)
+    dsum = torch.empty((b * h, nq), dtype=torch.float32, device=q.device)
+    route = attention_route(q.dtype, dqk, dv)
     dq = torch.empty_like(q)
+    # the wgmma kernel sums dq in f32 across its key blocks
+    dq_f32 = (torch.empty(q.shape, dtype=torch.float32, device=q.device)
+              if route == "wgmma" else None)
     dk = torch.empty_like(k)
     dvv = torch.empty_like(v)
     keep_alive, bias_ptr, bias_max_ptr = _bias_args(bias)
     lib = _bwd_library()
     with torch.cuda.device(q.device):
         err = lib.flash_attention_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
-            lse.data_ptr(), dsum.data_ptr(), bias_ptr, bias_max_ptr,
-            dq.data_ptr(), dk.data_ptr(), dvv.data_ptr(), b, h, nq, nk, dqk,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            g.data_ptr(), lse.data_ptr(), dsum.data_ptr(), bias_ptr,
+            bias_max_ptr,
+            dq.data_ptr(), dk.data_ptr(), dvv.data_ptr(),
+            None if dq_f32 is None else dq_f32.data_ptr(), b, h, nq, nk, dqk,
             dv, float(scale), int(seed) & _U32, dropout_threshold(rate),
             dfa_nk_p(nk), 1.0 / (1.0 - rate), _DTYPE_CODE[q.dtype],
-            _stream(q.device))
+            _ROUTE_CODE[route], _stream(q.device))
     del keep_alive
     _raise_on(lib, "flash_attention_bwd", err)
     attention_backward.launches += 1
