@@ -6,6 +6,9 @@
                                     losses over six steps on one and two batches)
     python3 chip_smoke.py --attention-ab   (build, then T3 and C3 on the wgmma
                                     and on the mma.sync attention kernels, in turns)
+    python3 chip_smoke.py --unet-profile   (build, then phase 4's forward under
+                                    torch.profiler, its convs on wgmma and on
+                                    mma.sync in turns)
 
 Builds the Hopper kernels from unet_torch_tpu_torch/csrc, then:
 
@@ -15,13 +18,19 @@ Builds the Hopper kernels from unet_torch_tpu_torch/csrc, then:
                 mask, min-plus product, auction assignment, packed two-head
                 attention probe), one process each, all at once; timed; the
                 registers and spills ptxas reports for the wgmma kernels
+                (attention and fused conv)
   3. kernel     the fused conv against its plain PyTorch version at every
                 distinct conv shape of the UNet-64 eval forward (batch 8,
-                512x512 input), in bf16 and in f32 with TF32 off; errors and
-                median times (CUDA events)
+                512x512 input), in bf16 and in f32 with TF32 off; each
+                shape's route (conv_route: wgmma, mma.sync or reg), errors,
+                median times of one launch and of launches back to back, the
+                bound, and at the wgmma route's shapes the mma.sync kernel
+                held against the plain version and timed in the same run
   4. main       UNet-64 eval forward through make_predict_fn(classes=True),
                 bf16, batch 8 at 512x512, as configs/segmentation_mc.yml
-                serves it; counts the kernel's launches, times the forward
+                serves it; counts the kernel's launches by route (17 wgmma,
+                1 reg), times the forward, also with its wgmma convs on the
+                mma.sync kernel
   5. model      one 512x512 image through the same model in f32 on the card
                 (kernel) and on the CPU (plain version); logits and class maps
                 must agree
@@ -36,7 +45,8 @@ Builds the Hopper kernels from unet_torch_tpu_torch/csrc, then:
   8. main       TransUnet R50-ViT-B/16 eval forward through
                 make_predict_fn(classes=True), bf16, batch 8 at 512x512, as
                 configs/transunet.yml serves it; counts both kernels'
-                launches (12 attention, 9 fused conv), times the forward
+                launches (12 attention; 9 fused conv: 8 wgmma, 1 mma.sync),
+                times the forward, also with its wgmma convs on mma.sync
   9. model      one 512x512 image through the TransUnet in f32, card against
                 CPU, as in phase 5; the CPU reference runs at the full
                 512x512 (about 1.5 s with the card's host)
@@ -75,12 +85,14 @@ Builds the Hopper kernels from unet_torch_tpu_torch/csrc, then:
                 launches per step, the loss finite and falling, img/s with
                 the kernel and with the plain min-plus, peak memory; the same
                 step under dice_bce beside it; then its eval forward (18
-                fused-conv launches) with test_single's sigmoid threshold
+                fused-conv launches: 17 wgmma, 1 reg) with test_single's
+                sigmoid threshold
  M4. multitask  UNetMultitask base 64 as configs/multitask_reg.yml trains it
      main       (multi_task_loss: uncertainty combine, Adam 5e-4), bf16, batch
                 8 at 512x512: loss finite and falling, log_vars moving, img/s,
                 peak memory; its eval forward on the fused-conv kernel (26
-                launches); the attention UNet's eval forward (18 launches),
+                launches: 25 wgmma, 1 reg); the attention UNet's eval
+                forward (18 launches: 17 wgmma, 1 reg),
                 and one image through it in f32, card against CPU
  M5. trainer    Trainer.train() for multi_task_reg, 2 epochs of 2 steps on
                 seeded numpy batches; best.pt (with log_vars) reloads
@@ -120,7 +132,8 @@ Builds the Hopper kernels from unet_torch_tpu_torch/csrc, then:
   L. library    one PyTorch library call beside each kernel that has one, for
                 the time only (nothing in the port calls them): cuDNN
                 conv2d with the scale folded into its weights, a bias and a
-                ReLU at the conv shapes; scaled_dot_product_attention at the
+                ReLU at the conv shapes, one call and calls back to back;
+                scaled_dot_product_attention at the
                 ViT's shape, forward, and forward + backward under autograd
                 at dropout 0 and 0.1, and at CLTR's three shapes
 
@@ -131,7 +144,9 @@ times, and the bound: the larger of bytes over the card's memory rate and
 operations over its peak rate, for the attention kernels the larger of the
 tensor cores' and the exp unit's; the three attention entries also carry the
 times of launches back to back, of the mma.sync kernels and of the library
-call in this run); the line before that is nvidia-smi's name and power limit.
+call in this run; the fused conv's entry also holds each shape's route and
+times, and its launches by route in each eval forward); the line before that
+is nvidia-smi's name and power limit.
 Weights are random, from a seed; nothing is downloaded.
 """
 
@@ -330,23 +345,38 @@ def median_ms(fn, reps=REPS, warmup=2, burst=1):
 
 
 @contextlib.contextmanager
-def mma_sync_route(at):
-    """Within it every bf16 attention call goes to the general mma.sync
-    kernels, whatever its widths: the earlier design beside the wgmma one in
-    the same run. For times only."""
-    route = at.attention_route
-    at.attention_route = lambda dtype, dqk, dv: (
-        "f32" if dtype == torch.float32 else "mma.sync")
+def mma_sync_route(mod):
+    """Within it every call that `mod`'s route function (the attention's
+    `attention_route` or the fused conv's `conv_route`) sends to a wgmma
+    kernel goes to the mma.sync kernel instead: the earlier design beside
+    the wgmma one in the same run. For times only."""
+    name = "conv_route" if hasattr(mod, "conv_route") else "attention_route"
+    route = getattr(mod, name)
+    setattr(mod, name, lambda dtype, *widths: (
+        "mma.sync" if route(dtype, *widths) == "wgmma"
+        else route(dtype, *widths)))
     try:
         yield
     finally:
-        at.attention_route = route
+        setattr(mod, name, route)
 
 
-def on_mma_sync(at, fn):
+@contextlib.contextmanager
+def per_tap_plan(fc):
+    """Within it the fused conv's wgmma route reads one box of x a tap at
+    every shape, without the staged halo tile. For times only."""
+    plan = fc.conv_tile_plan
+    fc.conv_tile_plan = lambda *args: plan(*args)._replace(halo=False)
+    try:
+        yield
+    finally:
+        fc.conv_tile_plan = plan
+
+
+def on_mma_sync(mod, fn):
     """fn's median ms (one launch, launches back to back) on the mma.sync
     kernels."""
-    with mma_sync_route(at):
+    with mma_sync_route(mod):
         return median_ms(fn), median_ms(fn, burst=BURST)
 
 
@@ -387,7 +417,9 @@ def kernel_inputs(b, h, cin, cout, dtype, gen):
 
 def check_kernel(fc, shapes, dev):
     """Phases 3 and 7. Returns {dtype: {(H, Cin, Cout): (err, ms,
-    plain_ms)}}."""
+    plain_ms, route, back-to-back ms, the mma.sync kernel's (one launch,
+    back-to-back) ms or None, bound ms, back-to-back ms without the staged
+    halo or None)}}; the f32 calls are timed one launch at a time only."""
     gen = torch.Generator().manual_seed(SEED)
     results = {}
     for dtype in (torch.bfloat16, torch.float32):
@@ -396,9 +428,16 @@ def check_kernel(fc, shapes, dev):
             x, w, bn = kernel_inputs(BATCH, h, cin, cout, dtype, gen)
             x, w = x.to(dev, dtype), w.to(dev, dtype)
             scale, bias = fc.fold_bn(*(t.to(dev) for t in bn))
+            route = fc.conv_route(dtype, cin, cout)
             with torch.inference_mode():
+                fc.reset_launches()
                 out = fc.fused_conv3x3_bn_relu(x, w, scale, bias)
                 torch.cuda.synchronize()
+                if fc.fused_conv3x3_bn_relu.launches_by_route[route] != 1:
+                    raise AssertionError(
+                        f"H={h} Cin={cin} Cout={cout} {dtype} launched "
+                        f"{fc.fused_conv3x3_bn_relu.launches_by_route}, "
+                        f"expected one on {route}")
                 ref = fc.fused_conv3x3_bn_relu_reference(x, w, scale, bias)
                 torch.cuda.synchronize()
                 err = (out.float() - ref.float()).abs().max().item()
@@ -409,20 +448,63 @@ def check_kernel(fc, shapes, dev):
                     raise AssertionError(
                         f"kernel disagrees with plain at H={h} Cin={cin} "
                         f"Cout={cout} {dtype}: max_abs_err {err} > {bound}")
-                ms = median_ms(
-                    lambda: fc.fused_conv3x3_bn_relu(x, w, scale, bias))
+
+                def kernel():
+                    return fc.fused_conv3x3_bn_relu(x, w, scale, bias)
+
+                ms = median_ms(kernel)
+                burst_ms = ms if dtype == torch.float32 else median_ms(
+                    kernel, burst=BURST)
+                old_ms = None
+                if route == "wgmma":
+                    # the mma.sync kernel at the same shape: held against
+                    # the plain version too, and timed
+                    with mma_sync_route(fc):
+                        old_err = (kernel().float() - ref.float()).abs().max(
+                            ).item()
+                    if old_err > bound:
+                        raise AssertionError(
+                            f"mma.sync kernel disagrees with plain at H={h} "
+                            f"Cin={cin} Cout={cout}: max_abs_err {old_err} > "
+                            f"{bound}")
+                    old_ms = on_mma_sync(fc, kernel)
+                tap_ms = None
+                if (route == "wgmma"
+                        and fc.conv_tile_plan(BATCH, h, h, cout).halo):
+                    with per_tap_plan(fc):
+                        tap_ms = median_ms(kernel, burst=BURST)
                 plain_ms = median_ms(
                     lambda: fc.fused_conv3x3_bn_relu_reference(
                         x, w, scale, bias))
-            per_shape[(h, cin, cout)] = (err, ms, plain_ms)
-            tflops = 2 * 9 * cin * cout * BATCH * h * h / ms / 1e9
+            # bf16: the tensor cores' peak against the bytes (f32 runs on the
+            # CUDA cores and serves the card-against-CPU checks: not bounded)
+            bound_ms = (conv_bound([(h, cin, cout)])[0]
+                        if dtype == torch.bfloat16 else None)
+            per_shape[(h, cin, cout)] = (err, ms, plain_ms, route, burst_ms,
+                                         old_ms, bound_ms, tap_ms)
+            tflops = 2 * 9 * cin * cout * BATCH * h * h / burst_ms / 1e9
             phase("kernel",
                   f"{str(dtype)[6:]} B={BATCH} H=W={h} Cin={cin} Cout={cout}"
-                  f" max_abs_err={err:.3e} (bound {bound:.3e}) kernel "
-                  f"{ms:.4f} ms ({tflops:.1f} TFLOP/s) plain {plain_ms:.4f} ms")
+                  f" route {route} max_abs_err={err:.3e} (bound {bound:.3e})"
+                  f" kernel {ms:.4f} ms, back to back {burst_ms:.4f} ms "
+                  f"({tflops:.1f} TFLOP/s"
+                  + (f"; bound {bound_ms:.4f} ms" if bound_ms else "")
+                  + (f"; without the halo tile, back to back {tap_ms:.4f} "
+                     "ms" if tap_ms else "")
+                  + (f"; on mma.sync {old_ms[0]:.4f} ms, back to back "
+                     f"{old_ms[1]:.4f} ms" if old_ms else "")
+                  + f") plain {plain_ms:.4f} ms")
             del x, w, out, ref
         results[dtype] = per_shape
     return results
+
+
+def route_counts(fc, shapes):
+    """The launches by route that the bf16 convs at `shapes` make."""
+    want = dict.fromkeys(fc.ROUTES, 0)
+    for _, cin, cout in shapes:
+        want[fc.conv_route(torch.bfloat16, cin, cout)] += 1
+    return want
 
 
 def seed_bn_stats(model, gen):
@@ -814,6 +896,7 @@ def _wrappers(at, fc):
 def reset_counts(at, fc):
     for fn in _wrappers(at, fc).values():
         fn.launches = 0
+    fc.reset_launches()
 
 
 def counts(at, fc):
@@ -1151,7 +1234,8 @@ def falling(losses):
 
 def check_binary_unet(at, fc, mp, dev, xs):
     """M3. Returns (min-plus launches of one step, step seconds with the
-    kernel, with the plain min-plus, under dice_bce, eval launches)."""
+    kernel, with the plain min-plus, under dice_bce, eval launches, the eval
+    forward's fused-conv launches by route)."""
     from unet_torch_tpu_torch.core.rng import seed_everything
     from unet_torch_tpu_torch.eval.reports import make_predict_fn
     from unet_torch_tpu_torch.losses import functional as lf
@@ -1221,20 +1305,23 @@ def check_binary_unet(at, fc, mp, dev, xs):
     mask = predict(xs)
     torch.cuda.synchronize()
     eval_launches = counts(at, fc)
+    eval_routes = dict(fc.fused_conv3x3_bn_relu.launches_by_route)
     want = dict.fromkeys(eval_launches, 0)
     want["fused_conv3x3_bn_relu"] = len(conv_shapes(BASE, SIZE))
     mask = mask.cpu().numpy()
-    if (eval_launches != want or mask.shape != (BATCH, SIZE, SIZE)
+    if (eval_launches != want
+            or eval_routes != route_counts(fc, conv_shapes(BASE, SIZE))
+            or mask.shape != (BATCH, SIZE, SIZE)
             or mask.dtype != np.uint8 or mask.max() > 1):
-        raise AssertionError(f"binary UNet eval: launches {eval_launches}, "
-                             f"mask {mask.shape} {mask.dtype}")
+        raise AssertionError(f"binary UNet eval: launches {eval_launches} "
+                             f"{eval_routes}, mask {mask.shape} {mask.dtype}")
     fwd_s = forward_s(predict, xs)
     phase("M3 binary main",
           f"its eval forward with the sigmoid threshold: "
-          f"{eval_launches['fused_conv3x3_bn_relu']} fused conv launches, "
-          f"foreground share {mask.mean():.4f}, median {fwd_s * 1e3:.2f} ms "
-          f"= {BATCH / fwd_s:.1f} img/s")
-    return launches, step_s, plain_s, dice_s, eval_launches
+          f"{eval_launches['fused_conv3x3_bn_relu']} fused conv launches "
+          f"{eval_routes}, foreground share {mask.mean():.4f}, median "
+          f"{fwd_s * 1e3:.2f} ms = {BATCH / fwd_s:.1f} img/s")
+    return launches, step_s, plain_s, dice_s, eval_launches, eval_routes
 
 
 def multitask_conv_shapes(base, size):
@@ -1246,7 +1333,7 @@ def multitask_conv_shapes(base, size):
 
 def check_multitask(at, fc, dev, xs):
     """M4. Returns (step seconds, eval launches of the two-head model, of
-    the attention UNet)."""
+    the attention UNet, then the fused conv's launches by route of each)."""
     from unet_torch_tpu_torch.core.rng import seed_everything
     from unet_torch_tpu_torch.eval.reports import make_predict_fn
     from unet_torch_tpu_torch.models.unet import build_model
@@ -1302,8 +1389,12 @@ def check_multitask(at, fc, dev, xs):
     o1, o2 = predict(xs)
     torch.cuda.synchronize()
     mt_launches = counts(at, fc)
+    mt_routes = dict(fc.fused_conv3x3_bn_relu.launches_by_route)
     want = dict.fromkeys(mt_launches, 0)
     want["fused_conv3x3_bn_relu"] = len(multitask_conv_shapes(BASE, SIZE))
+    if mt_routes != route_counts(fc, multitask_conv_shapes(BASE, SIZE)):
+        raise AssertionError(f"two-head eval forward: launches by route "
+                             f"{mt_routes}")
     if mt_launches != want or not all(
             o.shape == (BATCH, SIZE, SIZE, 1) and torch.isfinite(o).all()
             for o in (o1, o2)):
@@ -1312,7 +1403,7 @@ def check_multitask(at, fc, dev, xs):
     fwd_s = forward_s(predict, xs)
     phase("M4 multitask main",
           f"its eval forward: {mt_launches['fused_conv3x3_bn_relu']} fused "
-          f"conv launches (10 encoder + 2 x 8 decoder), median "
+          f"conv launches (10 encoder + 2 x 8 decoder) {mt_routes}, median "
           f"{fwd_s * 1e3:.2f} ms = {BATCH / fwd_s:.1f} img/s")
     del model, opt, x, y1, y2, o1, o2
 
@@ -1326,20 +1417,23 @@ def check_multitask(at, fc, dev, xs):
     classes = predict(xs)
     torch.cuda.synchronize()
     att_launches = counts(at, fc)
+    att_routes = dict(fc.fused_conv3x3_bn_relu.launches_by_route)
     want["fused_conv3x3_bn_relu"] = len(conv_shapes(BASE, SIZE))
-    if att_launches != want:
+    if (att_launches != want
+            or att_routes != route_counts(fc, conv_shapes(BASE, SIZE))):
         raise AssertionError(f"attention UNet eval forward launched "
-                             f"{att_launches}")
+                             f"{att_launches} {att_routes}")
     hist = check_classes(classes)
     fwd_s = forward_s(predict, xs)
     phase("M4 multitask main",
           f"attention UNet-{BASE} eval forward bf16 B={BATCH} {SIZE}x{SIZE}:"
-          f" {att_launches['fused_conv3x3_bn_relu']} fused conv launches, "
+          f" {att_launches['fused_conv3x3_bn_relu']} fused conv launches "
+          f"{att_routes}, "
           f"class histogram {hist.tolist()}, median {fwd_s * 1e3:.2f} ms = "
           f"{BATCH / fwd_s:.1f} img/s")
     check_model_f32(f"attention UNet-{BASE}", att, cpu_att, xs, dev,
                     ATT_UNET_REL_TOL)
-    return step_s, mt_launches, att_launches
+    return step_s, mt_launches, att_launches, mt_routes, att_routes
 
 
 def check_multitask_trainer(at, fc, dev, xs):
@@ -1685,27 +1779,64 @@ def check_cltr_train_step(at, fc, au, dev, profile=False):
     return launches, step_s, scipy_s, peak, step_auction
 
 
-def profile_cltr_step(model, criterion, opt, batch, gens, step_s, n=3):
-    """Device time of n CLTR train steps by kernel name, the busy share of
-    the unprofiled step, and the share of the hand-written kernels."""
+def profiled_rows(fn, n=3):
+    """fn() n times under torch.profiler: [(device kernel or copy, ms a
+    call, count a call)], largest first. Only the device's own kernels and
+    copies: an operator's row and an annotated range (the optimizer's step)
+    repeat their kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-
-    from unet_torch_tpu_torch.train.cltr_steps import train_step
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
-            train_step(model, criterion, opt, *batch, 1e-4, *gens, "auction")
+            fn()
         torch.cuda.synchronize()
-    # the device's own kernels and copies only: an operator's row and an
-    # annotated range (the optimizer's step) repeat their kernels
     rows = [(e.key, e.self_device_time_total / 1e3 / n, e.count / n)
             for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA
             and not getattr(e, "is_user_annotation", False)
             and e.self_device_time_total > 0]
-    rows.sort(key=lambda r: -r[1])
+    return sorted(rows, key=lambda r: -r[1])
+
+
+def profile_unet_forward(dev):
+    """--unet-profile: phase 4's UNet-64 bf16 batch-8 512x512 eval forward
+    under torch.profiler: device time by kernel, the busy and idle shares of
+    an unprofiled forward, the fused conv's share of the busy time; the same
+    with the wgmma convs on the mma.sync kernel, in turns."""
+    from unet_torch_tpu_torch.core.rng import seed_everything
+    from unet_torch_tpu_torch.eval.reports import make_predict_fn
+    from unet_torch_tpu_torch.kernels import fused_conv as fc
+
+    model = seeded_unet(seed_everything(SEED))
+    xs = eval_batch(np.random.RandomState(SEED))
+    predict = make_predict_fn(model, dev, torch.bfloat16, classes=True)
+    for name in ("wgmma", "mma.sync", "mma.sync", "wgmma"):
+        with (mma_sync_route(fc) if name == "mma.sync"
+              else contextlib.nullcontext()):
+            fwd_s = forward_s(predict, xs)
+            rows = profiled_rows(lambda: predict(xs))
+        busy = sum(r[1] for r in rows)
+        conv = sum(r[1] for r in rows if "conv3x3_bn_relu" in r[0])
+        phase("UNet profile",
+              f"convs on {name}: device busy {busy:.2f} ms a forward (sum "
+              f"of kernel times) against an unprofiled forward of "
+              f"{fwd_s * 1e3:.2f} ms: idle "
+              f"{100 * (1 - busy / (fwd_s * 1e3)):.1f}%; fused conv "
+              f"{conv:.2f} ms = {100 * conv / busy:.1f}% of busy; "
+              f"{sum(r[2] for r in rows):.0f} device events")
+        for key, ms, count in rows[:12]:
+            phase("UNet profile", f"{ms:8.3f} ms x{count:5.1f}  {key[:110]}")
+
+
+def profile_cltr_step(model, criterion, opt, batch, gens, step_s, n=3):
+    """Device time of n CLTR train steps by kernel name, the busy share of
+    the unprofiled step, and the share of the hand-written kernels."""
+    from unet_torch_tpu_torch.train.cltr_steps import train_step
+
+    rows = profiled_rows(lambda: train_step(
+        model, criterion, opt, *batch, 1e-4, *gens, "auction"), n)
     busy = sum(r[1] for r in rows)
     ours = [r for r in rows if any(k in r[0] for k in (
         "flash", "attention", "auction", "rowsum_go", "scale_cast_dq"))]
@@ -1955,9 +2086,10 @@ def check_packed2(at, dev):
 
 
 def library_conv_ms(shapes, dev):
-    """L. {(H, Cin, Cout): ms} of cuDNN at the bf16 conv shapes: conv2d on
-    channels_last tensors with the BN scale folded into the weights, the
-    bias, and an in-place ReLU; cuDNN picks its algorithm by benchmark."""
+    """L. {(H, Cin, Cout): (ms, back-to-back ms)} of cuDNN at the bf16 conv
+    shapes: conv2d on channels_last tensors with the BN scale folded into the
+    weights, the bias, and an in-place ReLU; cuDNN picks its algorithm by
+    benchmark."""
     import torch.nn.functional as F
 
     from unet_torch_tpu_torch.kernels.fused_conv import fold_bn
@@ -1975,8 +2107,11 @@ def library_conv_ms(shapes, dev):
                 torch.bfloat16).contiguous(memory_format=torch.channels_last)
             bias = bias.to(torch.bfloat16)
             with torch.inference_mode():
-                out[(h, cin, cout)] = median_ms(
-                    lambda: torch.relu_(F.conv2d(x, w, bias, padding=1)))
+                def conv():
+                    return torch.relu_(F.conv2d(x, w, bias, padding=1))
+
+                out[(h, cin, cout)] = (median_ms(conv),
+                                       median_ms(conv, burst=BURST))
             del x, w
     finally:
         torch.backends.cudnn.benchmark = was
@@ -2104,7 +2239,7 @@ def attention_ab(at, fc, au, vit, dev):
 
 
 def main(cltr_profile=False, cltr_two_batches_only=False,
-         attention_ab_only=False):
+         attention_ab_only=False, unet_profile=False):
     # 1. device
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -2143,9 +2278,13 @@ def main(cltr_profile=False, cltr_two_batches_only=False,
     build_s = time.perf_counter() - start
     phase("build", f"{', '.join(p.name for p in libs)} built and loaded in "
           f"{build_s:.2f} s")
-    ptxas_report(build, ("flash_attention_fwd", "flash_attention_bwd"))
+    ptxas_report(build, ("flash_attention_fwd", "flash_attention_bwd",
+                         "fused_conv3x3_bn_relu"))
     if cltr_profile:
         check_cltr_train_step(at, fc, au, dev, profile=True)
+        return
+    if unet_profile:
+        profile_unet_forward(dev)
         return
     if cltr_two_batches_only:
         cltr_two_batches(dev)
@@ -2164,30 +2303,37 @@ def main(cltr_profile=False, cltr_two_batches_only=False,
     cpu_model = copy.deepcopy(model).eval()
     xs = eval_batch(np.random.RandomState(SEED))
     predict = make_predict_fn(model, dev, torch.bfloat16, classes=True)
-    fc.fused_conv3x3_bn_relu.launches = 0
+    fc.reset_launches()
     at.fused_attention.launches = 0
     classes = predict(xs)
     torch.cuda.synchronize()
     unet_launches = fc.fused_conv3x3_bn_relu.launches
-    if unet_launches != len(shapes) or at.fused_attention.launches:
-        raise AssertionError(f"{unet_launches} fused conv and "
-                             f"{at.fused_attention.launches} attention "
+    unet_routes = dict(fc.fused_conv3x3_bn_relu.launches_by_route)
+    if (unet_launches != len(shapes) or at.fused_attention.launches
+            or unet_routes != route_counts(fc, shapes)):
+        raise AssertionError(f"{unet_launches} fused conv ({unet_routes}) "
+                             f"and {at.fused_attention.launches} attention "
                              f"launches in one UNet forward, expected "
-                             f"{len(shapes)} and 0")
+                             f"{len(shapes)} ({route_counts(fc, shapes)}) "
+                             "and 0")
     hist = check_classes(classes)
     fwd_s = forward_s(predict, xs)
-    # the same forward with the plain version in place of the kernel, for
-    # comparison only
+    # the same forward with the wgmma convs on the mma.sync kernel, and with
+    # the plain version in place of the kernel, for comparison only
+    with mma_sync_route(fc):
+        mma_fwd_s = forward_s(predict, xs)
     blocks.fused_conv3x3_bn_relu = fc.fused_conv3x3_bn_relu_reference
     try:
         plain_fwd_s = forward_s(predict, xs)
     finally:
         blocks.fused_conv3x3_bn_relu = fc.fused_conv3x3_bn_relu
     phase("main", f"UNet-{BASE} eval forward bf16 B={BATCH} {SIZE}x{SIZE}: "
-          f"{unet_launches} kernel launches; class histogram "
+          f"{unet_launches} kernel launches {unet_routes}; class histogram "
           f"{hist.tolist()}; median {fwd_s * 1e3:.2f} ms = "
-          f"{BATCH / fwd_s:.1f} img/s (plain convs {plain_fwd_s * 1e3:.2f} "
-          f"ms = {BATCH / plain_fwd_s:.1f} img/s)")
+          f"{BATCH / fwd_s:.1f} img/s (wgmma convs on mma.sync "
+          f"{mma_fwd_s * 1e3:.2f} ms = {BATCH / mma_fwd_s:.1f} img/s; plain "
+          f"convs {plain_fwd_s * 1e3:.2f} ms = {BATCH / plain_fwd_s:.1f} "
+          "img/s)")
 
     # 5. the UNet in f32, card (kernel) against CPU (plain)
     check_model_f32(f"UNet-{BASE}", model, cpu_model, xs, dev,
@@ -2206,20 +2352,25 @@ def main(cltr_profile=False, cltr_two_batches_only=False,
     model = seeded_transunet(seed_everything(SEED))
     cpu_model = copy.deepcopy(model).eval()
     predict = make_predict_fn(model, dev, torch.bfloat16, classes=True)
-    fc.fused_conv3x3_bn_relu.launches = 0
+    fc.reset_launches()
     at.fused_attention.launches = 0
     classes = predict(xs)
     torch.cuda.synchronize()
     tu_conv_launches = fc.fused_conv3x3_bn_relu.launches
+    tu_routes = dict(fc.fused_conv3x3_bn_relu.launches_by_route)
     attn_launches = at.fused_attention.launches
     n_layers = len(model.transformer.encoder.layer)
-    if (attn_launches, tu_conv_launches) != (n_layers, len(tu_shapes)):
+    if ((attn_launches, tu_conv_launches) != (n_layers, len(tu_shapes))
+            or tu_routes != route_counts(fc, tu_shapes)):
         raise AssertionError(f"{attn_launches} attention and "
-                             f"{tu_conv_launches} fused conv launches in one "
-                             f"TransUnet forward, expected {n_layers} and "
-                             f"{len(tu_shapes)}")
+                             f"{tu_conv_launches} fused conv ({tu_routes}) "
+                             f"launches in one TransUnet forward, expected "
+                             f"{n_layers} and {len(tu_shapes)} "
+                             f"({route_counts(fc, tu_shapes)})")
     hist = check_classes(classes)
     tu_fwd_s = forward_s(predict, xs)
+    with mma_sync_route(fc):
+        tu_mma_fwd_s = forward_s(predict, xs)
     # both plain versions swapped in, for comparison only
     vit.fused_attention = lambda q, k, v, scale: at.attention_reference(
         q, k, v, scale)
@@ -2231,9 +2382,11 @@ def main(cltr_profile=False, cltr_two_batches_only=False,
         vit.fused_conv3x3_bn_relu = fc.fused_conv3x3_bn_relu
     phase("main", f"TransUnet R50-ViT-B/16 eval forward bf16 B={BATCH} "
           f"{SIZE}x{SIZE}: {attn_launches} attention and {tu_conv_launches} "
-          f"fused conv launches; class histogram {hist.tolist()}; median "
-          f"{tu_fwd_s * 1e3:.2f} ms = {BATCH / tu_fwd_s:.1f} img/s (plain "
-          f"attention and convs {tu_plain_fwd_s * 1e3:.2f} ms = "
+          f"fused conv launches {tu_routes}; class histogram "
+          f"{hist.tolist()}; median {tu_fwd_s * 1e3:.2f} ms = "
+          f"{BATCH / tu_fwd_s:.1f} img/s (wgmma convs on mma.sync "
+          f"{tu_mma_fwd_s * 1e3:.2f} ms = {BATCH / tu_mma_fwd_s:.1f} img/s; "
+          f"plain attention and convs {tu_plain_fwd_s * 1e3:.2f} ms = "
           f"{BATCH / tu_plain_fwd_s:.1f} img/s)")
 
     # 9. the TransUnet in f32, card (kernels) against CPU (plain)
@@ -2265,9 +2418,10 @@ def main(cltr_profile=False, cltr_two_batches_only=False,
     # M1-M5: the min-plus kernel, the binary, two-head and attention UNets
     mpres = check_minplus(mp, dev)
     check_edt(dev)
-    m3_launches, dt_step_s, dt_plain_s, dice_step_s, m3_eval = \
+    m3_launches, dt_step_s, dt_plain_s, dice_step_s, m3_eval, m3_routes = \
         check_binary_unet(at, fc, mp, dev, xs)
-    mt_step_s, mt_eval, att_eval = check_multitask(at, fc, dev, xs)
+    mt_step_s, mt_eval, att_eval, mt_routes, att_routes = check_multitask(
+        at, fc, dev, xs)
     m5_eval = check_multitask_trainer(at, fc, dev, xs)
 
     # C1-C6: the auction kernel, the attention kernels at CLTR's shapes,
@@ -2297,10 +2451,13 @@ def main(cltr_profile=False, cltr_two_batches_only=False,
                       f"({r[4]:.4f}) / {r[2]:.4f} ({r[5]:.4f})"
                       for s, r in lib_cltr.items()))
     phase("L library", "cuDNN conv2d (scale folded) + bias + ReLU, bf16 "
-          f"B={BATCH}: UNet's 18 shapes "
-          f"{sum(lib_conv[s] for s in shapes):.4f} ms, TransUnet decoder's 9 "
-          f"{sum(lib_conv[s] for s in tu_shapes):.4f} ms; per shape "
-          + ", ".join(f"{s}: {ms:.4f}" for s, ms in lib_conv.items()))
+          f"B={BATCH}, one call (back to back): UNet's 18 shapes "
+          f"{sum(lib_conv[s][0] for s in shapes):.4f} "
+          f"({sum(lib_conv[s][1] for s in shapes):.4f}) ms, TransUnet "
+          f"decoder's 9 {sum(lib_conv[s][0] for s in tu_shapes):.4f} "
+          f"({sum(lib_conv[s][1] for s in tu_shapes):.4f}) ms; per shape "
+          + ", ".join(f"{s}: {ms[0]:.4f} ({ms[1]:.4f})"
+                      for s, ms in lib_conv.items()))
     phase("L library", "scaled_dot_product_attention bf16 (B,H,Nq,Nk,Dqk,Dv)"
           f"={ATTN_CASES[0][0]}, one call (back to back): forward "
           f"{lib_attn['fwd']:.4f} ({lib_attn['fwd_burst']:.4f}) ms; "
@@ -2356,14 +2513,47 @@ def main(cltr_profile=False, cltr_two_batches_only=False,
             "attention_unet": att_eval["fused_conv3x3_bn_relu"],
             "multitask_unet_after_training":
                 m5_eval["fused_conv3x3_bn_relu"]},
-        "max_abs_err": max(e for e, _, _ in conv_bf16.values()),
+        # by route (wgmma, mma.sync, reg) in each eval forward
+        "launches_by_route": {
+            "unet": unet_routes, "transunet": tu_routes,
+            "binary_unet": m3_routes, "multitask_unet": mt_routes,
+            "attention_unet": att_routes},
+        "max_abs_err": max(r[0] for r in conv_bf16.values()),
         # bf16, summed over those 27 launches
         "ms": sum(conv_bf16[s][1] for s in shapes + tu_shapes),
+        "back_to_back_ms": sum(conv_bf16[s][4] for s in shapes + tu_shapes),
+        # the wgmma route's shapes on the mma.sync kernel, the others on
+        # their own route
+        "mma_sync_ms": sum(conv_bf16[s][5][0] if conv_bf16[s][5]
+                           else conv_bf16[s][1] for s in shapes + tu_shapes),
+        "mma_sync_back_to_back_ms": sum(
+            conv_bf16[s][5][1] if conv_bf16[s][5] else conv_bf16[s][4]
+            for s in shapes + tu_shapes),
         "plain_ms": sum(conv_bf16[s][2] for s in shapes + tu_shapes),
         "bound_ms": conv_bound_ms,
         "bound_by": conv_bound_by,
         # cuDNN conv2d with the scale folded in, bias, ReLU
-        "library_ms": sum(lib_conv[s] for s in shapes + tu_shapes),
+        "library_ms": sum(lib_conv[s][0] for s in shapes + tu_shapes),
+        "library_back_to_back_ms": sum(lib_conv[s][1]
+                                       for s in shapes + tu_shapes),
+        # each distinct bf16 shape (H, Cin, Cout) once, batch 8
+        "per_shape": {str(s): {
+            "route": r[3], "max_abs_err": r[0], "ms": r[1],
+            "back_to_back_ms": r[4], "bound_ms": r[6],
+            "mma_sync_ms": r[5][0] if r[5] else None,
+            "mma_sync_back_to_back_ms": r[5][1] if r[5] else None,
+            # the wgmma route where it stages the halo: without it
+            "per_tap_back_to_back_ms": r[7],
+            "plain_ms": r[2], "library_ms": lib_conv[s][0],
+            "library_back_to_back_ms": lib_conv[s][1]}
+            for s, r in conv_bf16.items()},
+        # the UNet-64 and TransUnet eval forwards (phases 4 and 8), and with
+        # their wgmma convs on the mma.sync kernel in the same process
+        "forward_img_s": {
+            "unet": BATCH / fwd_s,
+            "unet_convs_on_mma_sync": BATCH / mma_fwd_s,
+            "transunet": BATCH / tu_fwd_s,
+            "transunet_convs_on_mma_sync": BATCH / tu_mma_fwd_s},
     }, {
         "name": "flash_attention_fwd",
         "route": "cuda",
@@ -2564,5 +2754,11 @@ if __name__ == "__main__":
         help="build, then only a diagnostic: the TransUnet and CLTR train "
              "steps' host clock with the attention on wgmma and on mma.sync, "
              "in turns")
+    parser.add_argument(
+        "--unet-profile", action="store_true",
+        help="build, then only the UNet-64 eval forward (phase 4) with "
+             "torch.profiler, its convs on wgmma and on mma.sync in turns: "
+             "device time by kernel, idle share, the fused conv's share")
     cli = parser.parse_args()
-    main(cli.cltr_profile, cli.cltr_two_batches, cli.attention_ab)
+    main(cli.cltr_profile, cli.cltr_two_batches, cli.attention_ab,
+         cli.unet_profile)

@@ -1,4 +1,5 @@
-"""The Hopper kernels (fused conv3x3+BN+ReLU, flash attention forward in
+"""The Hopper kernels (fused conv3x3+BN+ReLU on its wgmma, mma.sync and
+register routes, flash attention forward in
 its eval and train calls and flash attention backward on their wgmma,
 mma.sync and f32 routes, dropout keep-mask probe, min-plus product, auction,
 packed attention probe) against their plain PyTorch versions, on a CUDA card. Skips without one: the
@@ -21,7 +22,8 @@ from unet_torch_tpu_torch.kernels import minplus as port_mp
 # second), the ragged Cin=3 of the UNet's first conv with an odd W, odd H and
 # W with Cin=64, and a K and a Cout that end inside a tile (Cin=24: 216 taps;
 # Cout=136: two 128-wide N tiles). The bf16 shapes with Cin and Cout
-# multiples of 8 take the pipelined mainloop, the others the register one.
+# multiples of 8 take the pipelined mma.sync mainloop, the others and f32 the
+# register one (`conv_route`); the wgmma route's shapes follow below.
 SHAPES = [(2, 16, 32, 8, 8), (1, 13, 16, 4, 8), (1, 9, 7, 3, 8),
           (2, 33, 17, 64, 8), (1, 9, 20, 24, 136)]
 
@@ -45,12 +47,16 @@ def test_kernel_matches_plain_on_card(shape, dtype):
     scale, bias = port_fc.fold_bn(gamma.cuda(), beta.cuda(), mean.cuda(),
                                   var.cuda())
     xd, kd = x.cuda().to(dtype), k.cuda().to(dtype)
+    route = port_fc.conv_route(dtype, cin, cout)
     before = port_fc.fused_conv3x3_bn_relu.launches
+    before_route = port_fc.fused_conv3x3_bn_relu.launches_by_route[route]
     with torch.inference_mode():
         out = port_fc.fused_conv3x3_bn_relu(xd, kd, scale, bias)
         torch.cuda.synchronize()
         ref = port_fc.fused_conv3x3_bn_relu_reference(xd, kd, scale, bias)
     assert port_fc.fused_conv3x3_bn_relu.launches == before + 1
+    assert (port_fc.fused_conv3x3_bn_relu.launches_by_route[route]
+            == before_route + 1)
     assert out.shape == ref.shape and out.dtype == dtype
     err = (out.float() - ref.float()).abs().max().item()
     peak = ref.float().abs().max().item()
@@ -76,6 +82,124 @@ def test_kernel_rejects_what_it_does_not_take():
         port_fc.fused_conv3x3_bn_relu(x, w[:2], s, s)
     with pytest.raises(RuntimeError, match="inference-only"):
         port_fc.fused_conv3x3_bn_relu(x, w.requires_grad_(), s, s)
+
+
+def _conv_inputs(shape, seed=0):
+    """x, w, scale, bias on the card in bf16 (scale and bias f32), the
+    weight kaiming-scaled so that outputs stay O(1)."""
+    *xshape, cin, cout = shape
+    rng = np.random.RandomState(seed)
+    x = rng.randn(*xshape, cin).astype(np.float32)
+    w = (rng.randn(3, 3, cin, cout) * (2.0 / (9 * cin)) ** 0.5).astype(
+        np.float32)
+    gamma, var = ((rng.rand(cout) + 0.5).astype(np.float32) for _ in range(2))
+    beta, mean = ((rng.randn(cout) * 0.1).astype(np.float32)
+                  for _ in range(2))
+    scale, bias = port_fc.fold_bn(*(torch.from_numpy(a).cuda()
+                                    for a in (gamma, beta, mean, var)))
+    return (torch.from_numpy(x).cuda().to(torch.bfloat16),
+            torch.from_numpy(w).cuda().to(torch.bfloat16), scale, bias)
+
+
+def _conv_on_route(monkeypatch, route, args):
+    """The kernel's output with every call sent down `route` ("wgmma per
+    tap": the wgmma route without the staged halo tile), and the launches
+    that went down it."""
+    if route == "wgmma per tap":
+        plan = port_fc.conv_tile_plan
+        monkeypatch.setattr(port_fc, "conv_tile_plan",
+                            lambda *a: plan(*a)._replace(halo=False))
+        route = "wgmma"
+    if route != port_fc.conv_route(args[0].dtype, args[0].shape[-1],
+                                   args[1].shape[-1]):
+        monkeypatch.setattr(port_fc, "conv_route", lambda *_: route)
+    before = port_fc.fused_conv3x3_bn_relu.launches_by_route[route]
+    with torch.inference_mode():
+        out = port_fc.fused_conv3x3_bn_relu(*args)
+        torch.cuda.synchronize()
+    return out, port_fc.fused_conv3x3_bn_relu.launches_by_route[route] - before
+
+
+# (B, H, W, Cin, Cout) of the wgmma route: every pair of Cin 64, 128, 192
+# and Cout 16, 64, 128, 320 (16 ends inside a 64-wide channel tile, 320
+# inside its second 256-wide one) at odd H and two odd W: 19 (under the
+# widest pixel tile, and not a multiple of its 32) and 69 (2 x 64 tiles, the
+# staged halo up to Cout 128, the second tile past the edge); the shapes
+# below: W 17 < 64, W 70 past one 64-wide tile with H 7 (the last tile's
+# lower taps lie wholly outside the image), three images at W 32, and a
+# 512x512 main-path shape.
+WGMMA_CONV_SHAPES = ([(2, 11, w, cin, cout) for w in (19, 69)
+                      for cin in (64, 128, 192)
+                      for cout in (16, 64, 128, 320)]
+                     + [(2, 33, 17, 64, 64), (1, 7, 70, 128, 192),
+                        (1, 7, 70, 128, 64), (3, 32, 32, 192, 64),
+                        (1, 512, 512, 64, 64)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["wgmma", "wgmma per tap", "mma.sync"])
+@pytest.mark.parametrize("shape", WGMMA_CONV_SHAPES)
+def test_wgmma_route_matches_plain_on_card(monkeypatch, shape, route):
+    """bf16 within two ulps of the output's peak, as the other routes; the
+    wgmma kernel without its halo tile and the mma.sync kernel held at the
+    same shapes, through overrides of the plan and the route."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the Hopper kernel has no CPU mode")
+    torch.backends.cudnn.allow_tf32 = False
+    assert port_fc.conv_route(torch.bfloat16, *shape[3:]) == "wgmma"
+    args = _conv_inputs(shape)
+    out, launched = _conv_on_route(monkeypatch, route, args)
+    with torch.inference_mode():
+        ref = port_fc.fused_conv3x3_bn_relu_reference(*args)
+    assert launched == 1
+    assert out.shape == ref.shape and out.dtype == torch.bfloat16
+    err = (out.float() - ref.float()).abs().max().item()
+    bound = 2 ** -6 * ref.float().abs().max().item()
+    assert err <= bound, (err, bound)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["wgmma", "wgmma per tap"])
+@pytest.mark.parametrize("cout", [16, 320])
+def test_wgmma_route_reads_no_halo_across_images_on_card(monkeypatch, cout,
+                                                         route):
+    """Images 0 and 2 are zeros, image 1 is 100x larger than the rest: a tap
+    that read across an image boundary would move images 0 and 2 off
+    relu(bias), which they must equal exactly (W 70: 2 x 64 tiles, with the
+    staged halo at Cout 16)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the Hopper kernel has no CPU mode")
+    x, w, scale, bias = _conv_inputs((3, 9, 70, 64, cout), seed=2)
+    x[0] = 0
+    x[2] = 0
+    x[1] *= 100
+    out, launched = _conv_on_route(monkeypatch, route, (x, w, scale, bias))
+    assert launched == 1
+    with torch.inference_mode():
+        ref = port_fc.fused_conv3x3_bn_relu_reference(x, w, scale, bias)
+    floor = torch.relu(bias).to(torch.bfloat16).expand(9, 70, cout)
+    assert torch.equal(out[0], floor) and torch.equal(out[2], floor)
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= 2 ** -6 * ref.float().abs().max().item()
+
+
+@pytest.mark.cuda
+def test_conv_routes_refuse_what_they_cannot_serve_on_card(monkeypatch):
+    """A route the call cannot take raises, and nothing else is launched in
+    its place: wgmma at Cin 24, mma.sync at Cout 12, either in f32."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the Hopper kernel has no CPU mode")
+    for route, shape, dtype in (("wgmma", (1, 8, 8, 24, 64), torch.bfloat16),
+                                ("mma.sync", (1, 8, 8, 64, 12),
+                                 torch.bfloat16),
+                                ("wgmma", (1, 8, 8, 64, 64), torch.float32)):
+        x, w, scale, bias = _conv_inputs(shape)
+        monkeypatch.setattr(port_fc, "conv_route", lambda *_, r=route: r)
+        before = dict(port_fc.fused_conv3x3_bn_relu.launches_by_route)
+        with torch.inference_mode(), pytest.raises(RuntimeError, match=route):
+            port_fc.fused_conv3x3_bn_relu(x.to(dtype), w.to(dtype), scale,
+                                          bias)
+        assert port_fc.fused_conv3x3_bn_relu.launches_by_route == before
 
 
 # (B, H, Nq, Nk, Dqk, Dv, masked): the ViT's head width with Nq, Nk off the

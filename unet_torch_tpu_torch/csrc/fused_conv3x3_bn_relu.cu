@@ -13,45 +13,61 @@
 //
 // Design: an implicit GEMM. The B*H*W output pixels are the GEMM's M, Cout
 // its N and the 9*Cin taps its K, ordered (dy, dx, c) so that the HWIO weight
-// is the B operand with no reordering. A block of 256 threads owns a
-// 128-pixel x BN-channel output tile and walks K in steps of 32, gathering a
-// 128x32 slice of the virtual im2col matrix straight from x (zero for halo
-// taps and for rows past the end) and a 32xBN slice of the weight into
-// shared memory. The epilogue applies scale, bias and ReLU in f32 and writes
-// y once, with 16-byte stores where Cout allows; no intermediate goes to
-// device memory.
+// is the B operand with no reordering. A block owns a 128-pixel x BN-channel
+// output tile; the im2col matrix is never materialised, the epilogue applies
+// scale, bias and ReLU in f32 and y is written once.
 //
-// Two mainloops, chosen by what the shapes allow:
-//  - bf16 with Cin and Cout multiples of 8 (every conv of the UNet but the
-//    first): 16-byte cp.async copies, four shared-memory stages in flight
-//    (one barrier per K step), BN = 128 with 64x32 warp tiles when
-//    Cout > 64, else BN = 64 with 32x32 warp tiles. Products on the tensor
-//    cores with ldmatrix + mma.sync m16n8k16 (bf16 in, f32 accumulate).
-//    The stages take 59-74 KB of dynamic shared memory, so the launch raises
-//    the 48 KB default with cudaFuncSetAttribute.
-//  - everything else (the first conv's Cin = 3, ragged Cout, and f32): loads
+// Three mainloops; kernels/fused_conv.py::conv_route picks one from the
+// dtype and the channel counts alone, and the entry point refuses a route
+// that cannot serve the call:
+//  - "wgmma" (bf16, Cin a multiple of 64, Cout of 16: every conv of the UNet
+//    family but the first and every TransUnet decoder conv but the last): a
+//    persistent, warp-specialised kernel. The 128 pixels are an Ht x Wt
+//    rectangle of one image (Wt a power of two up to 64, Ht = 128 / Wt).
+//    A producer warpgroup's thread keeps two rings full with TMA: x, per
+//    tap and 64 input channels one 4-D box at (c, w0+dx-1, h0+dy-1, b), or,
+//    where the tile is 2 x 64 and BN <= 128 (W >= 64, Cout <= 128: the
+//    UNet's 512x512 and 256x256 levels), the tile's halo of 4 x 66 pixels
+//    once per 64 channels, whose nine taps are 64-row windows of it;
+//    out-of-bounds parts (the padding, the image edge, the ragged last tile)
+//    arrive as zeros; and the weight in 64-column 2-D boxes. Two consumer warpgroups (64 pixel rows each)
+//    run wgmma m64nBNk16 with A K-major and the weight MN-major through the
+//    transpose bit, and write their halves of the tile with 4-D TMA stores,
+//    which clip what lies past H, W and Cout. One block an SM, two at BN = 64
+//    with the halo (one block's epilogue under the other's products). BN =
+//    64 for Cout <= 64, 128 for Cout <= 128, else 256:
+//    the fewest re-reads of the image rows from L2 (each pixel tile's boxes
+//    are read once per N tile), and the 128-pixel tiles keep the waves full
+//    at the deep levels (at (H, Cin, Cout) = (32, 1024, 1024), batch 8: 64
+//    pixel tiles, 256 tiles, 1.94 waves of 132 SMs; BN = 128 gives 3.88).
+//  - "mma.sync" (bf16, Cin and Cout multiples of 8): 16-byte cp.async
+//    gathers, four shared-memory stages in flight (one barrier per K step of
+//    32), BN = 128 with 64x32 warp tiles when Cout > 64, else BN = 64 with
+//    32x32 warp tiles; ldmatrix + mma.sync m16n8k16.
+//  - "reg" (the first conv's Cin = 3, ragged channel counts, and f32): loads
 //    through registers, the next K step fetched while the current one is
-//    multiplied, BN = 64; bf16 on mma.sync, f32 in full f32 on the CUDA cores, so
-//    that it can be held against a reference with TF32 off. A channel count
-//    that is not a multiple of one 16-byte vector takes scalar loads.
-// Odd H and W need nothing special: pixels are addressed one by one along M.
+//    multiplied, BN = 64; bf16 on mma.sync, f32 in full f32 on the CUDA cores,
+//    so that it can be held against a reference with TF32 off.
+// Odd H and W need nothing special on the two gathering routes: pixels are
+// addressed one by one along M.
 //
 // What bounds it on an H100: at the deep levels (H <= 128, Cin >= 128) the
 // tensor-core FLOPs, 2*9*Cin per output value against a few bytes moved. At
 // the 512x512 level the bytes: the first conv (Cin = 3) does 27 MACs per
 // output value and is bound by writing the 64-channel bf16 output, and the
 // Cin = 64 convs sit near the card's ridge point (about 290 FLOP per byte if
-// x is read once). The design answers the FLOPs with the tensor cores fed by
-// a multi-stage copy pipeline, and the bytes by never materialising the
-// im2col matrix and by writing y once; the nine-fold reuse of each x value
-// across taps is left to L1 and L2. Staging the halo'd input tile once per
-// block, wgmma, TMA and a persistent schedule are the known next steps.
+// x is read once). The wgmma route answers the FLOPs. Per tap, each x value
+// is read from L2 nine times; the staged halo reads it about 2.1 times
+// (264 pixels for 128) where it is staged. Even so the Cout = 64 shapes
+// stay under half of the tensor peak (PERF.md); at BN = 64 each k16
+// product reads 4 KB of shared memory for 64 K MACs.
 //
 // The C entry point returns the launch's cudaError_t; the Python wrapper
 // raises on nonzero.
 
 #include <type_traits>
 
+#include "hopper_mma.cuh"
 #include "warp_mma.cuh"
 
 namespace {
@@ -507,6 +523,244 @@ __global__ void __launch_bounds__(THREADS)
 }
 
 // ---------------------------------------------------------------------------
+// Mainloop 3: bf16 on wgmma, Cin a multiple of 64, Cout of 16; TMA in and out.
+// ---------------------------------------------------------------------------
+
+constexpr int WG_BM = 128;                  // output pixels a tile: Ht x Wt of one image
+constexpr int WG_BK = 64;                   // input channels a K step, of one tap
+constexpr int WG_THREADS = 384;             // a producer and two consumer warpgroups
+constexpr int WG_A_BYTES = WG_BM * WG_BK * 2;  // the image rows of a K step: 16 KB
+constexpr int WG_B_BOX = WG_BK * 64 * 2;       // one 64 x 64 box of the weight: 8 KB
+// The halo of a 2 x 64 pixel tile: 4 x 66 pixels of 64 channels (33 KB, a
+// whole number of 1024-byte swizzle periods).
+constexpr int HALO_COLS = 64 + 2;
+constexpr int HALO_BYTES = 4 * HALO_COLS * WG_BK * 2;
+
+// BN output channels a tile. A: per tap (HALO false) the tile's 128 pixel
+// rows of one tap, a stage a K step; with HALO the 4 x 66 pixels around a
+// 2 x 64 tile, a stage nine K steps (the nine taps of 64 input channels).
+// B: the weight's 64 x BN block of a K step. As many stages as fit beside
+// the epilogue's tile in the shared memory of BLOCKS blocks an SM.
+template <int BN, bool HALO>
+struct WgTile {
+  // BN = 64 with the halo: two blocks an SM (80 registers, 2 + 3 stages), so
+  // that one block's epilogue runs under the other's products
+  static constexpr int BLOCKS = HALO && BN == 64 ? 2 : 1;
+  static constexpr int A_BYTES = HALO ? HALO_BYTES : WG_A_BYTES;
+  static constexpr int B_BYTES = BN / 64 * WG_B_BOX;
+  static constexpr int A_STAGES = BLOCKS == 2 ? 2 : HALO ? 3 : BN == 256 ? 3 : BN == 128 ? 5 : 6;
+  static constexpr int B_STAGES = BLOCKS == 2 ? 3 : HALO ? 5 : A_STAGES;
+  static constexpr int EPI_BYTES = WG_BM * BN * 2;  // the bf16 output tile
+  static constexpr int SMEM_BYTES = A_STAGES * A_BYTES + B_STAGES * B_BYTES + EPI_BYTES +
+                                    2 * (A_STAGES + B_STAGES) * 8 /* barriers */ +
+                                    1024 /* alignment */;
+  static_assert(SMEM_BYTES * BLOCKS <= 233472 - 1024 * BLOCKS, "BLOCKS blocks an SM");
+  static_assert(!HALO || BN <= 128, "the halo's stages leave no room for BN = 256");
+};
+
+struct WgParams {
+  const float* scale;
+  const float* bias;
+  int Cin, Cout;
+  int ht, wt;                             // the pixel tile, ht * wt = WG_BM
+  int tiles_h, tiles_w, n_tiles, tiles;   // tiles = B * tiles_h * tiles_w * n_tiles
+};
+
+struct TileOrigin {
+  int b, h0, w0, n0;
+};
+
+// Tile t, output channels innermost: the n_tiles tiles of one pixel tile are
+// neighbours, so that blocks running at the same time read the same image
+// rows from L2. kernels/fused_conv.py::conv_tile_origin is the same map.
+__device__ __forceinline__ TileOrigin tile_origin(const WgParams& p, int t, int bn) {
+  const int nt = t % p.n_tiles;
+  int q = t / p.n_tiles;
+  const int tw = q % p.tiles_w;
+  q /= p.tiles_w;
+  const int th = q % p.tiles_h;
+  return {q / p.tiles_h, th * p.ht, tw * p.wt, nt * bn};
+}
+
+// A ring of stages on two mbarriers each: `full` (the TMA bytes have landed)
+// and `empty` (the consumers' eight warps are done with it).
+struct Ring {
+  uint64_t* full;
+  uint64_t* empty;
+  int stages;
+  int n = 0;  // stages handed out so far
+  __device__ __forceinline__ int stage() const { return n % stages; }
+  __device__ __forceinline__ uint32_t parity() const { return (n / stages) & 1; }
+};
+
+// A persistent block walks tiles blockIdx.x, + gridDim.x, ..., each over K
+// steps ks = 9 * (64-channel block) + tap. The producer warpgroup's first
+// thread keeps the rings full with TMA: the A ring with 4-D boxes of x at
+// (c0, w0 + dx - 1, h0 + dy - 1, b) a tap (with HALO one box at (c0, w0 - 1,
+// h0 - 1, b) for all nine), whose parts outside the image (the padding, the
+// ragged edge) arrive as zeros; the B ring with the weight's 64-column
+// boxes. Each consumer warpgroup multiplies its 64 pixel rows (K-major; with
+// HALO 64 consecutive rows of the halo, starting at row (cw + dy) * 66 + dx)
+// by the B tile (MN-major, through the transpose bit) in one wgmma chain a K
+// step, keeping one step in flight, then applies scale, bias and ReLU in f32,
+// rounds once to bf16 into its half of the output tile and writes it with
+// 4-D TMA stores, which clip pixels past H and W and channels past Cout.
+template <int BN, bool HALO>
+__global__ void __launch_bounds__(WG_THREADS, WgTile<BN, HALO>::BLOCKS)
+    conv3x3_bn_relu_wgmma(const WgParams p, const __grid_constant__ CUtensorMap map_x,
+                          const __grid_constant__ CUtensorMap map_w,
+                          const __grid_constant__ CUtensorMap map_y) {
+  using TL = WgTile<BN, HALO>;
+  constexpr int HALF_BYTES = TL::EPI_BYTES / 2;  // a consumer warpgroup's 64 rows
+  extern __shared__ __align__(1024) unsigned char wsmem[];
+  unsigned char* ring_a = align_1024(wsmem);
+  unsigned char* ring_b = ring_a + TL::A_STAGES * TL::A_BYTES;
+  unsigned char* epi = ring_b + TL::B_STAGES * TL::B_BYTES;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(epi + TL::EPI_BYTES);
+  Ring a{bars, bars + TL::A_STAGES, TL::A_STAGES};
+  Ring b{bars + 2 * TL::A_STAGES, bars + 2 * TL::A_STAGES + TL::B_STAGES, TL::B_STAGES};
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+  const int ksteps = 9 * (p.Cin / WG_BK);
+
+  if (tid == 0) {
+    for (int i = 0; i < TL::A_STAGES; ++i) {
+      mbar_init(a.full + i, 1);
+      mbar_init(a.empty + i, 8);
+    }
+    for (int i = 0; i < TL::B_STAGES; ++i) {
+      mbar_init(b.full + i, 1);
+      mbar_init(b.empty + i, 8);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    setmaxnreg_dec<TL::BLOCKS == 2 ? 24 : 40>();
+    if (tid == 0) {
+      for (int t = blockIdx.x; t < p.tiles; t += gridDim.x) {
+        const TileOrigin o = tile_origin(p, t, BN);
+        // weight boxes wholly past Cout are not loaded: their columns of the
+        // product are never stored
+        const int boxes = min(BN, p.Cout - o.n0 + 63) / 64;
+        for (int ks = 0; ks < ksteps; ++ks) {
+          const int c0 = ks / 9 * WG_BK;
+          const int tap = ks % 9;
+          if (!HALO || tap == 0) {
+            unsigned char* dst = ring_a + a.stage() * TL::A_BYTES;
+            mbar_wait(a.empty + a.stage(), a.parity() ^ 1);
+            mbar_expect_tx(a.full + a.stage(), TL::A_BYTES);
+            if (HALO)
+              tma_load_4d(dst, &map_x, a.full + a.stage(), c0, o.w0 - 1, o.h0 - 1, o.b);
+            else
+              tma_load_4d(dst, &map_x, a.full + a.stage(), c0, o.w0 + tap % 3 - 1,
+                          o.h0 + tap / 3 - 1, o.b);
+            ++a.n;
+          }
+          unsigned char* dst = ring_b + b.stage() * TL::B_BYTES;
+          mbar_wait(b.empty + b.stage(), b.parity() ^ 1);
+          mbar_expect_tx(b.full + b.stage(), boxes * WG_B_BOX);
+          for (int j = 0; j < boxes; ++j)
+            tma_load_3d(dst + j * WG_B_BOX, &map_w, b.full + b.stage(), o.n0 + 64 * j,
+                        tap * p.Cin + c0, 0);
+          ++b.n;
+        }
+      }
+    }
+    return;
+  }
+
+  setmaxnreg_inc<TL::BLOCKS == 2 ? 104 : 232>();
+  const int cw = wg - 1;           // rows 64 cw .. 64 cw + 63 of the pixel tile
+  const int lane = tid % 32;
+  const int r0 = (tid / 32) % 4 * 16 + lane / 4;  // accumulator rows r0, r0 + 8
+  const int t4 = lane % 4;         // accumulator column pair
+  unsigned char* out = epi + cw * HALF_BYTES;
+  float acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+
+  for (int t = blockIdx.x; t < p.tiles; t += gridDim.x) {
+    const TileOrigin o = tile_origin(p, t, BN);
+    const unsigned char* a_tile = ring_a;
+    for (int ks = 0; ks < ksteps; ++ks) {
+      const int tap = ks % 9;
+      const bool new_a = !HALO || tap == 0;
+      if (new_a) {
+        mbar_wait(a.full + a.stage(), a.parity());
+        a_tile = ring_a + a.stage() * TL::A_BYTES;
+        ++a.n;
+      }
+      const unsigned char* rows =
+          HALO ? a_tile + ((cw + tap / 3) * HALO_COLS + tap % 3) * (WG_BK * 2)
+               : a_tile + cw * tile_bytes<64, 64>();
+      // a window may start off the 1024-byte swizzle period: the swizzle is
+      // taken from the address bits, as the TMA wrote it, so the
+      // descriptor's base offset stays 0
+      const uint64_t da = desc_kmajor<64>(rows);
+      const uint64_t db = desc_mnmajor_wide(ring_b + b.stage() * TL::B_BYTES);
+      mbar_wait(b.full + b.stage(), b.parity());
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < WG_BK / 16; ++kk)  // the first product of a tile overwrites acc
+        wgmma_kn(acc, da + kk * kmajor_step(), db + kk * mnmajor_step<64>(), ks | kk);
+      wgmma_commit();
+      ++b.n;
+      // the previous step's products are done: free its B stage, and its A
+      // stage if this step began another
+      wgmma_wait<1>();
+      if (ks > 0 && lane == 0) {
+        mbar_arrive(b.empty + (b.n - 2) % b.stages);
+        if (new_a) mbar_arrive(a.empty + (a.n - 2) % a.stages);
+      }
+    }
+    wgmma_wait<0>();
+    keep_regs(acc);
+    if (lane == 0) {
+      mbar_arrive(b.empty + (b.n - 1) % b.stages);
+      mbar_arrive(a.empty + (a.n - 1) % a.stages);
+    }
+
+    // epilogue: once this half's last stores have read it, the tile goes
+    // through shared memory in the swizzled layout the TMA store reads
+    if (tid % 128 == 0) bulk_wait_read();
+    named_bar_sync(1 + cw, 128);
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int col = o.n0 + 8 * j + 2 * t4;
+      float s0 = 0.f, s1 = 0.f, b0 = 0.f, b1 = 0.f;
+      if (col < p.Cout) {  // Cout is even: both columns or neither
+        s0 = __ldg(p.scale + col);
+        s1 = __ldg(p.scale + col + 1);
+        b0 = __ldg(p.bias + col);
+        b1 = __ldg(p.bias + col + 1);
+      }
+      unsigned char* box = out + (j / 8) * tile_bytes<64, 64>();
+      *reinterpret_cast<uint32_t*>(box + Swizzle<64>::offset(r0, j % 8) + 4 * t4) =
+          pack_bf16x2(relu(acc[4 * j] * s0 + b0), relu(acc[4 * j + 1] * s1 + b1));
+      *reinterpret_cast<uint32_t*>(box + Swizzle<64>::offset(r0 + 8, j % 8) + 4 * t4) =
+          pack_bf16x2(relu(acc[4 * j + 2] * s0 + b0), relu(acc[4 * j + 3] * s1 + b1));
+      // one 64-column box at a time: the scale and bias loads of the next
+      // are not hoisted above this one, which would take registers from acc
+      if (j % 8 == 7) asm volatile("" ::: "memory");
+    }
+    fence_proxy_async();
+    named_bar_sync(1 + cw, 128);
+    if (tid % 128 == 0) {
+      const int rows_half = p.ht / 2;  // image rows of this half
+      const int boxes = min(BN, p.Cout - o.n0 + 63) / 64;
+      for (int j = 0; j < boxes; ++j)
+        tma_store_4d(&map_y, out + j * tile_bytes<64, 64>(), o.n0 + 64 * j, o.w0,
+                     o.h0 + cw * rows_half, o.b);
+      bulk_commit();
+    }
+  }
+  if (tid % 128 == 0) bulk_wait_all();
+}
+
+// ---------------------------------------------------------------------------
 // Launch
 // ---------------------------------------------------------------------------
 
@@ -534,6 +788,47 @@ cudaError_t launch_pipe(const void* x, const void* w, const float* scale, const 
   return cudaGetLastError();
 }
 
+template <int BN, bool HALO>
+cudaError_t launch_wgmma(const void* x, const void* w, const float* scale, const float* bias,
+                         void* y, int B, int H, int W, int Cin, int Cout, int wt,
+                         cudaStream_t stream) {
+  constexpr int smem = WgTile<BN, HALO>::SMEM_BYTES;
+  auto kernel = conv3x3_bn_relu_wgmma<BN, HALO>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  WgParams p;
+  p.scale = scale;
+  p.bias = bias;
+  p.Cin = Cin;
+  p.Cout = Cout;
+  p.wt = wt;
+  p.ht = WG_BM / wt;
+  p.tiles_h = (H + p.ht - 1) / p.ht;
+  p.tiles_w = (W + wt - 1) / wt;
+  p.n_tiles = (Cout + BN - 1) / BN;
+  const long long tiles = static_cast<long long>(B) * p.tiles_h * p.tiles_w * p.n_tiles;
+  if (tiles >= (1LL << 31)) return cudaErrorInvalidValue;
+  p.tiles = static_cast<int>(tiles);
+  CUtensorMap map_x, map_w, map_y;
+  // a box: the tile's pixels of one tap, or with HALO the 4 x 66 around it
+  if ((err = make_bf16_map_4d(&map_x, x, {Cin, W, H, B},
+                              {WG_BK, HALO ? HALO_COLS : wt, HALO ? 4 : p.ht, 1})) != cudaSuccess)
+    return err;
+  if ((err = make_map(&map_w, w, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, Cout, 64, 9LL * Cin, 1)) !=
+      cudaSuccess)
+    return err;
+  if ((err = make_bf16_map_4d(&map_y, y, {Cout, W, H, B}, {64, wt, p.ht / 2, 1})) != cudaSuccess)
+    return err;
+  int device = 0, sms = 0;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess)
+    return err;
+  const int blocks = sms * WgTile<BN, HALO>::BLOCKS;
+  kernel<<<p.tiles < blocks ? p.tiles : blocks, WG_THREADS, smem, stream>>>(p, map_x, map_w,
+                                                                           map_y);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t launch_reg_any(const void* x, const void* w, const float* scale, const float* bias,
                            void* y, int M, int H, int W, int Cin, int Cout, cudaStream_t stream) {
@@ -549,26 +844,43 @@ cudaError_t launch_reg_any(const void* x, const void* w, const float* scale, con
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. x, w and y are 16-byte aligned and
-// contiguous; B*H*W < 2^31. The caller checks all of this. Returns the
-// launch's cudaError_t.
+// contiguous; B*H*W < 2^31. The caller checks all of this. route names the
+// mainloop: 0 the register one (any dtype and channel count), 1 the
+// cp.async + mma.sync one (bf16, Cin and Cout multiples of 8), 2 the wgmma
+// one (bf16, Cin a multiple of 64, Cout of 16) with the pixel tile wt wide
+// (a power of two up to 64; 128 / wt rows), bn output channels a tile (64,
+// 128 or 256) and, with halo = 1 (wt = 64, bn <= 128), the staged halo tile;
+// kernels/fused_conv.py::conv_route and conv_tile_plan derive them from the
+// call alone. A route that cannot serve the call is refused with
+// cudaErrorInvalidValue. Returns the launch's cudaError_t.
 extern "C" int fused_conv3x3_bn_relu(const void* x, const void* w, const void* scale,
                                      const void* bias, void* y, int B, int H, int W, int Cin,
-                                     int Cout, int dtype, void* stream) {
+                                     int Cout, int dtype, int route, int wt, int bn, int halo,
+                                     void* stream) {
   const int M = B * H * W;
   const float* s = static_cast<const float*>(scale);
   const float* t = static_cast<const float*>(bias);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == 0) {
+  cudaError_t err = cudaErrorInvalidValue;
+  if (route == 0 && dtype == 0) {
     err = launch_reg_any<float>(x, w, s, t, y, M, H, W, Cin, Cout, st);
-  } else if (dtype == 1) {
-    if (Cin % 8 == 0 && Cout % 8 == 0)
-      err = Cout > 64 ? launch_pipe<128>(x, w, s, t, y, M, H, W, Cin, Cout, st)
-                      : launch_pipe<64>(x, w, s, t, y, M, H, W, Cin, Cout, st);
-    else
-      err = launch_reg_any<bf16>(x, w, s, t, y, M, H, W, Cin, Cout, st);
-  } else {
-    err = cudaErrorInvalidValue;
+  } else if (route == 0 && dtype == 1) {
+    err = launch_reg_any<bf16>(x, w, s, t, y, M, H, W, Cin, Cout, st);
+  } else if (route == 1 && dtype == 1 && Cin % 8 == 0 && Cout % 8 == 0) {
+    err = Cout > 64 ? launch_pipe<128>(x, w, s, t, y, M, H, W, Cin, Cout, st)
+                    : launch_pipe<64>(x, w, s, t, y, M, H, W, Cin, Cout, st);
+  } else if (route == 2 && dtype == 1 && Cin % WG_BK == 0 && Cout % 16 == 0 && wt >= 1 &&
+             wt <= 64 && (wt & (wt - 1)) == 0) {
+    if (halo == 0 && bn == 64)
+      err = launch_wgmma<64, false>(x, w, s, t, y, B, H, W, Cin, Cout, wt, st);
+    else if (halo == 0 && bn == 128)
+      err = launch_wgmma<128, false>(x, w, s, t, y, B, H, W, Cin, Cout, wt, st);
+    else if (halo == 0 && bn == 256)
+      err = launch_wgmma<256, false>(x, w, s, t, y, B, H, W, Cin, Cout, wt, st);
+    else if (halo == 1 && wt == 64 && bn == 64)
+      err = launch_wgmma<64, true>(x, w, s, t, y, B, H, W, Cin, Cout, wt, st);
+    else if (halo == 1 && wt == 64 && bn == 128)
+      err = launch_wgmma<128, true>(x, w, s, t, y, B, H, W, Cin, Cout, wt, st);
   }
   return static_cast<int>(err);
 }

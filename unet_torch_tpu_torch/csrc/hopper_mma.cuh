@@ -30,7 +30,9 @@
 // accumulator and register-A values must not be touched; keep_regs() pins
 // them across the wait for the compiler.
 //
-// Included by csrc/flash_attention_{fwd,bwd}.cu; kernels/build.py hashes
+// Included by csrc/flash_attention_{fwd,bwd}.cu and, for its wgmma route,
+// csrc/fused_conv3x3_bn_relu.cu (4-D TMA loads and stores, the m64n{64,128,
+// 256}k16 forms with a K-major A and an MN-major B); kernels/build.py hashes
 // this header with each source.
 
 #pragma once
@@ -283,6 +285,73 @@ __device__ __forceinline__ void wgmma_rs_tile(float (&d)[D / 2], const uint32_t 
   for (int kc = 0; kc < 4; ++kc) wgmma_rs(d, a[kc], b + kc * mnmajor_step<D>());
 }
 
+// d (64 x N) = a * b (+ d when acc != 0), one k16 step, with a a K-major tile
+// (64 rows of the product's M, 16 deep) and b an MN-major operand (16 rows of
+// the depth, N wide): the transpose bit on b only. N = 64, 128, 256: b is
+// then one, two or four 64-column tiles (desc_mnmajor_wide). The forms of the
+// fused conv's wgmma mainloop: the image rows as A, the HWIO weight as b.
+#define WGMMA_N128_REGS                                                                  \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "              \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "     \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "     \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+#define WGMMA_N256_REGS                                                                  \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "              \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "     \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "     \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "     \
+  "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "     \
+  "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "     \
+  "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, "     \
+  "%110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, " \
+  "%124, %125, %126, %127}"
+#define WGMMA_D8(i)                                                                      \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]),            \
+      "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define WGMMA_D32(i) WGMMA_D8(i), WGMMA_D8(i + 8), WGMMA_D8(i + 16), WGMMA_D8(i + 24)
+
+__device__ __forceinline__ void wgmma_kn(float (&d)[32], uint64_t a, uint64_t b, int acc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WGMMA_N64_REGS
+      ", %32, %33, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : WGMMA_D32(0)
+      : "l"(a), "l"(b), "r"(acc));
+}
+__device__ __forceinline__ void wgmma_kn(float (&d)[64], uint64_t a, uint64_t b, int acc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WGMMA_N128_REGS
+      ", %64, %65, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : WGMMA_D32(0), WGMMA_D32(32)
+      : "l"(a), "l"(b), "r"(acc));
+}
+__device__ __forceinline__ void wgmma_kn(float (&d)[128], uint64_t a, uint64_t b, int acc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " WGMMA_N256_REGS
+      ", %128, %129, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : WGMMA_D32(0), WGMMA_D32(32), WGMMA_D32(64), WGMMA_D32(96)
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+// An MN-major operand wider than one swizzle atom: 64-column tiles of 64
+// rows (128-byte rows, 128-byte swizzle) one after the other, 8 KB apart
+// (the leading byte offset), 8-row groups 1024 bytes apart (the stride byte
+// offset). Add mnmajor_step<64>() per k16 step.
+__device__ __forceinline__ uint64_t desc_mnmajor_wide(const void* tile) {
+  return make_desc(tile, tile_bytes<64, 64>(), Swizzle<64>::GROUP_BYTES, Swizzle<64>::LAYOUT);
+}
+
 // The accumulators of a 64 x 64 product (d[4 j + e]) rounded to bf16 as the
 // four k16 A fragments of the next product.
 __device__ __forceinline__ void pack_a(uint32_t (&a)[4][4], const float (&s)[32]) {
@@ -374,6 +443,36 @@ __device__ __forceinline__ void bulk_commit() {
 __device__ __forceinline__ void bulk_wait_read() {
   asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
 }
+// Until the thread's bulk groups are complete, their writes done.
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// As tma_load_3d for a 4-D tensor map, at (c0, c1, c2, c3), innermost first.
+// Coordinates may be negative or past the end: those parts arrive as zeros,
+// and the barrier is told the whole box's bytes.
+__device__ __forceinline__ void tma_load_4d(void* dst, const void* map, uint64_t* bar, int c0,
+                                            int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
+      : "memory");
+}
+
+// One thread asks for a swizzled tile in shared memory to be written into
+// the box of a 4-D tensor map at (c0, c1, c2, c3); parts of the box outside
+// the tensor are not written. The request joins the thread's current bulk
+// group. The tile's writers fence_proxy_async() first.
+__device__ __forceinline__ void tma_store_4d(const void* map, const void* src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group "
+      "[%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
 
 // bar.sync on one of the block's named barriers 1..15 (__syncthreads is
 // barrier 0), for the `count` threads that meet there.
@@ -454,6 +553,49 @@ cudaError_t make_tile_map(CUtensorMap* map, const void* base, long long n, long 
 // tma_reduce_add_3d.
 inline cudaError_t make_f32_map(CUtensorMap* map, void* base, int cols, long long n, long long bh) {
   return make_map(map, base, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, cols, 32, n, bh);
+}
+
+// The tensor map of a contiguous bf16 array of four dimensions, dims[0]
+// innermost, whose boxes are box[0] x ... x box[3] values with box[0] = 64
+// (128-byte rows, 128-byte swizzle): a box lands as box[1] * box[2] * box[3]
+// rows of a K-major tile (tma_load_4d) or is written from one
+// (tma_store_4d). Made anew for every launch, as make_map's maps.
+inline cudaError_t make_bf16_map_4d(CUtensorMap* map, const void* base, const long long (&dims)[4],
+                                    const int (&box)[4]) {
+  using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                              const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                              const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                              CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+  static Encode encode = [] {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &fn, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<Encode>(fn)
+               : nullptr;
+  }();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  cuuint64_t size[4], strides[3];
+  cuuint32_t box_size[4];
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  cuuint64_t stride = 2;
+  for (int i = 0; i < 4; ++i) {
+    size[i] = static_cast<cuuint64_t>(dims[i]);
+    box_size[i] = static_cast<cuuint32_t>(box[i]);
+    stride *= size[i];
+    if (i < 3) strides[i] = stride;
+  }
+  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+                              size, strides, box_size, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 }  // namespace

@@ -15,13 +15,19 @@ vectors of length Cout; the result is NHWC in x's dtype.
 
 `fused_conv3x3_bn_relu` routes by the device of x: a CPU tensor goes to the
 plain version, a CUDA tensor to the kernel, which raises on anything it does
-not take. `fused_conv3x3_bn_relu.launches` counts the kernel's launches.
+not take. The source holds three mainloops; `conv_route` picks one from the
+dtype and the channel counts alone ("wgmma", "mma.sync" or "reg"), and
+`conv_tile_plan` lays out the wgmma route's tiles. There is no fallback: a
+route that fails to build or launch raises.
+`fused_conv3x3_bn_relu.launches` counts the kernel's launches and
+`.launches_by_route` the same launches by route.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -29,7 +35,13 @@ import torch.nn.functional as F
 from unet_torch_tpu_torch.kernels import build
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# which mainloop of the source a call launches, as its C entry point numbers
+# them
+_ROUTE_CODE = {"reg": 0, "mma.sync": 1, "wgmma": 2}
+ROUTES = tuple(_ROUTE_CODE)
 _KERNEL = "fused_conv3x3_bn_relu"
+# output pixels of a wgmma tile: two consumer warpgroups of 64 rows
+TILE_PIXELS = 128
 
 
 def fold_bn(gamma, beta, mean, var, eps=1e-5):
@@ -47,11 +59,71 @@ def fused_conv3x3_bn_relu_reference(x, w, scale, bias):
     return y.to(x.dtype)
 
 
+def conv_route(dtype: torch.dtype, cin: int, cout: int) -> str:
+    """Which mainloop of csrc/fused_conv3x3_bn_relu.cu a call launches, a
+    function of the dtype and the channel counts alone: "reg" for float32
+    (full f32 on the CUDA cores); for bfloat16 "wgmma" where Cin is a
+    multiple of 64 and Cout of 16 (the TMA boxes' 64 channels; the weight's
+    rows a multiple of 32 bytes), "mma.sync" where both are multiples of 8
+    (16-byte cp.async gathers), "reg" otherwise (the UNet's Cin = 3)."""
+    if dtype == torch.float32:
+        return "reg"
+    if dtype != torch.bfloat16:
+        raise TypeError(f"no fused conv kernel for {dtype}")
+    if cin % 64 == 0 and cout % 16 == 0:
+        return "wgmma"
+    if cin % 8 == 0 and cout % 8 == 0:
+        return "mma.sync"
+    return "reg"
+
+
+class TilePlan(NamedTuple):
+    """The wgmma route's tiles: ht x wt output pixels of one image by bn
+    output channels; tiles_h * tiles_w pixel tiles an image, n_tiles channel
+    tiles each; `tiles` in all. `halo`: the kernel stages the (ht + 2) x
+    (wt + 2) pixels around a tile once per 64 input channels, instead of a
+    box of the tile's pixels for each of the nine taps."""
+    ht: int
+    wt: int
+    bn: int
+    tiles_h: int
+    tiles_w: int
+    n_tiles: int
+    tiles: int
+    halo: bool
+
+
+def conv_tile_plan(b: int, h: int, w: int, cout: int) -> TilePlan:
+    """The wgmma route's tile plan: wt the least power of two >= W, at most
+    64 (at W = 32, 4 x 32; at W >= 64, 2 x 64); bn = 64, 128 or 256, the
+    least that covers Cout (at most 256), so that each pixel tile's image
+    rows are read from L2 as few times as the tiles allow. The halo is
+    staged where a consumer warpgroup's 64 rows are one image row (wt = 64)
+    and its stages fit beside the weight's (bn <= 128): the UNet's 512x512
+    and 256x256 levels and the TransUnet decoder's from 128x128 up, where
+    the per-tap boxes read each x value from L2 nine times."""
+    wt = min(64, 1 << max(0, (w - 1).bit_length()))
+    ht = TILE_PIXELS // wt
+    bn = 64 if cout <= 64 else 128 if cout <= 128 else 256
+    tiles_h, tiles_w, n_tiles = -(-h // ht), -(-w // wt), -(-cout // bn)
+    return TilePlan(ht, wt, bn, tiles_h, tiles_w, n_tiles,
+                    b * tiles_h * tiles_w * n_tiles, wt == 64 and bn <= 128)
+
+
+def conv_tile_origin(plan: TilePlan, t: int) -> tuple[int, int, int, int]:
+    """(b, h0, w0, n0) of tile t, output channels innermost, as the kernel's
+    `tile_origin` reads it."""
+    q, nt = divmod(t, plan.n_tiles)
+    q, tw = divmod(q, plan.tiles_w)
+    b, th = divmod(q, plan.tiles_h)
+    return b, th * plan.ht, tw * plan.wt, nt * plan.bn
+
+
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = build.load(_KERNEL)
     lib.fused_conv3x3_bn_relu.argtypes = (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [ctypes.c_void_p])
     lib.fused_conv3x3_bn_relu.restype = ctypes.c_int
     lib.fused_conv3x3_bn_relu_error_string.argtypes = [ctypes.c_int]
     lib.fused_conv3x3_bn_relu_error_string.restype = ctypes.c_char_p
@@ -97,7 +169,8 @@ def fused_conv3x3_bn_relu(x, w, scale, bias):
     """max(conv3x3_same(x, w) * scale + bias, 0), NHWC in and out.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the Hopper
-    kernel on the current stream, without synchronising, or raises."""
+    kernel's `conv_route` mainloop on the current stream, without
+    synchronising, or raises."""
     if x.device.type == "cpu":
         return fused_conv3x3_bn_relu_reference(x, w, scale, bias)
     if x.device.type != "cuda":
@@ -105,18 +178,32 @@ def fused_conv3x3_bn_relu(x, w, scale, bias):
     _check(x, w, scale, bias)
     b, h, wd, cin = x.shape
     cout = w.shape[3]
+    route = conv_route(x.dtype, cin, cout)
+    wt = bn = halo = 0
+    if route == "wgmma":
+        plan = conv_tile_plan(b, h, wd, cout)
+        wt, bn, halo = plan.wt, plan.bn, int(plan.halo)
     y = torch.empty((b, h, wd, cout), dtype=x.dtype, device=x.device)
     lib = _library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.fused_conv3x3_bn_relu(
             x.data_ptr(), w.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-            y.data_ptr(), b, h, wd, cin, cout, _DTYPE_CODE[x.dtype], stream)
+            y.data_ptr(), b, h, wd, cin, cout, _DTYPE_CODE[x.dtype],
+            _ROUTE_CODE[route], wt, bn, halo, stream)
     if err:
         msg = lib.fused_conv3x3_bn_relu_error_string(err).decode()
-        raise RuntimeError(f"fused_conv3x3_bn_relu launch failed: {msg}")
+        raise RuntimeError(f"fused_conv3x3_bn_relu launch failed on the "
+                           f"{route} route: {msg}")
     fused_conv3x3_bn_relu.launches += 1
+    fused_conv3x3_bn_relu.launches_by_route[route] += 1
     return y
 
 
-fused_conv3x3_bn_relu.launches = 0
+def reset_launches() -> None:
+    """Sets `fused_conv3x3_bn_relu.launches` and every route's count to 0."""
+    fused_conv3x3_bn_relu.launches = 0
+    fused_conv3x3_bn_relu.launches_by_route = dict.fromkeys(ROUTES, 0)
+
+
+reset_launches()
