@@ -18,7 +18,7 @@ Builds the Hopper kernels from unet_torch_tpu_torch/csrc, then:
                 mask, min-plus product, auction assignment, packed two-head
                 attention probe), one process each, all at once; timed; the
                 registers and spills ptxas reports for the wgmma kernels
-                (attention and fused conv)
+                (attention, the packed probe and fused conv) and the auction
   3. kernel     the fused conv against its plain PyTorch version at every
                 distinct conv shape of the UNet-64 eval forward (batch 8,
                 512x512 input), in bf16 and in f32 with TF32 off; each
@@ -104,7 +104,13 @@ Builds the Hopper kernels from unet_torch_tpu_torch/csrc, then:
                 T = Q, and with max_iters too low to converge (the greedy
                 tail); every instance's cost within T * eps of scipy's
                 optimum; costs made as SetCriterion.cost_matrix makes them;
-                times of the kernel, the plain version and scipy on the host
+                times of the wrapper (with its preparation), of the kernel's
+                launch alone (one launch and back to back), of the plain
+                version and of scipy on the host;
+                the slowest instance's rounds by their number of bidders
+                (from the plain version); at the first case every block
+                size (1024, 512, 256 threads) with and without the row
+                slots, each held equal to the plain version, timed in turns
  C2. CLTR       the eval forward, train forward (o, lse) and backward kernels
      attention  against their plain versions at CLTR's three shapes (encoder
                 self-, decoder self-, decoder cross-attention with Dqk 64
@@ -119,16 +125,19 @@ Builds the Hopper kernels from unet_torch_tpu_torch/csrc, then:
                 the step, the loss finite and falling, img/s (also with the
                 scipy matcher), peak memory; the auction kernel on the costs
                 of one step's own launch against its plain version and scipy,
-                with its times and bound
+                with its times (wrapper and kernel alone, every design in
+                turns), bound and the slowest instance's bidders per round
  C4. CLTR       one f32 step at batch 2, full width, 2 + 2 layers, dropout
      model      off, card against CPU: the same matches, the loss, and every
                 gradient by T4's bound
  C5. CLTR       Trainer.train() for CLTR, 2 epochs of 2 steps on seeded numpy
      trainer    batches, val MAE / MRE; best.pt reloads strictly into a fresh
                 model; infer_step on 9 patches runs the 18 eval kernels
- C6. packed     the packed two-head attention probe against its plain version
-     probe      at the ViT's shape and a ragged one, timed in turns with the
-                flash forward
+ C6. packed     the packed two-head attention probe (the wgmma forward's
+     probe      two-head instance) against its plain version at the ViT's
+                shape and a ragged one, at both ring depths (2 and 3
+                stages); timed in turns with the flash forward and
+                scaled_dot_product_attention, one launch and back to back
   L. library    one PyTorch library call beside each kernel that has one, for
                 the time only (nothing in the port calls them): cuDNN
                 conv2d with the scale folded into its weights, a bias and a
@@ -154,6 +163,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import functools
 import json
 import os
 import statistics
@@ -1526,29 +1536,60 @@ def auction_inputs(b, q, t, kind, gen, dev):
 
 
 def check_auction(au, dev):
-    """C1. Returns auction_case's numbers by case."""
+    """C1. Returns auction_case's numbers by case; the first case, one CLTR
+    step's shape, also times the kernel's designs (AUCTION_DESIGNS)."""
     gen = torch.Generator().manual_seed(SEED)
     return [auction_case(au, *auction_inputs(b, q, t, kind, gen, dev),
-                         max_iters, f"valid {kind}")
-            for b, q, t, max_iters, kind in AUCTION_CASES]
+                         max_iters, f"valid {kind}", designs=i == 0)
+            for i, (b, q, t, max_iters, kind) in enumerate(AUCTION_CASES)]
 
 
-def auction_case(au, costs, valid, max_iters, label, tag="C1 auction"):
+# the auction kernel's designs timed in turns: (block threads, row slots,
+# most bidders a round that one warp runs alone, candidate cache)
+AUCTION_DESIGNS = [(1024, True, 0, False), (1024, False, 0, False),
+                   (512, True, 0, False), (512, False, 0, False),
+                   (256, False, 0, False), (512, False, 2, False),
+                   (512, False, 1, True), (512, False, 2, True),
+                   (512, False, 4, True), (512, True, 2, True),
+                   (1024, False, 2, True), (256, False, 2, True)]
+
+
+def bidders_histogram(per_round, rounds):
+    """The slowest instance's bids per round, from the plain version's
+    rounds: {"1": rounds with one bidder, "2": ..., "3-4", "5-8", ...}."""
+    z = int(np.argmax(rounds))
+    counts = [int(r[z]) for r in per_round if int(r[z]) > 0]
+    edges = [(1, 1), (2, 2), (3, 4), (5, 8), (9, 16), (17, 32), (33, 64),
+             (65, 10**9)]
+    hist = {}
+    for lo, hi in edges:
+        n = sum(lo <= c <= hi for c in counts)
+        if n:
+            hist[str(lo) if lo == hi else f"{lo}-{hi}" if hi < 10**9
+                 else f">={lo}"] = n
+    return z, hist
+
+
+def auction_case(au, costs, valid, max_iters, label, tag="C1 auction",
+                 designs=False):
     """The auction kernel on costs (B, Q, T) and valid (B, T) against its
     plain version (equal matches, rounds and bids) and against scipy (every
-    instance feasible and within T * eps of the optimum); times of the three
-    and the bound from the bids this data needed. Returns (mismatches, ms,
-    plain_ms, scipy_ms, bound_ms, bound_by, rounds, bids)."""
+    instance feasible and within T * eps of the optimum); times of the
+    wrapper (with its preparation), of the kernel's launch alone, of the
+    plain version and of scipy, and the bound from the bids this data
+    needed; the slowest instance's bidders per round. With `designs` every
+    block size with and without the row slots, each held equal to the plain
+    version and timed alone, in turns. Returns a dict of those numbers."""
     from scipy.optimize import linear_sum_assignment
 
     b, q, t = costs.shape
     match, rounds, bids = au.auction_lsap(costs, valid, max_iters,
                                           stats=True)
     torch.cuda.synchronize()
-    ref, ref_rounds, ref_bids = au.auction_lsap_reference(
-        costs, valid, max_iters, stats=True)
-    bad = int((match != ref).sum() + (rounds != ref_rounds).sum()
-              + (bids != ref_bids).sum())
+    per_round = []
+    ref = au.auction_lsap_reference(costs, valid, max_iters, stats=True,
+                                    per_round=per_round)
+    bad = sum(int((o != r).sum()) for o, r in zip((match, rounds, bids), ref))
     if (match.shape != (b, t) or match.dtype != torch.int32 or bad):
         raise AssertionError(
             f"auction kernel differs from plain at (B,Q,T)=({b},{q},{t})"
@@ -1582,6 +1623,11 @@ def auction_case(au, costs, valid, max_iters, label, tag="C1 auction"):
                                  f"scipy's optimum, bound {n * eps}")
         worst = max(worst, gap / (n * eps))
     ms = median_ms(lambda: au.auction_lsap(costs, valid, max_iters))
+    benefit, eps_b = au._prepare(costs, valid)
+    kernel_ms = median_ms(lambda: au._launch(benefit, valid, eps_b,
+                                             max_iters))
+    kernel_b2b_ms = median_ms(lambda: au._launch(benefit, valid, eps_b,
+                                                 max_iters), burst=BURST)
     plain_ms = median_ms(lambda: au.auction_lsap_reference(
         costs, valid, max_iters), reps=3, warmup=1)
     # the rows read in all rounds (a bid reads one row of Q floats) over
@@ -1592,16 +1638,61 @@ def auction_case(au, costs, valid, max_iters, label, tag="C1 auction"):
     ops_ms = 4 * n_bids * q / PEAK_F32_NO_FMA * 1e3
     bound_ms = max(bytes_ms, ops_ms)
     bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+    rounds_l = rounds.cpu().tolist()
+    slowest, hist = bidders_histogram(per_round, rounds_l)
     phase(tag,
           f"(B,Q,T)=({b},{q},{t}) max_iters {max_iters} {label}: "
           f"matches, rounds and bids equal the plain version's; rounds "
           f"{int(rounds.min())}..{int(rounds.max())} (median "
           f"{int(rounds.median())}), {n_bids} bids in all; worst cost gap "
-          f"{worst:.3f} of T*eps over scipy's optimum; kernel {ms:.4f} "
-          f"ms, plain {plain_ms:.2f} ms, scipy on the host with the copy "
-          f"{scipy_ms:.2f} ms; bound {bound_ms:.5f} ms by {bound_by}")
-    return (bad, ms, plain_ms, scipy_ms, bound_ms, bound_by,
-            rounds.cpu().tolist(), n_bids)
+          f"{worst:.3f} of T*eps over scipy's optimum; wrapper {ms:.4f} "
+          f"ms, kernel alone {kernel_ms:.4f} ms (back to back "
+          f"{kernel_b2b_ms:.4f}; {au.BLOCK_THREADS} threads,"
+          f" (candidate cache, row slots) {au.launch_plan(t, q)}, rounds of"
+          f" up to {au.SOLO_BIDDERS} bidders on one warp), plain "
+          f"{plain_ms:.2f} ms, "
+          f"scipy on the host with the copy {scipy_ms:.2f} ms; bound "
+          f"{bound_ms:.5f} ms by {bound_by}")
+    phase(tag, f"(B,Q,T)=({b},{q},{t}) {label}: the slowest instance "
+          f"({slowest}, {rounds_l[slowest]} rounds) bids per round, rounds "
+          f"by bidders: {json.dumps(hist)}")
+    out = dict(bad=bad, ms=ms, kernel_ms=kernel_ms,
+               kernel_b2b_ms=kernel_b2b_ms, plain_ms=plain_ms,
+               scipy_ms=scipy_ms, bound_ms=bound_ms, bound_by=bound_by,
+               rounds=rounds_l, bids=n_bids, slowest_histogram=hist,
+               plan=au.launch_plan(t, q))
+    if designs:
+        out["designs"] = auction_designs(au, benefit, valid, eps_b,
+                                         max_iters, ref, (b, q, t), tag)
+    return out
+
+
+def auction_designs(au, benefit, valid, eps, max_iters, ref, shape, tag):
+    """{"threads/slots/solo/cache": kernel-alone ms back to back} of every
+    design of AUCTION_DESIGNS, each held equal to the plain version's `ref`,
+    timed in turns (the list, then the list reversed; the mean of the
+    two)."""
+    for design in AUCTION_DESIGNS:
+        out = au._launch(benefit, valid, eps, max_iters, *design)
+        if any(not torch.equal(o, r) for o, r in zip(out, ref)):
+            raise AssertionError(f"auction kernel (threads, row slots, solo,"
+                                 f" cache)"
+                                 f" {design} differs from plain at "
+                                 f"(B,Q,T)={shape}")
+    times = {}
+    for design in AUCTION_DESIGNS + AUCTION_DESIGNS[::-1]:
+        times.setdefault(design, []).append(median_ms(
+            lambda: au._launch(benefit, valid, eps, max_iters, *design),
+            burst=BURST))
+    out = {f"{th}/{'slots' if pf else 'global'}/{solo}/"
+           f"{'cache' if cache else 'rows'}": sum(ms) / len(ms)
+           for (th, pf, solo, cache), ms in times.items()}
+    phase(tag, f"(B,Q,T)={shape}: the kernel alone by design (block "
+          "threads / rows from slots or global memory / most bidders a "
+          "round on one warp alone / their candidates cached or read), in "
+          "turns, back to back, ms: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in out.items()))
+    return out
 
 
 def cltr_config():
@@ -1757,7 +1848,7 @@ def check_cltr_train_step(at, fc, au, dev, profile=False):
     step_auction = auction_case(
         au, costs.flatten(0, 1).contiguous(), valid.flatten(0, 1), 20000,
         "the costs of one train step's launch (6 levels x 16 crops)",
-        "C3 CLTR auction")
+        "C3 CLTR auction", designs=True)
     del costs, valid, step_launch
     if profile:
         profile_cltr_step(model, criterion, opt, batch, gens, step_s)
@@ -2034,10 +2125,15 @@ def check_cltr_trainer(at, fc, dev):
 
 
 def check_packed2(at, dev):
-    """C6, a probe on its own path: the packed two-head forward at the ViT's
-    shape and at a ragged one against its plain version, and its time beside
-    the flash forward's in turns. Returns ((err, ms, plain_ms, flash_ms),
-    launches of the probe's own run)."""
+    """C6, a probe on its own path: the packed two-head forward (the wgmma
+    forward's two-head instance, at its default ring depth) at the ViT's
+    shape and at a ragged one against its plain version, then at the other
+    ring depth too; its times beside the flash forward's and
+    scaled_dot_product_attention's in the same turns, one launch and back to
+    back. Returns (a dict of those numbers, launches of the probe's own
+    run)."""
+    import torch.nn.functional as F
+
     gen = torch.Generator().manual_seed(SEED)
     b, h, n, _, d, _ = ATTN_CASES[0][0]
     out = None
@@ -2058,30 +2154,57 @@ def check_packed2(at, dev):
     for shape, q, k, v, o in ran:
         with torch.inference_mode():
             ref = at.attention_reference(q, k, v, d ** -0.5)
-            err = (o.float() - ref.float()).abs().max().item()
             bound = ATTN_REL_TOL[torch.bfloat16] * v.float().abs().max().item()
-            if not (o.shape == ref.shape and o.dtype == torch.bfloat16
-                    and torch.isfinite(o).all() and err <= bound):
-                raise AssertionError(f"packed probe disagrees with plain at "
-                                     f"{shape}: {err} > {bound}")
-            if out is None:
-                # flash, packed, packed, flash: the medians of each pair
-                runs = [median_ms(lambda: fn(q, k, v)) for fn in (
-                    at.fused_attention, at.packed2_attention,
-                    at.packed2_attention, at.fused_attention)]
-                plain_ms = median_ms(
-                    lambda: at.attention_reference(q, k, v, d ** -0.5))
-                out = (err, (runs[1] + runs[2]) / 2, plain_ms,
-                       (runs[0] + runs[3]) / 2)
-                phase("C6 packed probe",
-                      f"(B,H,N,D)=({b},{h},{n},{d}) bf16: max_abs_err "
-                      f"{err:.3e} (bound {bound:.3e}); packed {runs[1]:.4f} "
-                      f"and {runs[2]:.4f} ms, flash forward {runs[0]:.4f} and "
-                      f"{runs[3]:.4f} ms, plain {plain_ms:.4f} ms: "
-                      f"{'packed' if out[1] < out[3] else 'flash'} wins")
-            else:
+            errs = {}
+            for stages in at.PACKED2_STAGES:
+                got = o if stages == at.PACKED2_DEFAULT else (
+                    at.packed2_attention(q, k, v, stages=stages))
+                err = (got.float() - ref.float()).abs().max().item()
+                if not (got.shape == ref.shape and got.dtype == torch.bfloat16
+                        and torch.isfinite(got).all() and err <= bound):
+                    raise AssertionError(
+                        f"packed probe ({stages} stages) disagrees with plain"
+                        f" at {shape}: {err} > {bound}")
+                errs[stages] = err
+            if out is not None:
                 phase("C6 packed probe", f"ragged (B,H,Nq,Nk)={shape}: "
-                      f"max_abs_err {err:.3e} (bound {bound:.3e})")
+                      "max_abs_err by ring depth " + ", ".join(
+                          f"{st} stages {e:.3e}" for st, e in errs.items())
+                      + f" (bound {bound:.3e})")
+                continue
+            fns = {"flash": lambda: at.fused_attention(q, k, v),
+                   **{f"packed {st}": functools.partial(
+                       at.packed2_attention, q, k, v, stages=st)
+                      for st in at.PACKED2_STAGES},
+                   "library": lambda: F.scaled_dot_product_attention(q, k,
+                                                                     v)}
+            # in turns: the list, then the list reversed; each kernel's
+            # mean of the two medians, one launch and back to back
+            times = {}
+            for name in list(fns) + list(fns)[::-1]:
+                times.setdefault(name, []).append(
+                    (median_ms(fns[name]), median_ms(fns[name], burst=BURST)))
+            ms = {name: sum(t[0] for t in ts) / 2 for name, ts in
+                  times.items()}
+            b2b = {name: sum(t[1] for t in ts) / 2 for name, ts in
+                   times.items()}
+            plain_ms = median_ms(
+                lambda: at.attention_reference(q, k, v, d ** -0.5))
+            out = dict(err=max(errs.values()), errs=errs,
+                       ms=ms[f"packed {at.PACKED2_DEFAULT}"],
+                       plain_ms=plain_ms, by_name=ms,
+                       back_to_back=b2b)
+            fastest = min(b2b, key=b2b.get)
+            phase("C6 packed probe",
+                  f"(B,H,N,D)=({b},{h},{n},{d}) bf16: max_abs_err by ring "
+                  "depth " + ", ".join(f"{st} stages {e:.3e}"
+                                       for st, e in errs.items())
+                  + f" (bound {bound:.3e}); in turns, one launch (back to "
+                  "back) ms: " + ", ".join(
+                      f"{name} {ms[name]:.4f} ({b2b[name]:.4f})"
+                      for name in fns)
+                  + f"; plain {plain_ms:.4f} ms; fastest back to back: "
+                  f"{fastest}")
     return out, launches
 
 
@@ -2279,7 +2402,8 @@ def main(cltr_profile=False, cltr_two_batches_only=False,
     phase("build", f"{', '.join(p.name for p in libs)} built and loaded in "
           f"{build_s:.2f} s")
     ptxas_report(build, ("flash_attention_fwd", "flash_attention_bwd",
-                         "fused_conv3x3_bn_relu"))
+                         "fused_conv3x3_bn_relu", "packed2_attention_fwd"))
+    ptxas_report(build, ("auction_lsap",), match="auction")
     if cltr_profile:
         check_cltr_train_step(at, fc, au, dev, profile=True)
         return
@@ -2679,44 +2803,67 @@ def main(cltr_profile=False, cltr_two_batches_only=False,
         "launches_by_path": {"cltr_train": c3_launches["auction_lsap"]},
         # matches, round counts and bid counts that differ from the plain
         # version, over all C1 cases and the step's own launch
-        "max_abs_err": max(r[0] for r in aures + [step_auction]),
+        "max_abs_err": max(r["bad"] for r in aures + [step_auction]),
         # on the costs that one C3 train step handed its launch (96
         # instances, 2000 queries, the batch's T): the wrapper with its
         # preparation (negate, transpose, eps), and the bound from the bids
         # those costs needed
-        "ms": step_auction[1],
-        "plain_ms": step_auction[2],
-        "bound_ms": step_auction[4],
-        "bound_by": step_auction[5],
+        "ms": step_auction["ms"],
+        # the same launch alone, without the preparation: one launch (with
+        # the host's launch cost) and launches back to back; every design
+        # of AUCTION_DESIGNS back to back
+        "kernel_only_ms": step_auction["kernel_ms"],
+        "kernel_only_back_to_back_ms": step_auction["kernel_b2b_ms"],
+        "kernel_only_back_to_back_ms_by_design": step_auction["designs"],
+        "block_threads": au.BLOCK_THREADS,
+        # (candidate cache, row slots) of the launch
+        "plan": step_auction["plan"],
+        "solo_bidders": au.SOLO_BIDDERS,
+        "plain_ms": step_auction["plain_ms"],
+        "bound_ms": step_auction["bound_ms"],
+        "bound_by": step_auction["bound_by"],
         "library_ms": None,
         # no library call computes it on the card; scipy on the host, with
         # the copy of the costs, for the same instances
-        "scipy_host_ms": step_auction[3],
-        "rounds_max": max(step_auction[6]),
-        "bids": step_auction[7],
+        "scipy_host_ms": step_auction["scipy_ms"],
+        "rounds_max": max(step_auction["rounds"]),
+        "bids": step_auction["bids"],
+        # the slowest instance's rounds by their number of bidders
+        "slowest_rounds_by_bidders": step_auction["slowest_histogram"],
         # C1's first case, (96, 2000, 64): costs of logits near the focal
         # prior and uniform points
-        "synthetic_costs_ms": aures[0][1],
-        "synthetic_costs_bids": aures[0][7],
+        "synthetic_costs_ms": aures[0]["ms"],
+        "synthetic_costs_kernel_only_ms": aures[0]["kernel_ms"],
+        "synthetic_costs_kernel_only_back_to_back_ms":
+            aures[0]["kernel_b2b_ms"],
+        "synthetic_costs_kernel_only_back_to_back_ms_by_design":
+            aures[0]["designs"],
+        "synthetic_costs_bids": aures[0]["bids"],
     }, {
         "name": "packed2_attention_fwd",
         "route": "cuda",
         "source": "unet_torch_tpu_torch/csrc/packed2_attention_fwd.cu",
+        # its kernel: the two-head instance of the wgmma forward's code
+        "kernel_source": "unet_torch_tpu_torch/csrc/flash_fwd_wgmma.cuh",
         "replaces": "benchmarks/r8_attn_ab.py:204",
         # a probe: its own path (C6, one call per case), no model runs it
         "launches": p2_launches,
         "launches_by_path": {"packed_probe": p2_launches},
-        "max_abs_err": p2res[0],
+        "max_abs_err": p2res["err"],
         # bf16, the ViT's shape, one call
-        "ms": p2res[1],
-        "plain_ms": p2res[2],
+        "ms": p2res["ms"],
+        "plain_ms": p2res["plain_ms"],
         "bound_ms": fwd_bound_ms,
         "bound_by": fwd_bound_by,
         "bound_unit": fwd_bound_unit,
         # scaled_dot_product_attention under inference_mode
         "library_ms": lib_attn["fwd"],
         # the port's flash forward in the same turns
-        "flash_forward_ms": p2res[3],
+        "flash_forward_ms": p2res["by_name"]["flash"],
+        # the same turns: one launch and back to back, the probe at each
+        # ring depth, the flash forward, scaled_dot_product_attention
+        "same_turns_ms": p2res["by_name"],
+        "same_turns_back_to_back_ms": p2res["back_to_back"],
     }], "train_step": {
         "img_s": BATCH / step_s, "plain_attention_img_s": BATCH / plain_step_s,
         "eval_launches_after_training": t5_launches,

@@ -201,3 +201,21 @@ def test_wrapper_raises_on_bad_inputs():
     with pytest.raises(ValueError):
         auction_lsap(costs.to("meta"), valid.to("meta"))
     assert auction_lsap_reference(costs, valid).shape == (2, 3)
+
+
+def test_reference_reports_bids_per_round():
+    """`per_round` gets each round's bids by instance: they sum to `bids`,
+    and an instance's rounds are those in which it bid."""
+    rng = np.random.RandomState(17)
+    costs = torch.from_numpy((rng.rand(3, 60, 20) * 5).astype(np.float32))
+    valid = torch.ones(3, 20, dtype=torch.bool)
+    valid[2] = False
+    per_round = []
+    match, rounds, bids = auction_lsap_reference(costs, valid, stats=True,
+                                                 per_round=per_round)
+    table = torch.stack(per_round)
+    assert table.shape == (int(rounds.max()), 3)
+    assert torch.equal(table.sum(dim=0), bids)
+    assert torch.equal((table > 0).sum(dim=0, dtype=torch.int32), rounds)
+    assert table[0].tolist() == [20, 20, 0]
+    assert torch.equal(match, auction_lsap_reference(costs, valid))

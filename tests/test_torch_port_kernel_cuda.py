@@ -505,6 +505,61 @@ def test_auction_kernel_equals_plain_on_card(shape):
     assert torch.equal(match.cpu(), cpu)
 
 
+# (B, Q, T, costs, the row path): uniform costs in [0, 10) or "contended"
+# ones (a per-query cost shared by every target plus noise, so that targets
+# compete for the same queries). A long tail at T = Q (2913 rounds, 1.6
+# bids a round) and CLTR's Q = 2000 with contention (128-204 rounds), both
+# with row slots where asked for; Q % 4 != 0 (scalar loads, no slot); a Q so
+# large that neither a row slot nor the candidate cache fits (16-byte loads
+# from global memory, every row read).
+AUCTION_PATH_CASES = [(2, 256, 256, "uniform", "slots"),
+                      (2, 2000, 64, "contended", "slots"),
+                      (2, 255, 250, "uniform", "scalar"),
+                      (2, 12000, 64, "contended", "global")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", AUCTION_PATH_CASES)
+def test_auction_kernel_paths_equal_plain_on_card(case):
+    _needs_card()
+    from unet_torch_tpu_torch.kernels import auction as port_au
+
+    b, q, t, kind, path = case
+    slots = port_au.launch_plan(t, q, prefetch=True)[1]
+    assert (slots > 0) == (path == "slots")
+    # the candidate cache fits wherever the rows do not take all the room
+    assert port_au.launch_plan(t, q, cache=True)[0] == (path != "global")
+    assert (q % 4 == 0) == (path != "scalar")
+    rng = np.random.RandomState(q * 100 + t)
+    costs = rng.rand(b, q, t) * 10
+    if kind == "contended":
+        costs = rng.rand(b, q, 1) * 10 + rng.rand(b, q, t)
+    costs = torch.from_numpy(costs.astype(np.float32)).cuda()
+    valid = torch.ones(b, t, dtype=torch.bool, device="cuda")
+    out = port_au.auction_lsap(costs, valid, stats=True)
+    ref = port_au.auction_lsap_reference(costs, valid, stats=True)
+    for o, r in zip(out, ref):
+        assert o.dtype == torch.int32 and torch.equal(o, r)
+    # every block size, with and without the row slots, the one-warp rounds
+    # and their candidate cache, as the plain version
+    benefit, eps = port_au._prepare(costs, valid)
+    for threads in (1024, 512, 256):
+        for prefetch in (True, False):
+            for solo, cache in ((0, False), (1, True), (2, False), (2, True),
+                                (32, True)):
+                design = (threads, prefetch, solo, cache)
+                other = port_au._launch(benefit, valid, eps, 20000, *design)
+                for o, r in zip(other, ref):
+                    assert torch.equal(o, r), design
+    match, rounds, bids = out
+    assert int(rounds.min()) > 1
+    for z in range(b):
+        assert len(set(match[z].tolist())) == t
+    if q == t:  # the long tail: rounds of one or two bidders
+        assert int(rounds.max()) > 1000 and int(bids.sum()) < 2 * int(
+            rounds.sum())
+
+
 @pytest.mark.cuda
 def test_auction_kernel_rejects_what_it_does_not_take():
     _needs_card()
@@ -529,22 +584,24 @@ def test_auction_kernel_rejects_what_it_does_not_take():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(2, 4, 200, 200), (1, 2, 100, 77),
-                                   (3, 2, 64, 1), (1, 6, 1, 130)])
+                                   (3, 2, 64, 1), (1, 6, 1, 130),
+                                   (3, 4, 100, 77)])
 def test_packed_attention_probe_matches_plain_on_card(shape):
     _needs_card()
     b, h, nq, nk = shape
     rng = np.random.RandomState(nq)
     q, k, v = (torch.from_numpy(rng.randn(b, h, n, 64).astype(np.float32))
                .cuda().bfloat16() for n in (nq, nk, nk))
-    before = port_attn.packed2_attention.launches
-    out = port_attn.packed2_attention(q, k, v)
-    torch.cuda.synchronize()
-    assert port_attn.packed2_attention.launches == before + 1
     ref = port_attn.attention_reference(q, k, v, 0.125)
     # as the flash forward: 2**-7 of max|v| in bf16
     bound = 2.0 ** -7 * v.float().abs().max().item()
-    assert out.dtype == torch.bfloat16 and out.shape == ref.shape
-    assert (out.float() - ref.float()).abs().max().item() <= bound
+    for stages in port_attn.PACKED2_STAGES:
+        before = port_attn.packed2_attention.launches
+        out = port_attn.packed2_attention(q, k, v, stages=stages)
+        torch.cuda.synchronize()
+        assert port_attn.packed2_attention.launches == before + 1
+        assert out.dtype == torch.bfloat16 and out.shape == ref.shape
+        assert (out.float() - ref.float()).abs().max().item() <= bound
     with pytest.raises(ValueError):  # an odd number of heads
         port_attn.packed2_attention(q[:, :1], k[:, :1], v[:, :1])
     with pytest.raises((ValueError, TypeError)):

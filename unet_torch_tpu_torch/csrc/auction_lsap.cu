@@ -23,39 +23,78 @@
 // (T, Q) tile in the TPU's VMEM and turns every gather and scatter into a
 // one-hot pass over the tile, because its compiler has no scatter. A Hopper
 // block has 227 KB of shared memory, less than one 32 x 2000 f32 tile, and it
-// has real gathers and shared-memory atomics. So here one block of 1024
-// threads runs one instance to its own convergence; prices, owners, matches
-// and the per-query winner keys live in shared memory (16 bytes a query, 16 a
-// target); only the rows of targets that bid in a round are read, one warp a
-// row, from global memory (the instances' tiles stay in the 50 MB L2 while
-// they fit); price[i1] is a gather; the per-query winner is one atomicMax on
-// a 64-bit key (order-preserving bits of the bid, then the inverted target
-// index), which is the same tie rule whatever order the warps arrive in.
-// Ragged T and Q are guarded, nothing is padded.
+// has real gathers and shared-memory atomics. So one block runs one instance
+// to its own convergence; prices, owners, matches and the per-query winner
+// keys live in shared memory (16 bytes a query, 16 a target), and only the
+// rows of the targets that bid in a round are read, if at all.
 //
-// What bounds it on an H100: bytes. A bid costs one pass over Q floats with a
-// subtract, two compares and a max per candidate, so the rows read in all
-// rounds over the memory rate is the larger time by a factor of ten; but the
-// loop is a chain of rounds with three block barriers each, and an instance
-// cannot use more than one SM, so latency, not bandwidth, is what a launch
-// waits for.
+// What bounds it on an H100: not bytes (the rows all rounds read, over the
+// memory rate, are a few hundredths of a launch) but the chain of rounds.
+// The instances of one CLTR step run up to 300-400 rounds, the tail with a
+// single bidder a round, and a launch lasts as long as its slowest
+// instance. So the design cuts what one round waits for:
+//
+//   * Rounds of at most `solo` bidders (the wrapper passes 1: the tail's
+//     rounds; 2 and 4 measured 1-3% slower) run on warp 0 alone, with no
+//     block barrier, while the rest of the block waits at one. A bidder's
+//     (v1, i1, v2) comes from the candidate cache where it can: for each
+//     target and lane, the lane's part of the row's two best queries with
+//     their benefits and the third-best value, as the warp's last full read
+//     of the row left them. Prices only rise, so no other query of the part
+//     can have passed that third value; while both candidates, at today's
+//     prices, stand above it (the larger strictly), they are exactly the
+//     part's top two, and 32 lanes give the row's exact (v1, i1, v2) from
+//     shared memory. Otherwise the warp reads the row (16-byte loads) and
+//     refills the entry. The lanes' parts merge in three warp reductions
+//     (redux.sync) instead of five rounds of shuffles, and a lone bidder
+//     wins without an atomic.
+//   * Rounds of up to 32 bidders split each bidder's row over W / p2(n)
+//     warps (W warps a block, p2 the next power of two): one memory round
+//     trip; each warp leaves its part's (v1, i1, v2) in shared memory, and
+//     after one barrier warp 0 merges the parts, computes the bids and
+//     settles the round: the winner per query by an atomicMax on a 64-bit
+//     key (order-preserving bits of the bid, then the inverted target index:
+//     the tie rule whatever order the lanes arrive in) read back after
+//     __syncwarp, the prices, owners and matches, the reset of the keys.
+//   * Rounds of more than 32 bidders (the first ones) take one warp a row,
+//     an atomicMax a bid, a barrier and an ordered compaction of the next
+//     list by ballot, popc and a warp-count prefix.
+//   * The next bidders are known in the winner phase: a loser bids again, a
+//     displaced owner bids next. Their list is built in order by ballot and
+//     popc, without atomics. Optionally (`prefetch`) the rows of its first S
+//     entries are started into row slots of shared memory at once, by a 1-D
+//     bulk copy completing on the slot's mbarrier. Measured slower than
+//     reading global memory (the copy starts only a barrier before its use,
+//     and the slots take the L1's room), so off by default; kept for the
+//     measurement in chip_smoke.py.
+//   * 512 threads a block: measured faster than 1024 and 256.
+//
+// Rows are read with 16-byte loads, or scalar ones when Q % 4 != 0 or the
+// benefit is not 16-byte aligned. The cache takes 644 bytes a target and is
+// left out where it does not fit (T above about 300 at Q = 2000); its rounds
+// then read every row.
 //
 // Every candidate is one rounded f32 subtract, max is exact and a bid is two
-// rounded adds, so matches and round counts equal the plain PyTorch version's
-// (kernels/auction.py::auction_lsap_reference). Compiled without fast-math.
+// rounded adds, so matches, round counts and bid counts equal the plain
+// PyTorch version's (kernels/auction.py::auction_lsap_reference). Compiled
+// without fast-math.
 //
 // The C entry point returns the launch's cudaError_t; the Python wrapper
 // raises on nonzero.
 
-#include <cuda_runtime.h>
 #include <math_constants.h>
+
+#include "hopper_mma.cuh"
 
 namespace {
 
-constexpr int THREADS = 1024;
-constexpr int WARPS = THREADS / 32;
 constexpr float NEG = -1e30f;
+constexpr int NO_Q = 0x7fffffff;  // no query
 constexpr int MAX_SMEM = 232448;  // what a block may use on sm_90
+constexpr int MAX_SLOTS = 32;
+// the slots' mbarriers and fill counts, the bidders' parts, the compaction's
+// warp counts, the next round's bidder count, rounds and bids
+constexpr int MISC_BYTES = MAX_SLOTS * 8 + 3 * 32 * 4 + 2 * 32 * 4 + MAX_SLOTS * 4 + 16;
 
 // Bits of a float as an unsigned that orders as the float does.
 __device__ __forceinline__ unsigned ordered_bits(float f) {
@@ -67,7 +106,19 @@ struct Top2 {
   float v1;  // the largest value
   int i1;    // its first index
   float v2;  // the largest value at another index
+
+  // the next candidate of a scan in increasing order of the query
+  // (branch-free, as Top3::take)
+  __device__ __forceinline__ void take(float val, float, int q) {
+    const bool g = val > v1;
+    v2 = fmaxf(v2, g ? v1 : val);
+    i1 = g ? q : i1;
+    v1 = g ? val : v1;
+  }
 };
+
+// what a scan that saw no candidate holds
+__device__ __forceinline__ Top2 none2() { return {-CUDART_INF_F, NO_Q, NEG}; }
 
 __device__ __forceinline__ Top2 merge(const Top2& a, const Top2& b) {
   Top2 r;
@@ -83,115 +134,516 @@ __device__ __forceinline__ Top2 merge(const Top2& a, const Top2& b) {
   return r;
 }
 
-__device__ __forceinline__ Top2 warp_merge(Top2 x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    Top2 y;
-    y.v1 = __shfl_xor_sync(0xffffffffu, x.v1, off);
-    y.i1 = __shfl_xor_sync(0xffffffffu, x.i1, off);
-    y.v2 = __shfl_xor_sync(0xffffffffu, x.v2, off);
-    x = merge(x, y);
-  }
+__device__ __forceinline__ Top2 shfl_xor(const Top2& x, int off) {
+  return {__shfl_xor_sync(0xffffffffu, x.v1, off), __shfl_xor_sync(0xffffffffu, x.i1, off),
+          __shfl_xor_sync(0xffffffffu, x.v2, off)};
+}
+
+// the merge over aligned groups of `width` lanes (a power of two); every
+// lane of a group ends with the group's result
+__device__ __forceinline__ Top2 group_merge(Top2 x, int width) {
+  for (int off = 1; off < width; off <<= 1) x = merge(x, shfl_xor(x, off));
   return x;
 }
 
-__global__ void __launch_bounds__(THREADS)
-auction_kernel(const float* __restrict__ benefit, const unsigned char* __restrict__ valid,
-               const float* __restrict__ eps_all, int* __restrict__ match_out,
-               int* __restrict__ rounds_out, int* __restrict__ bids_out, int T, int Q,
-               int max_iters) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  unsigned long long* best = reinterpret_cast<unsigned long long*>(smem);  // [Q] winner keys
-  float* price = reinterpret_cast<float*>(best + Q);                       // [Q]
-  int* owner = reinterpret_cast<int*>(price + Q);                          // [Q] target or T
-  int* match = owner + Q;                                                  // [T] query or -1
-  int* ulist = match + T;                                                  // [T] bidders
-  int* bid_q = ulist + T;                                                  // [T] their queries
-  float* bid_v = reinterpret_cast<float*>(bid_q + T);                      // [T] their bids
-  float* red_v = bid_v + T;                                                // [WARPS]
-  int* red_i = reinterpret_cast<int*>(red_v + WARPS);                      // [WARPS]
-  __shared__ int n_bidders;
+// The inverse of ordered_bits.
+__device__ __forceinline__ float from_ordered(unsigned u) {
+  return __uint_as_float((u & 0x80000000u) ? (u & 0x7fffffffu) : ~u);
+}
 
+// The merge over the whole warp, the lanes' parts of one row being
+// disjoint, in three warp reductions: v1 the largest value, i1 the lowest
+// index among the lanes that hold it, v2 the largest of everything else.
+// Zeros are made +0 first, so that -0 and +0 tie as the float compares of
+// `merge` have them (a bid is the same from either).
+__device__ __forceinline__ Top2 warp_merge(const Top2& x) {
+  const unsigned k1 = ordered_bits(x.v1 + 0.0f);
+  const unsigned m1 = __reduce_max_sync(0xffffffffu, k1);
+  const int i1 = static_cast<int>(
+      __reduce_min_sync(0xffffffffu, k1 == m1 ? static_cast<unsigned>(x.i1) : 0xffffffffu));
+  const float other = k1 == m1 && x.i1 == i1 ? x.v2 : fmaxf(x.v1, x.v2);
+  const unsigned m2 = __reduce_max_sync(0xffffffffu, ordered_bits(other + 0.0f));
+  return {from_ordered(m1), i1, from_ordered(m2)};
+}
+
+// A lane's part of a row as the candidate cache keeps it: the largest value
+// with its benefit and first index (NO_Q while the part saw no query), the
+// largest at another index with its benefit and index (NO_Q while it saw
+// fewer than two), and the largest value at a third index (-inf while it
+// saw fewer than three). Branch-free: the lanes of a warp do not diverge.
+struct Top3 {
+  float a, ba;
+  int ia;
+  float b, bb;
+  int ib;
+  float c;
+
+  __device__ __forceinline__ void take(float val, float ben, int q) {
+    const bool ga = val > a;
+    const bool gb = val > b;
+    c = gb ? b : fmaxf(c, val);
+    bb = ga ? ba : (gb ? ben : bb);
+    ib = ga ? ia : (gb ? q : ib);
+    b = ga ? a : (gb ? val : b);
+    ba = ga ? ben : ba;
+    ia = ga ? q : ia;
+    a = ga ? val : a;
+  }
+  // what Top2 would have taken from the same candidates (its second value
+  // has a -1e30 floor)
+  __device__ __forceinline__ Top2 top2() const { return {a, ia, fmaxf(b, NEG)}; }
+};
+
+__device__ __forceinline__ Top3 none3() {
+  return {-CUDART_INF_F, 0.f, NO_Q, -CUDART_INF_F, 0.f, NO_Q, -CUDART_INF_F};
+}
+
+// One part of a bidder's row into `acc`: benefit - price over the 16-byte
+// chunks (VEC) or values c = part * 32 + lane + k * 32 * parts, each thread
+// in increasing order of the query.
+template <bool VEC, typename Acc, typename Row>
+__device__ __forceinline__ void scan_part(Acc& acc, Row row, const float* price, int Q, int part,
+                                          int parts, int lane) {
+  const int stride = 32 * parts;
+  if constexpr (VEC) {
+    const float4* p4 = reinterpret_cast<const float4*>(price);
+#pragma unroll 8
+    for (int c = part * 32 + lane; c < Q / 4; c += stride) {
+      const float4 b = row(c);
+      const float4 p = p4[c];
+      acc.take(b.x - p.x, b.x, 4 * c);
+      acc.take(b.y - p.y, b.y, 4 * c + 1);
+      acc.take(b.z - p.z, b.z, 4 * c + 2);
+      acc.take(b.w - p.w, b.w, 4 * c + 3);
+    }
+  } else {
+#pragma unroll 8
+    for (int q = part * 32 + lane; q < Q; q += stride) {
+      const float b = row(q);
+      acc.take(b - price[q], b, q);
+    }
+  }
+}
+
+struct Shared {
+  float* slots;                // [S][Q] prefetched rows
+  unsigned long long* best;    // [Q] winner keys, 0 when none
+  uint64_t* bars;              // [MAX_SLOTS] a slot's row has landed
+  float* price;                // [Q]
+  int* owner;                  // [Q] target or T
+  int* match;                  // [T] query or -1
+  int* ulist;                  // [T] this round's bidders
+  int* bid_q;                  // [T] their queries (rounds of more than 32 bidders)
+  float* bid_v;                // [T] their bids
+  float* red_v1;               // [32] bidders' parts
+  int* red_i1;                 // [32]
+  float* red_v2;               // [32]
+  int* cnt;                    // [2][32] compaction's warp counts
+  unsigned* fills;             // [MAX_SLOTS] copies started into a slot
+  int* state;                  // [3] the next round's bidder count, rounds, bids
+  // the candidate cache, [T][32] (a target's row, one part a lane), when it fits
+  int* c_ok;                   // [T] the target's entry is filled
+  int* c_ia;
+  int* c_ib;
+  float* c_ba;
+  float* c_bb;
+  float* c_thr;
+};
+
+__device__ __forceinline__ Shared carve(unsigned char* smem, int T, int Q, int S) {
+  Shared s;
+  s.slots = reinterpret_cast<float*>(smem);
+  s.best = reinterpret_cast<unsigned long long*>(smem + static_cast<size_t>(S) * Q * 4);
+  s.bars = reinterpret_cast<uint64_t*>(s.best + Q);
+  s.price = reinterpret_cast<float*>(s.bars + MAX_SLOTS);
+  s.owner = reinterpret_cast<int*>(s.price + Q);
+  s.match = s.owner + Q;
+  s.ulist = s.match + T;
+  s.bid_q = s.ulist + T;
+  s.bid_v = reinterpret_cast<float*>(s.bid_q + T);
+  s.red_v1 = s.bid_v + T;
+  s.red_i1 = reinterpret_cast<int*>(s.red_v1 + 32);
+  s.red_v2 = reinterpret_cast<float*>(s.red_i1 + 32);
+  s.cnt = reinterpret_cast<int*>(s.red_v2 + 32);
+  s.fills = reinterpret_cast<unsigned*>(s.cnt + 64);
+  s.state = reinterpret_cast<int*>(s.fills + MAX_SLOTS);
+  s.c_ok = s.state + 4;
+  s.c_ia = s.c_ok + T;
+  s.c_ib = s.c_ia + T * 32;
+  s.c_ba = reinterpret_cast<float*>(s.c_ib + T * 32);
+  s.c_bb = s.c_ba + T * 32;
+  s.c_thr = s.c_bb + T * 32;
+  return s;
+}
+
+// Start the copy of target t's row into slot r (one thread).
+__device__ __forceinline__ void prefetch_row(const Shared& s, const float* ben, int r, int t, int Q) {
+  mbar_expect_tx(s.bars + r, Q * 4);
+  bulk_load(s.slots + static_cast<size_t>(r) * Q, ben + static_cast<long long>(t) * Q, Q * 4,
+            s.bars + r);
+  s.fills[r] += 1;
+}
+
+// Until slot r holds the row its last copy brought.
+__device__ __forceinline__ void wait_slot(const Shared& s, int r) {
+  mbar_wait(s.bars + r, (s.fills[r] - 1) & 1);
+}
+
+// The winner t takes query q at `bid` and its winner key is reset; the
+// former owner, if any, becomes unassigned. Returns the former owner, or -1.
+__device__ __forceinline__ int owner_swap(const Shared& s, int q, int t, float bid, int T) {
+  const int prev = s.owner[q];
+  if (prev < T) s.match[prev] = -1;
+  s.price[q] = fmaxf(bid, s.price[q]);
+  s.owner[q] = t;
+  s.match[t] = q;
+  s.best[q] = 0ull;
+  return prev < T ? prev : -1;
+}
+
+// Ordered compaction of one chunk of THREADS candidates: the position of
+// this thread's entry (>= 0) among the chunk's entries, and their number in
+// `total`. cnt is the chunk's [32] of warp counts; one block barrier.
+template <int THREADS>
+__device__ __forceinline__ int chunk_rank(bool has, int* cnt, int& total) {
+  constexpr int W = THREADS / 32;
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  const unsigned mask = __ballot_sync(0xffffffffu, has);
+  if (lane == 0) cnt[warp] = __popc(mask);
+  __syncthreads();
+  int c = lane < W ? cnt[lane] : 0;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, c, off);
+    if (lane >= off) c += y;
+  }
+  const int before = __shfl_sync(0xffffffffu, c, warp > 0 ? warp - 1 : 0);
+  total = __shfl_sync(0xffffffffu, c, 31);
+  return (warp > 0 ? before : 0) + __popc(mask & ((1u << lane) - 1u));
+}
+
+// One part of bidder b's row (the list's entry b) into `acc`, from its row
+// slot (b < S) or from global memory.
+template <bool VEC, typename Acc>
+__device__ __forceinline__ void scan_bidder(Acc& acc, const Shared& s, const float* __restrict__ ben,
+                                            int Q, int S, int b, int part, int parts, int lane) {
+  if (b < S) {
+    wait_slot(s, b);
+    const float* row = s.slots + static_cast<size_t>(b) * Q;
+    if constexpr (VEC)
+      scan_part<true>(acc, [row](int c) { return reinterpret_cast<const float4*>(row)[c]; },
+                      s.price, Q, part, parts, lane);
+    else
+      scan_part<false>(acc, [row](int q) { return row[q]; }, s.price, Q, part, parts, lane);
+    return;
+  }
+  const float* row = ben + static_cast<long long>(s.ulist[b]) * Q;
+  if constexpr (VEC)
+    scan_part<true>(acc, [row](int c) { return __ldg(reinterpret_cast<const float4*>(row) + c); },
+                    s.price, Q, part, parts, lane);
+  else
+    scan_part<false>(acc, [row](int q) { return __ldg(row + q); }, s.price, Q, part, parts, lane);
+}
+
+// This lane's part of target t's row from the candidate cache, at today's
+// prices: exact when its two candidates still stand above the third value
+// they had (prices only rise, so no other query of the part can have
+// passed it). Returns false when they do not, and the row must be read.
+__device__ __forceinline__ bool cached_part(const Shared& s, int t, int lane, Top2& x) {
+  const int k = t * 32 + lane;
+  const int ia = s.c_ia[k];
+  if (ia == NO_Q) {  // a part without queries
+    x = none2();
+    return true;
+  }
+  const int ib = s.c_ib[k];
+  const float va = s.c_ba[k] - s.price[ia];
+  const float vb = ib != NO_Q ? s.c_bb[k] - s.price[ib] : -CUDART_INF_F;
+  const float c = s.c_thr[k];
+  if (va > vb || (va == vb && ia < ib))
+    x = {va, ia, fmaxf(vb, NEG)};
+  else
+    x = {vb, ib, fmaxf(va, NEG)};
+  return fminf(va, vb) >= c && fmaxf(va, vb) > c;
+}
+
+__device__ __forceinline__ void cache_part(const Shared& s, int t, int lane, const Top3& y) {
+  const int k = t * 32 + lane;
+  s.c_ia[k] = y.ia;
+  s.c_ba[k] = y.ba;
+  s.c_ib[k] = y.ib;
+  s.c_bb[k] = y.bb;
+  s.c_thr[k] = y.c;
+}
+
+// Warp 0 settles a round of at most 32 bidders, lane b holding bidder b's
+// target t and its (v1, i1, v2): the bids, the winner per query (an
+// atomicMax on its key, read back after __syncwarp; a bidder `alone` in its
+// round has no bid to beat), the prices, owners and matches. Returns this
+// lane's entry of the next list: the displaced owner of a winner (or -1
+// when the query had none), a loser itself, -1 for a lane without a bidder.
+__device__ __forceinline__ int settle(const Shared& s, const Top2& x, int t, bool bidder, bool alone,
+                                      float eps, int T) {
+  float bid = NEG;
+  unsigned long long key = 0ull;
+  if (bidder) {
+    bid = s.price[x.i1] + (x.v1 - x.v2) + eps;
+    if (bid > NEG && !alone) {
+      key = (static_cast<unsigned long long>(ordered_bits(bid)) << 32) |
+            (0xffffffffu - static_cast<unsigned>(t));
+      atomicMax(&s.best[x.i1], key);
+    }
+  }
+  bool won = bidder && bid > NEG;
+  if (!alone) {
+    __syncwarp();
+    won = won && s.best[x.i1] == key;
+    __syncwarp();
+  }
+  if (won) return owner_swap(s, x.i1, t, bid, T);
+  return bidder ? t : -1;
+}
+
+// Warp 0 writes the next list in order (entries >= 0 of its lanes) and, for
+// its first S entries, starts their rows' copies; returns the list's length.
+__device__ __forceinline__ int write_list(const Shared& s, const float* __restrict__ ben, int entry,
+                                          int S, int Q, int lane) {
+  const unsigned mask = __ballot_sync(0xffffffffu, entry >= 0);
+  const int r = __popc(mask & ((1u << lane) - 1u));
+  if (entry >= 0) {
+    s.ulist[r] = entry;
+    if (r < S) prefetch_row(s, ben, r, entry, Q);
+  }
+  __syncwarp();
+  return __popc(mask);
+}
+
+// Rounds of at most `solo` bidders, by warp 0 alone while the rest of the
+// block waits at a barrier: no block barrier a round. A bidder's (v1, i1,
+// v2) comes from the candidate cache when every lane's part of it still
+// holds; otherwise the warp reads the whole row (from the slot its list's
+// making filled, or from global memory) and refills the bidder's cache
+// entry. Then the round is settled and the next list kept in shared memory.
+// Ends when the list grows past `solo`, empties or max_iters runs out; the
+// rows of the list it leaves are then started into their slots, as a block
+// round expects.
+template <bool VEC>
+__device__ void solo_rounds(const Shared& s, const float* __restrict__ ben, float eps, int T,
+                            int Q, int S, bool cache, int solo, int max_iters, int& n, int& it,
+                            int& bids) {
+  const int lane = threadIdx.x % 32;
+  int slots = min(n, S);
+  if (lane < slots) wait_slot(s, lane);  // every copy started is waited for
+  __syncwarp();
+  do {
+    const int t = lane < n ? s.ulist[lane] : -1;
+    Top2 mine = none2();
+    for (int b = 0; b < n; ++b) {
+      const int tb = __shfl_sync(0xffffffffu, t, b);
+      Top2 x;
+      if (!(cache && s.c_ok[tb] && __all_sync(0xffffffffu, cached_part(s, tb, lane, x)))) {
+        Top3 y = none3();
+        scan_bidder<VEC>(y, s, ben, Q, slots, b, 0, 1, lane);
+        if (cache) {
+          cache_part(s, tb, lane, y);
+          if (lane == 0) s.c_ok[tb] = 1;
+        }
+        x = y.top2();
+      }
+      x = warp_merge(x);
+      if (lane == b) mine = x;
+    }
+    const int entry = settle(s, mine, t, lane < n, n == 1, eps, T);
+    bids += n;
+    ++it;
+    n = write_list(s, ben, entry, 0, Q, lane);
+    slots = 0;
+  } while (n > 0 && n <= solo && it < max_iters);
+  if (lane < min(n, S)) prefetch_row(s, ben, lane, s.ulist[lane], Q);
+}
+
+template <int THREADS, bool VEC>
+__device__ void run_instance(const Shared& s, const float* __restrict__ ben,
+                             const unsigned char* __restrict__ vld, float eps, int T, int Q,
+                             int S, bool cache, int solo, int max_iters, int& it, int& bids,
+                             int& n) {
+  constexpr int W = THREADS / 32;
+  const int tid = threadIdx.x;
+  const int lane = tid % 32;
+  const int warp = tid / 32;
+
+  // the first round's bidders: every valid target, in order
+  n = 0;
+  for (int c = 0; c * THREADS < T; ++c) {
+    const int t = c * THREADS + tid;
+    const bool has = t < T && vld[t];
+    int total;
+    const int r = n + chunk_rank<THREADS>(has, s.cnt + (c & 1) * 32, total);
+    if (has) {
+      s.ulist[r] = t;
+      if (r < S) prefetch_row(s, ben, r, t, Q);
+    }
+    n += total;
+  }
+  __syncthreads();
+
+  it = 0;
+  bids = 0;
+  while (n > 0 && it < max_iters) {
+    if (n <= solo) {
+      if (warp == 0) {
+        solo_rounds<VEC>(s, ben, eps, T, Q, S, cache, solo, max_iters, n, it, bids);
+        if (lane == 0) {
+          s.state[0] = n;
+          s.state[1] = it;
+          s.state[2] = bids;
+        }
+      }
+      __syncthreads();
+      n = s.state[0];
+      it = s.state[1];
+      bids = s.state[2];
+      continue;
+    }
+    if (n <= 32) {
+      // bid: each bidder's row split over `parts` warps, one part a warp
+      int p2 = 1;
+      while (p2 < n) p2 <<= 1;
+      const int parts = p2 <= W ? W / p2 : 1;
+      for (int idx = warp; idx < n * parts; idx += W) {
+        Top2 x = none2();
+        scan_bidder<VEC>(x, s, ben, Q, S, idx / parts, idx % parts, parts, lane);
+        x = warp_merge(x);
+        if (lane == 0) {
+          s.red_v1[idx] = x.v1;
+          s.red_i1[idx] = x.i1;
+          s.red_v2[idx] = x.v2;
+        }
+      }
+      __syncthreads();
+
+      // warp 0 settles the round: lane b takes bidder b
+      if (warp == 0) {
+        Top2 x = none2();
+        if (lane < n * parts) x = {s.red_v1[lane], s.red_i1[lane], s.red_v2[lane]};
+        x = group_merge(x, parts);
+        const int src = lane < n ? lane * parts : 0;
+        x = {__shfl_sync(0xffffffffu, x.v1, src), __shfl_sync(0xffffffffu, x.i1, src),
+             __shfl_sync(0xffffffffu, x.v2, src)};
+        const int entry = settle(s, x, lane < n ? s.ulist[lane] : -1, lane < n, n == 1, eps, T);
+        const int next = write_list(s, ben, entry, S, Q, lane);
+        if (lane == 0) s.state[0] = next;
+      }
+      __syncthreads();
+      bids += n;
+      n = s.state[0];
+    } else {
+      // bid: one warp a row
+      for (int j = warp; j < n; j += W) {
+        Top2 x = none2();
+        scan_bidder<VEC>(x, s, ben, Q, S, j, 0, 1, lane);
+        x = warp_merge(x);
+        if (lane == 0) {
+          const int t = s.ulist[j];
+          const float bid = s.price[x.i1] + (x.v1 - x.v2) + eps;
+          s.bid_q[j] = x.i1;
+          s.bid_v[j] = bid;
+          if (bid > NEG)
+            atomicMax(&s.best[x.i1], (static_cast<unsigned long long>(ordered_bits(bid)) << 32) |
+                                         (0xffffffffu - static_cast<unsigned>(t)));
+        }
+      }
+      __syncthreads();
+
+      // winners take their queries; the next list is compacted in place
+      // (an entry's position is at most its bidder's index)
+      int next = 0;
+      for (int c = 0; c * THREADS < n; ++c) {
+        const int j = c * THREADS + tid;
+        int entry = -1;
+        if (j < n) {
+          const int t = s.ulist[j];
+          const int q = s.bid_q[j];
+          const float bid = s.bid_v[j];
+          const unsigned long long key =
+              (static_cast<unsigned long long>(ordered_bits(bid)) << 32) |
+              (0xffffffffu - static_cast<unsigned>(t));
+          entry = bid > NEG && s.best[q] == key ? owner_swap(s, q, t, bid, T) : t;
+        }
+        int total;
+        const int r = next + chunk_rank<THREADS>(entry >= 0, s.cnt + (c & 1) * 32, total);
+        if (entry >= 0) {
+          s.ulist[r] = entry;
+          if (r < S) prefetch_row(s, ben, r, entry, Q);
+        }
+        next += total;
+      }
+      __syncthreads();
+      bids += n;
+      n = next;
+    }
+    ++it;
+  }
+
+  // max_iters ran out: the copies started for the bidders that will not bid
+  // land before the block leaves
+  for (int r = tid; r < min(n, S); r += THREADS) wait_slot(s, r);
+}
+
+struct Params {
+  const float* benefit;        // (B, T, Q)
+  const unsigned char* valid;  // (B, T)
+  const float* eps;            // (B,)
+  int* match;                  // (B, T)
+  int* rounds;                 // (B,)
+  int* bids;                   // (B,)
+  int T, Q, max_iters;
+  int S;      // row slots
+  int solo;   // most bidders of a round that warp 0 runs alone
+  int cache;  // the candidate cache fits
+};
+
+template <int THREADS, bool VEC>
+__global__ void __launch_bounds__(THREADS) auction_kernel(const Params p) {
+  constexpr int W = THREADS / 32;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int T = p.T, Q = p.Q, S = p.S;
+  const Shared s = carve(smem, T, Q, S);
   const int z = blockIdx.x;
   const int tid = threadIdx.x;
   const int lane = tid % 32;
   const int warp = tid / 32;
-  const float* ben = benefit + static_cast<long long>(z) * T * Q;
-  const unsigned char* vld = valid + static_cast<long long>(z) * T;
-  const float eps = eps_all[z];
+  const float* ben = p.benefit + static_cast<long long>(z) * T * Q;
+  const unsigned char* vld = p.valid + static_cast<long long>(z) * T;
 
   for (int q = tid; q < Q; q += THREADS) {
-    best[q] = 0ull;
-    price[q] = 0.0f;
-    owner[q] = T;
+    s.best[q] = 0ull;
+    s.price[q] = 0.0f;
+    s.owner[q] = T;
   }
-  for (int t = tid; t < T; t += THREADS) match[t] = -1;
-
-  int it = 0;
-  int bids = 0;
-  int n = 0;
-  while (true) {
-    if (tid == 0) n_bidders = 0;
-    __syncthreads();
-    for (int t = tid; t < T; t += THREADS) {
-      if (vld[t] && match[t] < 0) ulist[atomicAdd(&n_bidders, 1)] = t;
-    }
-    __syncthreads();
-    n = n_bidders;
-    if (n == 0 || it >= max_iters) break;
-
-    // bids: one warp a row
-    for (int j = warp; j < n; j += WARPS) {
-      const float* row = ben + static_cast<long long>(ulist[j]) * Q;
-      Top2 x{-CUDART_INF_F, 0x7fffffff, NEG};
-#pragma unroll 4
-      for (int q = lane; q < Q; q += 32) {
-        const float val = row[q] - price[q];
-        if (val > x.v1) {
-          x.v2 = fmaxf(x.v2, x.v1);
-          x.v1 = val;
-          x.i1 = q;
-        } else {
-          x.v2 = fmaxf(x.v2, val);
-        }
-      }
-      x = warp_merge(x);
-      if (lane == 0) {
-        const float bid = price[x.i1] + (x.v1 - x.v2) + eps;
-        bid_q[j] = x.i1;
-        bid_v[j] = bid;
-        if (bid > NEG) {
-          const unsigned long long key =
-              (static_cast<unsigned long long>(ordered_bits(bid)) << 32) |
-              (0xffffffffu - static_cast<unsigned>(ulist[j]));
-          atomicMax(&best[x.i1], key);
-        }
-      }
-    }
-    __syncthreads();
-
-    // winners take their queries; the former owner becomes unassigned
-    for (int j = tid; j < n; j += THREADS) {
-      const int t = ulist[j];
-      const int q = bid_q[j];
-      const float bid = bid_v[j];
-      if (bid > NEG && 0xffffffffu - static_cast<unsigned>(best[q]) == static_cast<unsigned>(t)) {
-        const int prev = owner[q];
-        if (prev < T) match[prev] = -1;
-        price[q] = fmaxf(bid, price[q]);
-        owner[q] = t;
-        match[t] = q;
-      }
-    }
-    __syncthreads();
-    for (int j = tid; j < n; j += THREADS) best[bid_q[j]] = 0ull;
-    bids += n;
-    ++it;
+  for (int t = tid; t < T; t += THREADS) {
+    s.match[t] = -1;
+    if (p.cache) s.c_ok[t] = 0;
   }
+  if (tid == 0) {
+    for (int r = 0; r < S; ++r) {
+      mbar_init(s.bars + r, 1);
+      s.fills[r] = 0u;
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  int it, bids, n;
+  run_instance<THREADS, VEC>(s, ben, vld, p.eps[z], T, Q, S, p.cache != 0, p.solo, p.max_iters, it,
+                             bids, n);
 
   // greedy completion: n leftovers only when max_iters ran out
   if (n > 0) {
-    unsigned char* owned = reinterpret_cast<unsigned char*>(best);  // [Q] flags
+    int* match = s.match;
+    unsigned char* owned = reinterpret_cast<unsigned char*>(s.best);  // [Q] flags
+    __syncthreads();
     for (int q = tid; q < Q; q += THREADS) owned[q] = 0;
     __syncthreads();
     for (int t = tid; t < T; t += THREADS) {
@@ -202,7 +654,7 @@ auction_kernel(const float* __restrict__ benefit, const unsigned char* __restric
       if (!(vld[t] && match[t] < 0)) continue;  // uniform: shared data, read after a barrier
       const float* row = ben + static_cast<long long>(t) * Q;
       float bv = -CUDART_INF_F;
-      int bi = 0x7fffffff;
+      int bi = NO_Q;
       for (int q = tid; q < Q; q += THREADS) {
         const float val = owned[q] ? NEG : row[q];
         if (val > bv) {
@@ -220,15 +672,15 @@ auction_kernel(const float* __restrict__ benefit, const unsigned char* __restric
         }
       }
       if (lane == 0) {
-        red_v[warp] = bv;
-        red_i[warp] = bi;
+        s.red_v1[warp] = bv;
+        s.red_i1[warp] = bi;
       }
       __syncthreads();
       if (tid == 0) {
-        for (int w = 1; w < WARPS; ++w) {
-          if (red_v[w] > bv || (red_v[w] == bv && red_i[w] < bi)) {
-            bv = red_v[w];
-            bi = red_i[w];
+        for (int w = 1; w < W; ++w) {
+          if (s.red_v1[w] > bv || (s.red_v1[w] == bv && s.red_i1[w] < bi)) {
+            bv = s.red_v1[w];
+            bi = s.red_i1[w];
           }
         }
         owned[bi] = 1;
@@ -239,38 +691,102 @@ auction_kernel(const float* __restrict__ benefit, const unsigned char* __restric
   }
 
   for (int t = tid; t < T; t += THREADS) {
-    match_out[static_cast<long long>(z) * T + t] = vld[t] ? match[t] : 0;
+    p.match[static_cast<long long>(z) * T + t] = vld[t] ? s.match[t] : 0;
   }
   if (tid == 0) {
-    rounds_out[z] = it;
-    bids_out[z] = bids;
+    p.rounds[z] = it;
+    p.bids[z] = bids;
   }
 }
 
-size_t smem_bytes(int T, int Q) {
-  return static_cast<size_t>(Q) * 16 + static_cast<size_t>(T) * 16 + WARPS * 8;
+// 16 bytes a query and a target and the block's scratch, the candidate
+// cache (644 bytes a target) and S row slots
+size_t smem_bytes(int T, int Q, bool cache, int S) {
+  return static_cast<size_t>(Q) * 16 + static_cast<size_t>(T) * 16 + MISC_BYTES +
+         (cache ? static_cast<size_t>(T) * (4 + 5 * 32 * 4) : 0) + static_cast<size_t>(S) * Q * 4;
+}
+
+// What a launch at (T, Q) gets: the candidate cache where it fits (with
+// `cache`), then as many row slots as fit (with `prefetch`, Q % 4 == 0 and
+// a 16-byte aligned benefit), at most MAX_SLOTS.
+void plan(int T, int Q, bool cache, bool prefetch, bool aligned, Params& p) {
+  p.cache = cache && smem_bytes(T, Q, true, 0) <= MAX_SMEM;
+  p.S = 0;
+  if (prefetch && aligned && Q % 4 == 0) {
+    const size_t fit = (MAX_SMEM - smem_bytes(T, Q, p.cache, 0)) / (static_cast<size_t>(Q) * 4);
+    p.S = static_cast<int>(fit < MAX_SLOTS ? fit : MAX_SLOTS);
+  }
+}
+
+template <int THREADS, bool VEC>
+cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
+  auto kernel = auction_kernel<THREADS, VEC>;
+  const size_t bytes = smem_bytes(p.T, p.Q, p.cache, p.S);
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  if (err != cudaSuccess) return err;
+  kernel<<<B, THREADS, bytes, stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <int THREADS>
+cudaError_t launch_threads(const Params& p, int B, bool vec, cudaStream_t stream) {
+  return vec ? launch<THREADS, true>(p, B, stream) : launch<THREADS, false>(p, B, stream);
 }
 
 }  // namespace
 
 // benefit (B, T, Q) f32, valid (B, T) u8, eps (B,) f32, all contiguous;
-// match (B, T), rounds (B,) and bids (B,) i32. Returns the launch's
-// cudaError_t; cudaErrorInvalidValue when 16 Q + 16 T bytes do not fit a
-// block's shared memory.
+// match (B, T), rounds (B,) and bids (B,) i32. threads: the block's size,
+// 1024, 512 or 256. prefetch: 0 reads every row from global memory, 1 puts
+// the next bidders' rows into row slots where they fit (16-byte loads and
+// slots need Q % 4 == 0 and a 16-byte aligned benefit). solo: rounds of at
+// most this many bidders (0-32) run on one warp alone; cache: those rounds
+// take a bidder's top two from the candidate cache where it fits. Returns
+// the launch's cudaError_t; cudaErrorInvalidValue when 16 Q + 16 T bytes and
+// the block's scratch do not fit a block's shared memory.
 extern "C" int auction_lsap(const void* benefit, const void* valid, const void* eps, void* match,
                             void* rounds, void* bids, int B, int T, int Q, int max_iters,
-                            void* stream) {
-  if (B < 1 || T < 1 || Q < 1 || max_iters < 0) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t bytes = smem_bytes(T, Q);
-  if (bytes > MAX_SMEM) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(auction_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(bytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  auction_kernel<<<B, THREADS, bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(benefit), static_cast<const unsigned char*>(valid),
-      static_cast<const float*>(eps), static_cast<int*>(match), static_cast<int*>(rounds),
-      static_cast<int*>(bids), T, Q, max_iters);
-  return static_cast<int>(cudaGetLastError());
+                            int threads, int prefetch, int solo, int cache, void* stream) {
+  if (B < 1 || T < 1 || Q < 1 || max_iters < 0 || solo < 0 || solo > 32 ||
+      smem_bytes(T, Q, false, 0) > MAX_SMEM)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool aligned = reinterpret_cast<uintptr_t>(benefit) % 16 == 0;
+  Params p;
+  p.benefit = static_cast<const float*>(benefit);
+  p.valid = static_cast<const unsigned char*>(valid);
+  p.eps = static_cast<const float*>(eps);
+  p.match = static_cast<int*>(match);
+  p.rounds = static_cast<int*>(rounds);
+  p.bids = static_cast<int*>(bids);
+  p.T = T;
+  p.Q = Q;
+  p.max_iters = max_iters;
+  p.solo = solo;
+  plan(T, Q, solo > 0 && cache, prefetch, aligned, p);
+  const bool vec = Q % 4 == 0 && aligned;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (threads == 1024)
+    err = launch_threads<1024>(p, B, vec, st);
+  else if (threads == 512)
+    err = launch_threads<512>(p, B, vec, st);
+  else if (threads == 256)
+    err = launch_threads<256>(p, B, vec, st);
+  else
+    err = cudaErrorInvalidValue;
+  return static_cast<int>(err);
+}
+
+// What a launch at (T, Q) with an aligned benefit gets: its row slots
+// (`prefetch` 1) or whether the candidate cache fits (`prefetch` 0, `cache`
+// 1), as the C entry point plans them, so that callers and tests can see
+// which path a shape takes.
+extern "C" int auction_lsap_plan(int T, int Q, int prefetch, int cache) {
+  if (smem_bytes(T, Q, false, 0) > MAX_SMEM) return 0;
+  Params p;
+  plan(T, Q, cache, prefetch, true, p);
+  return prefetch ? p.S : p.cache;
 }
 
 extern "C" const char* auction_lsap_error_string(int code) {

@@ -33,7 +33,9 @@
 // bf16, two kernels; which one a call launches is a function of the head
 // widths alone (the wrapper's attention_route):
 //
-// wgmma design, compiled at the width pairs (Dqk, Dv) = (64, 64) (the ViT),
+// wgmma design (csrc/flash_fwd_wgmma.cuh, its HEADS = 1 instances; the packed
+// two-head probe, csrc/packed2_attention_fwd.cu, is its HEADS = 2 instance),
+// compiled at the width pairs (Dqk, Dv) = (64, 64) (the ViT),
 // (32, 32) and (64, 32) (CLTR), nothing padded. A block of 288 threads owns
 // 128 query rows: two consumer warpgroups of 64 rows each and one producer
 // warp, whose first lane keeps a ring of three 64-key K and V tiles in
@@ -111,34 +113,18 @@
 
 #include <math_constants.h>
 
-#include "dropout_hash.cuh"
+#include "flash_fwd_wgmma.cuh"
 #include "flash_tiles.cuh"
-#include "hopper_mma.cuh"
 
 namespace {
 
 constexpr int THREADS = 128;
 
-struct FwdParams {
-  const void* q;
-  const void* k;
-  const void* v;
-  const float* bias;      // (B, Nk) or null
-  const float* bias_max;  // (B,), given with bias
-  void* o;
-  float* lse;  // (B*H, Nq) natural log, or null (eval)
-  int H, Nq, Nk, dqk, dv, q_tiles;
-  float scale;
-  uint32_t seed, thr, nk_p;  // dropout: keep = hash >= thr
-  float inv_keep;            // 1 / (1 - rate)
-};
-
 // ---------------------------------------------------------------------------
 // bf16: mma.sync, any head widths (multiples of 16 up to 128)
 // ---------------------------------------------------------------------------
 
-constexpr int BQ = 64;   // query rows per block, 16 per warp
-constexpr int BKV = 64;  // key rows per tile
+constexpr int BQ = 64;  // query rows per block, 16 per warp (key tiles of BKV = 64 rows)
 
 template <int DQK, int DV>
 constexpr int smem_bytes_bf16() {
@@ -323,228 +309,6 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_bf16(const FwdParams p) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16: wgmma, head widths (64, 64), (32, 32), (64, 32)
-// ---------------------------------------------------------------------------
-
-constexpr int WG_BQ = 128;       // query rows per block, 64 per consumer warpgroup
-constexpr int WG_STAGES = 3;     // K/V tiles in flight
-constexpr int WG_CONSUMERS = 256;  // threads of the two consumer warpgroups
-constexpr int WG_THREADS = WG_CONSUMERS + 32;  // and one producer warp
-
-template <int DQK, int DV>
-constexpr int smem_bytes_wgmma() {
-  return 2 * tile_bytes<64, DQK>() + WG_STAGES * (tile_bytes<BKV, DQK>() + tile_bytes<BKV, DV>()) +
-         1024 /* alignment */ + 64 /* barriers */;
-}
-
-// One 64 x 64 tile of the online softmax on the raw S accumulators: on
-// return s holds the unnormalised probabilities (dropped ones zero, the
-// survivors not yet scaled by 1 / (1 - rate)), m_run and l_run are updated
-// and corr holds the factors by which the earlier sums shrink. GENERAL: a
-// bias or a scale <= 0 (x = s * scale2 is formed before the maximum);
-// otherwise the scale is folded into the exponent's FMA. MASKED: the tile
-// holds columns >= Nk.
-template <bool GENERAL, bool MASKED, bool DROPOUT>
-__device__ __forceinline__ void softmax_tile(float (&s)[32], float (&m_run)[2], float (&l_run)[2],
-                                             float (&corr)[2], const FwdParams& p,
-                                             const float* bg, float bmax2, float scale2, int k0,
-                                             int t4, const uint32_t (&row)[2], uint32_t folded) {
-  float m_new[2] = {m_run[0], m_run[1]};
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int col = k0 + j * 8 + 2 * t4 + (e & 1);
-      float x = s[4 * j + e];
-      if constexpr (GENERAL) {
-        x *= scale2;
-        // the bias first (a -1e30 swallows the score), then the row shift
-        if (bg != nullptr && (!MASKED || col < p.Nk)) x = (x + bg[col] * LOG2E) - bmax2;
-      }
-      if constexpr (MASKED) x = col < p.Nk ? x : -CUDART_INF_F;
-      s[4 * j + e] = x;
-      m_new[e >> 1] = fmaxf(m_new[e >> 1], x);
-    }
-  float shift[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    m_new[i] = fmaxf(m_new[i], __shfl_xor_sync(0xffffffffu, m_new[i], 1));
-    m_new[i] = fmaxf(m_new[i], __shfl_xor_sync(0xffffffffu, m_new[i], 2));
-    // every tile holds a real key, so m_new is finite; exp2(-inf) = 0
-    const float f = GENERAL ? 1.f : scale2;
-    corr[i] = fast_exp2((m_run[i] - m_new[i]) * f);
-    shift[i] = m_new[i] * f;
-    m_run[i] = m_new[i];
-    l_run[i] *= corr[i];
-  }
-  uint32_t idx0[2] = {0u, 0u};
-  if constexpr (DROPOUT) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) idx0[i] = row[i] * p.nk_p + static_cast<uint32_t>(k0 + 2 * t4);
-  }
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      float pr = GENERAL ? fast_exp2(s[4 * j + e] - shift[e >> 1])
-                         : fast_exp2(fmaf(s[4 * j + e], scale2, -shift[e >> 1]));
-      l_run[e >> 1] += pr;  // the row sum is taken before dropout
-      if constexpr (DROPOUT)
-        pr = dropout_keep_idx(folded, idx0[e >> 1] + static_cast<uint32_t>(j * 8 + (e & 1)), p.thr)
-                 ? pr
-                 : 0.f;
-      s[4 * j + e] = pr;
-    }
-}
-
-template <int DQK, int DV, bool GENERAL, bool DROPOUT>
-__global__ void __launch_bounds__(WG_THREADS, 2)
-    flash_fwd_wgmma(const FwdParams p, const __grid_constant__ CUtensorMap map_q,
-                    const __grid_constant__ CUtensorMap map_k,
-                    const __grid_constant__ CUtensorMap map_v) {
-  constexpr int QB = tile_bytes<64, DQK>();
-  constexpr int KB = tile_bytes<BKV, DQK>();
-  constexpr int VB = tile_bytes<BKV, DV>();
-  extern __shared__ __align__(1024) unsigned char wsmem[];
-  unsigned char* Qs = align_1024(wsmem);       // two tiles, one a consumer warpgroup
-  unsigned char* Ks = Qs + 2 * QB;             // WG_STAGES tiles
-  unsigned char* Vs = Ks + WG_STAGES * KB;     // WG_STAGES tiles
-  uint64_t* q_full = reinterpret_cast<uint64_t*>(Vs + WG_STAGES * VB);
-  uint64_t* full = q_full + 1;                 // WG_STAGES: the tile has landed
-  uint64_t* empty = full + WG_STAGES;          // WG_STAGES: both warpgroups are done with it
-
-  const int Nq = p.Nq, Nk = p.Nk;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int bh = blockIdx.x / p.q_tiles;
-  const int q0 = (blockIdx.x % p.q_tiles) * WG_BQ;
-  const int kv_tiles = (Nk + BKV - 1) / BKV;
-
-  if (tid == 0) {
-    mbar_init(q_full, 1);
-    for (int i = 0; i < WG_STAGES; ++i) {
-      mbar_init(full + i, 1);
-      mbar_init(empty + i, WG_CONSUMERS / 32);
-    }
-    mbar_init_fence();
-  }
-  __syncthreads();
-
-  if (warp == WG_CONSUMERS / 32) {
-    // producer: one thread keeps the ring full
-    if (lane == 0) {
-      mbar_expect_tx(q_full, 2 * QB);
-      tma_load_3d(Qs, &map_q, q_full, 0, q0, bh);
-      tma_load_3d(Qs + QB, &map_q, q_full, 0, q0 + 64, bh);
-      for (int t = 0; t < kv_tiles; ++t) {
-        const int stage = t % WG_STAGES;
-        mbar_wait(empty + stage, ((t / WG_STAGES) & 1) ^ 1);
-        mbar_expect_tx(full + stage, KB + VB);
-        tma_load_3d(Ks + stage * KB, &map_k, full + stage, 0, t * BKV, bh);
-        tma_load_3d(Vs + stage * VB, &map_v, full + stage, 0, t * BKV, bh);
-      }
-    }
-    return;
-  }
-
-  // consumers
-  const int wg = warp / 4;
-  const int w = warp % 4;   // warp within the warpgroup: rows 16 w .. 16 w + 15
-  const int g = lane / 4;   // accumulator row (and row + 8)
-  const int t4 = lane % 4;  // accumulator column pair
-  const float* bg = p.bias ? p.bias + static_cast<long long>(bh / p.H) * Nk : nullptr;
-  const float bmax2 = p.bias ? p.bias_max[bh / p.H] * LOG2E : 0.f;
-  const float scale2 = p.scale * LOG2E;  // scores in the base-2 domain
-  const int row0 = q0 + wg * 64 + w * 16 + g;
-  const uint32_t row[2] = {static_cast<uint32_t>(row0), static_cast<uint32_t>(row0 + 8)};
-  uint32_t folded = 0;
-  if constexpr (DROPOUT) folded = dropout_fold(dropout_base(p.seed, static_cast<uint32_t>(bh)));
-
-  mbar_wait(q_full, 0);
-  const unsigned char* Qt = Qs + wg * QB;
-
-  float acc[DV / 2];
-#pragma unroll
-  for (int i = 0; i < DV / 2; ++i) acc[i] = 0.f;
-  float m_run[2] = {-CUDART_INF_F, -CUDART_INF_F};  // rows g, g + 8
-  float l_run[2] = {0.f, 0.f};  // this thread's share of the row sums
-
-  for (int t = 0; t < kv_tiles; ++t) {
-    const int stage = t % WG_STAGES;
-    mbar_wait(full + stage, (t / WG_STAGES) & 1);
-    const unsigned char* Kt = Ks + stage * KB;
-    const unsigned char* Vt = Vs + stage * VB;
-
-    // S = Q K^T: both operands read from shared memory by the tensor cores
-    float s[BKV / 2];
-    wgmma_fence();
-    wgmma_ss_tile<DQK>(s, Qt, Kt);
-    wgmma_commit();
-    wgmma_wait<0>();
-    keep_regs(s);
-
-    float corr[2];
-    if (t == kv_tiles - 1 && (Nk % BKV) != 0)
-      softmax_tile<GENERAL, true, DROPOUT>(s, m_run, l_run, corr, p, bg, bmax2, scale2, t * BKV, t4,
-                                           row, folded);
-    else
-      softmax_tile<GENERAL, false, DROPOUT>(s, m_run, l_run, corr, p, bg, bmax2, scale2, t * BKV,
-                                            t4, row, folded);
-#pragma unroll
-    for (int j = 0; j < DV / 8; ++j) {
-      acc[4 * j + 0] *= corr[0];
-      acc[4 * j + 1] *= corr[0];
-      acc[4 * j + 2] *= corr[1];
-      acc[4 * j + 3] *= corr[1];
-    }
-
-    // O += P V: P goes from the S accumulators to the register A operand as
-    // bf16; V lies [key][d] and is read as the MN-major B operand
-    uint32_t pa[4][4];
-    pack_a(pa, s);
-    wgmma_fence();
-    wgmma_rs_tile<DV>(acc, pa, Vt);
-    wgmma_commit();
-    wgmma_wait<0>();
-    keep_regs(acc);
-    keep_regs(pa);
-    if (lane == 0) mbar_arrive(empty + stage);  // this warp is done with the stage
-  }
-
-  float l_row[2], inv[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    float l = l_run[i];
-    l += __shfl_xor_sync(0xffffffffu, l, 1);
-    l += __shfl_xor_sync(0xffffffffu, l, 2);
-    l_row[i] = l;
-    inv[i] = (DROPOUT ? p.inv_keep : 1.f) / l;
-  }
-  bf16* og = static_cast<bf16*>(p.o) + static_cast<long long>(bh) * Nq * DV;
-#pragma unroll
-  for (int j = 0; j < DV / 8; ++j) {
-    const int col = j * 8 + 2 * t4;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int r = row0 + 8 * i;
-      if (r < Nq)
-        *reinterpret_cast<uint32_t*>(og + static_cast<long long>(r) * DV + col) =
-            pack_bf16x2(acc[4 * j + 2 * i] * inv[i], acc[4 * j + 2 * i + 1] * inv[i]);
-    }
-  }
-  if (p.lse != nullptr && t4 == 0) {
-    const float f = GENERAL ? 1.f : scale2;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int r = row0 + 8 * i;
-      if (r < Nq)
-        p.lse[static_cast<long long>(bh) * Nq + r] = (m_run[i] * f + log2f(l_row[i])) * LN2;
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
 // f32: CUDA cores
 // ---------------------------------------------------------------------------
 
@@ -674,30 +438,17 @@ cudaError_t launch_bf16_dv(const FwdParams& p, int BH, cudaStream_t stream) {
                     : launch_bf16_drop<DQK, 128>(p, BH, stream);
 }
 
-template <int DQK, int DV, bool GENERAL, bool DROPOUT>
-cudaError_t launch_wgmma(const FwdParams& p, int BH, cudaStream_t stream) {
-  constexpr int smem = smem_bytes_wgmma<DQK, DV>();
-  auto kernel = flash_fwd_wgmma<DQK, DV, GENERAL, DROPOUT>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  CUtensorMap map_q, map_k, map_v;
-  if ((err = make_tile_map<DQK>(&map_q, p.q, p.Nq, BH)) != cudaSuccess) return err;
-  if ((err = make_tile_map<DQK>(&map_k, p.k, p.Nk, BH)) != cudaSuccess) return err;
-  if ((err = make_tile_map<DV>(&map_v, p.v, p.Nk, BH)) != cudaSuccess) return err;
-  kernel<<<p.q_tiles * BH, WG_THREADS, smem, stream>>>(p, map_q, map_k, map_v);
-  return cudaGetLastError();
-}
-
 template <int DQK, int DV>
 cudaError_t launch_wgmma_widths(const FwdParams& p, int BH, cudaStream_t stream) {
   // the scale can be folded into the exponent only without a bias and when
   // it keeps the order of the scores
   const bool general = p.bias != nullptr || !(p.scale > 0.f);
+  // one head a block (128 query rows), three stages, two blocks an SM
   if (p.thr != 0u)
-    return general ? launch_wgmma<DQK, DV, true, true>(p, BH, stream)
-                   : launch_wgmma<DQK, DV, false, true>(p, BH, stream);
-  return general ? launch_wgmma<DQK, DV, true, false>(p, BH, stream)
-                 : launch_wgmma<DQK, DV, false, false>(p, BH, stream);
+    return general ? launch_wgmma<DQK, DV, true, true, 1, 3, 2>(p, BH, stream)
+                   : launch_wgmma<DQK, DV, false, true, 1, 3, 2>(p, BH, stream);
+  return general ? launch_wgmma<DQK, DV, true, false, 1, 3, 2>(p, BH, stream)
+                 : launch_wgmma<DQK, DV, false, false, 1, 3, 2>(p, BH, stream);
 }
 
 }  // namespace
@@ -753,7 +504,6 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
     p.q_tiles = (Nq + BQ - 1) / BQ;
     err = dqk <= 64 ? launch_bf16_dv<64>(p, BH, st) : launch_bf16_dv<128>(p, BH, st);
   } else if (dtype == 1 && route == 2) {
-    p.q_tiles = (Nq + WG_BQ - 1) / WG_BQ;
     if (dqk == 64 && dv == 64)
       err = launch_wgmma_widths<64, 64>(p, BH, st);
     else if (dqk == 32 && dv == 32)

@@ -1,17 +1,16 @@
-// Tile staging shared by the flash attention forward and backward kernels:
-// the padded shared-memory pitch and a cp.async copy of a block of rows.
+// Tile staging shared by the mma.sync flash attention forward and backward
+// kernels: the padded shared-memory pitch and a cp.async copy of a block of
+// rows.
 //
-// Included by csrc/flash_attention_{fwd,bwd}.cu; kernels/build.py hashes
-// this header with each source.
+// Included by csrc/flash_attention_{fwd,bwd}.cu (after hopper_mma.cuh,
+// whose LOG2E and LN2 those kernels use); kernels/build.py hashes this header
+// with each source.
 
 #pragma once
 
 #include "warp_mma.cuh"
 
 namespace {
-
-constexpr float LOG2E = 1.4426950408889634f;
-constexpr float LN2 = 0.6931471805599453f;
 
 template <int D>
 struct Pitch {

@@ -30,10 +30,13 @@
 // accumulator and register-A values must not be touched; keep_regs() pins
 // them across the wait for the compiler.
 //
-// Included by csrc/flash_attention_{fwd,bwd}.cu and, for its wgmma route,
+// Included by csrc/flash_attention_{fwd,bwd}.cu (the forward's wgmma kernel
+// through csrc/flash_fwd_wgmma.cuh, which csrc/packed2_attention_fwd.cu also
+// includes) and, for its wgmma route,
 // csrc/fused_conv3x3_bn_relu.cu (4-D TMA loads and stores, the m64n{64,128,
-// 256}k16 forms with a K-major A and an MN-major B); kernels/build.py hashes
-// this header with each source.
+// 256}k16 forms with a K-major A and an MN-major B), and by
+// csrc/auction_lsap.cu (mbarriers and the 1-D bulk copy of its row
+// prefetch); kernels/build.py hashes this header with each source.
 
 #pragma once
 
@@ -42,6 +45,9 @@
 #include "warp_mma.cuh"
 
 namespace {
+
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 // ---------------------------------------------------------------------------
 // Swizzled tiles
@@ -425,6 +431,16 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const void* map, uint64_t
       : "memory");
 }
 
+// One thread asks for `bytes` (a multiple of 16) from a 16-byte aligned
+// global address to be copied to a 16-byte aligned place in shared memory, a
+// 1-D bulk copy without a tensor map; the bytes are reported to `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, int bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
 // One thread asks for a swizzled 64-row f32 tile in shared memory to be added
 // into the box of a 3-D tensor map at (c0, c1, c2); parts of the box outside
 // the tensor are dropped. The request joins the thread's current bulk group.
@@ -503,13 +519,15 @@ __device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
 // ---------------------------------------------------------------------------
 
 // The tensor map of a contiguous (bh, n, cols) array whose boxes are swizzled
-// 64-row tiles of one batch*head, `box_cols` values wide (128 or 64 bytes):
-// coordinates (column, row, bh). cuTensorMapEncodeTiled is fetched through the
+// 64-row tiles of `box_bh` consecutive batch*heads (one tile after the other
+// in shared memory), `box_cols` values wide (128 or 64 bytes): coordinates
+// (column, row, bh). cuTensorMapEncodeTiled is fetched through the
 // runtime, so no libcuda is linked. The map holds the array's address: it is
 // made anew for every launch and handed to the kernel as a __grid_constant__
 // parameter.
 inline cudaError_t make_map(CUtensorMap* map, const void* base, CUtensorMapDataType type,
-                            int elem_bytes, int cols, int box_cols, long long n, long long bh) {
+                            int elem_bytes, int cols, int box_cols, long long n, long long bh,
+                            int box_bh = 1) {
   using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                               const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                               const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -533,7 +551,8 @@ inline cudaError_t make_map(CUtensorMap* map, const void* base, CUtensorMapDataT
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(n),
                               static_cast<cuuint64_t>(bh)};
   const cuuint64_t strides[2] = {row_bytes, static_cast<cuuint64_t>(n) * row_bytes};
-  const cuuint32_t box[3] = {static_cast<cuuint32_t>(box_cols), 64, 1};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(box_cols), 64,
+                             static_cast<cuuint32_t>(box_bh)};
   const cuuint32_t elem_strides[3] = {1, 1, 1};
   const CUresult res = encode(
       map, type, 3, const_cast<void*>(base), dims, strides, box, elem_strides,
@@ -543,10 +562,12 @@ inline cudaError_t make_map(CUtensorMap* map, const void* base, CUtensorMapDataT
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// (bh, n, D) bf16, boxes of whole rows: the tiles the products read.
+// (bh, n, D) bf16, boxes of whole rows: the tiles the products read, of
+// `box_bh` batch*heads a box.
 template <int D>
-cudaError_t make_tile_map(CUtensorMap* map, const void* base, long long n, long long bh) {
-  return make_map(map, base, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, D, D, n, bh);
+cudaError_t make_tile_map(CUtensorMap* map, const void* base, long long n, long long bh,
+                          int box_bh = 1) {
+  return make_map(map, base, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, D, D, n, bh, box_bh);
 }
 
 // (bh, n, cols) f32, boxes of 32 columns (128 bytes): the target of

@@ -257,7 +257,8 @@ def _mask_library() -> ctypes.CDLL:
 
 @functools.cache
 def _packed2_library() -> ctypes.CDLL:
-    return _load("packed2_attention_fwd", [_P] * 4 + [_I] * 3 + [_F, _P])
+    return _load("packed2_attention_fwd",
+                 [_P] * 4 + [_I] * 3 + [_F, _I, _P])
 
 
 def _raise_on(lib, name: str, err: int) -> None:
@@ -442,29 +443,44 @@ def dropout_keep_mask(n_bh: int, nq: int, nk: int, seed: int, rate: float,
 dropout_keep_mask.launches = 0
 
 
-def packed2_attention(q, k, v, scale=None):
+# the packed probe's ring depths: 2 stages let two blocks share an SM, 3
+# hold one (csrc/packed2_attention_fwd.cu); the default is the one measured
+# faster (PERF.md)
+PACKED2_STAGES = (2, 3)
+PACKED2_DEFAULT = 2
+
+
+def packed2_attention(q, k, v, scale=None, stages=None):
     """softmax(q k^T * scale) v with two heads per block, a probe (the JAX
     package's `packed2_fwd`): bf16, head width 64, an even number of heads,
     no bias, no dropout, no gradient. A CPU tensor takes the plain version
-    (`attention_reference`); a CUDA tensor launches the kernel
-    (csrc/packed2_attention_fwd.cu) or raises."""
+    (`attention_reference`); a CUDA tensor launches the kernel (the
+    two-head instance of the wgmma forward, csrc/packed2_attention_fwd.cu,
+    with `stages` K/V stages in its ring) or raises."""
+    stages = PACKED2_DEFAULT if stages is None else stages
+    if stages not in PACKED2_STAGES:
+        raise ValueError(f"stages must be one of {PACKED2_STAGES}, got "
+                         f"{stages}")
+    if (q.dim() != 4 or v.dim() != 4 or q.shape[1] % 2 or q.shape[3] != 64
+            or v.shape[3] != 64):
+        raise ValueError("the packed probe takes head width 64 and an even "
+                         f"number of heads, got q {tuple(q.shape)}, "
+                         f"v {tuple(v.shape)}")
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if q.device.type == "cpu":
         return attention_reference(q, k, v, scale)
     _cuda_only(q)
     _check(q, k, v, None)
-    b, h, nq, d = q.shape
-    if q.dtype != torch.bfloat16 or d != 64 or v.shape[3] != 64 or h % 2:
-        raise ValueError("the packed kernel takes bfloat16, head width 64 "
-                         f"and an even number of heads, got {q.dtype}, "
-                         f"q {tuple(q.shape)}, v {tuple(v.shape)}")
+    if q.dtype != torch.bfloat16:
+        raise ValueError(f"the packed kernel takes bfloat16, got {q.dtype}")
+    b, h, nq, _ = q.shape
     o = torch.empty_like(q)
     lib = _packed2_library()
     with torch.cuda.device(q.device):
         err = lib.packed2_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b * h,
-            nq, k.shape[2], float(scale), _stream(q.device))
+            nq, k.shape[2], float(scale), stages, _stream(q.device))
     _raise_on(lib, "packed2_attention_fwd", err)
     packed2_attention.launches += 1
     return o

@@ -7,7 +7,11 @@ The JAX package's whole-auction Pallas kernel
 csrc/auction_lsap.cu: Bertsekas' forward auction with Jacobi bidding, one
 cold-started phase at eps = spread * 1e-4, each instance run to its own
 convergence, then greedy completion of whatever `max_iters` left unassigned.
-The assignment's cost is within T * eps of the optimum.
+The assignment's cost is within T * eps of the optimum. One block runs one
+instance; the long tail of rounds with a single bidder runs on one warp
+without block barriers, taking the bidder's best two queries from a cache
+of candidates in shared memory that stays exact while prices rise (the
+source says how).
 
     costs (B, Q, T) f32, valid (B, T) bool  ->  match (B, T) int32
 
@@ -30,15 +34,26 @@ import torch
 from unet_torch_tpu_torch.kernels import build
 
 _NEG = -1e30
-# 16 bytes a query and a target, and the reduction scratch, in a block's
+# 16 bytes a query and a target, and the block's scratch, in a block's
 # 227 KB of shared memory (csrc/auction_lsap.cu::smem_bytes)
-_MAX_SMEM = 232448 - 4
+_MAX_SMEM = 232448
+_SCRATCH_BYTES = 1040
+# the kernel's block size (1024, 512 or 256 threads), whether the next
+# bidders' rows are copied into shared memory ahead of their round, up to
+# how many bidders a round is run by one warp alone (0: never), and whether
+# those rounds keep each bidder's candidates in shared memory: the design
+# measured fastest on the card (PERF.md)
+BLOCK_THREADS = 512
+PREFETCH = False
+SOLO_BIDDERS = 1
+CANDIDATE_CACHE = True
 
 
 def _prepare(costs, valid):
     """(benefit (B, T, Q) f32 contiguous, eps (B,) f32): the negated,
-    transposed costs with -5e29 on the rows of padded targets, and 1e-4 of
-    the largest |cost| over valid slots (at least 1e-6)."""
+    transposed costs, and 1e-4 of the largest |cost| over valid slots (at
+    least 1e-6). The rows of padded targets are kept as they are: a padded
+    target never bids, so no value of its row is ever used."""
     if costs.dim() != 3 or tuple(valid.shape) != (costs.shape[0],
                                                   costs.shape[2]):
         raise ValueError(f"costs must be (B, Q, T) and valid (B, T), got "
@@ -51,10 +66,15 @@ def _prepare(costs, valid):
                          f"{costs.device}")
     if min(costs.shape) == 0:
         raise ValueError(f"empty costs {tuple(costs.shape)}")
-    cost_t = costs.detach().transpose(1, 2)
-    row = valid[:, :, None]
-    benefit = torch.where(row, -cost_t, _NEG / 2).contiguous()
-    spread = torch.where(row, cost_t.abs(), 0.0).amax(dim=(1, 2))
+    # one transposing pass (an elementwise op on the transposed view would
+    # keep its layout and need a copy after it); max |cost| is exact
+    costs = costs.detach()
+    b, q_n, t_n = costs.shape
+    benefit = torch.empty((b, t_n, q_n), device=costs.device)
+    torch.neg(costs.transpose(1, 2), out=benefit)
+    spread = torch.linalg.vector_norm(
+        costs.masked_fill(~valid[:, None, :], 0.0), ord=float("inf"),
+        dim=(1, 2))
     eps = spread.clamp(min=1e-6) * 1e-4
     return benefit, eps
 
@@ -82,10 +102,12 @@ def _greedy_complete(benefit, valid, match):
 
 @torch.no_grad()
 def auction_lsap_reference(costs, valid, max_iters: int = 20000,
-                           stats: bool = False):
+                           stats: bool = False, per_round=None):
     """Plain version: the rounds as batched tensor ops. An instance with no
     unassigned valid target makes no bid, so it stays as it is while the
-    others go on; `rounds` and `bids` count only the rounds it bid in."""
+    others go on; `rounds` and `bids` count only the rounds it bid in. A
+    list given as `per_round` receives each round's bids by instance, (B,)
+    int32."""
     benefit, eps = _prepare(costs, valid)
     b, t_n, q_n = benefit.shape
     dev = benefit.device
@@ -121,6 +143,8 @@ def auction_lsap_reference(costs, valid, max_iters: int = 20000,
         still = (match >= 0) & (owner.gather(1, match.clamp(min=0)) == t_ids)
         match = torch.where(still, match, -1)
         n_bids = unassigned.sum(dim=1, dtype=torch.int32)
+        if per_round is not None:
+            per_round.append(n_bids)
         rounds += n_bids > 0
         bids += n_bids
     match = _greedy_complete(benefit, valid, match)
@@ -131,12 +155,62 @@ def auction_lsap_reference(costs, valid, max_iters: int = 20000,
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = build.load("auction_lsap")
-    lib.auction_lsap.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+    lib.auction_lsap.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
                                  + [ctypes.c_void_p])
     lib.auction_lsap.restype = ctypes.c_int
+    lib.auction_lsap_plan.argtypes = [ctypes.c_int] * 4
+    lib.auction_lsap_plan.restype = ctypes.c_int
     lib.auction_lsap_error_string.argtypes = [ctypes.c_int]
     lib.auction_lsap_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def launch_plan(t_n: int, q_n: int, prefetch=None, cache=None):
+    """What a launch at (T, Q) gets, as the kernel plans it: (whether its
+    candidate cache fits, how many bidders' rows it copies into shared
+    memory ahead of their round; 0: every row is read from global memory).
+    `prefetch` and `cache` default to PREFETCH and CANDIDATE_CACHE."""
+    prefetch = PREFETCH if prefetch is None else prefetch
+    cache = CANDIDATE_CACHE if cache is None else cache
+    lib = _library()
+    fits = bool(cache) and bool(lib.auction_lsap_plan(t_n, q_n, 0, 1))
+    slots = lib.auction_lsap_plan(t_n, q_n, 1, int(fits)) if prefetch else 0
+    return fits, slots
+
+
+def _launch(benefit, valid, eps, max_iters, threads=None, prefetch=None,
+            solo=None, cache=None):
+    """One launch of the kernel on `_prepare`'s (benefit, eps) and the u8 or
+    bool valid (B, T) on the current stream: (match, rounds, bids) int32.
+    `threads`, `prefetch`, `solo` and `cache` default to BLOCK_THREADS,
+    PREFETCH, SOLO_BIDDERS and CANDIDATE_CACHE."""
+    b, t_n, q_n = benefit.shape
+    if 16 * (q_n + t_n) + _SCRATCH_BYTES > _MAX_SMEM:
+        raise ValueError(f"Q = {q_n}, T = {t_n}: 16 bytes a query and a "
+                         "target do not fit a block's shared memory")
+    threads = BLOCK_THREADS if threads is None else threads
+    prefetch = PREFETCH if prefetch is None else prefetch
+    solo = SOLO_BIDDERS if solo is None else solo
+    cache = CANDIDATE_CACHE if cache is None else cache
+    valid = valid.contiguous()
+    dev = benefit.device
+    match = torch.empty((b, t_n), dtype=torch.int32, device=dev)
+    rounds = torch.empty(b, dtype=torch.int32, device=dev)
+    bids = torch.empty(b, dtype=torch.int32, device=dev)
+    lib = _library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.auction_lsap(benefit.data_ptr(), valid.data_ptr(),
+                               eps.data_ptr(), match.data_ptr(),
+                               rounds.data_ptr(), bids.data_ptr(), b, t_n,
+                               q_n, int(max_iters), int(threads),
+                               int(bool(prefetch)), int(solo),
+                               int(bool(cache)), stream)
+    if err:
+        msg = lib.auction_lsap_error_string(err).decode()
+        raise RuntimeError(f"auction_lsap launch failed: {msg}")
+    auction_lsap.launches += 1
+    return match, rounds, bids
 
 
 @torch.no_grad()
@@ -153,25 +227,7 @@ def auction_lsap(costs, valid, max_iters: int = 20000, stats: bool = False):
     if costs.device.type != "cuda":
         raise ValueError(f"no auction for device {costs.device}")
     benefit, eps = _prepare(costs, valid)
-    b, t_n, q_n = benefit.shape
-    if 16 * (q_n + t_n) + 256 > _MAX_SMEM:
-        raise ValueError(f"Q = {q_n}, T = {t_n}: 16 bytes a query and a "
-                         "target do not fit a block's shared memory")
-    valid = valid.contiguous()
-    match = torch.empty((b, t_n), dtype=torch.int32, device=costs.device)
-    rounds = torch.empty(b, dtype=torch.int32, device=costs.device)
-    bids = torch.empty(b, dtype=torch.int32, device=costs.device)
-    lib = _library()
-    with torch.cuda.device(costs.device):
-        stream = torch.cuda.current_stream(costs.device).cuda_stream
-        err = lib.auction_lsap(benefit.data_ptr(), valid.data_ptr(),
-                               eps.data_ptr(), match.data_ptr(),
-                               rounds.data_ptr(), bids.data_ptr(), b, t_n,
-                               q_n, int(max_iters), stream)
-    if err:
-        msg = lib.auction_lsap_error_string(err).decode()
-        raise RuntimeError(f"auction_lsap launch failed: {msg}")
-    auction_lsap.launches += 1
+    match, rounds, bids = _launch(benefit, valid, eps, max_iters)
     return (match, rounds, bids) if stats else match
 
 
