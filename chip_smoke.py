@@ -108,9 +108,7 @@ Builds the Hopper kernels from unet_torch_tpu_torch/csrc, then:
                 launch alone (one launch and back to back), of the plain
                 version and of scipy on the host;
                 the slowest instance's rounds by their number of bidders
-                (from the plain version); at the first case every block
-                size (1024, 512, 256 threads) with and without the row
-                slots, each held equal to the plain version, timed in turns
+                (from the plain version)
  C2. CLTR       the eval forward, train forward (o, lse) and backward kernels
      attention  against their plain versions at CLTR's three shapes (encoder
                 self-, decoder self-, decoder cross-attention with Dqk 64
@@ -125,8 +123,8 @@ Builds the Hopper kernels from unet_torch_tpu_torch/csrc, then:
                 the step, the loss finite and falling, img/s (also with the
                 scipy matcher), peak memory; the auction kernel on the costs
                 of one step's own launch against its plain version and scipy,
-                with its times (wrapper and kernel alone, every design in
-                turns), bound and the slowest instance's bidders per round
+                with its times (wrapper and kernel alone), bound and the
+                slowest instance's bidders per round
  C4. CLTR       one f32 step at batch 2, full width, 2 + 2 layers, dropout
      model      off, card against CPU: the same matches, the loss, and every
                 gradient by T4's bound
@@ -135,8 +133,8 @@ Builds the Hopper kernels from unet_torch_tpu_torch/csrc, then:
                 model; infer_step on 9 patches runs the 18 eval kernels
  C6. packed     the packed two-head attention probe (the wgmma forward's
      probe      two-head instance) against its plain version at the ViT's
-                shape and a ragged one, at both ring depths (2 and 3
-                stages); timed in turns with the flash forward and
+                shape and a ragged one; timed in turns with the flash
+                forward and
                 scaled_dot_product_attention, one launch and back to back
   L. library    one PyTorch library call beside each kernel that has one, for
                 the time only (nothing in the port calls them): cuDNN
@@ -163,7 +161,6 @@ from __future__ import annotations
 
 import contextlib
 import copy
-import functools
 import json
 import os
 import statistics
@@ -1536,22 +1533,11 @@ def auction_inputs(b, q, t, kind, gen, dev):
 
 
 def check_auction(au, dev):
-    """C1. Returns auction_case's numbers by case; the first case, one CLTR
-    step's shape, also times the kernel's designs (AUCTION_DESIGNS)."""
+    """C1. Returns auction_case's numbers by case."""
     gen = torch.Generator().manual_seed(SEED)
     return [auction_case(au, *auction_inputs(b, q, t, kind, gen, dev),
-                         max_iters, f"valid {kind}", designs=i == 0)
-            for i, (b, q, t, max_iters, kind) in enumerate(AUCTION_CASES)]
-
-
-# the auction kernel's designs timed in turns: (block threads, row slots,
-# most bidders a round that one warp runs alone, candidate cache)
-AUCTION_DESIGNS = [(1024, True, 0, False), (1024, False, 0, False),
-                   (512, True, 0, False), (512, False, 0, False),
-                   (256, False, 0, False), (512, False, 2, False),
-                   (512, False, 1, True), (512, False, 2, True),
-                   (512, False, 4, True), (512, True, 2, True),
-                   (1024, False, 2, True), (256, False, 2, True)]
+                         max_iters, f"valid {kind}")
+            for b, q, t, max_iters, kind in AUCTION_CASES]
 
 
 def bidders_histogram(per_round, rounds):
@@ -1570,16 +1556,14 @@ def bidders_histogram(per_round, rounds):
     return z, hist
 
 
-def auction_case(au, costs, valid, max_iters, label, tag="C1 auction",
-                 designs=False):
+def auction_case(au, costs, valid, max_iters, label, tag="C1 auction"):
     """The auction kernel on costs (B, Q, T) and valid (B, T) against its
     plain version (equal matches, rounds and bids) and against scipy (every
     instance feasible and within T * eps of the optimum); times of the
     wrapper (with its preparation), of the kernel's launch alone, of the
     plain version and of scipy, and the bound from the bids this data
-    needed; the slowest instance's bidders per round. With `designs` every
-    block size with and without the row slots, each held equal to the plain
-    version and timed alone, in turns. Returns a dict of those numbers."""
+    needed; the slowest instance's bidders per round. Returns a dict of
+    those numbers."""
     from scipy.optimize import linear_sum_assignment
 
     b, q, t = costs.shape
@@ -1647,9 +1631,7 @@ def auction_case(au, costs, valid, max_iters, label, tag="C1 auction",
           f"{int(rounds.median())}), {n_bids} bids in all; worst cost gap "
           f"{worst:.3f} of T*eps over scipy's optimum; wrapper {ms:.4f} "
           f"ms, kernel alone {kernel_ms:.4f} ms (back to back "
-          f"{kernel_b2b_ms:.4f}; {au.BLOCK_THREADS} threads,"
-          f" (candidate cache, row slots) {au.launch_plan(t, q)}, rounds of"
-          f" up to {au.SOLO_BIDDERS} bidders on one warp), plain "
+          f"{kernel_b2b_ms:.4f}), plain "
           f"{plain_ms:.2f} ms, "
           f"scipy on the host with the copy {scipy_ms:.2f} ms; bound "
           f"{bound_ms:.5f} ms by {bound_by}")
@@ -1659,39 +1641,7 @@ def auction_case(au, costs, valid, max_iters, label, tag="C1 auction",
     out = dict(bad=bad, ms=ms, kernel_ms=kernel_ms,
                kernel_b2b_ms=kernel_b2b_ms, plain_ms=plain_ms,
                scipy_ms=scipy_ms, bound_ms=bound_ms, bound_by=bound_by,
-               rounds=rounds_l, bids=n_bids, slowest_histogram=hist,
-               plan=au.launch_plan(t, q))
-    if designs:
-        out["designs"] = auction_designs(au, benefit, valid, eps_b,
-                                         max_iters, ref, (b, q, t), tag)
-    return out
-
-
-def auction_designs(au, benefit, valid, eps, max_iters, ref, shape, tag):
-    """{"threads/slots/solo/cache": kernel-alone ms back to back} of every
-    design of AUCTION_DESIGNS, each held equal to the plain version's `ref`,
-    timed in turns (the list, then the list reversed; the mean of the
-    two)."""
-    for design in AUCTION_DESIGNS:
-        out = au._launch(benefit, valid, eps, max_iters, *design)
-        if any(not torch.equal(o, r) for o, r in zip(out, ref)):
-            raise AssertionError(f"auction kernel (threads, row slots, solo,"
-                                 f" cache)"
-                                 f" {design} differs from plain at "
-                                 f"(B,Q,T)={shape}")
-    times = {}
-    for design in AUCTION_DESIGNS + AUCTION_DESIGNS[::-1]:
-        times.setdefault(design, []).append(median_ms(
-            lambda: au._launch(benefit, valid, eps, max_iters, *design),
-            burst=BURST))
-    out = {f"{th}/{'slots' if pf else 'global'}/{solo}/"
-           f"{'cache' if cache else 'rows'}": sum(ms) / len(ms)
-           for (th, pf, solo, cache), ms in times.items()}
-    phase(tag, f"(B,Q,T)={shape}: the kernel alone by design (block "
-          "threads / rows from slots or global memory / most bidders a "
-          "round on one warp alone / their candidates cached or read), in "
-          "turns, back to back, ms: "
-          + ", ".join(f"{k} {v:.4f}" for k, v in out.items()))
+               rounds=rounds_l, bids=n_bids, slowest_histogram=hist)
     return out
 
 
@@ -1848,7 +1798,7 @@ def check_cltr_train_step(at, fc, au, dev, profile=False):
     step_auction = auction_case(
         au, costs.flatten(0, 1).contiguous(), valid.flatten(0, 1), 20000,
         "the costs of one train step's launch (6 levels x 16 crops)",
-        "C3 CLTR auction", designs=True)
+        "C3 CLTR auction")
     del costs, valid, step_launch
     if profile:
         profile_cltr_step(model, criterion, opt, batch, gens, step_s)
@@ -2126,9 +2076,8 @@ def check_cltr_trainer(at, fc, dev):
 
 def check_packed2(at, dev):
     """C6, a probe on its own path: the packed two-head forward (the wgmma
-    forward's two-head instance, at its default ring depth) at the ViT's
-    shape and at a ragged one against its plain version, then at the other
-    ring depth too; its times beside the flash forward's and
+    forward's two-head instance) at the ViT's shape and at a ragged one
+    against its plain version; its times beside the flash forward's and
     scaled_dot_product_attention's in the same turns, one launch and back to
     back. Returns (a dict of those numbers, launches of the probe's own
     run)."""
@@ -2155,27 +2104,17 @@ def check_packed2(at, dev):
         with torch.inference_mode():
             ref = at.attention_reference(q, k, v, d ** -0.5)
             bound = ATTN_REL_TOL[torch.bfloat16] * v.float().abs().max().item()
-            errs = {}
-            for stages in at.PACKED2_STAGES:
-                got = o if stages == at.PACKED2_DEFAULT else (
-                    at.packed2_attention(q, k, v, stages=stages))
-                err = (got.float() - ref.float()).abs().max().item()
-                if not (got.shape == ref.shape and got.dtype == torch.bfloat16
-                        and torch.isfinite(got).all() and err <= bound):
-                    raise AssertionError(
-                        f"packed probe ({stages} stages) disagrees with plain"
-                        f" at {shape}: {err} > {bound}")
-                errs[stages] = err
+            err = (o.float() - ref.float()).abs().max().item()
+            if not (o.shape == ref.shape and o.dtype == torch.bfloat16
+                    and torch.isfinite(o).all() and err <= bound):
+                raise AssertionError(f"packed probe disagrees with plain at "
+                                     f"{shape}: {err} > {bound}")
             if out is not None:
                 phase("C6 packed probe", f"ragged (B,H,Nq,Nk)={shape}: "
-                      "max_abs_err by ring depth " + ", ".join(
-                          f"{st} stages {e:.3e}" for st, e in errs.items())
-                      + f" (bound {bound:.3e})")
+                      f"max_abs_err {err:.3e} (bound {bound:.3e})")
                 continue
             fns = {"flash": lambda: at.fused_attention(q, k, v),
-                   **{f"packed {st}": functools.partial(
-                       at.packed2_attention, q, k, v, stages=st)
-                      for st in at.PACKED2_STAGES},
+                   "packed": lambda: at.packed2_attention(q, k, v),
                    "library": lambda: F.scaled_dot_product_attention(q, k,
                                                                      v)}
             # in turns: the list, then the list reversed; each kernel's
@@ -2190,16 +2129,12 @@ def check_packed2(at, dev):
                    times.items()}
             plain_ms = median_ms(
                 lambda: at.attention_reference(q, k, v, d ** -0.5))
-            out = dict(err=max(errs.values()), errs=errs,
-                       ms=ms[f"packed {at.PACKED2_DEFAULT}"],
-                       plain_ms=plain_ms, by_name=ms,
-                       back_to_back=b2b)
+            out = dict(err=err, ms=ms["packed"], plain_ms=plain_ms,
+                       by_name=ms, back_to_back=b2b)
             fastest = min(b2b, key=b2b.get)
             phase("C6 packed probe",
-                  f"(B,H,N,D)=({b},{h},{n},{d}) bf16: max_abs_err by ring "
-                  "depth " + ", ".join(f"{st} stages {e:.3e}"
-                                       for st, e in errs.items())
-                  + f" (bound {bound:.3e}); in turns, one launch (back to "
+                  f"(B,H,N,D)=({b},{h},{n},{d}) bf16: max_abs_err {err:.3e} "
+                  f"(bound {bound:.3e}); in turns, one launch (back to "
                   "back) ms: " + ", ".join(
                       f"{name} {ms[name]:.4f} ({b2b[name]:.4f})"
                       for name in fns)
@@ -2810,15 +2745,9 @@ def main(cltr_profile=False, cltr_two_batches_only=False,
         # those costs needed
         "ms": step_auction["ms"],
         # the same launch alone, without the preparation: one launch (with
-        # the host's launch cost) and launches back to back; every design
-        # of AUCTION_DESIGNS back to back
+        # the host's launch cost) and launches back to back
         "kernel_only_ms": step_auction["kernel_ms"],
         "kernel_only_back_to_back_ms": step_auction["kernel_b2b_ms"],
-        "kernel_only_back_to_back_ms_by_design": step_auction["designs"],
-        "block_threads": au.BLOCK_THREADS,
-        # (candidate cache, row slots) of the launch
-        "plan": step_auction["plan"],
-        "solo_bidders": au.SOLO_BIDDERS,
         "plain_ms": step_auction["plain_ms"],
         "bound_ms": step_auction["bound_ms"],
         "bound_by": step_auction["bound_by"],
@@ -2836,8 +2765,6 @@ def main(cltr_profile=False, cltr_two_batches_only=False,
         "synthetic_costs_kernel_only_ms": aures[0]["kernel_ms"],
         "synthetic_costs_kernel_only_back_to_back_ms":
             aures[0]["kernel_b2b_ms"],
-        "synthetic_costs_kernel_only_back_to_back_ms_by_design":
-            aures[0]["designs"],
         "synthetic_costs_bids": aures[0]["bids"],
     }, {
         "name": "packed2_attention_fwd",
@@ -2860,8 +2787,8 @@ def main(cltr_profile=False, cltr_two_batches_only=False,
         "library_ms": lib_attn["fwd"],
         # the port's flash forward in the same turns
         "flash_forward_ms": p2res["by_name"]["flash"],
-        # the same turns: one launch and back to back, the probe at each
-        # ring depth, the flash forward, scaled_dot_product_attention
+        # the same turns: one launch and back to back, the probe, the flash
+        # forward, scaled_dot_product_attention
         "same_turns_ms": p2res["by_name"],
         "same_turns_back_to_back_ms": p2res["back_to_back"],
     }], "train_step": {

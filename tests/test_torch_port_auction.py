@@ -219,3 +219,22 @@ def test_reference_reports_bids_per_round():
     assert torch.equal((table > 0).sum(dim=0, dtype=torch.int32), rounds)
     assert table[0].tolist() == [20, 20, 0]
     assert torch.equal(match, auction_lsap_reference(costs, valid))
+
+
+def test_prepared_benefit_stays_float32_under_another_default_dtype():
+    """The kernel reads the prepared benefit as f32 whatever the process's
+    default dtype is."""
+    from unet_torch_tpu_torch.kernels.auction import _prepare
+
+    rng = np.random.RandomState(5)
+    costs = torch.from_numpy((rng.rand(2, 7, 3) * 4).astype(np.float32))
+    valid = torch.ones(2, 3, dtype=torch.bool)
+    before = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)
+    try:
+        benefit, eps = _prepare(costs, valid)
+    finally:
+        torch.set_default_dtype(before)
+    assert benefit.dtype == torch.float32 and benefit.is_contiguous()
+    assert torch.equal(benefit, -costs.transpose(1, 2))
+    assert eps.dtype == torch.float32

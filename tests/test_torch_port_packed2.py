@@ -73,5 +73,3 @@ def test_packed_probe_raises_on_what_it_does_not_take():
         packed2_attention(q[:, :1], k[:, :1], v[:, :1])
     with pytest.raises(ValueError):  # a head width other than 64
         packed2_attention(q[..., :32], k[..., :32], v[..., :32])
-    with pytest.raises(ValueError):
-        packed2_attention(q, k, v, stages=4)

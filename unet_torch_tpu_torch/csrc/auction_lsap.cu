@@ -32,47 +32,41 @@
 // memory rate, are a few hundredths of a launch) but the chain of rounds.
 // The instances of one CLTR step run up to 300-400 rounds, the tail with a
 // single bidder a round, and a launch lasts as long as its slowest
-// instance. So the design cuts what one round waits for:
+// instance. So the design cuts what one round waits for, on one block of
+// 512 threads an instance (measured faster than 1024 and 256):
 //
-//   * Rounds of at most `solo` bidders (the wrapper passes 1: the tail's
-//     rounds; 2 and 4 measured 1-3% slower) run on warp 0 alone, with no
-//     block barrier, while the rest of the block waits at one. A bidder's
-//     (v1, i1, v2) comes from the candidate cache where it can: for each
-//     target and lane, the lane's part of the row's two best queries with
-//     their benefits and the third-best value, as the warp's last full read
-//     of the row left them. Prices only rise, so no other query of the part
-//     can have passed that third value; while both candidates, at today's
+//   * Rounds of one bidder (the tail) run on warp 0 alone, with no block
+//     barrier, while the rest of the block waits at one. The bidder's (v1,
+//     i1, v2) comes from the candidate cache where it can: for each target
+//     and lane, the lane's part of the row's two best queries with their
+//     benefits and the third-best value, as the warp's last full read of the
+//     row left them. Prices only rise, so no other query of the part can
+//     have passed that third value; while both candidates, at today's
 //     prices, stand above it (the larger strictly), they are exactly the
 //     part's top two, and 32 lanes give the row's exact (v1, i1, v2) from
 //     shared memory. Otherwise the warp reads the row (16-byte loads) and
 //     refills the entry. The lanes' parts merge in three warp reductions
 //     (redux.sync) instead of five rounds of shuffles, and a lone bidder
 //     wins without an atomic.
-//   * Rounds of up to 32 bidders split each bidder's row over W / p2(n)
-//     warps (W warps a block, p2 the next power of two): one memory round
-//     trip; each warp leaves its part's (v1, i1, v2) in shared memory, and
-//     after one barrier warp 0 merges the parts, computes the bids and
-//     settles the round: the winner per query by an atomicMax on a 64-bit
-//     key (order-preserving bits of the bid, then the inverted target index:
-//     the tie rule whatever order the lanes arrive in) read back after
+//   * Rounds of up to 16 bidders (one a warp) split each bidder's row over
+//     16 / p2(n) warps (p2 the next power of two): one memory round trip;
+//     each warp leaves its part's (v1, i1, v2) in shared memory, and after
+//     one barrier warp 0 merges the parts, computes the bids and settles the
+//     round: the winner per query by an atomicMax on a 64-bit key
+//     (order-preserving bits of the bid, then the inverted target index: the
+//     tie rule whatever order the lanes arrive in) read back after
 //     __syncwarp, the prices, owners and matches, the reset of the keys.
-//   * Rounds of more than 32 bidders (the first ones) take one warp a row,
-//     an atomicMax a bid, a barrier and an ordered compaction of the next
-//     list by ballot, popc and a warp-count prefix.
+//   * Wider rounds (the first ones) take one warp a row, an atomicMax a bid,
+//     a barrier and an ordered compaction of the next list by ballot, popc
+//     and a warp-count prefix.
 //   * The next bidders are known in the winner phase: a loser bids again, a
 //     displaced owner bids next. Their list is built in order by ballot and
-//     popc, without atomics. Optionally (`prefetch`) the rows of its first S
-//     entries are started into row slots of shared memory at once, by a 1-D
-//     bulk copy completing on the slot's mbarrier. Measured slower than
-//     reading global memory (the copy starts only a barrier before its use,
-//     and the slots take the L1's room), so off by default; kept for the
-//     measurement in chip_smoke.py.
-//   * 512 threads a block: measured faster than 1024 and 256.
+//     popc, without atomics.
 //
 // Rows are read with 16-byte loads, or scalar ones when Q % 4 != 0 or the
 // benefit is not 16-byte aligned. The cache takes 644 bytes a target and is
-// left out where it does not fit (T above about 300 at Q = 2000); its rounds
-// then read every row.
+// left out where it does not fit (T above about 300 at Q = 2000); the
+// one-bidder rounds then read every row.
 //
 // Every candidate is one rounded f32 subtract, max is exact and a bid is two
 // rounded adds, so matches, round counts and bid counts equal the plain
@@ -82,19 +76,21 @@
 // The C entry point returns the launch's cudaError_t; the Python wrapper
 // raises on nonzero.
 
-#include <math_constants.h>
+#include <cstdint>
 
-#include "hopper_mma.cuh"
+#include <math_constants.h>
 
 namespace {
 
+constexpr int THREADS = 512;  // a block's threads
+constexpr int W = THREADS / 32;
 constexpr float NEG = -1e30f;
 constexpr int NO_Q = 0x7fffffff;  // no query
 constexpr int MAX_SMEM = 232448;  // what a block may use on sm_90
-constexpr int MAX_SLOTS = 32;
-// the slots' mbarriers and fill counts, the bidders' parts, the compaction's
-// warp counts, the next round's bidder count, rounds and bids
-constexpr int MISC_BYTES = MAX_SLOTS * 8 + 3 * 32 * 4 + 2 * 32 * 4 + MAX_SLOTS * 4 + 16;
+// the block's scratch: the bidders' parts (or the compaction's warp counts),
+// the next round's bidder count, rounds and bids
+constexpr int MISC_BYTES = 256;
+static_assert(3 * W * 4 + 3 * 4 <= MISC_BYTES, "the block's scratch");
 
 // Bits of a float as an unsigned that orders as the float does.
 __device__ __forceinline__ unsigned ordered_bits(float f) {
@@ -226,20 +222,17 @@ __device__ __forceinline__ void scan_part(Acc& acc, Row row, const float* price,
 }
 
 struct Shared {
-  float* slots;                // [S][Q] prefetched rows
   unsigned long long* best;    // [Q] winner keys, 0 when none
-  uint64_t* bars;              // [MAX_SLOTS] a slot's row has landed
   float* price;                // [Q]
   int* owner;                  // [Q] target or T
   int* match;                  // [T] query or -1
   int* ulist;                  // [T] this round's bidders
-  int* bid_q;                  // [T] their queries (rounds of more than 32 bidders)
+  int* bid_q;                  // [T] their queries (rounds of more than W bidders)
   float* bid_v;                // [T] their bids
-  float* red_v1;               // [32] bidders' parts
-  int* red_i1;                 // [32]
-  float* red_v2;               // [32]
-  int* cnt;                    // [2][32] compaction's warp counts
-  unsigned* fills;             // [MAX_SLOTS] copies started into a slot
+  float* red_v1;               // [W] bidders' parts
+  int* red_i1;                 // [W]
+  float* red_v2;               // [W]
+  int* cnt;                    // [2][W] compaction's warp counts, over red_v1 and red_i1
   int* state;                  // [3] the next round's bidder count, rounds, bids
   // the candidate cache, [T][32] (a target's row, one part a lane), when it fits
   int* c_ok;                   // [T] the target's entry is filled
@@ -250,43 +243,27 @@ struct Shared {
   float* c_thr;
 };
 
-__device__ __forceinline__ Shared carve(unsigned char* smem, int T, int Q, int S) {
+__device__ __forceinline__ Shared carve(unsigned char* smem, int T, int Q) {
   Shared s;
-  s.slots = reinterpret_cast<float*>(smem);
-  s.best = reinterpret_cast<unsigned long long*>(smem + static_cast<size_t>(S) * Q * 4);
-  s.bars = reinterpret_cast<uint64_t*>(s.best + Q);
-  s.price = reinterpret_cast<float*>(s.bars + MAX_SLOTS);
+  s.best = reinterpret_cast<unsigned long long*>(smem);
+  s.price = reinterpret_cast<float*>(s.best + Q);
   s.owner = reinterpret_cast<int*>(s.price + Q);
   s.match = s.owner + Q;
   s.ulist = s.match + T;
   s.bid_q = s.ulist + T;
   s.bid_v = reinterpret_cast<float*>(s.bid_q + T);
   s.red_v1 = s.bid_v + T;
-  s.red_i1 = reinterpret_cast<int*>(s.red_v1 + 32);
-  s.red_v2 = reinterpret_cast<float*>(s.red_i1 + 32);
-  s.cnt = reinterpret_cast<int*>(s.red_v2 + 32);
-  s.fills = reinterpret_cast<unsigned*>(s.cnt + 64);
-  s.state = reinterpret_cast<int*>(s.fills + MAX_SLOTS);
-  s.c_ok = s.state + 4;
+  s.red_i1 = reinterpret_cast<int*>(s.red_v1 + W);
+  s.red_v2 = reinterpret_cast<float*>(s.red_i1 + W);
+  s.cnt = reinterpret_cast<int*>(s.red_v1);
+  s.state = reinterpret_cast<int*>(s.red_v2 + W);
+  s.c_ok = reinterpret_cast<int*>(reinterpret_cast<unsigned char*>(s.red_v1) + MISC_BYTES);
   s.c_ia = s.c_ok + T;
   s.c_ib = s.c_ia + T * 32;
   s.c_ba = reinterpret_cast<float*>(s.c_ib + T * 32);
   s.c_bb = s.c_ba + T * 32;
   s.c_thr = s.c_bb + T * 32;
   return s;
-}
-
-// Start the copy of target t's row into slot r (one thread).
-__device__ __forceinline__ void prefetch_row(const Shared& s, const float* ben, int r, int t, int Q) {
-  mbar_expect_tx(s.bars + r, Q * 4);
-  bulk_load(s.slots + static_cast<size_t>(r) * Q, ben + static_cast<long long>(t) * Q, Q * 4,
-            s.bars + r);
-  s.fills[r] += 1;
-}
-
-// Until slot r holds the row its last copy brought.
-__device__ __forceinline__ void wait_slot(const Shared& s, int r) {
-  mbar_wait(s.bars + r, (s.fills[r] - 1) & 1);
 }
 
 // The winner t takes query q at `bid` and its winner key is reset; the
@@ -303,10 +280,8 @@ __device__ __forceinline__ int owner_swap(const Shared& s, int q, int t, float b
 
 // Ordered compaction of one chunk of THREADS candidates: the position of
 // this thread's entry (>= 0) among the chunk's entries, and their number in
-// `total`. cnt is the chunk's [32] of warp counts; one block barrier.
-template <int THREADS>
+// `total`. cnt is the chunk's [W] of warp counts; one block barrier.
 __device__ __forceinline__ int chunk_rank(bool has, int* cnt, int& total) {
-  constexpr int W = THREADS / 32;
   const int lane = threadIdx.x % 32;
   const int warp = threadIdx.x / 32;
   const unsigned mask = __ballot_sync(0xffffffffu, has);
@@ -323,22 +298,11 @@ __device__ __forceinline__ int chunk_rank(bool has, int* cnt, int& total) {
   return (warp > 0 ? before : 0) + __popc(mask & ((1u << lane) - 1u));
 }
 
-// One part of bidder b's row (the list's entry b) into `acc`, from its row
-// slot (b < S) or from global memory.
+// One part of target t's row into `acc`, from global memory.
 template <bool VEC, typename Acc>
-__device__ __forceinline__ void scan_bidder(Acc& acc, const Shared& s, const float* __restrict__ ben,
-                                            int Q, int S, int b, int part, int parts, int lane) {
-  if (b < S) {
-    wait_slot(s, b);
-    const float* row = s.slots + static_cast<size_t>(b) * Q;
-    if constexpr (VEC)
-      scan_part<true>(acc, [row](int c) { return reinterpret_cast<const float4*>(row)[c]; },
-                      s.price, Q, part, parts, lane);
-    else
-      scan_part<false>(acc, [row](int q) { return row[q]; }, s.price, Q, part, parts, lane);
-    return;
-  }
-  const float* row = ben + static_cast<long long>(s.ulist[b]) * Q;
+__device__ __forceinline__ void scan_row(Acc& acc, const Shared& s, const float* __restrict__ ben,
+                                         int Q, int t, int part, int parts, int lane) {
+  const float* row = ben + static_cast<long long>(t) * Q;
   if constexpr (VEC)
     scan_part<true>(acc, [row](int c) { return __ldg(reinterpret_cast<const float4*>(row) + c); },
                     s.price, Q, part, parts, lane);
@@ -405,70 +369,54 @@ __device__ __forceinline__ int settle(const Shared& s, const Top2& x, int t, boo
   return bidder ? t : -1;
 }
 
-// Warp 0 writes the next list in order (entries >= 0 of its lanes) and, for
-// its first S entries, starts their rows' copies; returns the list's length.
-__device__ __forceinline__ int write_list(const Shared& s, const float* __restrict__ ben, int entry,
-                                          int S, int Q, int lane) {
+// Warp 0 writes the next list in order (entries >= 0 of its lanes); returns
+// the list's length.
+__device__ __forceinline__ int write_list(const Shared& s, int entry, int lane) {
   const unsigned mask = __ballot_sync(0xffffffffu, entry >= 0);
   const int r = __popc(mask & ((1u << lane) - 1u));
-  if (entry >= 0) {
-    s.ulist[r] = entry;
-    if (r < S) prefetch_row(s, ben, r, entry, Q);
-  }
+  if (entry >= 0) s.ulist[r] = entry;
   __syncwarp();
   return __popc(mask);
 }
 
-// Rounds of at most `solo` bidders, by warp 0 alone while the rest of the
-// block waits at a barrier: no block barrier a round. A bidder's (v1, i1,
-// v2) comes from the candidate cache when every lane's part of it still
-// holds; otherwise the warp reads the whole row (from the slot its list's
-// making filled, or from global memory) and refills the bidder's cache
-// entry. Then the round is settled and the next list kept in shared memory.
-// Ends when the list grows past `solo`, empties or max_iters runs out; the
-// rows of the list it leaves are then started into their slots, as a block
-// round expects.
+// Rounds of one bidder, by warp 0 alone while the rest of the block waits
+// at a barrier: no block barrier a round. The bidder's (v1, i1, v2) comes
+// from the candidate cache (`cache`: it fits) when every lane's part of it
+// still holds; otherwise the warp reads the whole row and refills the
+// bidder's cache entry. Then the round is settled and the next list kept in
+// shared memory. Ends when the list grows past one bidder, empties or
+// max_iters runs out.
 template <bool VEC>
 __device__ void solo_rounds(const Shared& s, const float* __restrict__ ben, float eps, int T,
-                            int Q, int S, bool cache, int solo, int max_iters, int& n, int& it,
-                            int& bids) {
+                            int Q, bool cache, int max_iters, int& n, int& it, int& bids) {
   const int lane = threadIdx.x % 32;
-  int slots = min(n, S);
-  if (lane < slots) wait_slot(s, lane);  // every copy started is waited for
-  __syncwarp();
   do {
-    const int t = lane < n ? s.ulist[lane] : -1;
-    Top2 mine = none2();
-    for (int b = 0; b < n; ++b) {
-      const int tb = __shfl_sync(0xffffffffu, t, b);
-      Top2 x;
-      if (!(cache && s.c_ok[tb] && __all_sync(0xffffffffu, cached_part(s, tb, lane, x)))) {
+    const int t = s.ulist[0];
+    Top2 x;
+    if (!(cache && s.c_ok[t] && __all_sync(0xffffffffu, cached_part(s, t, lane, x)))) {
+      if (cache) {
         Top3 y = none3();
-        scan_bidder<VEC>(y, s, ben, Q, slots, b, 0, 1, lane);
-        if (cache) {
-          cache_part(s, tb, lane, y);
-          if (lane == 0) s.c_ok[tb] = 1;
-        }
+        scan_row<VEC>(y, s, ben, Q, t, 0, 1, lane);
+        cache_part(s, t, lane, y);
+        if (lane == 0) s.c_ok[t] = 1;
         x = y.top2();
+      } else {
+        x = none2();
+        scan_row<VEC>(x, s, ben, Q, t, 0, 1, lane);
       }
-      x = warp_merge(x);
-      if (lane == b) mine = x;
     }
-    const int entry = settle(s, mine, t, lane < n, n == 1, eps, T);
-    bids += n;
+    x = warp_merge(x);
+    const int entry = settle(s, x, t, lane == 0, true, eps, T);
+    ++bids;
     ++it;
-    n = write_list(s, ben, entry, 0, Q, lane);
-    slots = 0;
-  } while (n > 0 && n <= solo && it < max_iters);
-  if (lane < min(n, S)) prefetch_row(s, ben, lane, s.ulist[lane], Q);
+    n = write_list(s, entry, lane);
+  } while (n == 1 && it < max_iters);
 }
 
-template <int THREADS, bool VEC>
+template <bool VEC>
 __device__ void run_instance(const Shared& s, const float* __restrict__ ben,
                              const unsigned char* __restrict__ vld, float eps, int T, int Q,
-                             int S, bool cache, int solo, int max_iters, int& it, int& bids,
-                             int& n) {
-  constexpr int W = THREADS / 32;
+                             bool cache, int max_iters, int& it, int& bids, int& n) {
   const int tid = threadIdx.x;
   const int lane = tid % 32;
   const int warp = tid / 32;
@@ -479,11 +427,8 @@ __device__ void run_instance(const Shared& s, const float* __restrict__ ben,
     const int t = c * THREADS + tid;
     const bool has = t < T && vld[t];
     int total;
-    const int r = n + chunk_rank<THREADS>(has, s.cnt + (c & 1) * 32, total);
-    if (has) {
-      s.ulist[r] = t;
-      if (r < S) prefetch_row(s, ben, r, t, Q);
-    }
+    const int r = n + chunk_rank(has, s.cnt + (c & 1) * W, total);
+    if (has) s.ulist[r] = t;
     n += total;
   }
   __syncthreads();
@@ -491,9 +436,9 @@ __device__ void run_instance(const Shared& s, const float* __restrict__ ben,
   it = 0;
   bids = 0;
   while (n > 0 && it < max_iters) {
-    if (n <= solo) {
+    if (n == 1) {
       if (warp == 0) {
-        solo_rounds<VEC>(s, ben, eps, T, Q, S, cache, solo, max_iters, n, it, bids);
+        solo_rounds<VEC>(s, ben, eps, T, Q, cache, max_iters, n, it, bids);
         if (lane == 0) {
           s.state[0] = n;
           s.state[1] = it;
@@ -506,14 +451,14 @@ __device__ void run_instance(const Shared& s, const float* __restrict__ ben,
       bids = s.state[2];
       continue;
     }
-    if (n <= 32) {
+    if (n <= W) {
       // bid: each bidder's row split over `parts` warps, one part a warp
       int p2 = 1;
       while (p2 < n) p2 <<= 1;
-      const int parts = p2 <= W ? W / p2 : 1;
+      const int parts = W / p2;
       for (int idx = warp; idx < n * parts; idx += W) {
         Top2 x = none2();
-        scan_bidder<VEC>(x, s, ben, Q, S, idx / parts, idx % parts, parts, lane);
+        scan_row<VEC>(x, s, ben, Q, s.ulist[idx / parts], idx % parts, parts, lane);
         x = warp_merge(x);
         if (lane == 0) {
           s.red_v1[idx] = x.v1;
@@ -531,8 +476,8 @@ __device__ void run_instance(const Shared& s, const float* __restrict__ ben,
         const int src = lane < n ? lane * parts : 0;
         x = {__shfl_sync(0xffffffffu, x.v1, src), __shfl_sync(0xffffffffu, x.i1, src),
              __shfl_sync(0xffffffffu, x.v2, src)};
-        const int entry = settle(s, x, lane < n ? s.ulist[lane] : -1, lane < n, n == 1, eps, T);
-        const int next = write_list(s, ben, entry, S, Q, lane);
+        const int entry = settle(s, x, lane < n ? s.ulist[lane] : -1, lane < n, false, eps, T);
+        const int next = write_list(s, entry, lane);
         if (lane == 0) s.state[0] = next;
       }
       __syncthreads();
@@ -542,7 +487,7 @@ __device__ void run_instance(const Shared& s, const float* __restrict__ ben,
       // bid: one warp a row
       for (int j = warp; j < n; j += W) {
         Top2 x = none2();
-        scan_bidder<VEC>(x, s, ben, Q, S, j, 0, 1, lane);
+        scan_row<VEC>(x, s, ben, Q, s.ulist[j], 0, 1, lane);
         x = warp_merge(x);
         if (lane == 0) {
           const int t = s.ulist[j];
@@ -572,11 +517,8 @@ __device__ void run_instance(const Shared& s, const float* __restrict__ ben,
           entry = bid > NEG && s.best[q] == key ? owner_swap(s, q, t, bid, T) : t;
         }
         int total;
-        const int r = next + chunk_rank<THREADS>(entry >= 0, s.cnt + (c & 1) * 32, total);
-        if (entry >= 0) {
-          s.ulist[r] = entry;
-          if (r < S) prefetch_row(s, ben, r, entry, Q);
-        }
+        const int r = next + chunk_rank(entry >= 0, s.cnt + (c & 1) * W, total);
+        if (entry >= 0) s.ulist[r] = entry;
         next += total;
       }
       __syncthreads();
@@ -585,10 +527,6 @@ __device__ void run_instance(const Shared& s, const float* __restrict__ ben,
     }
     ++it;
   }
-
-  // max_iters ran out: the copies started for the bidders that will not bid
-  // land before the block leaves
-  for (int r = tid; r < min(n, S); r += THREADS) wait_slot(s, r);
 }
 
 struct Params {
@@ -599,17 +537,14 @@ struct Params {
   int* rounds;                 // (B,)
   int* bids;                   // (B,)
   int T, Q, max_iters;
-  int S;      // row slots
-  int solo;   // most bidders of a round that warp 0 runs alone
   int cache;  // the candidate cache fits
 };
 
-template <int THREADS, bool VEC>
+template <bool VEC>
 __global__ void __launch_bounds__(THREADS) auction_kernel(const Params p) {
-  constexpr int W = THREADS / 32;
   extern __shared__ __align__(16) unsigned char smem[];
-  const int T = p.T, Q = p.Q, S = p.S;
-  const Shared s = carve(smem, T, Q, S);
+  const int T = p.T, Q = p.Q;
+  const Shared s = carve(smem, T, Q);
   const int z = blockIdx.x;
   const int tid = threadIdx.x;
   const int lane = tid % 32;
@@ -626,18 +561,10 @@ __global__ void __launch_bounds__(THREADS) auction_kernel(const Params p) {
     s.match[t] = -1;
     if (p.cache) s.c_ok[t] = 0;
   }
-  if (tid == 0) {
-    for (int r = 0; r < S; ++r) {
-      mbar_init(s.bars + r, 1);
-      s.fills[r] = 0u;
-    }
-    mbar_init_fence();
-  }
   __syncthreads();
 
   int it, bids, n;
-  run_instance<THREADS, VEC>(s, ben, vld, p.eps[z], T, Q, S, p.cache != 0, p.solo, p.max_iters, it,
-                             bids, n);
+  run_instance<VEC>(s, ben, vld, p.eps[z], T, Q, p.cache != 0, p.max_iters, it, bids, n);
 
   // greedy completion: n leftovers only when max_iters ran out
   if (n > 0) {
@@ -699,29 +626,17 @@ __global__ void __launch_bounds__(THREADS) auction_kernel(const Params p) {
   }
 }
 
-// 16 bytes a query and a target and the block's scratch, the candidate
-// cache (644 bytes a target) and S row slots
-size_t smem_bytes(int T, int Q, bool cache, int S) {
+// 16 bytes a query and a target, the block's scratch and, with `cache`, the
+// candidate cache (644 bytes a target)
+size_t smem_bytes(int T, int Q, bool cache) {
   return static_cast<size_t>(Q) * 16 + static_cast<size_t>(T) * 16 + MISC_BYTES +
-         (cache ? static_cast<size_t>(T) * (4 + 5 * 32 * 4) : 0) + static_cast<size_t>(S) * Q * 4;
+         (cache ? static_cast<size_t>(T) * (4 + 5 * 32 * 4) : 0);
 }
 
-// What a launch at (T, Q) gets: the candidate cache where it fits (with
-// `cache`), then as many row slots as fit (with `prefetch`, Q % 4 == 0 and
-// a 16-byte aligned benefit), at most MAX_SLOTS.
-void plan(int T, int Q, bool cache, bool prefetch, bool aligned, Params& p) {
-  p.cache = cache && smem_bytes(T, Q, true, 0) <= MAX_SMEM;
-  p.S = 0;
-  if (prefetch && aligned && Q % 4 == 0) {
-    const size_t fit = (MAX_SMEM - smem_bytes(T, Q, p.cache, 0)) / (static_cast<size_t>(Q) * 4);
-    p.S = static_cast<int>(fit < MAX_SLOTS ? fit : MAX_SLOTS);
-  }
-}
-
-template <int THREADS, bool VEC>
+template <bool VEC>
 cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
-  auto kernel = auction_kernel<THREADS, VEC>;
-  const size_t bytes = smem_bytes(p.T, p.Q, p.cache, p.S);
+  auto kernel = auction_kernel<VEC>;
+  const size_t bytes = smem_bytes(p.T, p.Q, p.cache);
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
   if (err != cudaSuccess) return err;
@@ -729,29 +644,19 @@ cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <int THREADS>
-cudaError_t launch_threads(const Params& p, int B, bool vec, cudaStream_t stream) {
-  return vec ? launch<THREADS, true>(p, B, stream) : launch<THREADS, false>(p, B, stream);
-}
-
 }  // namespace
 
 // benefit (B, T, Q) f32, valid (B, T) u8, eps (B,) f32, all contiguous;
-// match (B, T), rounds (B,) and bids (B,) i32. threads: the block's size,
-// 1024, 512 or 256. prefetch: 0 reads every row from global memory, 1 puts
-// the next bidders' rows into row slots where they fit (16-byte loads and
-// slots need Q % 4 == 0 and a 16-byte aligned benefit). solo: rounds of at
-// most this many bidders (0-32) run on one warp alone; cache: those rounds
-// take a bidder's top two from the candidate cache where it fits. Returns
-// the launch's cudaError_t; cudaErrorInvalidValue when 16 Q + 16 T bytes and
-// the block's scratch do not fit a block's shared memory.
+// match (B, T), rounds (B,) and bids (B,) i32. The one-bidder rounds keep
+// the candidate cache where it fits a block's shared memory; 16-byte loads
+// need Q % 4 == 0 and a 16-byte aligned benefit. Returns the launch's
+// cudaError_t; cudaErrorInvalidValue when 16 Q + 16 T bytes and the block's
+// scratch do not fit a block's shared memory.
 extern "C" int auction_lsap(const void* benefit, const void* valid, const void* eps, void* match,
                             void* rounds, void* bids, int B, int T, int Q, int max_iters,
-                            int threads, int prefetch, int solo, int cache, void* stream) {
-  if (B < 1 || T < 1 || Q < 1 || max_iters < 0 || solo < 0 || solo > 32 ||
-      smem_bytes(T, Q, false, 0) > MAX_SMEM)
+                            void* stream) {
+  if (B < 1 || T < 1 || Q < 1 || max_iters < 0 || smem_bytes(T, Q, false) > MAX_SMEM)
     return static_cast<int>(cudaErrorInvalidValue);
-  const bool aligned = reinterpret_cast<uintptr_t>(benefit) % 16 == 0;
   Params p;
   p.benefit = static_cast<const float*>(benefit);
   p.valid = static_cast<const unsigned char*>(valid);
@@ -762,31 +667,10 @@ extern "C" int auction_lsap(const void* benefit, const void* valid, const void* 
   p.T = T;
   p.Q = Q;
   p.max_iters = max_iters;
-  p.solo = solo;
-  plan(T, Q, solo > 0 && cache, prefetch, aligned, p);
-  const bool vec = Q % 4 == 0 && aligned;
+  p.cache = smem_bytes(T, Q, true) <= MAX_SMEM;
+  const bool vec = Q % 4 == 0 && reinterpret_cast<uintptr_t>(benefit) % 16 == 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (threads == 1024)
-    err = launch_threads<1024>(p, B, vec, st);
-  else if (threads == 512)
-    err = launch_threads<512>(p, B, vec, st);
-  else if (threads == 256)
-    err = launch_threads<256>(p, B, vec, st);
-  else
-    err = cudaErrorInvalidValue;
-  return static_cast<int>(err);
-}
-
-// What a launch at (T, Q) with an aligned benefit gets: its row slots
-// (`prefetch` 1) or whether the candidate cache fits (`prefetch` 0, `cache`
-// 1), as the C entry point plans them, so that callers and tests can see
-// which path a shape takes.
-extern "C" int auction_lsap_plan(int T, int Q, int prefetch, int cache) {
-  if (smem_bytes(T, Q, false, 0) > MAX_SMEM) return 0;
-  Params p;
-  plan(T, Q, cache, prefetch, true, p);
-  return prefetch ? p.S : p.cache;
+  return static_cast<int>(vec ? launch<true>(p, B, st) : launch<false>(p, B, st));
 }
 
 extern "C" const char* auction_lsap_error_string(int code) {

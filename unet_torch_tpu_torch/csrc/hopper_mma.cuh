@@ -34,9 +34,8 @@
 // through csrc/flash_fwd_wgmma.cuh, which csrc/packed2_attention_fwd.cu also
 // includes) and, for its wgmma route,
 // csrc/fused_conv3x3_bn_relu.cu (4-D TMA loads and stores, the m64n{64,128,
-// 256}k16 forms with a K-major A and an MN-major B), and by
-// csrc/auction_lsap.cu (mbarriers and the 1-D bulk copy of its row
-// prefetch); kernels/build.py hashes this header with each source.
+// 256}k16 forms with a K-major A and an MN-major B); kernels/build.py hashes
+// this header with each source.
 
 #pragma once
 
@@ -428,16 +427,6 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const void* map, uint64_t
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-
-// One thread asks for `bytes` (a multiple of 16) from a 16-byte aligned
-// global address to be copied to a 16-byte aligned place in shared memory, a
-// 1-D bulk copy without a tensor map; the bytes are reported to `bar`.
-__device__ __forceinline__ void bulk_load(void* dst, const void* src, int bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
-          "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 

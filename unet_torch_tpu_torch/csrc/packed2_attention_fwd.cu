@@ -18,10 +18,8 @@
 // pair, the even head on warpgroup 0 and the odd one on warpgroup 1; each
 // TMA box of the ring is (64, 64, 2), both heads' K tiles (or V tiles) in
 // one request, so a stage is 32 KB and the block holds 16 KB of Q. Two
-// stages (81 KB) let two blocks share an SM at 96 registers a thread; three
-// (113 KB) hold one block an SM, whose launch bound then lifts the register
-// cap. `stages` picks one; the wrapper's default is the one measured
-// faster (PERF.md).
+// stages (81 KB) let two blocks share an SM; three (113 KB, one block an SM)
+// measured 25-30% slower (PERF.md).
 //
 // What bounds it on an H100: as the flash forward, operations on paper (25.8
 // GFLOP at the ViT's shape, 0.026 ms at the bf16 peak) and the schedulers'
@@ -33,22 +31,11 @@
 
 #include "flash_fwd_wgmma.cuh"
 
-namespace {
-
-template <bool GENERAL>
-cudaError_t launch_packed2(const FwdParams& p, int BH, int stages, cudaStream_t stream) {
-  if (stages == 2) return launch_wgmma<64, 64, GENERAL, false, 2, 2, 2>(p, BH, stream);
-  if (stages == 3) return launch_wgmma<64, 64, GENERAL, false, 2, 3, 1>(p, BH, stream);
-  return cudaErrorInvalidValue;
-}
-
-}  // namespace
-
 // q, o (BH, Nq, 64) and k, v (BH, Nk, 64) bf16, contiguous and 16-byte
-// aligned; BH even; stages 2 or 3. The caller checks all of this. Returns
-// the launch's cudaError_t.
+// aligned; BH even. The caller checks all of this. Returns the launch's
+// cudaError_t.
 extern "C" int packed2_attention_fwd(const void* q, const void* k, const void* v, void* o, int BH,
-                                     int Nq, int Nk, float scale, int stages, void* stream) {
+                                     int Nq, int Nk, float scale, void* stream) {
   if (BH < 2 || BH % 2 || Nq < 1 || Nk < 1) return static_cast<int>(cudaErrorInvalidValue);
   FwdParams p = {};
   p.q = q;
@@ -65,8 +52,8 @@ extern "C" int packed2_attention_fwd(const void* q, const void* k, const void* v
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   // the scale is folded into the exponent only when it keeps the order of
   // the scores
-  const cudaError_t err = scale > 0.f ? launch_packed2<false>(p, BH, stages, st)
-                                      : launch_packed2<true>(p, BH, stages, st);
+  const cudaError_t err = scale > 0.f ? launch_wgmma<64, 64, false, false, 2, 2, 2>(p, BH, st)
+                                      : launch_wgmma<64, 64, true, false, 2, 2, 2>(p, BH, st);
   return static_cast<int>(err);
 }
 

@@ -257,8 +257,7 @@ def _mask_library() -> ctypes.CDLL:
 
 @functools.cache
 def _packed2_library() -> ctypes.CDLL:
-    return _load("packed2_attention_fwd",
-                 [_P] * 4 + [_I] * 3 + [_F, _I, _P])
+    return _load("packed2_attention_fwd", [_P] * 4 + [_I] * 3 + [_F, _P])
 
 
 def _raise_on(lib, name: str, err: int) -> None:
@@ -443,24 +442,13 @@ def dropout_keep_mask(n_bh: int, nq: int, nk: int, seed: int, rate: float,
 dropout_keep_mask.launches = 0
 
 
-# the packed probe's ring depths: 2 stages let two blocks share an SM, 3
-# hold one (csrc/packed2_attention_fwd.cu); the default is the one measured
-# faster (PERF.md)
-PACKED2_STAGES = (2, 3)
-PACKED2_DEFAULT = 2
-
-
-def packed2_attention(q, k, v, scale=None, stages=None):
+def packed2_attention(q, k, v, scale=None):
     """softmax(q k^T * scale) v with two heads per block, a probe (the JAX
     package's `packed2_fwd`): bf16, head width 64, an even number of heads,
     no bias, no dropout, no gradient. A CPU tensor takes the plain version
     (`attention_reference`); a CUDA tensor launches the kernel (the
-    two-head instance of the wgmma forward, csrc/packed2_attention_fwd.cu,
-    with `stages` K/V stages in its ring) or raises."""
-    stages = PACKED2_DEFAULT if stages is None else stages
-    if stages not in PACKED2_STAGES:
-        raise ValueError(f"stages must be one of {PACKED2_STAGES}, got "
-                         f"{stages}")
+    two-head instance of the wgmma forward, csrc/packed2_attention_fwd.cu)
+    or raises."""
     if (q.dim() != 4 or v.dim() != 4 or q.shape[1] % 2 or q.shape[3] != 64
             or v.shape[3] != 64):
         raise ValueError("the packed probe takes head width 64 and an even "
@@ -480,7 +468,7 @@ def packed2_attention(q, k, v, scale=None, stages=None):
     with torch.cuda.device(q.device):
         err = lib.packed2_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b * h,
-            nq, k.shape[2], float(scale), stages, _stream(q.device))
+            nq, k.shape[2], float(scale), _stream(q.device))
     _raise_on(lib, "packed2_attention_fwd", err)
     packed2_attention.launches += 1
     return o

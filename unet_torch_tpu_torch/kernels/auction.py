@@ -10,8 +10,8 @@ convergence, then greedy completion of whatever `max_iters` left unassigned.
 The assignment's cost is within T * eps of the optimum. One block runs one
 instance; the long tail of rounds with a single bidder runs on one warp
 without block barriers, taking the bidder's best two queries from a cache
-of candidates in shared memory that stays exact while prices rise (the
-source says how).
+of candidates in shared memory that stays exact while prices rise, where
+the cache fits (the source says how).
 
     costs (B, Q, T) f32, valid (B, T) bool  ->  match (B, T) int32
 
@@ -37,16 +37,7 @@ _NEG = -1e30
 # 16 bytes a query and a target, and the block's scratch, in a block's
 # 227 KB of shared memory (csrc/auction_lsap.cu::smem_bytes)
 _MAX_SMEM = 232448
-_SCRATCH_BYTES = 1040
-# the kernel's block size (1024, 512 or 256 threads), whether the next
-# bidders' rows are copied into shared memory ahead of their round, up to
-# how many bidders a round is run by one warp alone (0: never), and whether
-# those rounds keep each bidder's candidates in shared memory: the design
-# measured fastest on the card (PERF.md)
-BLOCK_THREADS = 512
-PREFETCH = False
-SOLO_BIDDERS = 1
-CANDIDATE_CACHE = True
+_SCRATCH_BYTES = 256
 
 
 def _prepare(costs, valid):
@@ -70,7 +61,8 @@ def _prepare(costs, valid):
     # keep its layout and need a copy after it); max |cost| is exact
     costs = costs.detach()
     b, q_n, t_n = costs.shape
-    benefit = torch.empty((b, t_n, q_n), device=costs.device)
+    benefit = torch.empty((b, t_n, q_n), dtype=costs.dtype,
+                          device=costs.device)
     torch.neg(costs.transpose(1, 2), out=benefit)
     spread = torch.linalg.vector_norm(
         costs.masked_fill(~valid[:, None, :], 0.0), ord=float("inf"),
@@ -155,43 +147,21 @@ def auction_lsap_reference(costs, valid, max_iters: int = 20000,
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = build.load("auction_lsap")
-    lib.auction_lsap.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
+    lib.auction_lsap.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
                                  + [ctypes.c_void_p])
     lib.auction_lsap.restype = ctypes.c_int
-    lib.auction_lsap_plan.argtypes = [ctypes.c_int] * 4
-    lib.auction_lsap_plan.restype = ctypes.c_int
     lib.auction_lsap_error_string.argtypes = [ctypes.c_int]
     lib.auction_lsap_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def launch_plan(t_n: int, q_n: int, prefetch=None, cache=None):
-    """What a launch at (T, Q) gets, as the kernel plans it: (whether its
-    candidate cache fits, how many bidders' rows it copies into shared
-    memory ahead of their round; 0: every row is read from global memory).
-    `prefetch` and `cache` default to PREFETCH and CANDIDATE_CACHE."""
-    prefetch = PREFETCH if prefetch is None else prefetch
-    cache = CANDIDATE_CACHE if cache is None else cache
-    lib = _library()
-    fits = bool(cache) and bool(lib.auction_lsap_plan(t_n, q_n, 0, 1))
-    slots = lib.auction_lsap_plan(t_n, q_n, 1, int(fits)) if prefetch else 0
-    return fits, slots
-
-
-def _launch(benefit, valid, eps, max_iters, threads=None, prefetch=None,
-            solo=None, cache=None):
+def _launch(benefit, valid, eps, max_iters):
     """One launch of the kernel on `_prepare`'s (benefit, eps) and the u8 or
-    bool valid (B, T) on the current stream: (match, rounds, bids) int32.
-    `threads`, `prefetch`, `solo` and `cache` default to BLOCK_THREADS,
-    PREFETCH, SOLO_BIDDERS and CANDIDATE_CACHE."""
+    bool valid (B, T) on the current stream: (match, rounds, bids) int32."""
     b, t_n, q_n = benefit.shape
     if 16 * (q_n + t_n) + _SCRATCH_BYTES > _MAX_SMEM:
         raise ValueError(f"Q = {q_n}, T = {t_n}: 16 bytes a query and a "
                          "target do not fit a block's shared memory")
-    threads = BLOCK_THREADS if threads is None else threads
-    prefetch = PREFETCH if prefetch is None else prefetch
-    solo = SOLO_BIDDERS if solo is None else solo
-    cache = CANDIDATE_CACHE if cache is None else cache
     valid = valid.contiguous()
     dev = benefit.device
     match = torch.empty((b, t_n), dtype=torch.int32, device=dev)
@@ -203,9 +173,7 @@ def _launch(benefit, valid, eps, max_iters, threads=None, prefetch=None,
         err = lib.auction_lsap(benefit.data_ptr(), valid.data_ptr(),
                                eps.data_ptr(), match.data_ptr(),
                                rounds.data_ptr(), bids.data_ptr(), b, t_n,
-                               q_n, int(max_iters), int(threads),
-                               int(bool(prefetch)), int(solo),
-                               int(bool(cache)), stream)
+                               q_n, int(max_iters), stream)
     if err:
         msg = lib.auction_lsap_error_string(err).decode()
         raise RuntimeError(f"auction_lsap launch failed: {msg}")
