@@ -9,6 +9,8 @@
     python3 chip_smoke.py --unet-profile   (build, then phase 4's forward under
                                     torch.profiler, its convs on wgmma and on
                                     mma.sync in turns)
+    python3 chip_smoke.py --topo   (build, then only T1 and the topo phases
+                                    P1-P3)
 
 Builds the Hopper kernels from unet_torch_tpu_torch/csrc, then:
 
@@ -16,7 +18,8 @@ Builds the Hopper kernels from unet_torch_tpu_torch/csrc, then:
   2. build      nvcc of every kernel source (fused conv3x3+BN+ReLU, flash
                 attention forward, flash attention backward, dropout keep
                 mask, min-plus product, auction assignment, packed two-head
-                attention probe), one process each, all at once; timed; the
+                attention probe), one process each, all at once, and g++ of
+                the host pairing (native/ph0.cpp); timed; the
                 registers and spills ptxas reports for the wgmma kernels
                 (attention, the packed probe and fused conv) and the auction
   3. kernel     the fused conv against its plain PyTorch version at every
@@ -51,7 +54,11 @@ Builds the Hopper kernels from unet_torch_tpu_torch/csrc, then:
                 CPU, as in phase 5; the CPU reference runs at the full
                 512x512 (about 1.5 s with the card's host)
  T1. mask       the dropout keep-mask probe against the plain hash, bit for
-                bit, at (96, 1024, 1024) rate 0.1 and (12, 100, 77) rate 0.3
+                bit, at (96, 1024, 1024) rate 0.1 and (12, 100, 77) rate 0.3;
+                one launch and back to back, and the bound: the larger of
+                the bytes written and the instructions of the kernel's loop
+                (counted in this build's SASS with cuobjdump) at the card's
+                issue rate
  T2. train      the train forward (o, lse) and the backward (dq, dk, dv)
      kernels    against their plain versions at the ViT's shape, at a ragged
                 masked Dqk != Dv shape and at the general route's widths,
@@ -136,6 +143,26 @@ Builds the Hopper kernels from unet_torch_tpu_torch/csrc, then:
                 shape and a ragged one; timed in turns with the flash
                 forward and
                 scaled_dot_product_attention, one launch and back to back
+ P1. pairing    the native pairing (native/ph0.cpp through ctypes) equal
+                to the numpy oracle on the likelihood the card produced for
+                one 512x512 image (the binary UNet-64's bf16 eval forward),
+                for the whole map and for its 64 windows of 64x64; timed
+ P2. topo       configs/topo_wup.yml's binary UNet-64, bf16, batch 8 at
+     steps      512x512, Adam (lr 1e-3, weight decay 1e-4), seeded synthetic
+                cells with dot maps: the warm-up dice_bce step, then the
+                serial topo step for TopoLoss and TopoCount with its time
+                split (pairing forward, D2H, host likelihood and pairing,
+                loss + backward + Adam), img/s and the host's CPU count; the
+                loss from the pairing card against CPU on the same indices
+                (1e-5 relative); the BN buffers bitwise unchanged by
+                topo_eval and by the pairing forward; a depth-2
+                TopoPipeline over 6 batches
+ P3. topo       Trainer.train() under TopoLoss, 7 epochs (5 warm-up, 2 topo
+     trainer    through TopoPipeline and its flush) of 2 steps on seeded
+                512x512 batches with dot maps: 7 losses and MRA scores,
+                last_epoch.pt and no best.pt (only after epoch 10), the
+                fused conv's launches in the warm-up epochs' validation, the
+                pipelined topo phase's img/s
   L. library    one PyTorch library call beside each kernel that has one, for
                 the time only (nothing in the port calls them): cuDNN
                 conv2d with the scale folded into its weights, a bias and a
@@ -163,6 +190,7 @@ import contextlib
 import copy
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -732,10 +760,85 @@ def train_batch(rng, batch, size, n_cells=40, radius=(6, 14)):
     return (x - mean) / std, y
 
 
-def check_mask(at, dev):
+# SASS opcodes that are no integer operation: memory, control flow, barriers
+_NOT_INTEGER = ("LD", "ST", "BRA", "EXIT", "NOP", "BAR", "RET", "BSSY",
+                "BSYNC", "CALL", "WARPSYNC", "YIELD")
+
+
+def sass_loop(cuobjdump, library, kernel, store="STG.E.128"):
+    """The innermost loop of `kernel` (a substring of its mangled name) in
+    the SASS that `cuobjdump` prints for `library`: the instructions from a
+    backward branch's target address to the branch. Returns (integer
+    instructions, all instructions, `store` instructions) in that loop."""
+    sass = subprocess.run([str(cuobjdump), "-sass", str(library)],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    body = [f for f in sass.split("Function : ")[1:]
+            if kernel in f.split("\n", 1)[0]]
+    if len(body) != 1:
+        raise AssertionError(f"{len(body)} functions named like {kernel!r} "
+                             f"in {library}")
+    # "/*0a30*/  @!P0 BRA 0x1f0 ;": address, optional guard, opcode, operands
+    insns = [(int(a, 16), text.split()) for a, text in re.findall(
+        r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", body[0])]
+    index = {addr: i for i, (addr, _) in enumerate(insns)}
+    ops = [words[1] if words[0].startswith("@") else words[0]
+           for _, words in insns]
+    # backward branches; the branch to itself after EXIT is no loop
+    loops = [(i - index[int(words[-1], 16)], index[int(words[-1], 16)], i)
+             for i, (_, words) in enumerate(insns)
+             if ops[i].startswith("BRA") and words[-1].startswith("0x")
+             and index.get(int(words[-1], 16), i) < i]
+    if not loops:
+        raise AssertionError(f"no loop found in {kernel!r}")
+    _, first, last = min(loops)
+    body_ops = ops[first:last + 1]
+    integer = sum(not op.startswith(_NOT_INTEGER) for op in body_ops)
+    return (integer, len(body_ops),
+            sum(op.startswith(store) for op in body_ops))
+
+
+def issue_rate() -> float:
+    """Warp lanes' instructions a second that the card can issue: each SM's
+    four schedulers issue one warp instruction (32 lanes) a clock, at the
+    card's highest SM clock, which nvidia-smi reads."""
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True,
+        timeout=60).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sms * 4 * 32 * mhz * 1e6
+
+
+def mask_bound(build, shape):
+    """(least ms, what bounds it, instructions an element, of them integer
+    ones) of the mask at `shape`: its bytes written once against the
+    instructions of the kernel's loop (one 16-byte store an item of 16
+    elements, counted from the SASS of this build) for each element at the
+    card's issue rate. (The integer instructions alone at 64 a clock an SM,
+    NVIDIA's integer throughput for compute capability 9.0, are no bound:
+    the compiler spreads them over two pipes, and the kernel beats that
+    reckoning.)"""
+    # cuobjdump lies beside the nvcc that built the kernel
+    integer, total, stores = sass_loop(
+        os.path.join(os.path.dirname(os.path.realpath(build._nvcc())),
+                     "cuobjdump"),
+        build.build("dropout_keep_mask"), "keep_mask_kernelILb1E")
+    per_element = total / (16 * stores)
+    n = float(np.prod(shape))
+    ops_ms = per_element * n / issue_rate() * 1e3
+    bytes_ms = n / PEAK_BYTES * 1e3
+    return (max(ops_ms, bytes_ms),
+            "operations" if ops_ms >= bytes_ms else "bytes", per_element,
+            integer / (16 * stores))
+
+
+def check_mask(at, build, dev):
     """T1. The probe's own path first: each case's mask drawn once, the
     launches counted; then each mask held against the plain hash, and both
-    timed. Returns ({shape: (mismatches, ms, plain_ms)}, launches)."""
+    timed. Returns ({shape: (mismatches, ms, plain_ms, back_to_back_ms,
+    bound_ms, bound_by, instructions an element)}, launches)."""
     at.dropout_keep_mask.launches = 0
     masks = [at.dropout_keep_mask(*shape, 1234, rate, dev)
              for shape, rate in MASK_CASES]
@@ -754,13 +857,24 @@ def check_mask(at, dev):
         if mask.shape != ref.shape or mask.dtype != torch.uint8 or bad:
             raise AssertionError(f"mask probe differs from the plain hash at "
                                  f"{shape} rate {rate}: {bad} elements")
-        ms = median_ms(lambda: at.dropout_keep_mask(*shape, 1234, rate, dev))
+
+        def probe():
+            return at.dropout_keep_mask(*shape, 1234, rate, dev)
+
+        ms = median_ms(probe)
+        b2b_ms = median_ms(probe, burst=BURST)
         plain_ms = median_ms(lambda: at.dropout_keep(1234, *shape, nk_p, thr,
                                                      device=dev))
-        results[shape] = (bad, ms, plain_ms)
+        bound_ms, bound_by, per_element, integer = mask_bound(build, shape)
+        results[shape] = (bad, ms, plain_ms, b2b_ms, bound_ms, bound_by,
+                          per_element)
         phase("T1 mask", f"(B*H, Nq, Nk)={shape} rate {rate} nk_p {nk_p}: "
               f"bit-exact with the plain hash, keep fraction {keep:.6f}; "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+              f"kernel {ms:.4f} ms, back to back {b2b_ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms; bound {bound_ms:.4f} ms by {bound_by} "
+              f"({per_element:.3f} instructions an element in the SASS loop, "
+              f"{integer:.3f} of them integer, at the issue rate; "
+              f"{100 * bound_ms / b2b_ms:.1f}% of it reached back to back)")
     return results, launches
 
 
@@ -2143,6 +2257,292 @@ def check_packed2(at, dev):
     return out, launches
 
 
+def topo_batch(rng, batch, size, n_cells=40, radius=(6, 14)):
+    """`batch` synthetic cell images with a binary cell mask and a dot map
+    (one dot at each cell's centre), as DataBinary(return_gt_dot=True)
+    yields them: x NHWC float32, y (B, H, W) int64 0/1, dots float32."""
+    yy, xx = np.mgrid[:size, :size]
+    x = 200.0 + 10.0 * rng.standard_normal((batch, size, size, 3))
+    y = np.zeros((batch, size, size), np.int64)
+    dots = np.zeros((batch, size, size), np.float32)
+    for img, lab, dot in zip(x, y, dots):
+        for cy, cx, r in zip(rng.randint(0, size, n_cells),
+                             rng.randint(0, size, n_cells),
+                             rng.randint(*radius, n_cells)):
+            disk = (yy - cy) ** 2 + (xx - cx) ** 2 <= r * r
+            img[disk] = rng.uniform(40, 160, 3)
+            lab[disk] = 1
+            dot[cy, cx] = 1.0
+    x = x.astype(np.float32)
+    mean = x.mean(axis=(1, 2), keepdims=True)
+    std = x.std(axis=(1, 2), keepdims=True)
+    return (x - mean) / std, y, dots
+
+
+def seeded_binary_unet(dev):
+    """configs/topo_wup.yml's model: the binary UNet base 64, seeded."""
+    from unet_torch_tpu_torch.core.rng import seed_everything
+    from unet_torch_tpu_torch.models.unet import build_model
+
+    return build_model("single", n_channels=3, n_classes=1, base=BASE,
+                       generator=seed_everything(SEED)).to(dev)
+
+
+def topo_device_batch(rng, dev):
+    x, y, dots = topo_batch(rng, BATCH, SIZE)
+    return (torch.from_numpy(x).to(dev, torch.bfloat16),
+            torch.from_numpy(y).to(dev), torch.from_numpy(dots).to(dev))
+
+
+def check_pairing(dev):
+    """P1. The native pairing (libph0, built from native/ph0.cpp) against
+    the numpy oracle on the likelihood of one image that the card produced:
+    the bf16 eval forward of the seeded binary UNet-64, sigmoid on the card.
+    Returns the native pairing's ms for the whole map and for its 64 windows
+    of 64x64."""
+    from unet_torch_tpu_torch.losses import topo
+    from unet_torch_tpu_torch.native import ph0
+
+    model = seeded_binary_unet(dev).eval()
+    x = topo_device_batch(np.random.RandomState(SEED + 8), dev)[0][:1]
+    with torch.no_grad():
+        lik = torch.sigmoid(model(x).float())[0, ..., 0].cpu().numpy()
+    window = 64
+    crops = [np.ascontiguousarray(lik[i:i + window, j:j + window])
+             for i in range(0, SIZE, window) for j in range(0, SIZE, window)]
+    times = {}
+    for name, maps, bars in (("global", [lik], 64), ("windows", crops, 8)):
+        start = time.perf_counter()
+        native = [ph0.superlevel_ph0(m, bars) for m in maps]
+        times[name] = (time.perf_counter() - start) * 1e3
+        for m, got in zip(maps, native):
+            ref = topo._superlevel_ph0_np(m, bars)
+            if not all(np.array_equal(a, b) for a, b in zip(got, ref)):
+                raise AssertionError(f"native pairing differs from numpy "
+                                     f"({name})")
+    phase("P1 pairing",
+          f"native superlevel_ph0 equal to the numpy oracle (births, "
+          f"deaths, bar counts) on the card's likelihood of one "
+          f"{SIZE}x{SIZE} image ({len(np.unique(lik))} distinct values): "
+          f"whole map {times['global']:.2f} ms, its {len(crops)} windows of "
+          f"{window}x{window} {times['windows']:.2f} ms on the host")
+    return times
+
+
+def _buffers(model):
+    return {k: v.clone() for k, v in model.named_buffers()}
+
+
+def _same_buffers(model, before, what):
+    for name, value in model.named_buffers():
+        if not torch.equal(value, before[name]):
+            raise AssertionError(f"{what} changed the BN buffer {name}")
+
+
+def check_topo_steps(dev):
+    """P2. configs/topo_wup.yml's step at full width: one warm-up step, the
+    serial topo step for TopoLoss and TopoCount at pair_downsample 1 with
+    its time split, the loss from pairing card against CPU, the BN buffers
+    kept by the pairing forward and topo_eval, and a depth-2 TopoPipeline.
+    Returns {name: seconds}."""
+    from unet_torch_tpu_torch.losses import topo
+    from unet_torch_tpu_torch.train.optim import make_optimizer
+    from unet_torch_tpu_torch.train.steps import buffers_kept, make_topo_steps
+
+    model = seeded_binary_unet(dev)
+    rng = np.random.RandomState(SEED + 9)
+    batches = [topo_device_batch(rng, dev) for _ in range(3)]
+    lr, out = 1e-3, {}
+    cpus = len(os.sched_getaffinity(0))
+
+    def fresh():
+        m = copy.deepcopy(model)
+        return (m, make_optimizer("Adam", m.parameters(), lr, 1e-4),
+                torch.Generator(device=dev).manual_seed(SEED))
+
+    # the warm-up phase: dice_bce
+    (warm_step, _), _, _ = make_topo_steps("TopoLoss", 1)
+    m, opt, gen = fresh()
+    times, losses = [], []
+    for i in range(TRAIN_WARMUP + 5):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        losses.append(warm_step(m, opt, *batches[i % 3], lr, gen))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - start)
+    losses = [v.item() for v in losses]
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"warm-up losses {losses}")
+    out["warm"] = statistics.median(times[TRAIN_WARMUP:])
+    phase("P2 topo steps",
+          f"binary UNet-{BASE} bf16 B={BATCH} {SIZE}x{SIZE} Adam: warm-up "
+          f"dice_bce step median {out['warm'] * 1e3:.2f} ms = "
+          f"{BATCH / out['warm']:.1f} img/s; host CPUs {cpus} "
+          f"(os.cpu_count() {os.cpu_count()})")
+
+    for name in ("TopoLoss", "TopoCount"):
+        (_, _), (topo_step, topo_eval), Pipeline = make_topo_steps(name, 1)
+        m, opt, gen = fresh()
+        splits, losses = [], []
+        for i in range(1 + 3):
+            split = {}
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            losses.append(topo_step(m, opt, *batches[i % 3], lr, gen,
+                                    split=split).item())
+            split["step"] = time.perf_counter() - start
+            splits.append(split)
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"{name} serial losses {losses}")
+        med = {k: statistics.median(s[k] for s in splits[1:])
+               for k in splits[0]}
+        out[name] = med["step"]
+
+        # the loss from the pairing, card against CPU, on the same
+        # likelihood and indices
+        x, y, dots = batches[0]
+        with torch.no_grad(), buffers_kept(m):
+            plog = m.train()(x)[..., 0].float()
+        lik = 1.0 / (1.0 + np.exp(-plog.cpu().numpy()))
+        if name == "TopoCount":
+            window = topo.effective_window(SIZE, SIZE, 64)
+            pairing = topo.compute_pairing_windows(
+                lik, topo.window_dot_counts(dots, window).cpu().numpy(),
+                window, 8)
+            fn, extra = topo.topocount_loss_from_pairing, 8
+        else:
+            pairing = topo.compute_pairing(
+                lik, None, 64, kgt_override=dots.sum(dim=(1, 2)).cpu().numpy())
+            fn, extra = topo.topo_loss_from_pairing, 64
+        idx = [torch.from_numpy(np.asarray(a)) for a in pairing]
+        card = fn(plog, *(a.to(dev) for a in idx), extra).item()
+        cpu = fn(plog.cpu(), *idx, extra).item()
+        rel = abs(card - cpu) / abs(cpu)
+        if not rel <= 1e-5:
+            raise AssertionError(f"{name} loss from pairing: card {card} "
+                                 f"against CPU {cpu}")
+
+        # the BN buffers: kept by topo_eval and by a pipeline step that
+        # only pairs
+        before = _buffers(m)
+        eval_loss, _ = topo_eval(m, x, y, dots)
+        _same_buffers(m, before, f"{name} topo_eval")
+        pipe = Pipeline()
+        if pipe.step(m, opt, x, y, dots, lr, gen) is not None:
+            raise AssertionError("a depth-2 pipeline updated at its first "
+                                 "batch")
+        torch.cuda.synchronize()
+        _same_buffers(m, before, f"{name} pairing forward")
+        pipe.flush(m, opt, gen)
+
+        # the depth-2 pipeline, six batches and the drain
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        pipe, plosses = Pipeline(), []
+        for i in range(6):
+            loss = pipe.step(m, opt, *batches[i % 3], lr, gen)
+            if loss is not None:
+                plosses.append(loss)
+        plosses += pipe.flush(m, opt, gen)
+        plosses = [v.item() for v in plosses]
+        pipe_s = (time.perf_counter() - start) / 6
+        if len(plosses) != 6 or not np.isfinite(plosses).all():
+            raise AssertionError(f"{name} pipeline losses {plosses}")
+        out[f"{name}_pipeline"] = pipe_s
+        out[f"{name}_split"] = med
+        phase("P2 topo steps",
+              f"{name} serial step median {med['step'] * 1e3:.2f} ms = "
+              f"{BATCH / med['step']:.1f} img/s: pairing forward "
+              f"{med['forward'] * 1e3:.2f} ms, D2H {med['d2h'] * 1e3:.2f}, "
+              f"host likelihood + pairing {med['pairing'] * 1e3:.2f}, "
+              f"loss + backward + Adam {med['update'] * 1e3:.2f}; losses "
+              f"{[round(v, 4) for v in losses]}; loss from pairing card "
+              f"{card:.6f} against CPU {cpu:.6f} (rel {rel:.2e}); BN buffers "
+              f"bitwise unchanged by the pairing forward and topo_eval "
+              f"(loss {eval_loss.item():.5f}); depth-2 pipeline over 6 "
+              f"batches {pipe_s * 1e3:.2f} ms a batch = "
+              f"{BATCH / pipe_s:.1f} img/s")
+    return out
+
+
+def check_topo_trainer(fc, dev):
+    """P3. Trainer.train() for configs/topo_wup.yml's model and loss: 7
+    epochs (5 warm-up, 2 topo through the pipeline) of 2 steps on seeded
+    512x512 batches with dot maps. The warm-up epochs' validation runs the
+    fused conv (eval mode); returns its launches and the pipelined topo
+    phase's img/s."""
+    from unet_torch_tpu_torch.train import trainer as trainer_module
+
+    rng = np.random.RandomState(SEED + 10)
+    loaders = {"train": [topo_batch(rng, BATCH, SIZE) for _ in range(2)],
+               "val": [topo_batch(rng, 1, SIZE) for _ in range(2)]}
+    topo_epochs = []
+    make = trainer_module.make_topo_steps
+
+    def timed_steps(*args, **kw):
+        warm, topo_steps, Pipeline = make(*args, **kw)
+
+        class Timed(Pipeline):
+            # an epoch's topo phase: its first step to its drain's end
+            def step(self, model, opt, x, *rest):
+                if not hasattr(self, "start"):
+                    torch.cuda.synchronize()
+                    self.start, self.images = time.perf_counter(), 0
+                self.images += x.shape[0]
+                return super().step(model, opt, x, *rest)
+
+            def flush(self, *args):
+                losses = super().flush(*args)
+                torch.cuda.synchronize()
+                topo_epochs.append((time.perf_counter() - self.start,
+                                    self.images))
+                return losses
+
+        return warm, topo_steps, Timed
+
+    trainer_module.make_topo_steps = timed_steps
+    fc.reset_launches()
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            run = os.path.join(tmp, "run")
+            trainer = trainer_module.Trainer(
+                seeded_binary_unet(dev), "single", run, loaders, BATCH,
+                "Adam", 1e-3, 1e-4, patience=40, num_epochs=7,
+                loss_function="TopoLoss", accuracy_metric="dice_bce",
+                num_classes=1, lr_scheduler=True, seed=SEED, device=dev,
+                dtype=torch.bfloat16, plot=False)
+            trainer.train()
+            torch.cuda.synchronize()
+            saved = sorted(os.listdir(os.path.join(run, "models")))
+    finally:
+        trainer_module.make_topo_steps = make
+    launches = fc.fused_conv3x3_bn_relu.launches
+    values = (trainer.train_loss_list + trainer.val_loss_list
+              + trainer.val_score_list)
+    want = 5 * len(loaders["val"]) * len(conv_shapes(BASE, SIZE))
+    if (len(trainer.train_loss_list) != 7 or len(trainer.val_score_list) != 7
+            or not np.isfinite(values).all() or len(topo_epochs) != 2
+            or saved != ["last_epoch.pt"] or launches != want):
+        raise AssertionError(
+            f"topo trainer: losses {trainer.train_loss_list}, MRA "
+            f"{trainer.val_score_list}, topo epochs {topo_epochs}, "
+            f"checkpoints {saved}, {launches} fused conv launches "
+            f"(expected {want})")
+    seconds = sum(t for t, _ in topo_epochs)
+    images = sum(n for _, n in topo_epochs)
+    phase("P3 topo trainer",
+          f"Trainer.train() TopoLoss binary UNet-{BASE} bf16 B={BATCH} "
+          f"{SIZE}x{SIZE}, 7 epochs x 2 steps (5 warm-up, 2 topo through "
+          f"TopoPipeline): train loss "
+          f"{[round(v, 4) for v in trainer.train_loss_list]}, val MRA "
+          f"{[round(v, 4) for v in trainer.val_score_list]}; checkpoints "
+          f"{saved} (best.pt only after epoch 10); {launches} fused conv "
+          f"launches in the warm-up epochs' validation; pipelined topo "
+          f"phase {images} images in {seconds:.3f} s = "
+          f"{images / seconds:.1f} img/s")
+    return launches, images / seconds
+
+
 def library_conv_ms(shapes, dev):
     """L. {(H, Cin, Cout): (ms, back-to-back ms)} of cuDNN at the bf16 conv
     shapes: conv2d on channels_last tensors with the BN scale folded into the
@@ -2297,7 +2697,7 @@ def attention_ab(at, fc, au, vit, dev):
 
 
 def main(cltr_profile=False, cltr_two_batches_only=False,
-         attention_ab_only=False, unet_profile=False):
+         attention_ab_only=False, unet_profile=False, topo_only=False):
     # 1. device
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -2318,6 +2718,7 @@ def main(cltr_profile=False, cltr_two_batches_only=False,
     from unet_torch_tpu_torch.kernels import fused_conv as fc
     from unet_torch_tpu_torch.kernels import minplus as mp
     from unet_torch_tpu_torch.models.transunet import vit
+    from unet_torch_tpu_torch.native import build as native_build
     from unet_torch_tpu_torch.nn import blocks
 
     # 2. build
@@ -2333,9 +2734,11 @@ def main(cltr_profile=False, cltr_two_batches_only=False,
     at._library()
     at._bwd_library()
     at._mask_library()
+    native = native_build.load("ph0")
     build_s = time.perf_counter() - start
-    phase("build", f"{', '.join(p.name for p in libs)} built and loaded in "
-          f"{build_s:.2f} s")
+    phase("build", f"{', '.join(p.name for p in libs)} and "
+          f"{os.path.basename(native._name)} "
+          f"built and loaded in {build_s:.2f} s")
     ptxas_report(build, ("flash_attention_fwd", "flash_attention_bwd",
                          "fused_conv3x3_bn_relu", "packed2_attention_fwd"))
     ptxas_report(build, ("auction_lsap",), match="auction")
@@ -2350,6 +2753,12 @@ def main(cltr_profile=False, cltr_two_batches_only=False,
         return
     if attention_ab_only:
         attention_ab(at, fc, au, vit, dev)
+        return
+    if topo_only:
+        check_mask(at, build, dev)
+        check_pairing(dev)
+        check_topo_steps(dev)
+        check_topo_trainer(fc, dev)
         return
 
     # 3. fused conv against plain, at the UNet's shapes
@@ -2457,7 +2866,7 @@ def main(cltr_profile=False, cltr_two_batches_only=False,
 
     del model, cpu_model, predict
     # T1. the mask probe's own path, then against the plain hash
-    mres, mask_launches = check_mask(at, dev)
+    mres, mask_launches = check_mask(at, build, dev)
 
     # T2. the train kernels against their plain versions
     tres2 = check_train_attention(at, dev)
@@ -2498,6 +2907,11 @@ def main(cltr_profile=False, cltr_two_batches_only=False,
           f"{time.perf_counter() - start:.1f} s")
     c5_launches, cltr_infer_s = check_cltr_trainer(at, fc, dev)
     p2res, p2_launches = check_packed2(at, dev)
+
+    # P1-P3: the topological losses and the warm-up loop
+    pairing_ms = check_pairing(dev)
+    topo_s = check_topo_steps(dev)
+    p3_launches, p3_img_s = check_topo_trainer(fc, dev)
 
     # L. the library calls beside the kernels, for their times only
     lib_conv = library_conv_ms(shapes + tu_shapes, dev)
@@ -2571,7 +2985,9 @@ def main(cltr_profile=False, cltr_two_batches_only=False,
             "multitask_unet": mt_eval["fused_conv3x3_bn_relu"],
             "attention_unet": att_eval["fused_conv3x3_bn_relu"],
             "multitask_unet_after_training":
-                m5_eval["fused_conv3x3_bn_relu"]},
+                m5_eval["fused_conv3x3_bn_relu"],
+            # the topo loop's validation in its 5 warm-up epochs (P3)
+            "topo_wup_trainer": p3_launches},
         # by route (wgmma, mma.sync, reg) in each eval forward
         "launches_by_route": {
             "unet": unet_routes, "transunet": tu_routes,
@@ -2706,10 +3122,13 @@ def main(cltr_profile=False, cltr_two_batches_only=False,
         # elements that differ from the plain hash
         "max_abs_err": max(r[0] for r in mres.values()),
         "ms": mres[mask_shape][1],
+        "back_to_back_ms": mres[mask_shape][3],
         "plain_ms": mres[mask_shape][2],
-        # one byte written per element
-        "bound_ms": float(np.prod(mask_shape)) / PEAK_BYTES * 1e3,
-        "bound_by": "bytes",
+        # the larger of its bytes written and its loop's instructions (from
+        # this build's SASS) at the card's issue rate
+        "bound_ms": mres[mask_shape][4],
+        "bound_by": mres[mask_shape][5],
+        "instructions_per_element": mres[mask_shape][6],
         "library_ms": None,
     }, {
         "name": "minplus",
@@ -2801,7 +3220,18 @@ def main(cltr_profile=False, cltr_two_batches_only=False,
         "cltr_img_s": CLTR_BATCH / cltr_step_s,
         "cltr_scipy_matcher_img_s": CLTR_BATCH / cltr_scipy_s,
         "cltr_peak_gib": cltr_peak / 2**30,
-        "cltr_infer_patches_s": 9 / cltr_infer_s},
+        "cltr_infer_patches_s": 9 / cltr_infer_s,
+        # P2-P3: configs/topo_wup.yml's binary UNet-64
+        "topo_warm_up_img_s": BATCH / topo_s["warm"],
+        "topo_serial_img_s": {n: BATCH / topo_s[n]
+                              for n in ("TopoLoss", "TopoCount")},
+        "topo_serial_split_ms": {
+            n: {k: v * 1e3 for k, v in topo_s[f"{n}_split"].items()}
+            for n in ("TopoLoss", "TopoCount")},
+        "topo_pipeline_img_s": {n: BATCH / topo_s[f"{n}_pipeline"]
+                                for n in ("TopoLoss", "TopoCount")},
+        "topo_trainer_pipelined_img_s": p3_img_s,
+        "native_pairing_ms": pairing_ms},
         "peaks": {"card": "NVIDIA H100 SXM data sheet",
                   "bf16_flops": PEAK_BF16, "f32_flops": PEAK_F32,
                   "f32_add_min_ops": PEAK_F32_NO_FMA,
@@ -2833,6 +3263,10 @@ if __name__ == "__main__":
         help="build, then only the UNet-64 eval forward (phase 4) with "
              "torch.profiler, its convs on wgmma and on mma.sync in turns: "
              "device time by kernel, idle share, the fused conv's share")
+    parser.add_argument(
+        "--topo", action="store_true",
+        help="build, then only the mask probe (T1) and the topo phases "
+             "(P1-P3)")
     cli = parser.parse_args()
     main(cli.cltr_profile, cli.cltr_two_batches, cli.attention_ab,
-         cli.unet_profile)
+         cli.unet_profile, cli.topo)

@@ -1,7 +1,8 @@
 """The port's own copies of the framework-free modules (cli/config.py, data/*,
-eval/matching.py, eval/peaks.py and the report accumulators in
-eval/results.py) against their originals in the JAX package: on the same
-seeded numpy inputs both give equal values, not close ones."""
+eval/matching.py, eval/peaks.py, the report accumulators in
+eval/results.py, and the native pairing native/ph0.*) against their
+originals in the JAX package: on the same seeded numpy inputs both give
+equal values, not close ones."""
 
 import dataclasses
 import glob
@@ -413,3 +414,42 @@ _RESULTS_FN_CASES = {
 def test_results_functions_equal_original(case, dataset):
     _both(_pair("eval.reports", "eval.results"),
           lambda m: _RESULTS_FN_CASES[case](m, dataset))
+
+
+# ------------------------------------------------------------- native/ph0
+
+def test_native_source_is_the_original():
+    port = os.path.join(ROOT, "unet_torch_tpu_torch", "native", "ph0.cpp")
+    original = os.path.join(ROOT, "unet_torch_tpu", "native", "ph0.cpp")
+    assert open(port, "rb").read() == open(original, "rb").read()
+
+
+def _ph0_inputs():
+    """tests/test_native.py's cases: a random map, three blobs, a mask of
+    three components; and a larger map with a plateau of ties."""
+    rng = np.random.RandomState(0)
+    yy, xx = np.mgrid[:32, :32]
+    blobs = np.zeros((32, 32), np.float32)
+    for cy, cx in [(8, 8), (24, 24), (8, 24)]:
+        blobs += np.exp(-((yy - cy) ** 2 + (xx - cx) ** 2) / 8.0)
+    mask = np.zeros((16, 16), np.uint8)
+    mask[2:5, 2:5] = 1
+    mask[10:12, 10:12] = 1
+    mask[0, 15] = 1
+    ties = np.random.RandomState(1).rand(96, 96).astype(np.float32)
+    ties[10:30, 40:60] = 0.5
+    return (rng.rand(24, 24).astype(np.float32), np.clip(blobs, 0, 1),
+            mask, ties)
+
+
+@pytest.mark.parametrize("case", ["random", "blobs", "ties"])
+@pytest.mark.parametrize("bars", [16, 64])
+def test_native_ph0_equals_original(case, bars):
+    img = dict(zip(("random", "blobs", "ties"),
+                   np.array(_ph0_inputs(), dtype=object)[[0, 1, 3]]))[case]
+    _both(_pair("native.ph0"), lambda m: list(m.superlevel_ph0(img, bars)))
+
+
+def test_native_count_components_equals_original():
+    mask = _ph0_inputs()[2]
+    assert _both(_pair("native.ph0"), lambda m: m.count_components(mask)) == 3

@@ -75,6 +75,24 @@ loaded = sorted(m for m in sys.modules if m.split(".")[0] in (
 assert not loaded, loaded
 """
 
+# the topo slice: the losses, the native pairing (built and called), the
+# steps and the warm-up loop's names, and the counting metric
+_TOPO_MODULES = r"""
+import sys
+import numpy as np
+from unet_torch_tpu_torch.eval.metrics import mr_accuracy
+from unet_torch_tpu_torch.losses import TOPO_LOSSES, topo
+from unet_torch_tpu_torch.native import build, ph0
+from unet_torch_tpu_torch.train.steps import make_topo_steps
+from unet_torch_tpu_torch.train.trainer import TOPO_LOSS_NAMES
+births, deaths, n = ph0.superlevel_ph0(
+    np.random.RandomState(0).rand(16, 16), 8)
+assert n == 8 and len(TOPO_LOSS_NAMES) == 9
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in (
+    "jax", "jaxlib", "flax", "optax", "unet_torch_tpu"))
+assert not loaded, loaded
+"""
+
 _GREP = ("import unet_torch_tpu ", "import unet_torch_tpu.",
          "from unet_torch_tpu ", "from unet_torch_tpu.")
 
@@ -89,7 +107,7 @@ def _run(code):
 
 def test_port_imports_no_jax():
     # every module of the slice was imported
-    assert int(_run(_CHECK).split()[-1]) >= 56
+    assert int(_run(_CHECK).split()[-1]) >= 59
 
 
 def test_main_path_imports_no_jax_package():
@@ -98,6 +116,10 @@ def test_main_path_imports_no_jax_package():
 
 def test_data_modules_import_no_jax():
     _run(_DATA_MODULES)
+
+
+def test_topo_modules_import_no_jax():
+    _run(_TOPO_MODULES)
 
 
 def test_no_source_line_imports_the_jax_package():

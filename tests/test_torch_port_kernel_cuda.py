@@ -2,8 +2,9 @@
 register routes, flash attention forward in
 its eval and train calls and flash attention backward on their wgmma,
 mma.sync and f32 routes, dropout keep-mask probe, min-plus product, auction,
-packed attention probe) against their plain PyTorch versions, on a CUDA card. Skips without one: the
-kernels have no CPU mode.
+packed attention probe) against their plain PyTorch versions, on a CUDA card;
+and the topo losses' host pairing of a likelihood made on the card. Skips
+without one: the kernels have no CPU mode.
 
 This file imports no JAX, so that it runs where only the port is installed:
 
@@ -289,6 +290,12 @@ def _needs_card():
 # row * nk_p that passes 2**32 (uint32 wraparound) from row 4096 on
 MASK_SHAPES = [(6, 64, 1024, None, 0.1), (12, 100, 77, None, 0.3),
                (1, 4200, 8, 1 << 20, 0.5)]
+
+
+# the grid of the kernel's paths: 128-bit stores (Nk % 16 == 0) and byte
+# stores with a ragged tail, one row and many, one bh and many
+MASK_SHAPES += [(n_bh, nq, nk, None, 0.1) for n_bh in (1, 96)
+                for nq in (1, 100) for nk in (16, 77, 1024, 2000)]
 
 
 @pytest.mark.cuda
@@ -792,3 +799,60 @@ def test_wgmma_backward_with_a_very_negative_lse_on_card(widths):
                            * v.float().abs().max().item()
                            * k.float().abs().max().item())
             assert err <= 2 ** -6 * peak, (name, rate, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bars,window", [(64, None), (8, 16)])
+def test_native_pairing_of_a_card_likelihood_equals_numpy(bars, window):
+    """The host pairing (native/ph0.cpp) of the likelihood a UNet forward
+    produced on the card, the whole map or its windows, equal to the numpy
+    oracle's."""
+    _needs_card()
+    from unet_torch_tpu_torch.losses import topo
+    from unet_torch_tpu_torch.models.unet import build_model
+    from unet_torch_tpu_torch.native import ph0
+
+    model = build_model("single", n_channels=3, n_classes=1, base=8,
+                        generator=torch.Generator().manual_seed(0))
+    x = torch.from_numpy(np.random.RandomState(0).randn(2, 64, 64, 3)
+                         .astype(np.float32))
+    with torch.no_grad():
+        lik = torch.sigmoid(model.cuda().eval()(x.cuda()))[..., 0].cpu()
+    for m in lik.numpy():
+        crops = [m] if window is None else [
+            np.ascontiguousarray(m[i:i + window, j:j + window])
+            for i in range(0, 64, window) for j in range(0, 64, window)]
+        for crop in crops:
+            for a, b in zip(ph0.superlevel_ph0(crop, bars),
+                            topo._superlevel_ph0_np(crop, bars)):
+                np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("key", ["TopoLoss", "TopoCount"])
+def test_topo_losses_on_card_match_cpu(key):
+    """The single-call losses on CUDA logits (the pairing on the host, the
+    gather on the card) against the same call on the CPU. The logits are
+    spread 0.0078 apart (a jittered permutation of a grid), so the two
+    devices' sigmoids order the pixels alike and pair alike; the losses
+    and gradients then agree to f32 rounding."""
+    _needs_card()
+    from unet_torch_tpu_torch.losses import calc_loss
+
+    rng = np.random.RandomState(1)
+    grid = np.linspace(-4.0, 4.0, 2 * 32 * 32)
+    logits = torch.from_numpy(
+        (rng.permutation(grid) + rng.uniform(0, 1e-3, grid.size))
+        .reshape(2, 32, 32, 1).astype(np.float32))
+    target = torch.from_numpy((rng.rand(2, 32, 32) > 0.97)
+                              .astype(np.float32))
+    results = []
+    for dev in ("cpu", "cuda"):
+        p = logits.detach().to(dev).requires_grad_()
+        loss = calc_loss(p, target.to(dev), loss_type=key, num_classes=1)
+        loss.backward()
+        results.append((loss.item(), p.grad.cpu().numpy()))
+    assert results[0][0] > 0
+    np.testing.assert_allclose(results[1][0], results[0][0], rtol=1e-5)
+    np.testing.assert_allclose(results[1][1], results[0][1], rtol=1e-5,
+                               atol=1e-6)

@@ -1,7 +1,7 @@
 """The port's losses (unet_torch_tpu_torch/losses) against the JAX package's,
 on seeded numpy NHWC logits and labels: values, gradients with respect to the
-logits, and the `calc_loss` dispatch: its keys, the not-ported keys and
-unknown keys."""
+logits, and the `calc_loss` dispatch: its keys, the topo keys and unknown
+keys."""
 
 import numpy as np
 import pytest
@@ -220,23 +220,47 @@ def test_class_number_is_the_default_num_classes():
 
 
 def test_calc_loss_carries_every_jax_key_but_the_topo_ones():
+    """Since the topo slice the port carries every key, the topo ones too,
+    and the same set of topo names."""
     from unet_torch_tpu.losses import _DISPATCH as jax_dispatch
     from unet_torch_tpu.losses import TOPO_LOSSES
     from unet_torch_tpu_torch.losses import _DISPATCH as port_dispatch
+    from unet_torch_tpu_torch.losses import TOPO_LOSSES as PORT_TOPO_LOSSES
 
-    assert set(port_dispatch) == set(jax_dispatch) - TOPO_LOSSES
+    assert set(port_dispatch) == set(jax_dispatch)
+    assert PORT_TOPO_LOSSES == TOPO_LOSSES
 
 
-@pytest.mark.parametrize("key,item", [("TopoLoss", "queue 1 item 12"),
-                                      ("MyTopoLossVR", "queue 1 item 12"),
-                                      ("myTopoLoss", "queue 1 item 12"),
-                                      ("TopoCount", "queue 1 item 12")])
-def test_calc_loss_names_the_roadmap_item_of_unported_keys(key, item):
-    logits, labels = (torch.from_numpy(a) for a in _inputs(3))
-    with pytest.raises(NotImplementedError, match=item):
-        calc_loss(logits, labels, loss_type=key, num_classes=3)
-    with pytest.raises(NotImplementedError, match=item):
-        get_loss_fn(key, 3)
+@pytest.mark.parametrize("key", ["TopoLoss", "MyTopoLossVR", "myTopoLoss",
+                                 "TopoCount"])
+def test_calc_loss_names_the_roadmap_item_of_unported_keys(key):
+    """The keys that raised until the topo slice (ROADMAP queue 1 item 12)
+    now run: the loss and its gradient as JAX's, on binary-head logits (the
+    seed's two likelihoods pair alike in both frameworks). `myTopoLoss` is
+    a name of the reference trainer's loop, not of calc_loss: a KeyError in
+    both."""
+    logits = _inputs(1, seed=4)[0]
+    target = (_inputs(3, seed=4)[1] > 0).astype(np.float32)
+    if key == "myTopoLoss":
+        with pytest.raises(KeyError):
+            jax_calc_loss(jnp.asarray(logits), jnp.asarray(target),
+                          loss_type=key, num_classes=1)
+        with pytest.raises(KeyError):
+            calc_loss(torch.from_numpy(logits), torch.from_numpy(target),
+                      loss_type=key, num_classes=1)
+        with pytest.raises(KeyError):
+            get_loss_fn(key, 1)
+        return
+    ref, ref_grad = jax.value_and_grad(lambda p: jax_calc_loss(
+        p, jnp.asarray(target), loss_type=key, num_classes=1))(
+            jnp.asarray(logits))
+    p = torch.from_numpy(logits).requires_grad_()
+    ours = get_loss_fn(key, 1)(p, torch.from_numpy(target))
+    ours.backward()
+    assert float(ref) > 0
+    np.testing.assert_allclose(ours.item(), float(ref), **TOL)
+    np.testing.assert_allclose(p.grad.numpy(), np.asarray(ref_grad),
+                               atol=1e-5, rtol=1e-5)
 
 
 def test_calc_loss_raises_on_unknown_key():

@@ -186,17 +186,35 @@ def test_train_cli_without_matplotlib(dataset_root, tmp_path, monkeypatch):
     ({"model_type": "TransUnet", "random_crop": True}, "queue 1 item 10"),
     ({"model_type": "TransUnet", "pretrained_npz": "vit.npz"},
      "queue 1 item 10"),
-    ({"loss": "TopoLoss"}, "queue 1 item 12"),
 ])
 def test_train_cli_names_what_is_not_ported(dataset_root, tmp_path,
                                             small_transunet, change, match):
     raw = _cfg(dataset_root, tmp_path / "run", epochs=1, test=False)
     for key, value in change.items():
-        section = {"random_crop": "dataset_config",
-                   "loss": "train_config"}.get(key, "model_config")
+        section = {"random_crop": "dataset_config"}.get(key, "model_config")
         raw[section][key] = value
     with pytest.raises(NotImplementedError, match=match):
         train_cli.run_training(Config.from_dict(raw), device="cpu")
+
+
+@pytest.mark.usefixtures("few_threads")
+def test_train_cli_trains_under_the_topo_loss(dataset_root, tmp_path):
+    """The case that named queue 1 item 12 until the topo slice: `TopoLoss`
+    on the binary head now reads the dot maps and trains in the warm-up
+    loop, through `python -m unet_torch_tpu_torch.cli.train_cli cfg.yml
+    --device cpu` (one epoch: the dice_bce phase;
+    tests/test_torch_port_topo_train.py runs all seven), its MRA score
+    logged and the last epoch's checkpoint saved."""
+    raw = _cfg(dataset_root, tmp_path / "run", epochs=1, test=False)
+    raw["model_config"]["num_class"] = 1
+    raw["train_config"]["loss"] = "TopoLoss"
+    path = tmp_path / "cfg.yml"
+    path.write_text(yaml.safe_dump(raw))
+    train_cli.main([str(path), "--device", "cpu"])
+    seed_dir = tmp_path / "run" / "run_seed7"
+    log = (seed_dir / "logs.txt").read_text()
+    assert "Val score on epoch 1:" in log
+    assert (seed_dir / "models" / "last_epoch.pt").exists()
 
 
 def _family_cfg(root, save_dir, model_type, num_class, loss, accuracy=None,

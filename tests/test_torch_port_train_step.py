@@ -515,8 +515,11 @@ def test_multitask_steps_reject_an_unknown_combine_and_warn_on_fused_head():
         make_multitask_steps("mse", 1, combine="product")
     with pytest.warns(UserWarning, match="fused_head"):
         make_multitask_steps("mse", 1, fused_head=True)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        make_multitask_steps("TopoLoss", 1)
+    # the topo keys run in every step factory, as in JAX; a trainer loop
+    # name that is no calc_loss key raises KeyError
+    make_multitask_steps("TopoLoss", 1)
+    with pytest.raises(KeyError):
+        make_multitask_steps("TopoLoss2", 1)
 
 
 @pytest.mark.usefixtures("few_threads")

@@ -10,9 +10,11 @@ sweep axis (train.py:182-183). Beside the reference's keys:
   train_config.precision:  'f32' (default) | 'bf16'
   train_config.mesh:       {data: N, model: M}, read by the JAX package
 
-`remat`, `fold`, `fused_head` and `topo_pair_downsample` are options of the
-JAX package, parsed here with its defaults; the port warns and ignores them
+`remat`, `fold` and `fused_head` are options of the JAX package, parsed here
+with its defaults; the port warns and ignores them
 (models/unet.py::ignore_tpu_options, train/steps.py).
+`topo_pair_downsample` is the topo loop's pooling of the map it pairs
+(train/steps.py::make_topo_steps).
 """
 
 from __future__ import annotations
@@ -66,7 +68,7 @@ class TrainConfig:
     seeds: Sequence[int] = (0,)
     use_cuda: bool = True  # accepted for compatibility; --device decides
     precision: str = "f32"
-    # option of the JAX package's topo loop (pairing on a max-pooled map)
+    # the topo loop's pairing on a max-pooled map
     topo_pair_downsample: int = 1
     mesh: dict = dataclasses.field(default_factory=dict)
     # multi-process mode of the JAX package

@@ -13,6 +13,7 @@ best model, pruning of the epoch checkpoints and the cross-seed
   model_type                dataset         loop                 post-train test
   single, attention         DataBinary      single_train         test_single (num_class <= 2) or test_single_mc
   TransUnet                 DataBinary      single_train         as single
+  (those three under a topo loss: DataBinary with dot maps, single_train_wup)
   regression                DataReg         single_train (ReLU)  test_single_reg
   multi_task                DataRegBinary   two-head loop        none
   multi_task_reg            DataRegMT       two-head loop        test_multiple_reg
@@ -31,9 +32,14 @@ matplotlib. Where it cannot be imported, the run trains and saves its
 checkpoints all the same, draws no curves and skips the post-train test with
 a warning naming the eval CLI command that runs it later.
 
+Under a topological loss (`TOPO_LOSS_NAMES`) the single-head types read
+their dot maps too (`DataBinary(return_gt_dot=True)`) and train in the
+warm-up loop (`single_train_wup`, pairing on a max-pooled map with
+`train_config.topo_pair_downsample`).
+
 Datasets and loaders are the port's numpy ones (data/). The other model
-types, the topological losses, `random_crop` and `pretrained_npz` raise
-NotImplementedError naming their ROADMAP.md item.
+types, `random_crop` and `pretrained_npz` raise NotImplementedError naming
+their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -69,7 +75,7 @@ from unet_torch_tpu_torch.models.cltr.model import build_cltr
 from unet_torch_tpu_torch.models.transunet.vit import build_transunet
 from unet_torch_tpu_torch.models.unet import build_model
 from unet_torch_tpu_torch.train.cltr_loop import cltr_collate
-from unet_torch_tpu_torch.train.trainer import Trainer
+from unet_torch_tpu_torch.train.trainer import TOPO_LOSS_NAMES, Trainer
 
 # the JAX CLI loads Google's ViT weights from here when the file exists
 _DEFAULT_NPZ = "TransUnet/R50+ViT-B_16.npz"
@@ -109,9 +115,11 @@ def build_datasets_and_model(cfg: Config, seed: int, generator=None):
     if mt in ("single", "attention", "TransUnet"):
         if mt == "TransUnet" and d.random_crop:
             not_ported.check(not_ported.TRAIN_OPTIONS, "option", "random_crop")
+        needs_dot = cfg.train.loss in TOPO_LOSS_NAMES
         train_ds = DataBinary(list(d.train_path), augmentation=d.augmentation,
-                              **common)
-        val_ds = DataBinary(list(d.val_path), augmentation=False, **common)
+                              return_gt_dot=needs_dot, **common)
+        val_ds = DataBinary(list(d.val_path), augmentation=False,
+                            return_gt_dot=needs_dot, **common)
     elif mt == "regression":
         train_ds = DataReg(list(d.train_path), augmentation=d.augmentation,
                            photometric=d.photometric, **common)
@@ -208,7 +216,8 @@ def run_training(cfg: Config, device="cuda"):
             num_classes=cfg.model.num_class,
             lr_scheduler=cfg.train.adaptive_lr,
             start_epoch=cfg.resume.epoch if cfg.resume.flag else 1,
-            seed=seed, fused_head=cfg.model.fused_head, device=dev,
+            seed=seed, fused_head=cfg.model.fused_head,
+            topo_pair_downsample=cfg.train.topo_pair_downsample, device=dev,
             dtype=dtype, plot=plot)
         if is_cltr:
             cltr_args = cfg.raw.get("cltr_config", {})

@@ -13,9 +13,8 @@ MODEL_TYPES = {
     "multitask_em": "queue 1 item 10",
 }
 
-LOSSES = {name: "queue 1 item 12" for name in (
-    "TopoLoss", "MyTopoLoss1", "MyTopoLoss2", "MyTopoLossGraph",
-    "MyTopoLossVR", "TopoCount", "TopoCount2", "TopoLoss2", "myTopoLoss")}
+# every loss name of the JAX package runs (the topo ones since queue 1 item 12)
+LOSSES: dict = {}
 
 # training options of the JAX CLI and trainer
 TRAIN_OPTIONS = {

@@ -428,6 +428,9 @@ def dropout_keep_mask(n_bh: int, nq: int, nk: int, seed: int, rate: float,
         raise ValueError(f"bad mask shape ({n_bh}, {nq}, {nk})")
     if n_bh >= 2**31 or nq >= 2**31 or nk >= 2**31:
         raise ValueError("each mask dimension must fit a 32-bit int")
+    if nq * -(-nk // 16) >= 2**31:
+        raise ValueError(f"Nq * ceil(Nk / 16) must be below 2**31, got "
+                         f"({nq}, {nk})")
     out = torch.empty((n_bh, nq, nk), dtype=torch.uint8, device=device)
     lib = _mask_library()
     with torch.cuda.device(device):

@@ -1,12 +1,13 @@
 """Loss dispatch by the reference's config strings (counterpart of
 unet_torch_tpu/losses/__init__.py::calc_loss).
 
-The port carries every key of the JAX dispatch except the topological names
-(`TopoLoss`, `MyTopoLoss*`, `TopoCount`), which raise NotImplementedError
-naming their ROADMAP.md item (core/not_ported.py); an unknown key raises
-KeyError, as in the JAX package. `CLASS_NUMBER` / `set_class_number` are the
-reference-compatible module global that `calc_loss` falls back on when no
-`num_classes` is passed.
+The port carries every key of the JAX dispatch, the topological names
+(`TopoLoss`, `MyTopoLoss*` on the global loss, `TopoCount` on the localized
+one; losses/topo.py) included; an unknown key raises KeyError, as in the JAX
+package, and so do the trainer's loop names that are no loss
+(`myTopoLoss`, `TopoCount2`, `TopoLoss2`). `CLASS_NUMBER` /
+`set_class_number` are the reference-compatible module global that
+`calc_loss` falls back on when no `num_classes` is passed.
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ from unet_torch_tpu_torch.losses.functional import (
     softmax_cross_entropy,
     topk_bce_loss,
 )
+from unet_torch_tpu_torch.losses.topo import topo_loss, topocount_loss
 
 # reference-compatible module global (the reference's train.py writes it)
 CLASS_NUMBER: int = 2
@@ -65,7 +67,20 @@ _DISPATCH = {
     "ActiveContourLoss": lambda p, t, w, n: active_contour_loss(p, t),
     "Tversky": lambda p, t, w, n: focal_tversky_loss(p, t, alpha=0.4,
                                                      beta=0.6),
+    # the global (Hu-style) persistence matching against a binary mask
+    "TopoLoss": lambda p, t, w, n: topo_loss(p, t),
+    "MyTopoLoss1": lambda p, t, w, n: topo_loss(p, t),
+    "MyTopoLoss2": lambda p, t, w, n: topo_loss(p, t),
+    "MyTopoLossGraph": lambda p, t, w, n: topo_loss(p, t),
+    "MyTopoLossVR": lambda p, t, w, n: topo_loss(p, t),
+    # the localized (Abousamra-style) per-window constraint against a dot map
+    "TopoCount": lambda p, t, w, n: topocount_loss(p, t),
 }
+
+# the reference trainer's topo names (its warm-up loop's dispatch adds
+# TopoCount2 and TopoLoss2; train/trainer.py::TOPO_LOSS_NAMES)
+TOPO_LOSSES = {"TopoLoss", "MyTopoLoss1", "MyTopoLoss2", "MyTopoLossGraph",
+               "MyTopoLossVR", "TopoCount", "myTopoLoss"}
 
 
 def _check_key(loss_type: str) -> None:

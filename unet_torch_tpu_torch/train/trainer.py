@@ -25,9 +25,13 @@ The batches reach the device by non_blocking copies from pinned memory, and
 the step's losses stay on the device: the loop reads them once per epoch.
 Dropout draws from a generator on the device, seeded from `seed`.
 
-`CLTR` runs train/cltr_loop.py::cltr_train_loop on this trainer. The
-topological losses' loop raises NotImplementedError naming its ROADMAP.md
-item.
+The single-head model types under a topological loss name
+(`TOPO_LOSS_NAMES`) run `single_train_wup`, the warm-up loop: `dice_bce`
+through epoch 5, then the topo loss against (labels, dot map) through
+`TopoPipeline`, validation scored by the mean relative count error
+(`mr_accuracy`) and a best model only after epoch 10.
+
+`CLTR` runs train/cltr_loop.py::cltr_train_loop on this trainer.
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ import torch
 
 from unet_torch_tpu_torch import ckpt
 from unet_torch_tpu_torch.core import not_ported
+from unet_torch_tpu_torch.losses import TOPO_LOSSES
 from unet_torch_tpu_torch.train.optim import (
     ReduceLROnPlateau,
     make_optimizer,
@@ -48,7 +53,12 @@ from unet_torch_tpu_torch.train.optim import (
 from unet_torch_tpu_torch.train.steps import (
     make_multitask_steps,
     make_single_steps,
+    make_topo_steps,
 )
+
+# the reference trainer's warm-up dispatch names (a superset of the calc_loss
+# keys)
+TOPO_LOSS_NAMES = TOPO_LOSSES | {"TopoCount2", "TopoLoss2"}
 
 _SINGLE_TYPES = ("single", "TransUnet", "regression", "attention")
 _MULTITASK_TYPES = ("multi_task", "multi_task_reg")
@@ -65,8 +75,8 @@ class Trainer:
                  batch_size, optimizer_name, lr_rate, weight_decay, patience,
                  num_epochs, loss_function, accuracy_metric, num_classes,
                  lr_scheduler=None, start_epoch=1, seed=0, relu_output=None,
-                 fused_head=False, device="cuda", dtype=torch.float32,
-                 plot=False):
+                 fused_head=False, topo_pair_downsample=1, device="cuda",
+                 dtype=torch.float32, plot=False):
         self.model = model.to(device)
         self.model_type = model_type
         self.output_save_dir = output_save_dir
@@ -90,6 +100,7 @@ class Trainer:
             relu_output = model_type == "regression"
         self.relu_output = relu_output
         self.fused_head = fused_head
+        self.topo_pair_downsample = topo_pair_downsample
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
 
         self.iter_num = 0
@@ -201,6 +212,8 @@ class Trainer:
         not_ported.check(_LOOPS_NOT_PORTED, "training loop for",
                          self.model_type)
         if self.model_type in _SINGLE_TYPES:
+            if self.loss_function in TOPO_LOSS_NAMES:
+                return self.single_train_wup()
             return self.single_train()
         if self.model_type == "CLTR":
             from unet_torch_tpu_torch.train.cltr_loop import cltr_train_loop
@@ -279,6 +292,80 @@ class Trainer:
         else:
             self._log(f"Best val loss: {self.best_loss:4f}",
                       f"Best val score: {self.best_val_score:4f}")
+        self.plot_loss_functions("total")
+        self._restore_best()
+        return self
+
+    def single_train_wup(self):
+        """The topo warm-up loop: epochs <= 5 train `dice_bce`, later ones
+        the topo loss through a fresh `TopoPipeline` each epoch, drained at
+        its end; batches are (x, labels, dot map). Validation: the loss of
+        the phase's eval step and `mr_accuracy` of its output. The best
+        model is saved only after epoch 10, on a lower val loss."""
+        from unet_torch_tpu_torch.eval.metrics import mr_accuracy
+
+        model = self.model
+        opt = make_optimizer(self.optimizer_name, model.parameters(),
+                             self.base_lr, self.weight_decay)
+        (warm_step, warm_eval), (_, topo_eval), TopoPipeline = \
+            make_topo_steps(self.loss_function, self.num_classes,
+                            relu_output=self.relu_output,
+                            fused_head=self.fused_head,
+                            pair_downsample=self.topo_pair_downsample)
+
+        for epoch in range(self.start_epoch, self.num_epochs + 1):
+            self._log(f"Epoch {epoch}/{self.num_epochs}", "-" * 10)
+            since = time.time()
+            topo_phase = epoch > 5
+            pipe = TopoPipeline() if topo_phase else None
+            step = pipe.step if topo_phase else warm_step
+            eval_step = topo_eval if topo_phase else warm_eval
+
+            self._log(f"LR {self._current_lr()}")
+            losses = []
+            for batch in self.dataloader["train"]:
+                x, y, gt_dot = self._to_device(*batch)
+                loss = step(model, opt, x, y, gt_dot, self._current_lr(),
+                            self.generator)
+                self.iter_num += 1
+                if loss is not None:
+                    losses.append(loss)
+            if pipe is not None:
+                losses.extend(pipe.flush(model, opt, self.generator))
+            epoch_loss = _mean(losses)
+            time_elapsed = time.time() - since
+            self.train_loss_list.append(epoch_loss)
+            self._log(f"Train loss on epoch {epoch}: {epoch_loss}",
+                      "Training Time for this epoch: {:.0f}m {:.0f}s".format(
+                          time_elapsed // 60, time_elapsed % 60))
+            ckpt.save_weights(os.path.join(self.save_dir_model,
+                                           "last_epoch.pt"), model)
+
+            vlosses, vscores = [], []
+            for batch in self.dataloader["val"]:
+                x, y, gt_dot = self._to_device(*batch)
+                loss, out = eval_step(model, x, y, gt_dot)
+                vlosses.append(loss)
+                vscores.append(mr_accuracy(out.float().cpu().numpy(),
+                                           np.asarray(batch[2])))
+            val_loss = _mean(vlosses)
+            val_score = float(np.mean(vscores)) if vscores else 0.0
+            self.val_loss_list.append(val_loss)
+            self.val_score_list.append(val_score)
+            self._log(f"Val loss on epoch {epoch}: {val_loss}",
+                      f"Val score on epoch {epoch}: {val_score}")
+
+            if val_loss < self.best_loss and epoch > 10:
+                self.early_stop_counter = 0
+                self.best_val_score = val_score
+                self.best_loss = val_loss
+                self._log("saving best model")
+                self._save_best(epoch)
+            else:
+                self.early_stop_counter += 1
+            if self.early_stop_counter > self.patience:
+                self._log("Early stopping")
+                break
         self.plot_loss_functions("total")
         self._restore_best()
         return self
