@@ -78,6 +78,30 @@ Builds the Hopper kernels from unet_torch_tpu_torch/csrc, then:
                 8 on seeded synthetic batches, its checkpoints in a temporary
                 directory; best.pt reloads strictly into a fresh model whose
                 eval forward runs the two eval kernels
+ V1. regression TransUnet regression_t (one class) train step through
+     _t         make_single_steps(relu_output=True), bf16, batch 8 at
+                512x512, mse on seeded density maps, SGD (lr 0.01,
+                momentum 0.9, weight decay 1e-4), poly LR, as
+                configs/transunet.yml trains: 12 + 12 attention launches a
+                step, the loss finite and falling, img/s, peak memory; then
+                its eval forward (12 attention, 9 fused conv: 8 wgmma, 1
+                mma.sync), img/s
+ V2. multi_task the two-head TransUnet (VisionTransformerMultitask, one class
+     _regTU     a head) under multi_task_loss (uncertainty combine, the
+                loop's Adam 5e-4), as for M4: 12 + 12 attention launches a
+                step, log_vars moving, the loss finite and falling, img/s,
+                peak memory; its eval forward (12 attention, 18 fused conv:
+                2 x (8 wgmma + 1 mma.sync)), img/s
+ V3. multitask  the six-head TransUnet's eval forward (12 attention, 54
+     _em        fused conv), img/s; one 512x512 image in f32, card against
+                CPU, each head within phase 9's bound
+ V4. trainer    a seeded checkpoint of Google's ViT layout at full width
+                (position embeddings of a 14 x 14 grid and a class token)
+                through the train CLI's .npz loader into a fresh
+                multi_task_regTU model (re-gridded to 32 x 32), then
+                Trainer.train() under multi_task_loss, 2 epochs of 2 steps;
+                best.pt (with log_vars) reloads strictly and is served as
+                test_multiple_reg serves it (12 attention, 18 fused conv)
  M1. min-plus   the min-plus kernel against its plain version, bit for bit,
                 at the Hausdorff-DT loss's shapes (32, 512, 512) x (512, 512)
                 in both broadcast directions, at a ragged (3, 100, 77) x
@@ -566,24 +590,25 @@ def seeded_unet(gen):
                                      generator=gen), gen)
 
 
-def seeded_transunet(gen, size=None):
-    """TransUnet R50-ViT-B/16 at size x size (SIZE by default), 3 classes, as
-    configs/transunet.yml builds it, with seeded weights, BN statistics and
-    position embeddings.
-    The decoder's and head's convs are drawn kaiming-normal (gain sqrt 2):
-    torch's default conv init shrinks the variance 3x per conv, so after the
+def seeded_transunet(gen, size=None, model_type="TransUnet",
+                     num_classes=N_CLASSES):
+    """A TransUnet R50-ViT-B/16 of `model_type` at size x size (SIZE by
+    default), as configs/transunet.yml builds it, with seeded weights, BN
+    statistics and position embeddings.
+    The decoders' and heads' convs are drawn kaiming-normal (gain sqrt 2):
+    torch's default conv init shrinks the variance 3x per conv, so after a
     decoder's nine the BN shifts, not the image, would decide the logits."""
     from unet_torch_tpu_torch.models.transunet.vit import build_transunet
 
-    model = build_transunet("TransUnet", img_size=size or SIZE,
-                            num_classes=N_CLASSES, generator=gen)
+    model = build_transunet(model_type, img_size=size or SIZE,
+                            num_classes=num_classes, generator=gen)
     pos = model.transformer.embeddings.position_embeddings
     with torch.no_grad():
         pos.copy_(torch.randn(pos.shape, generator=gen) * 0.02)
-        for part in (model.decoder, model.segmentation_head):
-            for m in part.modules():
-                if isinstance(m, torch.nn.Conv2d):
-                    torch.nn.init.kaiming_normal_(m.weight, generator=gen)
+        for name, m in model.named_modules():
+            if (isinstance(m, torch.nn.Conv2d)
+                    and not name.startswith("transformer")):
+                torch.nn.init.kaiming_normal_(m.weight, generator=gen)
     return seed_bn_stats(model, gen)
 
 
@@ -1620,6 +1645,280 @@ def check_multitask_trainer(at, fc, dev, xs):
           f"log_vars {served.log_vars.tolist()}; best.pt reloaded strictly "
           f"with log_vars, its eval forward launched "
           f"{launches['fused_conv3x3_bn_relu']} fused conv kernels; "
+          f"{time.perf_counter() - start:.1f} s")
+    return launches
+
+
+def transunet_eval(at, fc, model, predict, xs, tag):
+    """V1-V4: one bf16 eval forward (`predict`) of a TransUnet `model`: an
+    attention launch a ViT layer and, each decoder, the nine fused convs by
+    route (conv_route: 8 wgmma, the 16-channel tail on mma.sync). Returns
+    (launches, launches by route, the forward's seconds)."""
+    n_decoders = sum(name.startswith("decoder")
+                     for name, _ in model.named_children())
+    shapes = n_decoders * transunet_conv_shapes(SIZE)
+    reset_counts(at, fc)
+    outs = predict(xs)
+    torch.cuda.synchronize()
+    launches = counts(at, fc)
+    routes = dict(fc.fused_conv3x3_bn_relu.launches_by_route)
+    want = dict.fromkeys(launches, 0)
+    want.update(fused_attention=len(model.transformer.encoder.layer),
+                fused_conv3x3_bn_relu=len(shapes))
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    if (launches != want or routes != route_counts(fc, shapes)
+            or len(outs) != n_decoders or not all(
+                o.shape[:3] == (BATCH, SIZE, SIZE) and torch.isfinite(o).all()
+                for o in outs)):
+        raise AssertionError(f"{tag} eval forward: launches {launches} "
+                             f"{routes}, expected {want} "
+                             f"{route_counts(fc, shapes)}; outputs "
+                             f"{[tuple(o.shape) for o in outs]}")
+    return launches, routes, forward_s(predict, xs)
+
+
+def transunet_train_steps(at, fc, dev, step, n_layers, tag):
+    """V1-V2: the first step's launches (n_layers train forward and n_layers
+    backward attention kernels, nothing else), then TRAIN_WARMUP - 1 +
+    TRAIN_STEPS more on the same batch. `step(it)` runs step `it` and
+    returns its losses as a tuple of 0-d device tensors, the combined loss
+    first. Returns (launches, step seconds, losses, peak bytes)."""
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts(at, fc)
+    times, losses = [], []
+    for it in range(TRAIN_WARMUP + TRAIN_STEPS):
+        t0 = time.perf_counter()
+        out = step(it)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append([t.item() for t in out])
+        if it == 0:
+            launches = counts(at, fc)
+            want = dict.fromkeys(launches, 0)
+            want.update(attention_train_forward=n_layers,
+                        attention_backward=n_layers)
+            if launches != want:
+                raise AssertionError(f"one {tag} train step launched "
+                                     f"{launches}, expected {want}")
+    if not falling([l[0] for l in losses]):
+        raise AssertionError(f"{tag} train loss not finite and falling: "
+                             f"{losses}")
+    return (launches, statistics.median(times[TRAIN_WARMUP:]), losses,
+            torch.cuda.max_memory_allocated(dev))
+
+
+def check_regression_t(at, fc, dev, xs):
+    """V1. Returns (a train step's launches, step seconds, peak bytes, eval
+    launches, their routes, eval seconds)."""
+    from unet_torch_tpu_torch.core.rng import seed_everything
+    from unet_torch_tpu_torch.eval.reports import make_predict_fn
+    from unet_torch_tpu_torch.train.optim import make_optimizer, poly_lr
+    from unet_torch_tpu_torch.train.steps import make_single_steps
+
+    model = seeded_transunet(seed_everything(SEED), model_type="regression_t",
+                             num_classes=1).to(dev)
+    n_layers = len(model.transformer.encoder.layer)
+    lr = 0.01
+    opt = make_optimizer("SGD", model.parameters(), lr, 1e-4)
+    train_step, _ = make_single_steps("mse", "mse", 1, relu_output=True)
+    xs_train, y, _ = density_batch(np.random.RandomState(SEED + 11), BATCH,
+                                   SIZE)
+    x = torch.from_numpy(xs_train).to(dev, torch.bfloat16)
+    y = torch.from_numpy(y).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    launches, step_s, losses, peak = transunet_train_steps(
+        at, fc, dev, lambda it: (train_step(model, opt, x, y,
+                                            poly_lr(lr, it, 1000), gen),),
+        n_layers, "regression_t")
+    phase("V1 regression_t",
+          f"TransUnet regression_t train step bf16 B={BATCH} {SIZE}x{SIZE} "
+          f"SGD mse, ReLU on the logit: launches per step {launches}; loss "
+          f"{losses[0][0]:.5f} -> {losses[-1][0]:.5f} over {len(losses)} "
+          f"steps on one batch; median {step_s * 1e3:.2f} ms = "
+          f"{BATCH / step_s:.1f} img/s; peak device memory "
+          f"{peak / 2**30:.2f} GiB")
+    predict = make_predict_fn(model, dev, torch.bfloat16)
+    ev, routes, fwd_s = transunet_eval(at, fc, model, predict, xs,
+                                       "regression_t")
+    phase("V1 regression_t",
+          f"its eval forward: {ev['fused_attention']} attention and "
+          f"{ev['fused_conv3x3_bn_relu']} fused conv launches {routes}, "
+          f"median {fwd_s * 1e3:.2f} ms = {BATCH / fwd_s:.1f} img/s")
+    return launches, step_s, peak, ev, routes, fwd_s
+
+
+def check_multitask_transunet(at, fc, dev, xs):
+    """V2. Returns (a train step's launches, step seconds, peak bytes, eval
+    launches, their routes, eval seconds)."""
+    from unet_torch_tpu_torch.core.rng import seed_everything
+    from unet_torch_tpu_torch.eval.reports import make_predict_fn
+    from unet_torch_tpu_torch.train.optim import make_optimizer, poly_lr
+    from unet_torch_tpu_torch.train.steps import make_multitask_steps
+
+    model = seeded_transunet(seed_everything(SEED),
+                             model_type="multi_task_regTU",
+                             num_classes=1).to(dev)
+    model.add_log_vars()
+    n_layers = len(model.transformer.encoder.layer)
+    # the uncertainty loop's fresh Adam, as Trainer.multi_task_uc_train
+    # sets it over configs/multitask_reg.yml's optimizer
+    lr = 5e-4
+    opt = make_optimizer("Adam", model.parameters(), lr, 0.0)
+    train_step, _ = make_multitask_steps("multi_task_loss", 1,
+                                         combine="uncertainty")
+    xs_train, y1, y2 = density_batch(np.random.RandomState(SEED + 12), BATCH,
+                                     SIZE)
+    x = torch.from_numpy(xs_train).to(dev, torch.bfloat16)
+    y1, y2 = (torch.from_numpy(a).to(dev) for a in (y1, y2))
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    flag = torch.tensor(False, device=dev)
+    launches, step_s, losses, peak = transunet_train_steps(
+        at, fc, dev, lambda it: train_step(model, opt, x, y1, y2,
+                                           poly_lr(lr, it, 1000), gen, flag),
+        n_layers, "multi_task_regTU")
+    log_vars = model.log_vars.detach().cpu().tolist()
+    if not all(abs(v) > 1e-4 for v in log_vars):
+        raise AssertionError(f"multi_task_regTU log_vars still: {log_vars}")
+    phase("V2 multi_task_regTU",
+          f"two-head TransUnet train step bf16 B={BATCH} {SIZE}x{SIZE} Adam "
+          f"5e-4 multi_task_loss (uncertainty): launches per step "
+          f"{launches}; loss {losses[0][0]:.5f} -> {losses[-1][0]:.5f} over "
+          f"{len(losses)} steps on one batch, head losses "
+          f"{losses[0][1]:.4f}, {losses[0][2]:.4f} -> {losses[-1][1]:.4f}, "
+          f"{losses[-1][2]:.4f}, log_vars {log_vars}; median "
+          f"{step_s * 1e3:.2f} ms = {BATCH / step_s:.1f} img/s; peak device "
+          f"memory {peak / 2**30:.2f} GiB")
+    predict = make_predict_fn(model, dev, torch.bfloat16)
+    ev, routes, fwd_s = transunet_eval(at, fc, model, predict, xs,
+                                       "multi_task_regTU")
+    phase("V2 multi_task_regTU",
+          f"its eval forward: {ev['fused_attention']} attention and "
+          f"{ev['fused_conv3x3_bn_relu']} fused conv launches (2 x 9) "
+          f"{routes}, median {fwd_s * 1e3:.2f} ms = {BATCH / fwd_s:.1f} "
+          "img/s")
+    return launches, step_s, peak, ev, routes, fwd_s
+
+
+def check_multitask_em(at, fc, dev, xs):
+    """V3. Returns (eval launches, their routes, eval seconds)."""
+    from unet_torch_tpu_torch.core.rng import seed_everything
+    from unet_torch_tpu_torch.eval.reports import make_predict_fn
+
+    model = seeded_transunet(seed_everything(SEED), model_type="multitask_em")
+    cpu_model = copy.deepcopy(model).eval()
+    predict = make_predict_fn(model, dev, torch.bfloat16)
+    ev, routes, fwd_s = transunet_eval(at, fc, model, predict, xs,
+                                       "multitask_em")
+    phase("V3 multitask_em",
+          f"six-head TransUnet eval forward bf16 B={BATCH} {SIZE}x{SIZE}: "
+          f"{ev['fused_attention']} attention and "
+          f"{ev['fused_conv3x3_bn_relu']} fused conv launches (6 x 9) "
+          f"{routes}, median {fwd_s * 1e3:.2f} ms = {BATCH / fwd_s:.1f} "
+          "img/s")
+    # one image in f32, card (kernels) against CPU (plain), each head held
+    # to phase 9's bound
+    start = time.perf_counter()
+    x1 = torch.from_numpy(xs[:1])
+    with torch.inference_mode():
+        gpu = [o.cpu() for o in model(x1.to(dev))]
+        cpu = cpu_model(x1)
+    errs = []
+    for i, (g, c) in enumerate(zip(gpu, cpu), start=1):
+        err = (g - c).abs().max().item()
+        bound = TRANSUNET_REL_TOL * c.abs().max().item()
+        if not (torch.isfinite(g).all() and g.shape == (1, SIZE, SIZE,
+                                                        N_CLASSES)
+                and err <= bound):
+            raise AssertionError(f"multitask_em head {i} card vs CPU: "
+                                 f"{tuple(g.shape)}, max_abs_err {err} "
+                                 f"(bound {bound})")
+        errs.append((err, bound))
+    phase("V3 multitask_em",
+          f"f32 {SIZE}x{SIZE} card vs CPU, each head's max_abs_err (bound): "
+          + ", ".join(f"{e:.3e} ({b:.3e})" for e, b in errs)
+          + f"; {time.perf_counter() - start:.1f} s")
+    return ev, routes, fwd_s
+
+
+def check_transunet_trainer(at, fc, dev, xs):
+    """V4: a seeded checkpoint of Google's layout at full width (a 14 x 14
+    grid and a class token: the loader re-grids to 32 x 32) through the
+    train CLI's loader into a fresh multi_task_regTU model, Trainer.train()
+    under multi_task_loss, then best.pt (with log_vars) reloaded strictly
+    and served as test_multiple_reg serves it. Returns the eval launches."""
+    from unet_torch_tpu_torch.ckpt import load_weights
+    from unet_torch_tpu_torch.cli import train_cli
+    from unet_torch_tpu_torch.cli.config import Config
+    from unet_torch_tpu_torch.core.rng import seed_everything
+    from unet_torch_tpu_torch.eval.reports import make_predict_fn
+    from unet_torch_tpu_torch.models.transunet.npz import (
+        synthetic_npz_weights,
+    )
+    from unet_torch_tpu_torch.models.transunet.vit import build_transunet
+    from unet_torch_tpu_torch.train.trainer import Trainer
+
+    start = time.perf_counter()
+    rng = np.random.RandomState(SEED + 13)
+
+    def batches(n, batch):
+        out = []
+        for _ in range(n):
+            x, y1, y2 = density_batch(rng, batch, SIZE)
+            out.append((x, (y1, y2)))
+        return out
+
+    loaders = {"train": batches(2, BATCH), "val": batches(2, 1)}
+    model = seeded_transunet(seed_everything(SEED),
+                             model_type="multi_task_regTU", num_classes=1)
+    with tempfile.TemporaryDirectory() as tmp:
+        npz = os.path.join(tmp, "R50+ViT-B_16.npz")
+        weights = synthetic_npz_weights(model, SEED, 14 * 14 + 1)
+        np.savez(npz, **weights)
+        train_cli.load_pretrained_npz(model, Config.from_dict(
+            {"model_config": {"pretrained_npz": npz}}))
+        pos_shape = weights["Transformer/posembed_input/pos_embedding"].shape
+        n_tokens = model.transformer.embeddings.position_embeddings.shape[1]
+        kernel = model.transformer.embeddings.patch_embeddings.weight
+        if not torch.equal(kernel, torch.from_numpy(
+                weights["embedding/kernel"].transpose(3, 2, 0, 1))):
+            raise AssertionError("the .npz did not reach the model")
+        run = os.path.join(tmp, "run")
+        trainer = Trainer(model, "multi_task_regTU", run, loaders, BATCH,
+                          "Adam", 1e-3, 1e-4, patience=25, num_epochs=2,
+                          loss_function="multi_task_loss",
+                          accuracy_metric="multi_task_loss", num_classes=1,
+                          lr_scheduler=True, seed=SEED, device=dev,
+                          dtype=torch.bfloat16, plot=False)
+        trainer.train()
+        losses = (trainer.train_loss_list + trainer.val_loss_list
+                  + trainer.train_loss_list_1 + trainer.val_loss_list_2)
+        if len(trainer.train_loss_list) != 2 or not np.isfinite(losses).all():
+            raise AssertionError(f"multi_task_regTU trainer losses {losses}")
+        log = open(os.path.join(run, "logs.txt")).read()
+        if "sigmas: [" not in log or trainer.base_lr != 5e-4:
+            raise AssertionError("the uncertainty loop did not run")
+        for name in ("models/best.pt", "models/last_epoch.pt"):
+            if not os.path.exists(os.path.join(run, name)):
+                raise AssertionError(f"trainer wrote no {name}")
+        served = load_weights(os.path.join(run, "models", "best.pt"),
+                              build_transunet("multi_task_regTU",
+                                              img_size=SIZE, num_classes=1))
+    if not served.log_vars.detach().abs().max() > 0:
+        raise AssertionError("best.pt came back without trained log_vars")
+    # test_multiple_reg's predict: make_predict_fn's pair of logits
+    predict = make_predict_fn(served, dev, torch.bfloat16)
+    launches, routes, _ = transunet_eval(at, fc, served, predict, xs,
+                                         "the trained multi_task_regTU")
+    phase("V4 trainer",
+          f"a Google-layout .npz (position embeddings {pos_shape}, "
+          f"re-gridded to {n_tokens} tokens) through the train CLI's loader, "
+          f"then Trainer.train "
+          f"multi_task_regTU multi_task_loss bf16 B={BATCH} {SIZE}x{SIZE}, 2 "
+          f"epochs x 2 steps: train loss {trainer.train_loss_list}, val loss "
+          f"{trainer.val_loss_list}, log_vars {served.log_vars.tolist()}; "
+          f"best.pt reloaded strictly with log_vars, its eval forward "
+          f"launched {launches['fused_attention']} attention and "
+          f"{launches['fused_conv3x3_bn_relu']} fused conv kernels {routes}; "
           f"{time.perf_counter() - start:.1f} s")
     return launches
 
@@ -2883,6 +3182,15 @@ def main(cltr_profile=False, cltr_two_batches_only=False,
     # T5. the trainer and a served checkpoint
     t5_launches = check_trainer(at, fc, dev, xs)
 
+    # V1-V4: regression_t, multi_task_regTU, multitask_em, and the trainer
+    # from a Google-layout .npz
+    (v1_launches, v1_step_s, v1_peak, v1_eval, v1_routes,
+     v1_fwd_s) = check_regression_t(at, fc, dev, xs)
+    (v2_launches, v2_step_s, v2_peak, v2_eval, v2_routes,
+     v2_fwd_s) = check_multitask_transunet(at, fc, dev, xs)
+    v3_eval, v3_routes, v3_fwd_s = check_multitask_em(at, fc, dev, xs)
+    v4_eval = check_transunet_trainer(at, fc, dev, xs)
+
     # M1-M5: the min-plus kernel, the binary, two-head and attention UNets
     mpres = check_minplus(mp, dev)
     check_edt(dev)
@@ -2986,13 +3294,19 @@ def main(cltr_profile=False, cltr_two_batches_only=False,
             "attention_unet": att_eval["fused_conv3x3_bn_relu"],
             "multitask_unet_after_training":
                 m5_eval["fused_conv3x3_bn_relu"],
+            "regression_t": v1_eval["fused_conv3x3_bn_relu"],
+            "multi_task_regTU": v2_eval["fused_conv3x3_bn_relu"],
+            "multitask_em": v3_eval["fused_conv3x3_bn_relu"],
+            "multi_task_regTU_after_training":
+                v4_eval["fused_conv3x3_bn_relu"],
             # the topo loop's validation in its 5 warm-up epochs (P3)
             "topo_wup_trainer": p3_launches},
         # by route (wgmma, mma.sync, reg) in each eval forward
         "launches_by_route": {
             "unet": unet_routes, "transunet": tu_routes,
             "binary_unet": m3_routes, "multitask_unet": mt_routes,
-            "attention_unet": att_routes},
+            "attention_unet": att_routes, "regression_t": v1_routes,
+            "multi_task_regTU": v2_routes, "multitask_em": v3_routes},
         "max_abs_err": max(r[0] for r in conv_bf16.values()),
         # bf16, summed over those 27 launches
         "ms": sum(conv_bf16[s][1] for s in shapes + tu_shapes),
@@ -3023,12 +3337,16 @@ def main(cltr_profile=False, cltr_two_batches_only=False,
             "library_back_to_back_ms": lib_conv[s][1]}
             for s, r in conv_bf16.items()},
         # the UNet-64 and TransUnet eval forwards (phases 4 and 8), and with
-        # their wgmma convs on the mma.sync kernel in the same process
+        # their wgmma convs on the mma.sync kernel in the same process; the
+        # rest of the TransUnet family's (V1-V3)
         "forward_img_s": {
             "unet": BATCH / fwd_s,
             "unet_convs_on_mma_sync": BATCH / mma_fwd_s,
             "transunet": BATCH / tu_fwd_s,
-            "transunet_convs_on_mma_sync": BATCH / tu_mma_fwd_s},
+            "transunet_convs_on_mma_sync": BATCH / tu_mma_fwd_s,
+            "regression_t": BATCH / v1_fwd_s,
+            "multi_task_regTU": BATCH / v2_fwd_s,
+            "multitask_em": BATCH / v3_fwd_s},
     }, {
         "name": "flash_attention_fwd",
         "route": "cuda",
@@ -3036,8 +3354,13 @@ def main(cltr_profile=False, cltr_two_batches_only=False,
         "replaces": "unet_torch_tpu/kernels/attention.py:68",
         "also_replaces": "unet_torch_tpu/kernels/attention.py:140",
         "launches": attn_launches,
-        "launches_by_path": {"transunet": attn_launches,
-                             "cltr_eval": c5_launches["fused_attention"]},
+        "launches_by_path": {
+            "transunet": attn_launches,
+            "cltr_eval": c5_launches["fused_attention"],
+            "regression_t": v1_eval["fused_attention"],
+            "multi_task_regTU": v2_eval["fused_attention"],
+            "multitask_em": v3_eval["fused_attention"],
+            "multi_task_regTU_after_training": v4_eval["fused_attention"]},
         # CLTR's eval forward: 6 encoder, 6 decoder self- and 6
         # cross-attentions at batch 16 (the trained model served 9 patches)
         "cltr": cltr_attention_numbers(cltr_bf16, (0, 1, 2, 3, 4), lib_cltr,
@@ -3067,7 +3390,10 @@ def main(cltr_profile=False, cltr_two_batches_only=False,
         "launches": n_fwd,
         "launches_by_path": {
             "transunet_train": n_fwd,
-            "cltr_train": c3_launches["attention_train_forward"]},
+            "cltr_train": c3_launches["attention_train_forward"],
+            "regression_t_train": v1_launches["attention_train_forward"],
+            "multi_task_regTU_train":
+                v2_launches["attention_train_forward"]},
         # one CLTR train step's 18 launches, bias and dropout 0.1 together
         "cltr": cltr_attention_numbers(cltr_train_bf16, (0, 1, 2, 6, 8),
                                        lib_cltr, 1, cltr_layers, lse=True),
@@ -3095,7 +3421,9 @@ def main(cltr_profile=False, cltr_two_batches_only=False,
         "launches": n_bwd,
         "launches_by_path": {
             "transunet_train": n_bwd,
-            "cltr_train": c3_launches["attention_backward"]},
+            "cltr_train": c3_launches["attention_backward"],
+            "regression_t_train": v1_launches["attention_backward"],
+            "multi_task_regTU_train": v2_launches["attention_backward"]},
         "cltr": cltr_attention_numbers(cltr_train_bf16, (3, 4, 5, 7, 9),
                                        lib_cltr, 2, cltr_layers,
                                        backward=True),
@@ -3217,6 +3545,10 @@ def main(cltr_profile=False, cltr_two_batches_only=False,
         "binary_unet_plain_minplus_img_s": BATCH / dt_plain_s,
         "binary_unet_dice_bce_img_s": BATCH / dice_step_s,
         "multitask_unet_img_s": BATCH / mt_step_s,
+        "regression_t_img_s": BATCH / v1_step_s,
+        "regression_t_peak_gib": v1_peak / 2**30,
+        "multi_task_regTU_img_s": BATCH / v2_step_s,
+        "multi_task_regTU_peak_gib": v2_peak / 2**30,
         "cltr_img_s": CLTR_BATCH / cltr_step_s,
         "cltr_scipy_matcher_img_s": CLTR_BATCH / cltr_scipy_s,
         "cltr_peak_gib": cltr_peak / 2**30,

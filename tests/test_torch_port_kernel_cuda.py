@@ -11,6 +11,8 @@ This file imports no JAX, so that it runs where only the port is installed:
     python -m pytest tests/test_torch_port_kernel_cuda.py -m cuda --noconftest
 """
 
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -856,3 +858,82 @@ def test_topo_losses_on_card_match_cpu(key):
     np.testing.assert_allclose(results[1][0], results[0][0], rtol=1e-5)
     np.testing.assert_allclose(results[1][1], results[0][1], rtol=1e-5,
                                atol=1e-6)
+
+
+def _seeded_transunet(model_type, size, num_classes, seed=0):
+    """R50-ViT-B/16 at size x size with seeded weights, position
+    embeddings and BN statistics, the decoders' and heads' convs drawn
+    kaiming-normal (torch's default conv init shrinks the variance 3x per
+    conv, so BN shifts, not the image, would decide the logits)."""
+    from unet_torch_tpu_torch.models.transunet.vit import build_transunet
+
+    gen = torch.Generator().manual_seed(seed)
+    model = build_transunet(model_type, img_size=size,
+                            num_classes=num_classes, generator=gen)
+    with torch.no_grad():
+        pos = model.transformer.embeddings.position_embeddings
+        pos.copy_(torch.randn(pos.shape, generator=gen) * 0.02)
+        for name, m in model.named_modules():
+            if (isinstance(m, torch.nn.Conv2d)
+                    and not name.startswith("transformer")):
+                torch.nn.init.kaiming_normal_(m.weight, generator=gen)
+            if isinstance(m, torch.nn.BatchNorm2d):
+                n = m.num_features
+                m.weight.copy_(torch.rand(n, generator=gen) + 0.5)
+                m.bias.copy_(torch.randn(n, generator=gen) * 0.1)
+                m.running_mean.copy_(torch.randn(n, generator=gen) * 0.1)
+                m.running_var.copy_(torch.rand(n, generator=gen) + 0.5)
+    return model
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model_type,n_heads", [("multi_task_regTU", 2),
+                                                ("multitask_em", 6)])
+def test_multihead_transunet_forward_launches_by_route_on_card(model_type,
+                                                               n_heads):
+    """The two-head and six-head bf16 eval forwards at full width: each
+    decoder's nine convs on the fused-conv kernel, 8 on wgmma and the
+    16-channel tail on mma.sync, and the encoder's 12 attention launches."""
+    _needs_card()
+    # f32 parameters and a bf16 input, as make_predict_fn serves a model
+    model = _seeded_transunet(model_type, 128, 1).cuda().eval()
+    x = torch.randn(2, 128, 128, 3, device="cuda", dtype=torch.bfloat16)
+    port_fc.reset_launches()
+    before = port_attn.fused_attention.launches
+    with torch.inference_mode():
+        outs = model(x)
+        torch.cuda.synchronize()
+    assert len(outs) == n_heads
+    assert all(o.shape == (2, 128, 128, 1) and torch.isfinite(o).all()
+               for o in outs)
+    assert port_fc.fused_conv3x3_bn_relu.launches == 9 * n_heads
+    assert port_fc.fused_conv3x3_bn_relu.launches_by_route == {
+        "wgmma": 8 * n_heads, "mma.sync": n_heads, "reg": 0}
+    assert port_attn.fused_attention.launches == before + 12
+
+
+@pytest.mark.cuda
+def test_vis_runs_no_attention_kernel_on_card():
+    """vis=True on CUDA tensors: the plain attention (no attention launch),
+    12 layers of weights kept, and the f32 logits within chip_smoke.py's
+    phase-9 bound (1e-4 of the logits' peak) of the kernel path's."""
+    _needs_card()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = _seeded_transunet("TransUnet", 128, 3).cuda().eval()
+    vis = copy.deepcopy(model)
+    for layer in vis.transformer.encoder.layer:  # as vis=True builds them
+        layer.attn.vis = True
+    x = torch.randn(1, 128, 128, 3, device="cuda")
+    with torch.inference_mode():
+        ref = model(x)
+        torch.cuda.synchronize()
+        before = port_attn.fused_attention.launches
+        out = vis(x)
+        torch.cuda.synchronize()
+    assert port_attn.fused_attention.launches == before
+    weights = vis.attn_weights
+    assert len(weights) == 12 and all(
+        w.shape == (1, 12, 64, 64) and w.is_cuda for w in weights)
+    err = (out - ref).abs().max().item()
+    assert err <= 1e-4 * ref.abs().max().item(), err

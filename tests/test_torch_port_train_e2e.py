@@ -4,8 +4,12 @@ tests/test_train_e2e.py), for `single` (UNet base 8) and `TransUnet` (the
 small config swapped into the registry, as test_torch_port_eval.py does),
 for the rest of the UNet family (`multi_task_reg` in its three combine
 modes, `multi_task`, `regression`, `attention`, binary `single` under
-HausdorffDTLoss); and a JAX msgpack checkpoint converted into the port."""
+HausdorffDTLoss) and of the TransUnet family (`regression_t`,
+`multi_task_regTU`, `pretrained_npz` before a resume, `multitask_em` and
+`random_crop` refused); and a JAX msgpack checkpoint converted into the
+port."""
 
+import copy
 import functools
 import os
 import sys
@@ -24,11 +28,20 @@ from unet_torch_tpu.data.synthetic import write_synthetic_dataset
 from unet_torch_tpu.models.transunet import CONFIGS as JAX_CONFIGS
 from unet_torch_tpu.models.transunet import VisionTransformer as JaxViT
 from unet_torch_tpu.models.unet import UNet as JaxUNet
-from unet_torch_tpu_torch.ckpt import load_weights, state_dict_from_jax_payload
+from unet_torch_tpu_torch.ckpt import (
+    load_weights,
+    save_weights,
+    state_dict_from_jax_payload,
+)
 from unet_torch_tpu_torch.cli import train_cli
 from unet_torch_tpu_torch.models.transunet.configs import CONFIGS
+from unet_torch_tpu_torch.models.transunet.npz import (
+    load_npz_into_model,
+    synthetic_npz_weights,
+)
 from unet_torch_tpu_torch.models.transunet.vit import (
     VisionTransformer,
+    VisionTransformerMultitask,
     build_transunet,
 )
 from unet_torch_tpu_torch.models.unet import (
@@ -179,22 +192,110 @@ def test_train_cli_without_matplotlib(dataset_root, tmp_path, monkeypatch):
     assert not (tmp_path / "run" / "results.csv").exists()
 
 
-@pytest.mark.parametrize("change,match", [
-    ({"model_type": "multitask_em"}, "queue 1 item 10"),
-    ({"model_type": "multi_task_regTU"}, "queue 1 item 10"),
-    ({"model_type": "regression_t"}, "queue 1 item 10"),
-    ({"model_type": "TransUnet", "random_crop": True}, "queue 1 item 10"),
-    ({"model_type": "TransUnet", "pretrained_npz": "vit.npz"},
-     "queue 1 item 10"),
-])
 def test_train_cli_names_what_is_not_ported(dataset_root, tmp_path,
-                                            small_transunet, change, match):
-    raw = _cfg(dataset_root, tmp_path / "run", epochs=1, test=False)
-    for key, value in change.items():
-        section = {"random_crop": "dataset_config"}.get(key, "model_config")
-        raw[section][key] = value
-    with pytest.raises(NotImplementedError, match=match):
+                                            small_transunet):
+    """`random_crop` is not carried over: the JAX package's own path fails
+    on its three-array batches, and the error says so."""
+    raw = _cfg(dataset_root, tmp_path / "run", "TransUnet", epochs=1,
+               test=False)
+    raw["dataset_config"]["random_crop"] = True
+    with pytest.raises(NotImplementedError,
+                       match="random_crop.*DataRandomCrop"):
         train_cli.run_training(Config.from_dict(raw), device="cpu")
+
+
+def test_train_cli_rejects_multitask_em(dataset_root, tmp_path,
+                                        small_transunet):
+    """`multitask_em` builds (build_transunet) but has no dataset or loop:
+    the train CLI raises as the JAX one does."""
+    raw = _cfg(dataset_root, tmp_path / "run", "multitask_em", epochs=1,
+               test=False)
+    with pytest.raises(ValueError, match='Invalid model_type "multitask_em"'):
+        train_cli.run_training(Config.from_dict(raw), device="cpu")
+
+
+@pytest.mark.usefixtures("few_threads")
+@pytest.mark.parametrize("model_type,num_class,loss,cls,csv", [
+    ("regression_t", 2, "mseMC", VisionTransformer, "resultsDataMean.csv"),
+    ("multi_task_regTU", 1, "multi_task_loss", VisionTransformerMultitask,
+     "resultsDataMean.csv"),
+])
+def test_train_cli_e2e_transunet_family(dataset_root, tmp_path,
+                                        small_transunet, model_type,
+                                        num_class, loss, cls, csv):
+    """One epoch of the rest of the TransUnet family: `regression_t` on
+    DataReg with ReLU on its logits and the post-train test_single_reg;
+    `multi_task_regTU` on DataRegMT in the uncertainty loop (log_vars in its
+    checkpoints) and the post-train test_multiple_reg."""
+    save_dir = tmp_path / "run"
+    raw = _family_cfg(dataset_root, save_dir, model_type, num_class, loss,
+                      epochs=1)
+    trainers, results = train_cli.run_training(Config.from_dict(raw),
+                                               device="cpu")
+    seed_dir = save_dir / "run_seed7"
+    tr = trainers[7]
+    assert type(tr.model) is cls
+    assert tr.relu_output == (model_type == "regression_t")
+    assert len(tr.train_loss_list) == len(tr.val_loss_list) == 1
+    assert np.isfinite(tr.train_loss_list + tr.val_loss_list).all()
+    best = torch.load(seed_dir / "models" / "best.pt", weights_only=True)
+    assert ("log_vars" in best) == (model_type == "multi_task_regTU")
+    fresh = load_weights(str(seed_dir / "models" / "best.pt"),
+                         build_transunet(model_type, img_size=64,
+                                         num_classes=num_class))
+    for key, value in tr.model.state_dict().items():
+        assert torch.equal(value.cpu(), fresh.state_dict()[key]), key
+    assert (seed_dir / csv).exists() and results[7]
+    assert (save_dir / "results.csv").exists()
+
+
+@pytest.mark.usefixtures("few_threads")
+def test_train_cli_loads_pretrained_npz_before_resume(dataset_root, tmp_path,
+                                                      small_transunet,
+                                                      monkeypatch):
+    """`model_config.pretrained_npz`: a checkpoint of Google's layout goes
+    into the fresh TransUnet (its transformer only), then a resume
+    checkpoint is loaded over it, so the resumed run starts from the
+    checkpoint's weights, every one of them."""
+    npz = tmp_path / "vit.npz"
+    template = build_transunet("TransUnet", img_size=64, num_classes=3)
+    np.savez(npz, **synthetic_npz_weights(template, 9, 50))
+    expected = copy.deepcopy(template)
+    load_npz_into_model(expected, np.load(npz))
+    resume = tmp_path / "resume.pt"
+    save_weights(str(resume), build_transunet(
+        "TransUnet", img_size=64, num_classes=3,
+        generator=torch.Generator().manual_seed(123)))
+
+    events = []
+    original_npz, original_load = (train_cli.load_npz_into_model,
+                                   train_cli.load_weights)
+
+    def npz_recording(model, weights):
+        original_npz(model, weights)
+        events.append("npz")
+        for name, value in expected.state_dict().items():
+            if name.startswith("transformer."):
+                assert torch.equal(model.state_dict()[name], value), name
+        return model
+
+    def resume_recording(path, model):
+        original_load(path, model)
+        events.append("resume")
+        saved = torch.load(path, weights_only=True)
+        for name, value in model.state_dict().items():
+            assert torch.equal(value, saved[name]), name
+        return model
+
+    monkeypatch.setattr(train_cli, "load_npz_into_model", npz_recording)
+    monkeypatch.setattr(train_cli, "load_weights", resume_recording)
+    raw = _cfg(dataset_root, tmp_path / "run", "TransUnet", epochs=1,
+               test=False)
+    raw["model_config"]["pretrained_npz"] = str(npz)
+    raw["resume"] = {"flag": True, "path": str(resume), "epoch": 1}
+    trainers, _ = train_cli.run_training(Config.from_dict(raw), device="cpu")
+    assert events == ["npz", "resume"]
+    assert len(trainers[7].train_loss_list) == 1
 
 
 @pytest.mark.usefixtures("few_threads")

@@ -380,13 +380,13 @@ def test_full_checkpoint_round_trip(tmp_path):
 
 
 def _drawn(variables, rng):
-    """(params, batch_stats) as numpy, BN scales, biases and statistics
-    drawn away from their init."""
+    """(params, batch_stats) as numpy, norm scales, biases, position
+    embeddings and BN statistics drawn away from their init."""
     def draw(path, a):
         a = np.asarray(a)
         if path[-1].key == "scale":
             return (rng.rand(*a.shape) + 0.5).astype(np.float32)
-        if path[-1].key == "bias":
+        if path[-1].key in ("bias", "position_embeddings"):
             return (rng.randn(*a.shape) * 0.1).astype(np.float32)
         return a
 
@@ -415,24 +415,30 @@ def _assert_step_matches(port, optimizer, lr, wd, ref_grads, before, after):
         np.testing.assert_allclose(ours, ref, err_msg=f"param {name}", **TOL)
 
 
-@pytest.mark.usefixtures("few_threads")
-@pytest.mark.parametrize("combine,use_ratio", [
-    ("sum", False), ("uncertainty", False), ("ratio", False),
-    ("ratio", True)])
-def test_multitask_train_step_matches_jax(combine, use_ratio):
-    """One step of each combine mode on density-map targets: the combined
-    loss, both head losses, every gradient and the parameters after it; for
-    `uncertainty` also the log-variances, which ride the same Adam (5e-4, no
-    weight decay, as the trainer sets it). fused_head is off on the JAX side
-    (the port has no planes form)."""
-    torch.backends.cudnn.allow_tf32 = False
-    rng = np.random.RandomState(1)
+def multitask_case(model, seed=1):
+    """(x, y1, y2, params, batch_stats) of a two-head step: a batch of 2
+    64x64 images with density-map targets, and the JAX `model`'s trees
+    drawn away from their init, all from `seed`."""
+    rng = np.random.RandomState(seed)
     x = rng.randn(2, 64, 64, 3).astype(np.float32)
     y1, y2 = (rng.rand(2, 64, 64).astype(np.float32) * s for s in (2.0, 3.0))
-    model = JaxUNetMultitask(3, 1, base=8, fold=False)
     variables = jax.jit(functools.partial(model.init, train=False))(
         jax.random.key(0), jnp.asarray(x))
-    params, batch_stats = _drawn(variables, rng)
+    return (x, y1, y2, *_drawn(variables, rng))
+
+
+def multitask_step_matches_jax(model, port, bridge, combine, use_ratio,
+                               seed=1):
+    """One two-head step of `port` against the JAX `model`'s
+    make_multitask_steps from the same weights (multitask_case(model,
+    seed)): the eval step, the combined loss, both head losses, every
+    gradient and the parameters after it; for `uncertainty` also the
+    log-variances, which ride the same Adam (5e-4, no weight decay, as the
+    trainer sets it). `bridge` turns the JAX model's trees into the port's
+    state_dict. fused_head is off on the JAX side (the port has no planes
+    form)."""
+    torch.backends.cudnn.allow_tf32 = False
+    x, y1, y2, params, batch_stats = multitask_case(model, seed)
     log_vars = np.array([0.3, -0.2], np.float32)
     optimizer, lr, wd = (("Adam", 5e-4, 0.0) if combine == "uncertainty"
                          else ("SGD", 0.01, WD))
@@ -475,9 +481,7 @@ def test_multitask_train_step_matches_jax(combine, use_ratio):
     jafter = jax.tree_util.tree_map(np.asarray, state.params)
     jstats = jax.tree_util.tree_map(np.asarray, state.batch_stats)
 
-    port = UNetMultitask(3, 1, base=8)
-    port.load_state_dict(state_dict_from_flax(params, batch_stats),
-                         strict=True)
+    port.load_state_dict(bridge(params, batch_stats), strict=True)
     if combine == "uncertainty":
         port.add_log_vars()
         with torch.no_grad():
@@ -499,15 +503,26 @@ def test_multitask_train_step_matches_jax(combine, use_ratio):
     model_of = (lambda p: p["model"]) if combine == "uncertainty" \
         else (lambda p: p)
     _assert_step_matches(port, optimizer, lr, wd,
-                         state_dict_from_flax(model_of(jgrads), batch_stats),
-                         state_dict_from_flax(params, batch_stats),
-                         state_dict_from_flax(model_of(jafter), jstats))
+                         bridge(model_of(jgrads), batch_stats),
+                         bridge(params, batch_stats),
+                         bridge(model_of(jafter), jstats))
     if combine == "uncertainty":
         np.testing.assert_allclose(port.log_vars.grad.numpy(),
                                    jgrads["log_vars"], **TOL)
         np.testing.assert_allclose(port.log_vars.detach().numpy(),
                                    jafter["log_vars"], **TOL)
         assert not np.array_equal(jafter["log_vars"], log_vars)
+
+
+@pytest.mark.usefixtures("few_threads")
+@pytest.mark.parametrize("combine,use_ratio", [
+    ("sum", False), ("uncertainty", False), ("ratio", False),
+    ("ratio", True)])
+def test_multitask_train_step_matches_jax(combine, use_ratio):
+    """UNetMultitask base 8 (multitask_step_matches_jax)."""
+    multitask_step_matches_jax(JaxUNetMultitask(3, 1, base=8, fold=False),
+                               UNetMultitask(3, 1, base=8),
+                               state_dict_from_flax, combine, use_ratio)
 
 
 def test_multitask_steps_reject_an_unknown_combine_and_warn_on_fused_head():

@@ -26,6 +26,8 @@ from unet_torch_tpu_torch.models.transunet.configs import CONFIGS
 from unet_torch_tpu_torch.models.transunet.resnetv2 import ResNetV2
 from unet_torch_tpu_torch.models.transunet.vit import (
     VisionTransformer,
+    VisionTransformerMultitask,
+    VisionTransformerMultitaskEM,
     bilinear_upsample_2x,
     build_transunet,
 )
@@ -223,10 +225,22 @@ def test_build_transunet_contract():
     assert [len(b) for b in emb.hybrid_model.body] == [3, 4, 9]
     assert model.segmentation_head[0].out_channels == 4
     assert CONFIGS["R50-ViT-B_16"].patches.grid == (16, 16)  # not mutated
-    for mt in ("regression_t", "multi_task_regTU", "multitask_em"):
-        with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-            build_transunet(mt, img_size=IMG, num_classes=3)
+    # the JAX package's build_transunet's classes, heads and names
+    for mt, cls, heads in (
+            ("regression_t", VisionTransformer, [""]),
+            ("multi_task_regTU", VisionTransformerMultitask, ["1", "2"]),
+            ("multitask_em", VisionTransformerMultitaskEM,
+             [str(i) for i in range(1, 7)])):
+        model = build_transunet(mt, img_size=IMG, num_classes=3)
+        assert type(model) is cls
+        assert {n.split(".")[0] for n in model.state_dict()} == {
+            "transformer", *(f"decoder{h}" for h in heads),
+            *(f"segmentation_head{h}" for h in heads)}
+        assert hasattr(model, "add_log_vars") == (mt == "multi_task_regTU")
     with pytest.raises(ValueError):
         build_transunet("nope", img_size=IMG, num_classes=3)
-    with pytest.raises(NotImplementedError, match="vis"):
-        VisionTransformer(small_config(CONFIGS), IMG, 3, vis=True)
+    vis = VisionTransformer(small_config(CONFIGS), IMG, 3, vis=True).eval()
+    assert vis.attn_weights == [None, None]  # no forward yet
+    with torch.inference_mode():
+        vis(torch.zeros(1, IMG, IMG, 3))
+    assert [w.shape for w in vis.attn_weights] == [(1, 2, 16, 16)] * 2

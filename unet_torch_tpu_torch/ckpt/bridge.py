@@ -14,7 +14,8 @@ the UNetMultitask with heads `_decod1` / `_decod2`),
   GroupNorm/LayerNorm scale/bias -> weight/bias
 
 The trees are the `params` and `batch_stats` of the JAX `UNet`,
-`UNetMultitask`, `UNetAttention` or `VisionTransformer`, as numpy arrays or anything numpy can read. The names
+`UNetMultitask`, `UNetAttention`, `VisionTransformer` or its multi-head
+variants, as numpy arrays or anything numpy can read. The names
 are the reference's, so the result loads into the port's model, and into
 the reference's own.
 """
@@ -119,11 +120,29 @@ def _conv2d_relu(sd, prefix, p, bs):
     _bn(sd, f"{prefix}.1", p["bn"], bs["bn"])
 
 
+def _decoder_cup(sd, prefix, dec_p, dec_b):
+    _conv2d_relu(sd, f"{prefix}.conv_more", dec_p["conv_more"],
+                 dec_b["conv_more"])
+    i = 0
+    while f"block_{i}" in dec_p:
+        for conv in ("conv1", "conv2"):
+            _conv2d_relu(sd, f"{prefix}.blocks.{i}.{conv}",
+                         dec_p[f"block_{i}"][conv], dec_b[f"block_{i}"][conv])
+        i += 1
+
+
 def transunet_state_dict_from_flax(params,
                                    batch_stats) -> dict[str, torch.Tensor]:
-    """The port's VisionTransformer state_dict from a JAX VisionTransformer's
-    (params, batch_stats); the folded decoder tail has the same trees."""
+    """The port's state_dict of a TransUnet from the JAX model's (params,
+    batch_stats): a VisionTransformer's (`decoder`, `segmentation_head`; the
+    folded decoder tail has the same trees), a VisionTransformerMultitask's
+    or ...MultitaskEM's (`decoder{i}`, `segmentation_head{i}`, i from 1).
+    Params of the uncertainty-weighted loop, {"model": params, "log_vars":
+    (2,)} as the JAX trainer keeps them, give `log_vars` too."""
     sd: dict[str, torch.Tensor] = {}
+    if "log_vars" in params:
+        sd["log_vars"] = _tensor(params["log_vars"])
+        params = params["model"]
     emb = params["transformer"]["embeddings"]
     base = "transformer.embeddings"
     sd[f"{base}.patch_embeddings.weight"] = _conv(
@@ -164,18 +183,14 @@ def transunet_state_dict_from_flax(params,
         i += 1
     _norm(sd, "transformer.encoder.encoder_norm", enc["encoder_norm"])
 
-    dec_p, dec_b = params["decoder"], batch_stats["decoder"]
-    _conv2d_relu(sd, "decoder.conv_more", dec_p["conv_more"],
-                 dec_b["conv_more"])
-    i = 0
-    while f"block_{i}" in dec_p:
-        for conv in ("conv1", "conv2"):
-            _conv2d_relu(sd, f"decoder.blocks.{i}.{conv}",
-                         dec_p[f"block_{i}"][conv], dec_b[f"block_{i}"][conv])
-        i += 1
-    head = params["segmentation_head"]["conv"]
-    sd["segmentation_head.0.weight"] = _conv(head["kernel"])
-    sd["segmentation_head.0.bias"] = _tensor(head["bias"])
+    suffixes = [""] if "decoder" in params else [
+        str(i) for i in range(1, 7) if f"decoder{i}" in params]
+    for s in suffixes:
+        _decoder_cup(sd, f"decoder{s}", params[f"decoder{s}"],
+                     batch_stats[f"decoder{s}"])
+        head = params[f"segmentation_head{s}"]["conv"]
+        sd[f"segmentation_head{s}.0.weight"] = _conv(head["kernel"])
+        sd[f"segmentation_head{s}.0.bias"] = _tensor(head["bias"])
     return sd
 
 

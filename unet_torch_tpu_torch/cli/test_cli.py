@@ -9,9 +9,9 @@ Builds the config's model, loads the torch state_dict checkpoint (strict)
 and runs the matching eval suite into <save_dir>/eval/. The device defaults
 to cuda and raises where there is no GPU.
 
-`model_type: TransUnet` builds R50-ViT-B_16 at img_size = input_size[0], as
-the JAX CLI does; like the JAX CLI it does not read the config's `model:`
-key.
+`model_type` `TransUnet`, `regression_t` or `multi_task_regTU` builds
+R50-ViT-B_16 (one head, or two) at img_size = input_size[0], as the JAX CLI
+does; like the JAX CLI it does not read the config's `model:` key.
 """
 
 from __future__ import annotations
@@ -27,7 +27,7 @@ from unet_torch_tpu_torch.core.precision import resolve_precision
 from unet_torch_tpu_torch.data.io import get_image_list
 from unet_torch_tpu_torch.eval import reports
 from unet_torch_tpu_torch.models.transunet.vit import build_transunet
-from unet_torch_tpu_torch.models.unet import build_model
+from unet_torch_tpu_torch.models.unet import TRANSUNET_TYPES, build_model
 
 
 _MODES = ("single", "single_crop", "single_mc", "reg", "mt_reg")
@@ -58,7 +58,7 @@ def run_eval(cfg: Config, checkpoint: str, test_path=None, mode="auto",
         tpu_options["remat"] = True
     if m.fold:
         tpu_options["fold"] = True
-    if m.model_type == "TransUnet":
+    if m.model_type in TRANSUNET_TYPES:
         model = build_transunet(m.model_type, img_size=m.input_size[0],
                                 num_classes=m.num_class, **tpu_options)
     else:

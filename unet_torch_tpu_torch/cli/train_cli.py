@@ -14,10 +14,19 @@ best model, pruning of the epoch checkpoints and the cross-seed
   single, attention         DataBinary      single_train         test_single (num_class <= 2) or test_single_mc
   TransUnet                 DataBinary      single_train         as single
   (those three under a topo loss: DataBinary with dot maps, single_train_wup)
-  regression                DataReg         single_train (ReLU)  test_single_reg
+  regression, regression_t  DataReg         single_train (ReLU)  test_single_reg
   multi_task                DataRegBinary   two-head loop        none
-  multi_task_reg            DataRegMT       two-head loop        test_multiple_reg
+  multi_task_reg,           DataRegMT       two-head loop        test_multiple_reg
+    multi_task_regTU
   CLTR                      DataPointReg    cltr_train_loop      none
+
+`TransUnet`, `regression_t` and `multi_task_regTU` build R50-ViT-B/16
+(models/transunet/vit.py::build_transunet) and, where the file
+`model_config.pretrained_npz` (default `TransUnet/R50+ViT-B_16.npz`)
+exists, load Google's ViT weights from it into the fresh model
+(models/transunet/npz.py), before a resume checkpoint is loaded over it.
+`multitask_em` builds but has no loop: it raises ValueError, as in the JAX
+CLI.
 
 `CLTR` reads the flat `cltr_config` keys (model sizes, loss coefficients,
 `crop_size`, `num_knn`, `dot_shape`, `clip_max_norm`, `pretrained_resnet50`:
@@ -37,9 +46,8 @@ their dot maps too (`DataBinary(return_gt_dot=True)`) and train in the
 warm-up loop (`single_train_wup`, pairing on a max-pooled map with
 `train_config.topo_pair_downsample`).
 
-Datasets and loaders are the port's numpy ones (data/). The other model
-types, `random_crop` and `pretrained_npz` raise NotImplementedError naming
-their ROADMAP.md item.
+Datasets and loaders are the port's numpy ones (data/). `random_crop`
+raises NotImplementedError with the reason (core/not_ported.py).
 """
 
 from __future__ import annotations
@@ -49,6 +57,8 @@ import glob as globmod
 import importlib.util
 import os
 import warnings
+
+import numpy as np
 
 from unet_torch_tpu_torch import losses
 from unet_torch_tpu_torch.ckpt import (
@@ -72,8 +82,9 @@ from unet_torch_tpu_torch.data.io import get_image_list
 from unet_torch_tpu_torch.data.loader import NumpyLoader
 from unet_torch_tpu_torch.eval import reports
 from unet_torch_tpu_torch.models.cltr.model import build_cltr
+from unet_torch_tpu_torch.models.transunet.npz import load_npz_into_model
 from unet_torch_tpu_torch.models.transunet.vit import build_transunet
-from unet_torch_tpu_torch.models.unet import build_model
+from unet_torch_tpu_torch.models.unet import TRANSUNET_TYPES, build_model
 from unet_torch_tpu_torch.train.cltr_loop import cltr_collate
 from unet_torch_tpu_torch.train.trainer import TOPO_LOSS_NAMES, Trainer
 
@@ -102,6 +113,17 @@ def get_points_from_tsv(tsv_path):
     return dataset
 
 
+def load_pretrained_npz(model, cfg: Config) -> None:
+    """Google's ViT weights into a TransUnet from the file
+    `model_config.pretrained_npz` (default `TransUnet/R50+ViT-B_16.npz`),
+    where it exists, as the JAX CLI loads them."""
+    path = cfg.raw.get("model_config", {}).get("pretrained_npz", _DEFAULT_NPZ)
+    if os.path.exists(path):
+        with np.load(path) as weights:
+            load_npz_into_model(model, weights)
+        print(f"loaded pretrained weights from {path}")
+
+
 def build_datasets_and_model(cfg: Config, seed: int, generator=None):
     """(train dataset, val dataset, model) by `model_type`; the model's
     weights are drawn from `generator`. A CLTR model carries its criterion
@@ -120,14 +142,14 @@ def build_datasets_and_model(cfg: Config, seed: int, generator=None):
                               return_gt_dot=needs_dot, **common)
         val_ds = DataBinary(list(d.val_path), augmentation=False,
                             return_gt_dot=needs_dot, **common)
-    elif mt == "regression":
+    elif mt in ("regression", "regression_t"):
         train_ds = DataReg(list(d.train_path), augmentation=d.augmentation,
                            photometric=d.photometric, **common)
         val_ds = DataReg(list(d.val_path), augmentation=False, **common)
     elif mt == "multi_task":
         train_ds = DataRegBinary(list(d.train_path), **common)
         val_ds = DataRegBinary(list(d.val_path), **common)
-    elif mt == "multi_task_reg":
+    elif mt in ("multi_task_reg", "multi_task_regTU"):
         train_ds = DataRegMT(list(d.train_path), augmentation=d.augmentation,
                              **common)
         val_ds = DataRegMT(list(d.val_path), augmentation=False, **common)
@@ -146,14 +168,12 @@ def build_datasets_and_model(cfg: Config, seed: int, generator=None):
                               train=False, **point_kw)
     else:
         raise ValueError(f'Invalid model_type "{mt}"')
-    if mt == "TransUnet":
-        if ("pretrained_npz" in cfg.raw.get("model_config", {})
-                or os.path.exists(_DEFAULT_NPZ)):
-            not_ported.check(not_ported.TRAIN_OPTIONS, "option",
-                             "pretrained_npz")
+    if mt in TRANSUNET_TYPES:
         model = build_transunet(mt, img_size=input_size[0],
                                 num_classes=m.num_class, generator=generator,
                                 **_tpu_options(m))
+        # a fresh model only: a resumed run loads its checkpoint over it
+        load_pretrained_npz(model, cfg)
     elif mt == "CLTR":
         cltr_args.setdefault("precision", cfg.train.precision)
         model, criterion, _ = build_cltr(cltr_args, generator)
@@ -262,9 +282,9 @@ def _post_train_test(trainer, cfg: Config, test_image_list, out_dir):
         if m.num_class <= 2:
             return reports.test_single(*args)
         return reports.test_single_mc(*args)
-    if mt == "multi_task_reg":
+    if mt in ("multi_task_reg", "multi_task_regTU"):
         return reports.test_multiple_reg(*args, tsv_files=tsv_files)
-    if mt == "regression":
+    if mt in ("regression", "regression_t"):
         return reports.test_single_reg(*args, tsv_files=tsv_files)
     return {}
 

@@ -74,16 +74,22 @@ def padding_bias(key_padding_mask: torch.Tensor) -> torch.Tensor:
     return zeros.masked_fill(key_padding_mask, PAD_BIAS)
 
 
+def attention_probs(q, k, scale, bias=None):
+    """The plain version's probabilities: softmax(q k^T * scale + bias) in
+    f32, (B, H, Nq, Nk), from scores summed in f32."""
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    if bias is not None:
+        s = s + bias[:, None, None, :]
+    return torch.softmax(s, dim=-1)
+
+
 def attention_reference(q, k, v, scale, bias=None):
     """q, k (B,H,Nq/Nk,Dqk), v (B,H,Nk,Dv), bias (B,Nk) f32 or None.
 
     Mirrors the Pallas kernels: f32 scores from q's dtype, f32 softmax, the
     probabilities rounded to v's dtype, the second product summed in f32 and
     rounded once to q's dtype."""
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
-    if bias is not None:
-        s = s + bias[:, None, None, :]
-    p = torch.softmax(s, dim=-1).to(v.dtype)
+    p = attention_probs(q, k, scale, bias).to(v.dtype)
     o = torch.einsum("bhqk,bhkd->bhqd", p.float(), v.float())
     return o.to(q.dtype)
 

@@ -1,7 +1,7 @@
 """TransUnet: ViT(-hybrid) encoder + cup decoder (counterpart of
 unet_torch_tpu/models/transunet/vit.py, which mirrors the reference's
-vit_seg_modeling.py). The eval and train forwards of `VisionTransformer`
-are ported.
+vit_seg_modeling.py): the eval and train forwards of the three TransUnet
+models.
 
   Attention          fused QKV projection, the attention kernel (eval:
                      fused_attention; train: dropout_flash_attention, the
@@ -17,15 +17,20 @@ are ported.
                      (align-corners bilinear 2x up, concat skip, 2 Conv2dReLU)
   SegmentationHead   conv3x3 with bias
   VisionTransformer  gray -> RGB repeat, encoder, decoder, head
+                     (`TransUnet`, `regression_t`); `vis=True` keeps the
+                     attention probabilities
+  ...Multitask(EM)   the same encoder, then 2 (6) decoders and heads
+                     (`multi_task_regTU`, `multitask_em`)
 
-`VisionTransformer` takes NHWC input (B, H, W, C) and returns NHWC logits,
-as the JAX model does. The ResNetV2 and the encoder run on NCHW tensors in
-channels_last memory; the decoder runs on NHWC tensors, the fused conv
-kernel's layout. Parameters stay f32 and each layer computes in its input's
-dtype, except the ViT's residual stream: as in the JAX model, the f32
-position embeddings promote it to f32, so twelve layers of updates are
-summed in f32; each block's LayerNorm output, and so its products, are in
-the compute dtype (the image's), and so is the encoder's output.
+The models take NHWC input (B, H, W, C) and return NHWC logits (a tuple of
+them for the multi-head ones), as the JAX models do. The ResNetV2 and the
+encoder run on NCHW tensors in channels_last memory; the decoders run on
+NHWC tensors, the fused conv kernel's layout. Parameters stay f32 and each
+layer computes in its input's dtype, except the ViT's residual stream: as
+in the JAX model, the f32 position embeddings promote it to f32, so twelve
+layers of updates are summed in f32; each block's LayerNorm output, and
+so its products, are in the compute dtype (the image's), and so is the
+encoder's output.
 
 In train mode every dropout draws from the generator that the train step
 binds (nn/dropout.py::set_dropout_generator), as the JAX model draws from
@@ -47,8 +52,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from unet_torch_tpu_torch.core import not_ported
 from unet_torch_tpu_torch.kernels.attention import (
+    attention_probs,
     dropout_flash_attention,
     fused_attention,
 )
@@ -58,7 +63,10 @@ from unet_torch_tpu_torch.kernels.fused_conv import (
 )
 from unet_torch_tpu_torch.models.transunet.configs import CONFIGS
 from unet_torch_tpu_torch.models.transunet.resnetv2 import ResNetV2
-from unet_torch_tpu_torch.models.unet import ignore_tpu_options
+from unet_torch_tpu_torch.models.unet import (
+    UNetMultitask,
+    ignore_tpu_options,
+)
 from unet_torch_tpu_torch.nn.dropout import Dropout
 
 
@@ -94,13 +102,21 @@ class Attention(nn.Module):
     seed from the bound generator (one host read per layer and step: no
     registry config sets the rate), at rate 0 it runs no hash. Otherwise
     `fused_attention` runs the eval kernel. The out projection's dropout
-    runs at the same rate, as in the JAX model."""
+    runs at the same rate, as in the JAX model.
+
+    With `vis` every mode runs the plain version instead, as the JAX model
+    routes `vis` through its einsum attention: the f32 probabilities
+    (`attention_probs`) are kept, detached, as `.weights`, then go through
+    the dropout at `attention_dropout_rate` in train mode and multiply v.
+    No kernel can return them."""
 
     def __init__(self, hidden_size: int, num_heads: int,
-                 attention_dropout_rate: float = 0.0):
+                 attention_dropout_rate: float = 0.0, vis: bool = False):
         super().__init__()
         self.num_heads = num_heads
         self.rate = attention_dropout_rate
+        self.vis = vis
+        self.weights = None
         self.query = Linear(hidden_size, hidden_size)
         self.key = Linear(hidden_size, hidden_size)
         self.value = Linear(hidden_size, hidden_size)
@@ -117,7 +133,13 @@ class Attention(nn.Module):
         qkv = qkv.view(b, n, 3, self.num_heads, d).permute(2, 0, 3, 1, 4)
         q, k, v = qkv.contiguous()
         scale = 1.0 / math.sqrt(d)
-        if self.training and torch.is_grad_enabled():
+        if self.vis:
+            p = attention_probs(q, k, scale)
+            self.weights = p.detach()
+            p = self.dropout(p).to(v.dtype)
+            ctx = torch.einsum("bhqk,bhkd->bhqd", p.float(),
+                               v.float()).to(q.dtype)
+        elif self.training and torch.is_grad_enabled():
             seed = 0
             if self.rate > 0.0:
                 gen = self.dropout.generator
@@ -146,13 +168,14 @@ class Mlp(nn.Module):
 
 
 class Block(nn.Module):
-    def __init__(self, config):
+    def __init__(self, config, vis: bool = False):
         super().__init__()
         hidden, t = config.hidden_size, config.transformer
         self.attention_norm = LayerNorm(hidden, eps=1e-6)
         self.ffn_norm = LayerNorm(hidden, eps=1e-6)
         self.ffn = Mlp(hidden, t.mlp_dim, t.dropout_rate)
-        self.attn = Attention(hidden, t.num_heads, t.attention_dropout_rate)
+        self.attn = Attention(hidden, t.num_heads, t.attention_dropout_rate,
+                              vis)
 
     def forward(self, x, dtype):
         """x: the residual stream (f32 under bf16); dtype: the compute
@@ -162,10 +185,10 @@ class Block(nn.Module):
 
 
 class Encoder(nn.Module):
-    def __init__(self, config):
+    def __init__(self, config, vis: bool = False):
         super().__init__()
         self.layer = nn.ModuleList(
-            Block(config) for _ in range(config.transformer.num_layers))
+            Block(config, vis) for _ in range(config.transformer.num_layers))
         self.encoder_norm = LayerNorm(config.hidden_size, eps=1e-6)
 
     def forward(self, x, dtype):
@@ -211,10 +234,10 @@ class Embeddings(nn.Module):
 
 
 class Transformer(nn.Module):
-    def __init__(self, config, img_size: int):
+    def __init__(self, config, img_size: int, vis: bool = False):
         super().__init__()
         self.embeddings = Embeddings(config, img_size)
-        self.encoder = Encoder(config)
+        self.encoder = Encoder(config, vis)
 
     def forward(self, x):
         dtype = x.dtype
@@ -305,28 +328,81 @@ class SegmentationHead(nn.Sequential):
         return y.permute(0, 2, 3, 1)
 
 
-class VisionTransformer(nn.Module):
-    """TransUnet. Input (B, H, W, C) with C = 3 or 1 -> logits
-    (B, H, W, num_classes)."""
+class _TransUnet(nn.Module):
+    """The shared encoder (`transformer`), then one DecoderCup and
+    SegmentationHead a head, named `decoder{s}` and `segmentation_head{s}`
+    for each suffix s of `heads`, as the reference's state_dicts name
+    them."""
 
-    def __init__(self, config, img_size: int = 224, num_classes: int = 2,
+    heads = ("",)
+
+    def __init__(self, config, img_size: int, num_classes: int,
                  vis: bool = False, generator=None):
         super().__init__()
-        if vis:
-            raise NotImplementedError(
-                "vis=True (returning the attention weights) is not ported: "
-                "the attention kernel keeps no weights")
-        self.transformer = Transformer(config, img_size)
-        self.decoder = DecoderCup(config)
-        self.segmentation_head = SegmentationHead(
-            config.decoder_channels[-1], num_classes)
+        self.transformer = Transformer(config, img_size, vis)
+        for s in self.heads:
+            setattr(self, f"decoder{s}", DecoderCup(config))
+            setattr(self, f"segmentation_head{s}", SegmentationHead(
+                config.decoder_channels[-1], num_classes))
         reset_parameters(self, generator)
 
-    def forward(self, x):
+    def forward(self, x) -> tuple:
+        """NHWC input (C = 3, or 1: repeated to RGB) -> one NHWC logits
+        tensor a head, in the order of `heads`."""
         if x.shape[-1] == 1:  # gray -> RGB
             x = x.repeat(1, 1, 1, 3)
         encoded, features = self.transformer(x.permute(0, 3, 1, 2))
-        return self.segmentation_head(self.decoder(encoded, features))
+        return tuple(
+            getattr(self, f"segmentation_head{s}")(
+                getattr(self, f"decoder{s}")(encoded, features))
+            for s in self.heads)
+
+
+class VisionTransformer(_TransUnet):
+    """TransUnet. Input (B, H, W, C) with C = 3 or 1 -> logits
+    (B, H, W, num_classes).
+
+    With `vis=True` the attention runs its plain version (Attention) and,
+    after each forward, `attn_weights` holds the probabilities of every
+    layer in order: one (B, heads, N, N) f32 tensor a layer, before dropout,
+    detached, as the JAX model sows them into `intermediates`. The logits
+    are those of `vis=False` up to the kernels' rounding."""
+
+    def __init__(self, config, img_size: int = 224, num_classes: int = 2,
+                 vis: bool = False, generator=None):
+        super().__init__(config, img_size, num_classes, vis, generator)
+
+    @property
+    def attn_weights(self) -> list:
+        return [block.attn.weights
+                for block in self.transformer.encoder.layer]
+
+    def forward(self, x):
+        return super().forward(x)[0]
+
+
+class VisionTransformerMultitask(_TransUnet):
+    """Shared encoder, two decoders and heads (`multi_task_regTU`): input
+    (B, H, W, C) -> a 2-tuple of NHWC logits. `add_log_vars` registers the
+    uncertainty-weighted loss's (2,) parameter, as UNetMultitask's does."""
+
+    heads = ("1", "2")
+    add_log_vars = UNetMultitask.add_log_vars
+
+    def __init__(self, config, img_size: int = 224, num_classes: int = 2,
+                 generator=None):
+        super().__init__(config, img_size, num_classes, generator=generator)
+
+
+class VisionTransformerMultitaskEM(_TransUnet):
+    """Shared encoder, six decoders and heads (`multitask_em`): a 6-tuple
+    of NHWC logits."""
+
+    heads = tuple(str(i) for i in range(1, 7))
+
+    def __init__(self, config, img_size: int = 224, num_classes: int = 2,
+                 generator=None):
+        super().__init__(config, img_size, num_classes, generator=generator)
 
 
 def reset_parameters(model: nn.Module, generator=None) -> None:
@@ -351,18 +427,28 @@ def reset_parameters(model: nn.Module, generator=None) -> None:
                 nn.init.normal_(fc.bias, std=1e-6, generator=generator)
 
 
+# the model type -> the model class, as the JAX package's build_transunet
+# maps them
+MODEL_CLASSES = {
+    "TransUnet": VisionTransformer,
+    "regression_t": VisionTransformer,
+    "multi_task_regTU": VisionTransformerMultitask,
+    "multitask_em": VisionTransformerMultitaskEM,
+}
+
+
 def build_transunet(model_type: str, img_size: int, num_classes: int,
                     generator=None, **tpu_options):
-    """R50-ViT-B_16 with n_skip 3 and grid img_size/16, as the JAX package's
-    build_transunet builds it by default. `fold` is accepted for config
-    compatibility and ignored with a warning."""
+    """R50-ViT-B_16 with n_skip 3 and grid img_size/16 for any key of
+    MODEL_CLASSES, as the JAX package's build_transunet builds it by
+    default. `fold` is accepted for config compatibility and ignored with a
+    warning."""
     ignore_tpu_options(tpu_options)
-    not_ported.check(not_ported.MODEL_TYPES, "model_type", model_type)
-    if model_type != "TransUnet":
+    if model_type not in MODEL_CLASSES:
         raise ValueError(f"Unknown TransUnet model_type {model_type!r}")
     config = copy.deepcopy(CONFIGS["R50-ViT-B_16"])
     config.n_classes = num_classes
     config.n_skip = 3
     config.patches.grid = (img_size // 16, img_size // 16)
-    return VisionTransformer(config, img_size, num_classes,
-                             generator=generator)
+    return MODEL_CLASSES[model_type](config, img_size, num_classes,
+                                     generator=generator)

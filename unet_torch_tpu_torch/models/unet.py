@@ -34,8 +34,10 @@ from unet_torch_tpu_torch.nn.blocks import (
 # options of the JAX package that shape TPU layouts or memory; no meaning here
 _TPU_OPTIONS = ("fold", "remat", "head_dtype")
 
-# built by models/transunet/vit.py::build_transunet, as in the JAX package
-_TRANSUNET_TYPES = ("TransUnet", "regression_t", "multi_task_regTU")
+# the TransUnet types the CLIs train and serve, built by
+# models/transunet/vit.py::build_transunet (which builds multitask_em too),
+# as in the JAX package
+TRANSUNET_TYPES = ("TransUnet", "regression_t", "multi_task_regTU")
 
 
 def resolve_channels(n_channels: int) -> int:
@@ -190,7 +192,7 @@ def build_model(model_type: str, *, n_channels: int, n_classes: int,
     if model_type == "attention":
         return UNetAttention(resolve_channels(n_channels), n_classes, base,
                              dropout, dropout_p, generator=generator)
-    if model_type in _TRANSUNET_TYPES:
+    if model_type in TRANSUNET_TYPES:
         raise ValueError(f"model_type {model_type!r} is built by "
                          "models.transunet.build_transunet")
     not_ported.check(not_ported.MODEL_TYPES, "model_type", model_type)

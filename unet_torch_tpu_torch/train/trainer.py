@@ -1,13 +1,13 @@
 """The epoch loops (counterpart of unet_torch_tpu/train/trainer.py).
 
 `Trainer.train` dispatches as the JAX trainer does: `single`, `TransUnet`,
-`regression` (ReLU on the logits) and `attention` run `single_train`;
-`multi_task` and `multi_task_reg` run the two-head loop as
-`multi_task_train` (sum), `multi_task_uc_train` (loss `multi_task_loss`:
-learned uncertainty weights, a fresh Adam at 5e-4 without weight decay) or
-`multi_task_train_ratio` (loss `multi_task_loss_ratio`: plateau LR unless
-the poly LR is on, the ratio term and validation from epoch 6). The run
-artifacts are the reference's:
+`regression` and `regression_t` (ReLU on the logits) and `attention` run
+`single_train`; `multi_task`, `multi_task_reg` and `multi_task_regTU` run
+the two-head loop as `multi_task_train` (sum), `multi_task_uc_train` (loss
+`multi_task_loss`: learned uncertainty weights, a fresh Adam at 5e-4
+without weight decay) or `multi_task_train_ratio` (loss
+`multi_task_loss_ratio`: plateau LR unless the poly LR is on, the ratio
+term and validation from epoch 6). The run artifacts are the reference's:
 
   * append-only `logs.txt`
   * checkpoints `models/epoch{N}.pt` and `models/best.pt` when the val score
@@ -31,7 +31,8 @@ through epoch 5, then the topo loss against (labels, dot map) through
 `TopoPipeline`, validation scored by the mean relative count error
 (`mr_accuracy`) and a best model only after epoch 10.
 
-`CLTR` runs train/cltr_loop.py::cltr_train_loop on this trainer.
+`CLTR` runs train/cltr_loop.py::cltr_train_loop on this trainer. Any other
+model type, `multitask_em` among them, has no loop, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -60,8 +61,9 @@ from unet_torch_tpu_torch.train.steps import (
 # keys)
 TOPO_LOSS_NAMES = TOPO_LOSSES | {"TopoCount2", "TopoLoss2"}
 
-_SINGLE_TYPES = ("single", "TransUnet", "regression", "attention")
-_MULTITASK_TYPES = ("multi_task", "multi_task_reg")
+_SINGLE_TYPES = ("single", "TransUnet", "regression", "regression_t",
+                 "attention")
+_MULTITASK_TYPES = ("multi_task", "multi_task_reg", "multi_task_regTU")
 _LOOPS_NOT_PORTED = {**not_ported.MODEL_TYPES, **not_ported.LOSSES}
 
 
@@ -97,7 +99,7 @@ class Trainer:
         self.dtype = dtype
         self.plot = plot
         if relu_output is None:
-            relu_output = model_type == "regression"
+            relu_output = model_type in ("regression", "regression_t")
         self.relu_output = relu_output
         self.fused_head = fused_head
         self.topo_pair_downsample = topo_pair_downsample
