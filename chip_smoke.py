@@ -7,8 +7,9 @@
     python3 chip_smoke.py --attention-ab   (build, then T3 and C3 on the wgmma
                                     and on the mma.sync attention kernels, in turns)
     python3 chip_smoke.py --unet-profile   (build, then phase 4's forward under
-                                    torch.profiler, its convs on wgmma and on
-                                    mma.sync in turns)
+                                    torch.profiler, its convs as routed, its
+                                    first conv on reg and its wgmma convs on
+                                    mma.sync, in turns)
     python3 chip_smoke.py --topo   (build, then only T1 and the topo phases
                                     P1-P3)
 
@@ -21,19 +22,24 @@ Builds the Hopper kernels from unet_torch_tpu_torch/csrc, then:
                 attention probe), one process each, all at once, and g++ of
                 the host pairing (native/ph0.cpp); timed; the
                 registers and spills ptxas reports for the wgmma kernels
-                (attention, the packed probe and fused conv) and the auction
+                (attention, the packed probe and fused conv), the fused
+                conv's narrow kernels and the auction
   3. kernel     the fused conv against its plain PyTorch version at every
                 distinct conv shape of the UNet-64 eval forward (batch 8,
                 512x512 input), in bf16 and in f32 with TF32 off; each
-                shape's route (conv_route: wgmma, mma.sync or reg), errors,
-                median times of one launch and of launches back to back, the
-                bound, and at the wgmma route's shapes the mma.sync kernel
-                held against the plain version and timed in the same run
+                shape's route (conv_route: wgmma, narrow, mma.sync or reg),
+                errors, median times of one launch and of launches back to
+                back, the bound, at the wgmma route's shapes the mma.sync
+                kernel held against the plain version and timed in the same
+                run, and at the narrow route's the route it replaced (reg,
+                or mma.sync where Cin and Cout are multiples of 8) held and
+                timed in turns with it
   4. main       UNet-64 eval forward through make_predict_fn(classes=True),
                 bf16, batch 8 at 512x512, as configs/segmentation_mc.yml
                 serves it; counts the kernel's launches by route (17 wgmma,
-                1 reg), times the forward, also with its wgmma convs on the
-                mma.sync kernel
+                1 narrow), times the forward, also with its wgmma convs on
+                the mma.sync kernel, and in turns with its first conv on the
+                narrow route and on reg
   5. model      one 512x512 image through the same model in f32 on the card
                 (kernel) and on the CPU (plain version); logits and class maps
                 must agree
@@ -44,11 +50,12 @@ Builds the Hopper kernels from unet_torch_tpu_torch/csrc, then:
                 f32), errors, median times of one launch and of launches back
                 to back, the wgmma cases also on the mma.sync kernel, TFLOP/s
   7. kernel     the fused conv at the nine conv shapes of the TransUnet
-                decoder (batch 8, 512x512 input), as in phase 3
+                decoder (batch 8, 512x512 input), as in phase 3 (the last,
+                Cin 16, on the narrow route and in turns on mma.sync)
   8. main       TransUnet R50-ViT-B/16 eval forward through
                 make_predict_fn(classes=True), bf16, batch 8 at 512x512, as
                 configs/transunet.yml serves it; counts both kernels'
-                launches (12 attention; 9 fused conv: 8 wgmma, 1 mma.sync),
+                launches (12 attention; 9 fused conv: 8 wgmma, 1 narrow),
                 times the forward, also with its wgmma convs on mma.sync
   9. model      one 512x512 image through the TransUnet in f32, card against
                 CPU, as in phase 5; the CPU reference runs at the full
@@ -85,13 +92,13 @@ Builds the Hopper kernels from unet_torch_tpu_torch/csrc, then:
                 configs/transunet.yml trains: 12 + 12 attention launches a
                 step, the loss finite and falling, img/s, peak memory; then
                 its eval forward (12 attention, 9 fused conv: 8 wgmma, 1
-                mma.sync), img/s
+                narrow), img/s
  V2. multi_task the two-head TransUnet (VisionTransformerMultitask, one class
      _regTU     a head) under multi_task_loss (uncertainty combine, the
                 loop's Adam 5e-4), as for M4: 12 + 12 attention launches a
                 step, log_vars moving, the loss finite and falling, img/s,
                 peak memory; its eval forward (12 attention, 18 fused conv:
-                2 x (8 wgmma + 1 mma.sync)), img/s
+                2 x (8 wgmma + 1 narrow)), img/s
  V3. multitask  the six-head TransUnet's eval forward (12 attention, 54
      _em        fused conv), img/s; one 512x512 image in f32, card against
                 CPU, each head within phase 9's bound
@@ -116,14 +123,14 @@ Builds the Hopper kernels from unet_torch_tpu_torch/csrc, then:
                 launches per step, the loss finite and falling, img/s with
                 the kernel and with the plain min-plus, peak memory; the same
                 step under dice_bce beside it; then its eval forward (18
-                fused-conv launches: 17 wgmma, 1 reg) with test_single's
+                fused-conv launches: 17 wgmma, 1 narrow) with test_single's
                 sigmoid threshold
  M4. multitask  UNetMultitask base 64 as configs/multitask_reg.yml trains it
      main       (multi_task_loss: uncertainty combine, Adam 5e-4), bf16, batch
                 8 at 512x512: loss finite and falling, log_vars moving, img/s,
                 peak memory; its eval forward on the fused-conv kernel (26
-                launches: 25 wgmma, 1 reg); the attention UNet's eval
-                forward (18 launches: 17 wgmma, 1 reg),
+                launches: 25 wgmma, 1 narrow); the attention UNet's eval
+                forward (18 launches: 17 wgmma, 1 narrow),
                 and one image through it in f32, card against CPU
  M5. trainer    Trainer.train() for multi_task_reg, 2 epochs of 2 steps on
                 seeded numpy batches; best.pt (with log_vars) reloads
@@ -353,6 +360,12 @@ PEAK_EXP = PEAK_F32 / 256 * 16
 # how many launches go between two CUDA events when a kernel is timed "back
 # to back": the queue stays full, so the host's launch cost drops out
 BURST = 10
+# the fused conv's launches by route in a bf16 eval forward of the UNet
+# family (UNet-64, binary, attention): the first conv (Cin 3) on the narrow
+# route, the other 17 on wgmma; the two-head UNet has 25 on wgmma
+UNET_ROUTES = {"reg": 0, "mma.sync": 0, "wgmma": 17, "narrow": 1}
+# and of a TransUnet decoder: the last conv (Cin 16) on the narrow route
+DECODER_ROUTES = {"reg": 0, "mma.sync": 0, "wgmma": 8, "narrow": 1}
 
 
 START = time.perf_counter()
@@ -432,6 +445,47 @@ def per_tap_plan(fc):
         fc.conv_tile_plan = plan
 
 
+def narrow_replaced(cin, cout):
+    """The route a conv of the narrow route took before that route existed:
+    mma.sync where Cin and Cout are multiples of 8, else reg."""
+    return "mma.sync" if cin % 8 == 0 and cout % 8 == 0 else "reg"
+
+
+@contextlib.contextmanager
+def narrow_on_replaced_route(fc):
+    """Within it every call that the fused conv's `conv_route` sends to the
+    narrow route goes to the route it replaced (`narrow_replaced`): the
+    earlier design beside the narrow one in the same run. For the check and
+    the times only."""
+    route = fc.conv_route
+
+    def replaced(dtype, cin, cout):
+        got = route(dtype, cin, cout)
+        return narrow_replaced(cin, cout) if got == "narrow" else got
+
+    fc.conv_route = replaced
+    try:
+        yield
+    finally:
+        fc.conv_route = route
+
+
+def in_turns(fc, measure):
+    """measure() with the narrow route's calls on it and on the route it
+    replaced, in turns (narrow, replaced, replaced, narrow): the mean of
+    each side's two readings, element by element where measure returns a
+    tuple."""
+    runs = {"narrow": [], "replaced": []}
+    for side in ("narrow", "replaced", "replaced", "narrow"):
+        with (narrow_on_replaced_route(fc) if side == "replaced"
+              else contextlib.nullcontext()):
+            runs[side].append(measure())
+    return tuple(
+        tuple(statistics.mean(v) for v in zip(*r))
+        if isinstance(r[0], tuple) else statistics.mean(r)
+        for r in (runs["narrow"], runs["replaced"]))
+
+
 def on_mma_sync(mod, fn):
     """fn's median ms (one launch, launches back to back) on the mma.sync
     kernels."""
@@ -478,7 +532,10 @@ def check_kernel(fc, shapes, dev):
     """Phases 3 and 7. Returns {dtype: {(H, Cin, Cout): (err, ms,
     plain_ms, route, back-to-back ms, the mma.sync kernel's (one launch,
     back-to-back) ms or None, bound ms, back-to-back ms without the staged
-    halo or None)}}; the f32 calls are timed one launch at a time only."""
+    halo or None, (the replaced route, its one-launch and back-to-back ms)
+    or None)}}; the f32 calls are timed one launch at a time only. At the
+    narrow route's shapes both routes' times are the means of two turns
+    each (narrow, replaced, replaced, narrow)."""
     gen = torch.Generator().manual_seed(SEED)
     results = {}
     for dtype in (torch.bfloat16, torch.float32):
@@ -527,6 +584,31 @@ def check_kernel(fc, shapes, dev):
                             f"Cin={cin} Cout={cout}: max_abs_err {old_err} > "
                             f"{bound}")
                     old_ms = on_mma_sync(fc, kernel)
+                prev = None
+                if route == "narrow":
+                    # the route it replaced: held against the plain version
+                    # too, and timed in turns with it
+                    prev_route = narrow_replaced(cin, cout)
+                    with narrow_on_replaced_route(fc):
+                        fc.reset_launches()
+                        prev_out = kernel()
+                        torch.cuda.synchronize()
+                        launched = fc.fused_conv3x3_bn_relu.launches_by_route
+                        if launched[prev_route] != 1:
+                            raise AssertionError(
+                                f"H={h} Cin={cin} Cout={cout} launched "
+                                f"{launched} on the replaced route, expected "
+                                f"one on {prev_route}")
+                        prev_err = (prev_out.float() - ref.float()).abs(
+                            ).max().item()
+                    if prev_err > bound:
+                        raise AssertionError(
+                            f"{prev_route} kernel disagrees with plain at "
+                            f"H={h} Cin={cin} Cout={cout}: max_abs_err "
+                            f"{prev_err} > {bound}")
+                    (ms, burst_ms), prev_ms = in_turns(fc, lambda: (
+                        median_ms(kernel), median_ms(kernel, burst=BURST)))
+                    prev = (prev_route, *prev_ms)
                 tap_ms = None
                 if (route == "wgmma"
                         and fc.conv_tile_plan(BATCH, h, h, cout).halo):
@@ -540,7 +622,7 @@ def check_kernel(fc, shapes, dev):
             bound_ms = (conv_bound([(h, cin, cout)])[0]
                         if dtype == torch.bfloat16 else None)
             per_shape[(h, cin, cout)] = (err, ms, plain_ms, route, burst_ms,
-                                         old_ms, bound_ms, tap_ms)
+                                         old_ms, bound_ms, tap_ms, prev)
             tflops = 2 * 9 * cin * cout * BATCH * h * h / burst_ms / 1e9
             phase("kernel",
                   f"{str(dtype)[6:]} B={BATCH} H=W={h} Cin={cin} Cout={cout}"
@@ -552,6 +634,8 @@ def check_kernel(fc, shapes, dev):
                      "ms" if tap_ms else "")
                   + (f"; on mma.sync {old_ms[0]:.4f} ms, back to back "
                      f"{old_ms[1]:.4f} ms" if old_ms else "")
+                  + (f"; in turns on {prev[0]} {prev[1]:.4f} ms, back to "
+                     f"back {prev[2]:.4f} ms" if prev else "")
                   + f") plain {plain_ms:.4f} ms")
             del x, w, out, ref
         results[dtype] = per_shape
@@ -1457,6 +1541,7 @@ def check_binary_unet(at, fc, mp, dev, xs):
     mask = mask.cpu().numpy()
     if (eval_launches != want
             or eval_routes != route_counts(fc, conv_shapes(BASE, SIZE))
+            or eval_routes != UNET_ROUTES
             or mask.shape != (BATCH, SIZE, SIZE)
             or mask.dtype != np.uint8 or mask.max() > 1):
         raise AssertionError(f"binary UNet eval: launches {eval_launches} "
@@ -1538,7 +1623,8 @@ def check_multitask(at, fc, dev, xs):
     mt_routes = dict(fc.fused_conv3x3_bn_relu.launches_by_route)
     want = dict.fromkeys(mt_launches, 0)
     want["fused_conv3x3_bn_relu"] = len(multitask_conv_shapes(BASE, SIZE))
-    if mt_routes != route_counts(fc, multitask_conv_shapes(BASE, SIZE)):
+    if (mt_routes != route_counts(fc, multitask_conv_shapes(BASE, SIZE))
+            or mt_routes != {**UNET_ROUTES, "wgmma": 25}):
         raise AssertionError(f"two-head eval forward: launches by route "
                              f"{mt_routes}")
     if mt_launches != want or not all(
@@ -1566,7 +1652,8 @@ def check_multitask(at, fc, dev, xs):
     att_routes = dict(fc.fused_conv3x3_bn_relu.launches_by_route)
     want["fused_conv3x3_bn_relu"] = len(conv_shapes(BASE, SIZE))
     if (att_launches != want
-            or att_routes != route_counts(fc, conv_shapes(BASE, SIZE))):
+            or att_routes != route_counts(fc, conv_shapes(BASE, SIZE))
+            or att_routes != UNET_ROUTES):
         raise AssertionError(f"attention UNet eval forward launched "
                              f"{att_launches} {att_routes}")
     hist = check_classes(classes)
@@ -1652,7 +1739,7 @@ def check_multitask_trainer(at, fc, dev, xs):
 def transunet_eval(at, fc, model, predict, xs, tag):
     """V1-V4: one bf16 eval forward (`predict`) of a TransUnet `model`: an
     attention launch a ViT layer and, each decoder, the nine fused convs by
-    route (conv_route: 8 wgmma, the 16-channel tail on mma.sync). Returns
+    route (conv_route: 8 wgmma, the 16-channel tail on narrow). Returns
     (launches, launches by route, the forward's seconds)."""
     n_decoders = sum(name.startswith("decoder")
                      for name, _ in model.named_children())
@@ -2258,7 +2345,8 @@ def profile_unet_forward(dev):
     """--unet-profile: phase 4's UNet-64 bf16 batch-8 512x512 eval forward
     under torch.profiler: device time by kernel, the busy and idle shares of
     an unprofiled forward, the fused conv's share of the busy time; the same
-    with the wgmma convs on the mma.sync kernel, in turns."""
+    with the first conv on reg (the route the narrow one replaced) and with
+    the wgmma convs on the mma.sync kernel, in turns."""
     from unet_torch_tpu_torch.core.rng import seed_everything
     from unet_torch_tpu_torch.eval.reports import make_predict_fn
     from unet_torch_tpu_torch.kernels import fused_conv as fc
@@ -2266,15 +2354,22 @@ def profile_unet_forward(dev):
     model = seeded_unet(seed_everything(SEED))
     xs = eval_batch(np.random.RandomState(SEED))
     predict = make_predict_fn(model, dev, torch.bfloat16, classes=True)
-    for name in ("wgmma", "mma.sync", "mma.sync", "wgmma"):
-        with (mma_sync_route(fc) if name == "mma.sync"
-              else contextlib.nullcontext()):
+    routes = {"routed": contextlib.nullcontext,
+              "first conv on reg": lambda: narrow_on_replaced_route(fc),
+              "wgmma convs on mma.sync": lambda: mma_sync_route(fc)}
+    turns = list(routes)
+    for name in turns + turns[::-1]:
+        with routes[name]():
             fwd_s = forward_s(predict, xs)
             rows = profiled_rows(lambda: predict(xs))
         busy = sum(r[1] for r in rows)
         conv = sum(r[1] for r in rows if "conv3x3_bn_relu" in r[0])
+        # the first conv: the narrow kernel, or reg's in its place
+        first = sum(r[1] for r in rows
+                    if re.search("conv3x3_bn_relu_(narrow|reg)", r[0]))
         phase("UNet profile",
-              f"convs on {name}: device busy {busy:.2f} ms a forward (sum "
+              f"convs {name}: first conv {first:.3f} ms; device busy "
+              f"{busy:.2f} ms a forward (sum "
               f"of kernel times) against an unprofiled forward of "
               f"{fwd_s * 1e3:.2f} ms: idle "
               f"{100 * (1 - busy / (fwd_s * 1e3)):.1f}%; fused conv "
@@ -3040,6 +3135,7 @@ def main(cltr_profile=False, cltr_two_batches_only=False,
           f"built and loaded in {build_s:.2f} s")
     ptxas_report(build, ("flash_attention_fwd", "flash_attention_bwd",
                          "fused_conv3x3_bn_relu", "packed2_attention_fwd"))
+    ptxas_report(build, ("fused_conv3x3_bn_relu",), match="narrow")
     ptxas_report(build, ("auction_lsap",), match="auction")
     if cltr_profile:
         check_cltr_train_step(at, fc, au, dev, profile=True)
@@ -3077,7 +3173,8 @@ def main(cltr_profile=False, cltr_two_batches_only=False,
     unet_launches = fc.fused_conv3x3_bn_relu.launches
     unet_routes = dict(fc.fused_conv3x3_bn_relu.launches_by_route)
     if (unet_launches != len(shapes) or at.fused_attention.launches
-            or unet_routes != route_counts(fc, shapes)):
+            or unet_routes != route_counts(fc, shapes)
+            or unet_routes != UNET_ROUTES):
         raise AssertionError(f"{unet_launches} fused conv ({unet_routes}) "
                              f"and {at.fused_attention.launches} attention "
                              f"launches in one UNet forward, expected "
@@ -3089,6 +3186,9 @@ def main(cltr_profile=False, cltr_two_batches_only=False,
     # the plain version in place of the kernel, for comparison only
     with mma_sync_route(fc):
         mma_fwd_s = forward_s(predict, xs)
+    # in turns: the first conv on the narrow route and on the one it replaced
+    first_fwd_s, first_reg_fwd_s = in_turns(fc, lambda: forward_s(predict,
+                                                                  xs))
     blocks.fused_conv3x3_bn_relu = fc.fused_conv3x3_bn_relu_reference
     try:
         plain_fwd_s = forward_s(predict, xs)
@@ -3098,7 +3198,11 @@ def main(cltr_profile=False, cltr_two_batches_only=False,
           f"{unet_launches} kernel launches {unet_routes}; class histogram "
           f"{hist.tolist()}; median {fwd_s * 1e3:.2f} ms = "
           f"{BATCH / fwd_s:.1f} img/s (wgmma convs on mma.sync "
-          f"{mma_fwd_s * 1e3:.2f} ms = {BATCH / mma_fwd_s:.1f} img/s; plain "
+          f"{mma_fwd_s * 1e3:.2f} ms = {BATCH / mma_fwd_s:.1f} img/s; in "
+          f"turns, the first conv on narrow {first_fwd_s * 1e3:.2f} ms = "
+          f"{BATCH / first_fwd_s:.1f} img/s, on reg "
+          f"{first_reg_fwd_s * 1e3:.2f} ms = {BATCH / first_reg_fwd_s:.1f} "
+          f"img/s; plain "
           f"convs {plain_fwd_s * 1e3:.2f} ms = {BATCH / plain_fwd_s:.1f} "
           "img/s)")
 
@@ -3128,7 +3232,8 @@ def main(cltr_profile=False, cltr_two_batches_only=False,
     attn_launches = at.fused_attention.launches
     n_layers = len(model.transformer.encoder.layer)
     if ((attn_launches, tu_conv_launches) != (n_layers, len(tu_shapes))
-            or tu_routes != route_counts(fc, tu_shapes)):
+            or tu_routes != route_counts(fc, tu_shapes)
+            or tu_routes != DECODER_ROUTES):
         raise AssertionError(f"{attn_launches} attention and "
                              f"{tu_conv_launches} fused conv ({tu_routes}) "
                              f"launches in one TransUnet forward, expected "
@@ -3301,7 +3406,7 @@ def main(cltr_profile=False, cltr_two_batches_only=False,
                 v4_eval["fused_conv3x3_bn_relu"],
             # the topo loop's validation in its 5 warm-up epochs (P3)
             "topo_wup_trainer": p3_launches},
-        # by route (wgmma, mma.sync, reg) in each eval forward
+        # by route (wgmma, narrow, mma.sync, reg) in each eval forward
         "launches_by_route": {
             "unet": unet_routes, "transunet": tu_routes,
             "binary_unet": m3_routes, "multitask_unet": mt_routes,
@@ -3331,6 +3436,10 @@ def main(cltr_profile=False, cltr_two_batches_only=False,
             "back_to_back_ms": r[4], "bound_ms": r[6],
             "mma_sync_ms": r[5][0] if r[5] else None,
             "mma_sync_back_to_back_ms": r[5][1] if r[5] else None,
+            # the narrow route's shapes: the route it replaced, in turns
+            "replaced_route": r[8][0] if r[8] else None,
+            "replaced_route_ms": r[8][1] if r[8] else None,
+            "replaced_route_back_to_back_ms": r[8][2] if r[8] else None,
             # the wgmma route where it stages the halo: without it
             "per_tap_back_to_back_ms": r[7],
             "plain_ms": r[2], "library_ms": lib_conv[s][0],
@@ -3342,6 +3451,9 @@ def main(cltr_profile=False, cltr_two_batches_only=False,
         "forward_img_s": {
             "unet": BATCH / fwd_s,
             "unet_convs_on_mma_sync": BATCH / mma_fwd_s,
+            # in turns: the first conv on the narrow route, on reg
+            "unet_first_conv_on_narrow": BATCH / first_fwd_s,
+            "unet_first_conv_on_reg": BATCH / first_reg_fwd_s,
             "transunet": BATCH / tu_fwd_s,
             "transunet_convs_on_mma_sync": BATCH / tu_mma_fwd_s,
             "regression_t": BATCH / v1_fwd_s,
@@ -3593,8 +3705,9 @@ if __name__ == "__main__":
     parser.add_argument(
         "--unet-profile", action="store_true",
         help="build, then only the UNet-64 eval forward (phase 4) with "
-             "torch.profiler, its convs on wgmma and on mma.sync in turns: "
-             "device time by kernel, idle share, the fused conv's share")
+             "torch.profiler, its convs as routed, its first conv on reg and "
+             "its wgmma convs on mma.sync, in turns: device time by kernel, "
+             "idle share, the fused conv's share")
     parser.add_argument(
         "--topo", action="store_true",
         help="build, then only the mask probe (T1) and the topo phases "

@@ -3,7 +3,7 @@ the CPU: `conv_route` as a function of (dtype, Cin, Cout) and on every conv
 of the UNet-64, UNetMultitask-64 and TransUnet R50-ViT-B/16 eval forwards;
 the wgmma route's tile plan covering every output value exactly once; and
 the plain version against the JAX package's Pallas kernel (interpret mode)
-and XLA reference at small shapes the wgmma route takes. The kernels
+and XLA reference at small shapes the wgmma and narrow routes take. The kernels
 themselves are held against the plain version in
 test_torch_port_kernel_cuda.py, on a card."""
 
@@ -39,13 +39,15 @@ def _expected_route(dtype, cin, cout):
         return "reg"
     if cin % 64 == 0 and cout % 16 == 0:
         return "wgmma"
+    if cin <= 16 and cout % 16 == 0 and cout <= 256:
+        return "narrow"
     if cin % 8 == 0 and cout % 8 == 0:
         return "mma.sync"
     return "reg"
 
 
-@pytest.mark.parametrize("cout", [8, 16, 24, 64, 136, 320])
-@pytest.mark.parametrize("cin", [3, 16, 24, 64, 192, 1024])
+@pytest.mark.parametrize("cout", [8, 16, 24, 64, 136, 256, 272, 320])
+@pytest.mark.parametrize("cin", [1, 3, 8, 16, 17, 24, 64, 192, 1024])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_conv_route_is_a_function_of_dtype_and_channels(dtype, cin, cout):
     route = port_fc.conv_route(dtype, cin, cout)
@@ -104,16 +106,19 @@ def test_main_path_convs_and_their_routes(monkeypatch, name):
     gen = torch.Generator().manual_seed(0)
     if name == "transunet":
         model, want, size = _small_r50_b16(32), TRANSUNET, 32
-        # bf16: wgmma on all but the last conv (Cin 16), which keeps mma.sync
-        routes = {"wgmma": 8, "mma.sync": 1, "reg": 0}
+        # bf16: wgmma on all but the last conv (Cin 16), which takes the
+        # narrow route
+        routes = {"wgmma": 8, "narrow": 1, "mma.sync": 0, "reg": 0}
     else:
         kind = "single" if name == "unet" else "multi_task_reg"
         model = build_model(kind, n_channels=3, n_classes=3, base=64,
                             generator=gen)
         want = UNET_64 if name == "unet" else MULTITASK_64
         size = 16
-        # bf16: wgmma on all but the first conv (Cin 3), which keeps reg
-        routes = {"wgmma": len(want) - 1, "mma.sync": 0, "reg": 1}
+        # bf16: wgmma on all but the first conv (Cin 3), which takes the
+        # narrow route
+        routes = {"wgmma": len(want) - 1, "narrow": 1, "mma.sync": 0,
+                  "reg": 0}
     x = torch.from_numpy(
         np.random.RandomState(0).randn(1, size, size, 3).astype(np.float32))
     assert _record_convs(monkeypatch, model, x) == want
@@ -169,15 +174,26 @@ def test_tile_plan_of_the_main_path():
     assert plan[:3] == (4, 32, 256) and plan.tiles == 256 and not plan.halo
 
 
-# (B, H, W, Cin, Cout) the wgmma route takes, small
+# (B, H, W, Cin, Cout) the wgmma route takes, small; then the narrow
+# route's: the UNet's Cin 3, the TransUnet tail's 16, one input channel
 WGMMA_SHAPES = [(1, 6, 10, 64, 16), (2, 5, 9, 128, 64)]
+NARROW_SHAPES = [(2, 7, 9, 3, 64), (1, 6, 10, 16, 16), (1, 5, 3, 1, 32)]
 
 
 @pytest.mark.parametrize("shape", WGMMA_SHAPES)
 def test_reference_matches_pallas_and_xla_at_wgmma_shapes(shape):
+    _reference_matches_pallas_and_xla(shape, "wgmma")
+
+
+@pytest.mark.parametrize("shape", NARROW_SHAPES)
+def test_reference_matches_pallas_and_xla_at_narrow_shapes(shape):
+    _reference_matches_pallas_and_xla(shape, "narrow")
+
+
+def _reference_matches_pallas_and_xla(shape, route):
     torch.backends.cudnn.allow_tf32 = False
     *xshape, cin, cout = shape
-    assert port_fc.conv_route(torch.bfloat16, cin, cout) == "wgmma"
+    assert port_fc.conv_route(torch.bfloat16, cin, cout) == route
     rng = np.random.RandomState(1)
     x = rng.randn(*xshape, cin).astype(np.float32)
     k = (rng.randn(3, 3, cin, cout) * (2.0 / (9 * cin)) ** 0.5).astype(
@@ -209,4 +225,4 @@ def test_launch_counts_reset_by_route():
     port_fc.reset_launches()
     assert port_fc.fused_conv3x3_bn_relu.launches == 0
     assert port_fc.fused_conv3x3_bn_relu.launches_by_route == {
-        "reg": 0, "mma.sync": 0, "wgmma": 0}
+        "reg": 0, "mma.sync": 0, "wgmma": 0, "narrow": 0}

@@ -1,5 +1,5 @@
-"""The Hopper kernels (fused conv3x3+BN+ReLU on its wgmma, mma.sync and
-register routes, flash attention forward in
+"""The Hopper kernels (fused conv3x3+BN+ReLU on its wgmma, narrow, mma.sync
+and register routes, flash attention forward in
 its eval and train calls and flash attention backward on their wgmma,
 mma.sync and f32 routes, dropout keep-mask probe, min-plus product, auction,
 packed attention probe) against their plain PyTorch versions, on a CUDA card;
@@ -189,13 +189,19 @@ def test_wgmma_route_reads_no_halo_across_images_on_card(monkeypatch, cout,
 @pytest.mark.cuda
 def test_conv_routes_refuse_what_they_cannot_serve_on_card(monkeypatch):
     """A route the call cannot take raises, and nothing else is launched in
-    its place: wgmma at Cin 24, mma.sync at Cout 12, either in f32."""
+    its place: wgmma at Cin 24, mma.sync at Cout 12, either in f32; narrow
+    in f32, at Cin 24, at Cout 24 (not a multiple of 16) and at Cout 272."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU: the Hopper kernel has no CPU mode")
     for route, shape, dtype in (("wgmma", (1, 8, 8, 24, 64), torch.bfloat16),
                                 ("mma.sync", (1, 8, 8, 64, 12),
                                  torch.bfloat16),
-                                ("wgmma", (1, 8, 8, 64, 64), torch.float32)):
+                                ("wgmma", (1, 8, 8, 64, 64), torch.float32),
+                                ("narrow", (1, 8, 8, 3, 64), torch.float32),
+                                ("narrow", (1, 8, 8, 24, 64), torch.bfloat16),
+                                ("narrow", (1, 8, 8, 3, 24), torch.bfloat16),
+                                ("narrow", (1, 8, 8, 16, 272),
+                                 torch.bfloat16)):
         x, w, scale, bias = _conv_inputs(shape)
         monkeypatch.setattr(port_fc, "conv_route", lambda *_, r=route: r)
         before = dict(port_fc.fused_conv3x3_bn_relu.launches_by_route)
@@ -203,6 +209,66 @@ def test_conv_routes_refuse_what_they_cannot_serve_on_card(monkeypatch):
             port_fc.fused_conv3x3_bn_relu(x.to(dtype), w.to(dtype), scale,
                                           bias)
         assert port_fc.fused_conv3x3_bn_relu.launches_by_route == before
+
+
+# (B, H, W, Cin, Cout) of the narrow route: the main path's two 512x512
+# shapes (the UNet family's first conv, the TransUnet decoder's last); Cin
+# 1, 3, 8 and 16 (a halo pixel of 8 or 16 channels, rows of x staged off or
+# on 16-byte chunks) with Cout 16, 64 and 256 (passes of 16 or 64 output
+# channels) at odd H and W not a multiple of the 128-pixel chunk: W 300 (one
+# tile of 384 columns at Cin <= 8, two of 256 at Cin 16) and, at batch 1,
+# W 133; then Cin 5 and 12 with Cout 48 and 96 (passes of 16 and 32), W
+# under one chunk and H 1, W 1000 (two tiles of 512 columns) and W 2049.
+NARROW_CONV_SHAPES = ([(8, 512, 512, 3, 64), (8, 512, 512, 16, 16)]
+                      + [(b, h, w, cin, cout)
+                         for b, h, w in ((2, 11, 300), (1, 9, 133))
+                         for cin in (1, 3, 8, 16)
+                         for cout in (16, 64, 256)]
+                      + [(3, 5, 7, 12, 48), (2, 1, 5, 5, 96),
+                         (2, 33, 1000, 3, 32), (1, 3, 2049, 16, 16)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", NARROW_CONV_SHAPES)
+def test_narrow_route_matches_plain_on_card(monkeypatch, shape):
+    """bf16 within two ulps of the output's peak, as the other routes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the Hopper kernel has no CPU mode")
+    torch.backends.cudnn.allow_tf32 = False
+    assert port_fc.conv_route(torch.bfloat16, *shape[3:]) == "narrow"
+    args = _conv_inputs(shape)
+    out, launched = _conv_on_route(monkeypatch, "narrow", args)
+    with torch.inference_mode():
+        ref = port_fc.fused_conv3x3_bn_relu_reference(*args)
+    assert launched == 1
+    assert out.shape == ref.shape and out.dtype == torch.bfloat16
+    err = (out.float() - ref.float()).abs().max().item()
+    bound = 2 ** -6 * ref.float().abs().max().item()
+    assert err <= bound, (err, bound)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,cout", [(3, 64), (16, 16), (16, 256)])
+def test_narrow_route_reads_no_halo_across_images_on_card(monkeypatch, cin,
+                                                          cout):
+    """Images 0 and 2 are zeros, image 1 is 100x larger than the rest: a tap
+    that read a row of image 1 into the halo of image 0 or 2 would move them
+    off relu(bias), which they must equal exactly."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the Hopper kernel has no CPU mode")
+    x, w, scale, bias = _conv_inputs((3, 9, 70, cin, cout), seed=2)
+    x[0] = 0
+    x[2] = 0
+    x[1] *= 100
+    out, launched = _conv_on_route(monkeypatch, "narrow",
+                                   (x, w, scale, bias))
+    assert launched == 1
+    with torch.inference_mode():
+        ref = port_fc.fused_conv3x3_bn_relu_reference(x, w, scale, bias)
+    floor = torch.relu(bias).to(torch.bfloat16).expand(9, 70, cout)
+    assert torch.equal(out[0], floor) and torch.equal(out[2], floor)
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= 2 ** -6 * ref.float().abs().max().item()
 
 
 # (B, H, Nq, Nk, Dqk, Dv, masked): the ViT's head width with Nq, Nk off the
@@ -893,7 +959,8 @@ def test_multihead_transunet_forward_launches_by_route_on_card(model_type,
                                                                n_heads):
     """The two-head and six-head bf16 eval forwards at full width: each
     decoder's nine convs on the fused-conv kernel, 8 on wgmma and the
-    16-channel tail on mma.sync, and the encoder's 12 attention launches."""
+    16-channel tail on the narrow route, and the encoder's 12 attention
+    launches."""
     _needs_card()
     # f32 parameters and a bf16 input, as make_predict_fn serves a model
     model = _seeded_transunet(model_type, 128, 1).cuda().eval()
@@ -908,7 +975,7 @@ def test_multihead_transunet_forward_launches_by_route_on_card(model_type,
                for o in outs)
     assert port_fc.fused_conv3x3_bn_relu.launches == 9 * n_heads
     assert port_fc.fused_conv3x3_bn_relu.launches_by_route == {
-        "wgmma": 8 * n_heads, "mma.sync": n_heads, "reg": 0}
+        "wgmma": 8 * n_heads, "narrow": n_heads, "mma.sync": 0, "reg": 0}
     assert port_attn.fused_attention.launches == before + 12
 
 

@@ -46,8 +46,11 @@ their dot maps too (`DataBinary(return_gt_dot=True)`) and train in the
 warm-up loop (`single_train_wup`, pairing on a max-pooled map with
 `train_config.topo_pair_downsample`).
 
-Datasets and loaders are the port's numpy ones (data/). `random_crop`
-raises NotImplementedError with the reason (core/not_ported.py).
+Datasets and loaders are the port's numpy ones (data/). `random_crop`,
+`distributed: true`, a `mesh` of more than one data or model shard and a
+launch of several processes (`WORLD_SIZE` > 1, as torchrun sets it) raise
+NotImplementedError with the reason (core/not_ported.py), before anything
+is written.
 """
 
 from __future__ import annotations
@@ -193,7 +196,26 @@ def build_datasets_and_model(cfg: Config, seed: int, generator=None):
     return train_ds, val_ds, model
 
 
+def refuse_parallel(train) -> None:
+    """Raises NotImplementedError, with the reason, on what would spread
+    training over several processes or devices: `distributed: true`, a
+    `mesh` whose `data` or `model` is above 1, and a launch of several
+    processes (`WORLD_SIZE` > 1, the port's counterpart of the coordinator
+    variables the JAX package's `core/dist.py::maybe_initialize` reads).
+    `mesh: {}` and `{data: 1, model: 1}` pass."""
+    if train.distributed:
+        not_ported.check(not_ported.TRAIN_OPTIONS, "option", "distributed")
+    if any(int(train.mesh.get(k) or 1) > 1 for k in ("data", "model")):
+        not_ported.check(not_ported.TRAIN_OPTIONS, "option", "mesh")
+    world = int(os.environ.get("WORLD_SIZE") or 1)
+    if world > 1:
+        raise NotImplementedError(
+            f"a launch of WORLD_SIZE={world} processes is not ported: "
+            + not_ported.TRAIN_OPTIONS["distributed"])
+
+
 def run_training(cfg: Config, device="cuda"):
+    refuse_parallel(cfg.train)
     dev = resolve_device(device)
     plot = importlib.util.find_spec("matplotlib") is not None
     dtype = resolve_precision(cfg.train.precision)

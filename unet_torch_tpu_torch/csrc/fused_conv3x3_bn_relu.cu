@@ -17,7 +17,7 @@
 // output tile; the im2col matrix is never materialised, the epilogue applies
 // scale, bias and ReLU in f32 and y is written once.
 //
-// Three mainloops; kernels/fused_conv.py::conv_route picks one from the
+// Four mainloops; kernels/fused_conv.py::conv_route picks one from the
 // dtype and the channel counts alone, and the entry point refuses a route
 // that cannot serve the call:
 //  - "wgmma" (bf16, Cin a multiple of 64, Cout of 16: every conv of the UNet
@@ -44,18 +44,39 @@
 //    gathers, four shared-memory stages in flight (one barrier per K step of
 //    32), BN = 128 with 64x32 warp tiles when Cout > 64, else BN = 64 with
 //    32x32 warp tiles; ldmatrix + mma.sync m16n8k16.
-//  - "reg" (the first conv's Cin = 3, ragged channel counts, and f32): loads
-//    through registers, the next K step fetched while the current one is
-//    multiplied, BN = 64; bf16 on mma.sync, f32 in full f32 on the CUDA cores,
-//    so that it can be held against a reference with TF32 off.
+//  - "narrow" (bf16, Cin 1 to 16, Cout a multiple of 16 up to 256: the UNet
+//    family's first conv, (Cin, Cout) = (3, 64), and the TransUnet decoder's
+//    last, (16, 16)): bound by bytes, not operations. At (512, 3, 64), batch
+//    8, it does 27 MACs per output value and writes 268 MB of its 281 MB
+//    (bound 0.084 ms at 3.35 TB/s). So x is read once and y written once,
+//    with enough stores in flight: 3.35 TB/s x about 1 us of latency is
+//    3.35 MB in flight over 132 SMs, about 25 KB an SM. A persistent grid
+//    walks tiles of a few image rows (two of 512 columns at Cin 3, two
+//    blocks an SM; four of 256 at Cin 16, one); a tile's rows of x
+//    (contiguous in NHWC: 3 KB a row at (512, 3)) arrive once, by 16-byte
+//    cp.async, while the tile before is multiplied, and are expanded once
+//    into a halo of (rows + 2) x (columns + 2) pixels with the channels
+//    padded to 8 (16 bytes) or 16 (32 bytes) and zeros outside the image. A tap's A operand is then a shifted window of 16-byte rows that
+//    ldmatrix reads directly: Cin <= 8 takes two taps a k16 step (5 steps),
+//    Cin 16 one (9 steps). mma.sync m16n8k16 is enough (the products take
+//    about 20 us of the 84 at the tensor rate); the weight's fragments stay
+//    in registers. Each warp rounds its part of a 128-pixel chunk into
+//    shared memory in the TMA store's swizzle and writes it with its own
+//    TMA stores (no block barrier a chunk), three chunks in flight at Cout
+//    64 (2 x 3 x 16 KB an SM), two at Cout 16 (with the next tile's 48 KB
+//    of x in flight).
+//  - "reg" (ragged channel counts, and f32): loads through registers, the
+//    next K step fetched while the current one is multiplied, BN = 64; bf16
+//    on mma.sync, f32 in full f32 on the CUDA cores, so that it can be held
+//    against a reference with TF32 off.
 // Odd H and W need nothing special on the two gathering routes: pixels are
 // addressed one by one along M.
 //
 // What bounds it on an H100: at the deep levels (H <= 128, Cin >= 128) the
 // tensor-core FLOPs, 2*9*Cin per output value against a few bytes moved. At
 // the 512x512 level the bytes: the first conv (Cin = 3) does 27 MACs per
-// output value and is bound by writing the 64-channel bf16 output, and the
-// Cin = 64 convs sit near the card's ridge point (about 290 FLOP per byte if
+// output value and is bound by writing the 64-channel bf16 output (the
+// narrow route answers it), and the Cin = 64 convs sit near the card's ridge point (about 290 FLOP per byte if
 // x is read once). The wgmma route answers the FLOPs. Per tap, each x value
 // is read from L2 nine times; the staged halo reads it about 2.1 times
 // (264 pixels for 128) where it is staged. Even so the Cout = 64 shapes
@@ -761,6 +782,326 @@ __global__ void __launch_bounds__(WG_THREADS, WgTile<BN, HALO>::BLOCKS)
 }
 
 // ---------------------------------------------------------------------------
+// Mainloop 4: bf16 with Cin <= 16 and Cout a multiple of 16 (at most 256),
+// "narrow": a staged halo of image rows, mma.sync, TMA stores.
+// ---------------------------------------------------------------------------
+
+constexpr int NR_THREADS = 256;
+constexpr int NR_CHUNK = 128;  // output pixels a chunk: of one image row
+constexpr int NR_SMEM_MAX = 232448;
+
+// CP: the channels a halo pixel holds in shared memory (Cin padded to 8 or
+// 16: 16 or 32 bytes, so that a tap's A operand is a window of 16-byte rows
+// that ldmatrix reads). NP: the output channels of a pass (64, 32 or 16,
+// the widest that divides Cout), split between WN warps.
+template <int CP, int NP>
+struct NarrowCfg {
+  static constexpr int TPS = 16 / CP;                 // taps a k16 step
+  static constexpr int KSTEPS = (9 + TPS - 1) / TPS;  // 5 (CP 8) or 9 (CP 16)
+  static constexpr int WN = NP == 16 ? 1 : 2;         // warps across a pass
+  static constexpr int WM = NR_THREADS / 32 / WN;     // warps down a chunk
+  static constexpr int FM = NR_CHUNK / WM / 16;       // m16 tiles a warp
+  static constexpr int FN = NP / WN / 8;              // n8 tiles a warp
+  static_assert(FN % 2 == 0, "B fragments are loaded in pairs");
+  // blocks an SM the registers are capped for (128 a thread at 2), so that
+  // one block's barriers, expansion and epilogue run under the other's
+  // products (uncapped, the compiler takes more at (3, 64), and one block
+  // an SM fits); CP 16 by NP 64 (72 registers of weight fragments) keeps one
+  static constexpr int BLOCKS = CP == 16 && NP == 64 ? 1 : 2;
+  // a warp's TMA store box of a pass: its 16 FM pixels by its 8 FN
+  // channels, rows of 64 or 32 bytes in the swizzle of that width (16-byte
+  // chunk bits [4, 6) or [4, 5) xor-ed with address bits [7, 9) or [7, 8))
+  static constexpr int BOX_ROWS = 16 * FM;
+  static constexpr int BOX_COLS = 8 * FN;
+  static constexpr int BOX_BYTES = BOX_ROWS * BOX_COLS * 2;
+  static constexpr int SWIZZLE = BOX_COLS * 2 == 64 ? 3 : 1;
+  static_assert(BOX_COLS * 2 == 64 || BOX_COLS * 2 == 32, "a 64- or 32-byte swizzle");
+};
+
+struct NarrowParams {
+  const bf16* x;
+  const bf16* w;
+  const float* scale;
+  const float* bias;
+  long long x_elems;
+  int B, H, W, Cin, Cout;
+  int tr, tw;          // a tile: tr image rows by tw columns (a multiple of NR_CHUNK)
+  int tiles_h, tiles_w, tiles;
+  int raw_row;         // elements of a staged row of x, a multiple of 8
+  int stages;          // output chunks whose stores may be in flight, 1 to 3
+};
+
+// Bytes of each part of the block's shared memory, in this order: `stages`
+// output chunks (each warp's boxes, one a pass), the weight (KSTEPS
+// k16 steps of [k][Cout + 8]), scale and bias, 16 zero bytes, the halo of a
+// tile ((tr + 2) x (tw + 2) pixels of CP channels) and its rows of x as they
+// arrive.
+struct NarrowSmem {
+  int stage, weight, vectors, halo, raw, total;
+};
+inline __host__ __device__ NarrowSmem narrow_smem(int cp, int ksteps, const NarrowParams& p) {
+  NarrowSmem s;
+  s.stage = NR_CHUNK * p.Cout * 2;
+  s.weight = ksteps * 16 * (p.Cout + 8) * 2;
+  s.vectors = 2 * p.Cout * 4 + 16;
+  s.halo = (p.tr + 2) * (p.tw + 2) * cp * 2;
+  s.raw = (p.tr + 2) * p.raw_row * 2;
+  s.total = 1024 /* alignment */ + p.stages * s.stage + s.weight + s.vectors + s.halo + s.raw;
+  return s;
+}
+
+struct NarrowTile {
+  int b, h0, w0;
+};
+
+__device__ __forceinline__ NarrowTile narrow_tile(const NarrowParams& p, int t) {
+  const int tw = t % p.tiles_w;
+  const int q = t / p.tiles_w;
+  return {q / p.tiles_h, (q % p.tiles_h) * p.tr, tw * p.tw};
+}
+
+// Byte offset of the 16-byte half `half` of halo pixel P. With CP = 16 the
+// halves of every other four pixels trade places, so that the eight rows an
+// ldmatrix phase reads (eight neighbouring pixels, one half each) fall on
+// distinct banks.
+template <int CP>
+__device__ __forceinline__ int narrow_halo_offset(int P, int half) {
+  return CP == 8 ? P * 16 : P * 32 + ((half ^ ((P >> 2) & 1)) << 4);
+}
+
+// Queue the copies of a tile's rows of x: rows h0 - 1 .. h0 + tr of image b
+// (those inside it), columns w0 - 1 .. w0 + tw clipped to the image, each
+// as the 16-byte chunks of x that cover it. Row r lands at raw + r * raw_row,
+// (its first element) % 8 elements in.
+__device__ __forceinline__ void narrow_load(const NarrowParams& p, bf16* raw, NarrowTile o,
+                                            int tid) {
+  const int wa = max(o.w0 - 1, 0);
+  const int wb = min(o.w0 + p.tw + 1, p.W);
+  for (int r = 0; r < p.tr + 2; ++r) {
+    const int h = o.h0 - 1 + r;
+    if (h < 0 || h >= p.H) continue;
+    const long long e0 = ((static_cast<long long>(o.b) * p.H + h) * p.W + wa) * p.Cin;
+    const long long a0 = e0 & ~7LL;
+    const int chunks = static_cast<int>((e0 - a0 + static_cast<long long>(wb - wa) * p.Cin + 7) >> 3);
+    for (int q = tid; q < chunks; q += NR_THREADS) {
+      const long long g = a0 + 8LL * q;
+      const long long left = 2 * (p.x_elems - g);  // the last chunk of x may be short
+      cp_async_16_bytes(raw + r * p.raw_row + 8 * q, p.x + g, left < 16 ? static_cast<int>(left) : 16);
+    }
+  }
+}
+
+// The tile's halo from its rows of x: channels padded to CP with zeros, and
+// zeros outside the image (a halo is never read across two images).
+template <int CP>
+__device__ __forceinline__ void narrow_expand(const NarrowParams& p, const bf16* raw,
+                                              unsigned char* halo, NarrowTile o, int tid) {
+  const int cols = p.tw + 2;
+  const int wa = max(o.w0 - 1, 0);
+  if (p.Cin == CP) {  // Cin 8 or 16: each row starts on a 16-byte chunk
+    constexpr int U = CP / 8;
+    for (int u = tid; u < (p.tr + 2) * cols * U; u += NR_THREADS) {
+      const int P = u / U, half = u % U;
+      const int r = P / cols;
+      const int h = o.h0 - 1 + r, w = o.w0 - 1 + (P - r * cols);
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (h >= 0 && h < p.H && w >= 0 && w < p.W)
+        v = *reinterpret_cast<const uint4*>(raw + r * p.raw_row + (w - wa) * CP + half * 8);
+      *reinterpret_cast<uint4*>(halo + narrow_halo_offset<CP>(P, half)) = v;
+    }
+    return;
+  }
+  for (int P = tid; P < (p.tr + 2) * cols; P += NR_THREADS) {
+    const int r = P / cols;
+    const int h = o.h0 - 1 + r, w = o.w0 - 1 + (P - r * cols);
+    uint32_t v[CP / 2];
+#pragma unroll
+    for (int i = 0; i < CP / 2; ++i) v[i] = 0u;
+    if (h >= 0 && h < p.H && w >= 0 && w < p.W) {
+      // the row's first element, mod 8 (32-bit products keep the low bits)
+      const unsigned shift =
+          ((static_cast<unsigned>(o.b) * p.H + h) * static_cast<unsigned>(p.W) + wa) * p.Cin & 7u;
+      const unsigned short* src = reinterpret_cast<const unsigned short*>(raw + r * p.raw_row) +
+                                  shift + (w - wa) * p.Cin;
+#pragma unroll
+      for (int c = 0; c < CP; ++c)
+        if (c < p.Cin) v[c / 2] |= static_cast<uint32_t>(src[c]) << (16 * (c % 2));
+    }
+#pragma unroll
+    for (int half = 0; half < CP / 8; ++half)
+      *reinterpret_cast<uint4*>(halo + narrow_halo_offset<CP>(P, half)) =
+          make_uint4(v[4 * half], v[4 * half + 1], v[4 * half + 2], v[4 * half + 3]);
+  }
+}
+
+template <int MASK>
+__device__ __forceinline__ int narrow_swizzle(int offset) {
+  return offset ^ (((offset >> 7) & MASK) << 4);
+}
+
+// A persistent block walks tiles blockIdx.x, + gridDim.x, ...: tr image
+// rows by tw columns of one image. The next tile's rows of x are in flight
+// (cp.async) while this tile is multiplied; a tile's rows are expanded once
+// into its halo, whose nine taps are shifted windows. Each 128-pixel chunk of
+// a tile row is one implicit GEMM of 128 x Cout x (KSTEPS * 16), in passes of
+// NP output channels: each warp multiplies its (16 FM) pixels by (8 FN)
+// channels with ldmatrix + mma.sync m16n8k16, the weight's fragments held in
+// registers, then applies scale, bias and ReLU in f32, rounds to bf16 into
+// its box of the staged chunk in the store's swizzle, and its lane 0 writes
+// the box with a TMA store (clipped past W), the warp's stores of `stages`
+// chunks in flight.
+template <int CP, int NP>
+__global__ void __launch_bounds__(NR_THREADS, NarrowCfg<CP, NP>::BLOCKS)
+    conv3x3_bn_relu_narrow(const NarrowParams p, const __grid_constant__ CUtensorMap map_y) {
+  using C = NarrowCfg<CP, NP>;
+  extern __shared__ __align__(1024) unsigned char nsmem[];
+  const NarrowSmem L = narrow_smem(CP, C::KSTEPS, p);
+  unsigned char* stages = align_1024(nsmem);
+  bf16* ws = reinterpret_cast<bf16*>(stages + p.stages * L.stage);
+  float* sc = reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(ws) + L.weight);
+  float* bi = sc + p.Cout;
+  const bf16* zero = reinterpret_cast<const bf16*>(bi + p.Cout);
+  unsigned char* halo = reinterpret_cast<unsigned char*>(bi + p.Cout) + 16;
+  bf16* raw = reinterpret_cast<bf16*>(halo + L.halo);
+  const int ldw = p.Cout + 8;
+
+  const int tid = threadIdx.x;
+  const int lane = tid % 32, warp = tid / 32;
+  // the first tile's rows arrive while the weight is staged
+  if (blockIdx.x < p.tiles) narrow_load(p, raw, narrow_tile(p, blockIdx.x), tid);
+  cp_async_commit();
+  // row k of the weight: tap k / CP, channel k % CP; zeros past the nine taps
+  // and the Cin channels
+  for (int i = tid; i < C::KSTEPS * 16 * p.Cout; i += NR_THREADS) {
+    const int k = i / p.Cout, n = i - k * p.Cout;
+    const int tap = k / CP, c = k % CP;
+    ws[k * ldw + n] = tap < 9 && c < p.Cin ? p.w[(tap * p.Cin + c) * p.Cout + n]
+                                           : __float2bfloat16(0.f);
+  }
+  for (int i = tid; i < p.Cout; i += NR_THREADS) {
+    sc[i] = p.scale[i];
+    bi[i] = p.bias[i];
+  }
+  if (tid < 4) reinterpret_cast<uint32_t*>(bi + p.Cout)[tid] = 0u;
+
+  const int wm = (warp % C::WM) * C::FM * 16;  // the warp's pixels of a chunk
+  const int wn = (warp / C::WM) * C::FN * 8;   // its channels of a pass
+  const int cols = p.tw + 2;
+  // this lane's tap in each k16 step, as a pixel offset in the halo (CP 8:
+  // taps 2 ks on lanes 0-15, 2 ks + 1 on lanes 16-31; -1 past the nine, which
+  // reads the zero row), and (CP 16) its half of the channels
+  int toff[C::KSTEPS];
+#pragma unroll
+  for (int ks = 0; ks < C::KSTEPS; ++ks) {
+    const int tap = ks * C::TPS + (CP == 8 ? lane / 16 : 0);
+    toff[ks] = tap < 9 ? tap / 3 * cols + tap % 3 : -1;
+  }
+  const int half = CP == 16 ? lane / 16 : 0;
+  const int passes = p.Cout / NP;
+  uint32_t breg[C::KSTEPS][C::FN][2];
+  auto load_b = [&](int pass) {
+#pragma unroll
+    for (int ks = 0; ks < C::KSTEPS; ++ks)
+#pragma unroll
+      for (int j = 0; j < C::FN; j += 2) {
+        uint32_t r[4];
+        ldmatrix_x4_trans(r, ws + (ks * 16 + lane % 8 + ((lane / 8) % 2) * 8) * ldw + pass * NP +
+                                 wn + j * 8 + (lane / 16) * 8);
+        breg[ks][j][0] = r[0];
+        breg[ks][j][1] = r[1];
+        breg[ks][j + 1][0] = r[2];
+        breg[ks][j + 1][1] = r[3];
+      }
+  };
+  __syncthreads();
+  if (passes == 1) load_b(0);
+
+  int chunk = 0;  // chunks this block has stored
+  for (int t = blockIdx.x; t < p.tiles; t += gridDim.x) {
+    const NarrowTile o = narrow_tile(p, t);
+    cp_async_wait<0>();
+    __syncthreads();  // the tile's rows have landed; every warp is done with the last halo
+    narrow_expand<CP>(p, raw, halo, o, tid);
+    __syncthreads();  // the halo is whole, and the rows' buffer is free
+    if (t + static_cast<int>(gridDim.x) < p.tiles)
+      narrow_load(p, raw, narrow_tile(p, t + gridDim.x), tid);
+    cp_async_commit();
+
+    for (int r = 0; r < p.tr && o.h0 + r < p.H; ++r) {
+      for (int cw = 0; cw < p.tw && o.w0 + cw < p.W; cw += NR_CHUNK, ++chunk) {
+        // this warp's boxes of the chunk's stage, one a pass
+        unsigned char* boxes = stages + (chunk % p.stages) * L.stage + warp * passes * C::BOX_BYTES;
+        int base[C::FM];  // the halo pixel of this lane's A row at tap (0, 0)
+#pragma unroll
+        for (int i = 0; i < C::FM; ++i) base[i] = r * cols + cw + wm + i * 16 + lane % 16;
+        for (int pass = 0; pass < passes; ++pass) {
+          if (passes > 1) load_b(pass);
+          float acc[C::FM][C::FN][4];
+#pragma unroll
+          for (int i = 0; i < C::FM; ++i)
+#pragma unroll
+            for (int j = 0; j < C::FN; ++j)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+#pragma unroll
+          for (int ks = 0; ks < C::KSTEPS; ++ks) {
+            uint32_t a[C::FM][4];
+#pragma unroll
+            for (int i = 0; i < C::FM; ++i)
+              ldmatrix_x4(a[i], toff[ks] < 0 ? zero
+                                             : reinterpret_cast<const bf16*>(
+                                                   halo + narrow_halo_offset<CP>(
+                                                              base[i] + toff[ks], half)));
+#pragma unroll
+            for (int i = 0; i < C::FM; ++i)
+#pragma unroll
+              for (int j = 0; j < C::FN; ++j)
+                mma_bf16_16816(acc[i][j], a[i], breg[ks][j][0], breg[ks][j][1]);
+          }
+          if (pass == 0) {
+            // this warp's stores that last read these boxes have read them
+            if (lane == 0) {
+              if (p.stages == 3)
+                bulk_wait_read<2>();
+              else if (p.stages == 2)
+                bulk_wait_read<1>();
+              else
+                bulk_wait_read<0>();
+            }
+            __syncwarp();
+          }
+          unsigned char* box = boxes + pass * C::BOX_BYTES;
+#pragma unroll
+          for (int i = 0; i < C::FM; ++i)
+#pragma unroll
+            for (int j = 0; j < C::FN; ++j) {
+              const int row = i * 16 + lane / 4;
+              const int col = j * 8 + (lane % 4) * 2;
+              const int n = pass * NP + wn + col;
+              const float s0 = sc[n], s1 = sc[n + 1], b0 = bi[n], b1 = bi[n + 1];
+              *reinterpret_cast<uint32_t*>(
+                  box + narrow_swizzle<C::SWIZZLE>(row * C::BOX_COLS * 2 + col * 2)) =
+                  pack_bf16x2(relu(acc[i][j][0] * s0 + b0), relu(acc[i][j][1] * s1 + b1));
+              *reinterpret_cast<uint32_t*>(
+                  box + narrow_swizzle<C::SWIZZLE>((row + 8) * C::BOX_COLS * 2 + col * 2)) =
+                  pack_bf16x2(relu(acc[i][j][2] * s0 + b0), relu(acc[i][j][3] * s1 + b1));
+            }
+        }
+        fence_proxy_async();
+        __syncwarp();
+        if (lane == 0) {
+          for (int pass = 0; pass < passes; ++pass)
+            tma_store_4d(&map_y, boxes + pass * C::BOX_BYTES, pass * NP + wn, o.w0 + cw + wm,
+                         o.h0 + r, o.b);
+          bulk_commit();
+        }
+      }
+    }
+  }
+  if (lane == 0) bulk_wait_all();
+}
+
+// ---------------------------------------------------------------------------
 // Launch
 // ---------------------------------------------------------------------------
 
@@ -829,6 +1170,83 @@ cudaError_t launch_wgmma(const void* x, const void* w, const float* scale, const
   return cudaGetLastError();
 }
 
+// The narrow route's tiles: at CP 8 two image rows of up to 512 columns and
+// three chunks' stores in flight (two blocks an SM at the main path's
+// (512, 3, 64)), at CP 16 four rows of up to 256 columns and two chunks in
+// flight (one block an SM at (512, 16, 16)), where they fit; else the first
+// plan whose shared memory fits one block. Of the plans timed on an H100
+// at batch 8 (tr 2 to 8, tw 128 to 512, 2 to 4 chunks in flight), these
+// were the fastest at those two shapes.
+template <int CP, int NP>
+cudaError_t launch_narrow(const void* x, const void* w, const float* scale, const float* bias,
+                          void* y, int B, int H, int W, int Cin, int Cout, cudaStream_t stream) {
+  using C = NarrowCfg<CP, NP>;
+  auto kernel = conv3x3_bn_relu_narrow<CP, NP>;
+  NarrowParams p;
+  p.x = static_cast<const bf16*>(x);
+  p.w = static_cast<const bf16*>(w);
+  p.scale = scale;
+  p.bias = bias;
+  p.x_elems = static_cast<long long>(B) * H * W * Cin;
+  p.B = B;
+  p.H = H;
+  p.W = W;
+  p.Cin = Cin;
+  p.Cout = Cout;
+  const int w_chunks = (W + NR_CHUNK - 1) / NR_CHUNK * NR_CHUNK;
+  const int widest = CP == 8 ? 512 : 256;
+  const int plans[][3] = {{CP == 8 ? 2 : 4, widest, CP == 8 ? 3 : 2},
+                          {2, widest, 2},
+                          {2, 128, 2},
+                          {1, 128, 2},
+                          {1, 128, 1}};
+  int smem = 0;
+  for (const auto& plan : plans) {
+    p.tr = plan[0];
+    p.tw = plan[1] < w_chunks ? plan[1] : w_chunks;
+    p.stages = plan[2];
+    // the chunks covering a row of tw + 2 pixels start up to 7 elements early
+    p.raw_row = ((p.tw + 2) * Cin + 14 + 7) / 8 * 8;
+    smem = narrow_smem(CP, C::KSTEPS, p).total;
+    if (smem <= NR_SMEM_MAX) break;
+  }
+  if (smem > NR_SMEM_MAX) return cudaErrorInvalidValue;
+  p.tiles_h = (H + p.tr - 1) / p.tr;
+  p.tiles_w = (W + p.tw - 1) / p.tw;
+  const long long tiles = static_cast<long long>(B) * p.tiles_h * p.tiles_w;
+  if (tiles >= (1LL << 31)) return cudaErrorInvalidValue;
+  p.tiles = static_cast<int>(tiles);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  CUtensorMap map_y;
+  const CUtensorMapSwizzle swizzle =
+      C::SWIZZLE == 3 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B;
+  if ((err = make_bf16_map_4d(&map_y, y, {Cout, W, H, B}, {C::BOX_COLS, C::BOX_ROWS, 1, 1},
+                              swizzle)) != cudaSuccess)
+    return err;
+  int device = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess)
+    return err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, NR_THREADS, smem)) !=
+      cudaSuccess)
+    return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const int blocks = sms * per_sm;
+  kernel<<<p.tiles < blocks ? p.tiles : blocks, NR_THREADS, smem, stream>>>(p, map_y);
+  return cudaGetLastError();
+}
+
+template <int CP>
+cudaError_t launch_narrow_np(const void* x, const void* w, const float* scale, const float* bias,
+                             void* y, int B, int H, int W, int Cin, int Cout, cudaStream_t stream) {
+  if (Cout % 64 == 0)
+    return launch_narrow<CP, 64>(x, w, scale, bias, y, B, H, W, Cin, Cout, stream);
+  if (Cout % 32 == 0)
+    return launch_narrow<CP, 32>(x, w, scale, bias, y, B, H, W, Cin, Cout, stream);
+  return launch_narrow<CP, 16>(x, w, scale, bias, y, B, H, W, Cin, Cout, stream);
+}
+
 template <typename T>
 cudaError_t launch_reg_any(const void* x, const void* w, const float* scale, const float* bias,
                            void* y, int M, int H, int W, int Cin, int Cout, cudaStream_t stream) {
@@ -850,6 +1268,8 @@ cudaError_t launch_reg_any(const void* x, const void* w, const float* scale, con
 // one (bf16, Cin a multiple of 64, Cout of 16) with the pixel tile wt wide
 // (a power of two up to 64; 128 / wt rows), bn output channels a tile (64,
 // 128 or 256) and, with halo = 1 (wt = 64, bn <= 128), the staged halo tile;
+// 3 the narrow one (bf16, Cin 1 to 16, Cout a multiple of 16 up to 256),
+// which plans its own tiles (wt, bn and halo unread);
 // kernels/fused_conv.py::conv_route and conv_tile_plan derive them from the
 // call alone. A route that cannot serve the call is refused with
 // cudaErrorInvalidValue. Returns the launch's cudaError_t.
@@ -881,6 +1301,10 @@ extern "C" int fused_conv3x3_bn_relu(const void* x, const void* w, const void* s
       err = launch_wgmma<64, true>(x, w, s, t, y, B, H, W, Cin, Cout, wt, st);
     else if (halo == 1 && wt == 64 && bn == 128)
       err = launch_wgmma<128, true>(x, w, s, t, y, B, H, W, Cin, Cout, wt, st);
+  } else if (route == 3 && dtype == 1 && Cin >= 1 && Cin <= 16 && Cout % 16 == 0 &&
+             Cout <= 256) {
+    err = Cin <= 8 ? launch_narrow_np<8>(x, w, s, t, y, B, H, W, Cin, Cout, st)
+                   : launch_narrow_np<16>(x, w, s, t, y, B, H, W, Cin, Cout, st);
   }
   return static_cast<int>(err);
 }

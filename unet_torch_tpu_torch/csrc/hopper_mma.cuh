@@ -444,9 +444,11 @@ __device__ __forceinline__ void tma_reduce_add_3d(const void* map, const void* s
 __device__ __forceinline__ void bulk_commit() {
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
 }
-// Until the thread's bulk groups have read their shared-memory sources.
+// Until the thread's bulk groups, all but the N most recent, have read their
+// shared-memory sources.
+template <int N = 0>
 __device__ __forceinline__ void bulk_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
 }
 // Until the thread's bulk groups are complete, their writes done.
 __device__ __forceinline__ void bulk_wait_all() {
@@ -569,9 +571,11 @@ inline cudaError_t make_f32_map(CUtensorMap* map, void* base, int cols, long lon
 // innermost, whose boxes are box[0] x ... x box[3] values with box[0] = 64
 // (128-byte rows, 128-byte swizzle): a box lands as box[1] * box[2] * box[3]
 // rows of a K-major tile (tma_load_4d) or is written from one
-// (tma_store_4d). Made anew for every launch, as make_map's maps.
+// (tma_store_4d). A narrower box[0] (32 or 16 values) takes the 64- or
+// 32-byte swizzle. Made anew for every launch, as make_map's maps.
 inline cudaError_t make_bf16_map_4d(CUtensorMap* map, const void* base, const long long (&dims)[4],
-                                    const int (&box)[4]) {
+                                    const int (&box)[4],
+                                    CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                               const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                               const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -603,7 +607,7 @@ inline cudaError_t make_bf16_map_4d(CUtensorMap* map, const void* base, const lo
   }
   const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
                               size, strides, box_size, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                              swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }

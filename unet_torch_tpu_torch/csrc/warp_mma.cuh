@@ -21,13 +21,16 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
          (static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16(hi))) << 16);
 }
 
-// 16-byte global -> shared copy; with pred false it writes zeros and reads
-// nothing (src-size 0).
-__device__ __forceinline__ void cp_async_16(void* dst, const void* src, bool pred) {
+// 16-byte global -> shared copy that reads the first `bytes` (0 to 16) of
+// src and writes zeros for the rest.
+__device__ __forceinline__ void cp_async_16_bytes(void* dst, const void* src, int bytes) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-               "r"(pred ? 16 : 0)
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(bytes)
                : "memory");
+}
+// With pred false it writes zeros and reads nothing (src-size 0).
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src, bool pred) {
+  cp_async_16_bytes(dst, src, pred ? 16 : 0);
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");

@@ -15,9 +15,10 @@ vectors of length Cout; the result is NHWC in x's dtype.
 
 `fused_conv3x3_bn_relu` routes by the device of x: a CPU tensor goes to the
 plain version, a CUDA tensor to the kernel, which raises on anything it does
-not take. The source holds three mainloops; `conv_route` picks one from the
-dtype and the channel counts alone ("wgmma", "mma.sync" or "reg"), and
-`conv_tile_plan` lays out the wgmma route's tiles. There is no fallback: a
+not take. The source holds four mainloops; `conv_route` picks one from the
+dtype and the channel counts alone ("wgmma", "narrow", "mma.sync" or "reg"),
+and `conv_tile_plan` lays out the wgmma route's tiles (the narrow route plans
+its own). There is no fallback: a
 route that fails to build or launch raises.
 `fused_conv3x3_bn_relu.launches` counts the kernel's launches and
 `.launches_by_route` the same launches by route.
@@ -37,11 +38,15 @@ from unet_torch_tpu_torch.kernels import build
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # which mainloop of the source a call launches, as its C entry point numbers
 # them
-_ROUTE_CODE = {"reg": 0, "mma.sync": 1, "wgmma": 2}
+_ROUTE_CODE = {"reg": 0, "mma.sync": 1, "wgmma": 2, "narrow": 3}
 ROUTES = tuple(_ROUTE_CODE)
 _KERNEL = "fused_conv3x3_bn_relu"
 # output pixels of a wgmma tile: two consumer warpgroups of 64 rows
 TILE_PIXELS = 128
+# the narrow route's widest input and output: a halo pixel of at most 16
+# channels (32 bytes), output channels in passes of 16, 32 or 64
+NARROW_MAX_CIN = 16
+NARROW_MAX_COUT = 256
 
 
 def fold_bn(gamma, beta, mean, var, eps=1e-5):
@@ -64,14 +69,19 @@ def conv_route(dtype: torch.dtype, cin: int, cout: int) -> str:
     function of the dtype and the channel counts alone: "reg" for float32
     (full f32 on the CUDA cores); for bfloat16 "wgmma" where Cin is a
     multiple of 64 and Cout of 16 (the TMA boxes' 64 channels; the weight's
-    rows a multiple of 32 bytes), "mma.sync" where both are multiples of 8
-    (16-byte cp.async gathers), "reg" otherwise (the UNet's Cin = 3)."""
+    rows a multiple of 32 bytes), "narrow" where Cin is at most 16 and Cout
+    a multiple of 16 up to 256 (the UNet family's first conv, the TransUnet
+    decoder's last: a staged halo of image rows, TMA stores),
+    "mma.sync" where both are multiples of 8 (16-byte cp.async gathers),
+    "reg" otherwise (ragged channel counts)."""
     if dtype == torch.float32:
         return "reg"
     if dtype != torch.bfloat16:
         raise TypeError(f"no fused conv kernel for {dtype}")
     if cin % 64 == 0 and cout % 16 == 0:
         return "wgmma"
+    if cin <= NARROW_MAX_CIN and cout % 16 == 0 and cout <= NARROW_MAX_COUT:
+        return "narrow"
     if cin % 8 == 0 and cout % 8 == 0:
         return "mma.sync"
     return "reg"
