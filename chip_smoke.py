@@ -12,6 +12,7 @@
                                     mma.sync, in turns)
     python3 chip_smoke.py --topo   (build, then only T1 and the topo phases
                                     P1-P3)
+    python3 chip_smoke.py --parallel   (build, then only D1-D3)
 
 Builds the Hopper kernels from unet_torch_tpu_torch/csrc, then:
 
@@ -194,6 +195,31 @@ Builds the Hopper kernels from unet_torch_tpu_torch/csrc, then:
                 last_epoch.pt and no best.pt (only after epoch 10), the
                 fused conv's launches in the warm-up epochs' validation, the
                 pipelined topo phase's img/s
+ D1. data      UNet-64 (segmentation_mc.yml's model), dice_bce_mc, 512x512,
+     parallel   D = 2 ranks spawned on the card over gloo (the kernels built
+                before), global batch 8 (4 a rank), Adam, poly LR,
+                train-mode SyncBatchNorm2d under DistributedDataParallel:
+                the f32 step against the one-process f32 step on the same
+                batch (the loss within 1e-4, every gradient by T4's bound
+                against the one-process step in f64, every updated tensor
+                within 1e-4 of its peak but where the two steps'
+                gradients differ), the BN buffers
+                bitwise equal across ranks; 3 + 10 bf16 steps timed (img/s
+                of two ranks sharing one card: no scaling figure); rank 0's
+                eval forward on the fused conv
+ D2. tensor     TransUnet R50-ViT-B/16 at full width, 512x512, M = 2 ranks
+     parallel   (6 heads and half of each MLP a rank), global batch 8, SGD,
+                dropout 0.1 and attention dropout 0.1: the train kernels at a
+                rank's shape with its mask offsets against their plain
+                versions; the f32 step against one process, as D1; 3 + 10
+                bf16 steps timed with their attention launches (12 + 12 a
+                step on the wgmma 64/64 route); the gathered checkpoint
+                loaded in one process, its bf16 eval forward against the
+                sharded model's (8 bf16 ulps of the logits' peak)
+ D3. CLTR data  configs/cltr.yml's model, 256x256 crops, D = 2, global batch
+     parallel   16 (8 a rank), Adam, the auction matcher on each rank's
+                images, dropout 0, f32: the step against one process, as
+                D1; the auction's launches by rank
   L. library    one PyTorch library call beside each kernel that has one, for
                 the time only (nothing in the port calls them): cuDNN
                 conv2d with the scale folded into its weights, a bias and a
@@ -222,6 +248,7 @@ import copy
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1090,13 +1117,13 @@ class PlainAttention(torch.autograd.Function):
     autograd, in place of the kernels, for comparison only (T3)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, seed, scale, rate):
+    def forward(ctx, q, k, v, seed, scale, rate, offsets=None):
         from unet_torch_tpu_torch.kernels import attention as at
 
         o, lse = at.attention_train_reference(q, k, v, scale, None, seed,
-                                              rate)
+                                              rate, offsets=offsets)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.args = (seed, scale, rate)
+        ctx.args = (seed, scale, rate, offsets)
         return o
 
     @staticmethod
@@ -1104,10 +1131,11 @@ class PlainAttention(torch.autograd.Function):
         from unet_torch_tpu_torch.kernels import attention as at
 
         q, k, v, o, lse = ctx.saved_tensors
-        seed, scale, rate = ctx.args
+        seed, scale, rate, offsets = ctx.args
         grads = at.attention_backward_reference(q, k, v, o, lse, g, scale,
-                                                None, seed, rate)
-        return (*grads, None, None, None)
+                                                None, seed, rate,
+                                                offsets=offsets)
+        return (*grads, None, None, None, None)
 
 
 def _wrappers(at, fc):
@@ -3090,8 +3118,590 @@ def attention_ab(at, fc, au, vit, dev):
               f"{cltr_s * 1e3:.2f} ms, TransUnet step {tu_s * 1e3:.2f} ms")
 
 
+# ---------------------------------------------------------------------------
+# D1-D3: data- and tensor-parallel training, two gloo ranks on one card
+# ---------------------------------------------------------------------------
+
+# the ranks of D1-D3: two processes share cuda:0 over gloo (NCCL refuses two
+# ranks on one device), so their img/s is no scaling figure
+PARALLEL_RANKS = 2
+# the f32 multi-rank step against the one-process step on the same card:
+# the loss and each updated tensor within this share of its peak
+PARALLEL_REL_TOL = 1e-4
+# (the gradients: T4's bound against an f64 one-process step; a ReLU that
+# rounding flips moves every train-mode BatchNorm gradient before it, and
+# the key projections' biases, which the softmax ignores, are rounding)
+# a checkpoint of the tensor-parallel model served in one process against
+# the sharded model's bf16 eval forward: 8 bf16 ulps of the logits' peak
+TP_EVAL_REL_TOL = 8 * 2.0 ** -7
+D2_ATTENTION_DROPOUT = 0.1
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def parallel_rank(rank, world, port, case, out):
+    """One rank of a D phase, in a spawned process: cuda:0 before any other
+    CUDA call, torch.distributed over gloo, the case, its result to
+    `out`/rank<rank>.pt. An exception ends the process with a nonzero code,
+    which start_processes raises in the parent."""
+    torch.cuda.set_device(0)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world),
+                      MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    from unet_torch_tpu_torch.core.dist import maybe_initialize
+
+    maybe_initialize(force=True, backend="gloo")
+    result = {"d1": d1_rank, "d2": d2_rank, "d3": d3_rank}[case](rank, out)
+    torch.save(result, os.path.join(out, f"rank{rank}.pt"))
+    torch.distributed.destroy_process_group()
+
+
+def parallel_spawn(case):
+    """Run `case` on PARALLEL_RANKS spawned ranks (the kernels were built
+    before, in this process); returns (their results in rank order, the
+    directory they wrote, which the caller removes)."""
+    import torch.multiprocessing as tmp
+
+    out = tempfile.mkdtemp(prefix=f"chip_smoke_{case}_")
+    tmp.start_processes(parallel_rank, args=(PARALLEL_RANKS, free_port(),
+                                             case, out),
+                        nprocs=PARALLEL_RANKS, start_method="spawn")
+    return [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
+            for r in range(PARALLEL_RANKS)], out
+
+
+def host_state(state):
+    return {k: v.detach().cpu() for k, v in state.items()}
+
+
+def timed_steps(step, n):
+    """n calls of step(i); host seconds of each, ending in a sync."""
+    times = []
+    for i in range(n):
+        t0 = time.perf_counter()
+        step(i)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return times
+
+
+@contextlib.contextmanager
+def plain_attention_kernels(at):
+    """The attention kernels' plain versions in the train path: the f64
+    reference steps (no kernel takes f64); the same masks."""
+    saved = at.attention_train_forward, at.attention_backward
+    at.attention_train_forward = (
+        lambda q, k, v, scale, bias=None, seed=0, rate=0.0, offsets=None:
+        at.attention_train_reference(q, k, v, scale, bias, seed, rate,
+                                     offsets=offsets))
+    at.attention_backward = (
+        lambda q, k, v, o, lse, g, scale, bias=None, seed=0, rate=0.0,
+        offsets=None: at.attention_backward_reference(
+            q, k, v, o, lse, g, scale, bias, seed, rate, offsets=offsets))
+    try:
+        yield
+    finally:
+        at.attention_train_forward, at.attention_backward = saved
+
+
+def one_process_reference(at, step_fn):
+    """step_fn(dtype) -> (model after one step, state before, loss): run in
+    f32 and in f64 (the attention on its plain versions). Returns (loss,
+    state after, gradients, state before, f64 gradients), on the host."""
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        with (plain_attention_kernels(at) if dtype == torch.float64
+              else contextlib.nullcontext()):
+            model, before, loss = step_fn(dtype)
+        out[dtype] = (loss, host_state(model.state_dict()),
+                      {n: p.grad.detach().cpu().double()
+                       for n, p in model.named_parameters()}, before)
+        del model
+        torch.cuda.empty_cache()
+    return (*out[torch.float32], out[torch.float64][2])
+
+
+def compare_step(name, loss, grads, state, ref, lr, adam):
+    """A multi-rank step against the one-process step `ref`
+    (one_process_reference's tuple): the loss within PARALLEL_REL_TOL; every
+    gradient within T4_NOISE_RATIO times the larger of the one-process f32
+    gradient's own error against f64 and 1e-6 of its peak (T4's bound);
+    every updated tensor within PARALLEL_REL_TOL of its peak, past which an
+    element may move only as the first step's update of its gradient does:
+    lr times the decayed gradient (SGD), lr g / (|g| + eps) (Adam, which
+    moves a gradient near eps, or of another sign, by up to 2 lr).
+    Returns (the loss's relative error, the worst gradient ratio, its
+    name, the elements whose Adam sign differs)."""
+    ref_loss, ref_state, g32, before, g64 = ref
+    loss_err = abs(loss - ref_loss) / abs(ref_loss)
+    if not loss_err <= PARALLEL_REL_TOL:
+        raise AssertionError(f"{name}: loss {loss} against one process "
+                             f"{ref_loss} (rel err {loss_err})")
+    grads = {k: v.double() for k, v in grads.items()}
+    if set(grads) != set(g64) or set(state) != set(ref_state):
+        raise AssertionError(f"{name}: the gradients' or states' keys differ")
+    worst, worst_name, _ = gradient_noise_ratio(grads, g32, g64)
+    if not worst <= T4_NOISE_RATIO:
+        raise AssertionError(f"{name}: gradient {worst_name} {worst:.2f} "
+                             "times the one-process f32 error (bound "
+                             f"{T4_NOISE_RATIO:.0f})")
+    n_flip = 0
+    for key, r in ref_state.items():
+        ours = state[key]
+        if not r.is_floating_point():
+            if not torch.equal(ours, r):
+                raise AssertionError(f"{name}: {key} differs")
+            continue
+        ours, r = ours.double(), r.double()
+        allowed = PARALLEL_REL_TOL * r.abs().max().item()
+        if key in grads:
+            # the first step's move of each element, from each gradient
+            b = before[key].double()
+            ours_g, ref_g = grads[key] + 1e-4 * b, g32[key] + 1e-4 * b
+            if adam:
+                n_flip += int((ours_g.sign() != ref_g.sign()).sum())
+                ours_g = ours_g / (ours_g.abs() + 1e-8)
+                ref_g = ref_g / (ref_g.abs() + 1e-8)
+            allowed = allowed + lr * (1 + 1e-3) * (ours_g - ref_g).abs()
+        if ((ours - r).abs() > allowed).any():
+            err = (ours - r).abs().max().item()
+            raise AssertionError(f"{name}: {key} moved {err} from the "
+                                 "one-process step past its gradients' "
+                                 "difference")
+    return loss_err, worst, worst_name, n_flip
+
+
+def d1_model_batch(dev):
+    from unet_torch_tpu_torch.core.rng import seed_everything
+
+    model = seeded_unet(seed_everything(SEED)).to(dev)
+    xs, ys = train_batch(np.random.RandomState(SEED + 21), BATCH, SIZE)
+    return model, torch.from_numpy(xs).to(dev), torch.from_numpy(ys).to(dev)
+
+
+D1_LR = 1e-3  # configs/segmentation_mc.yml's Adam
+
+
+def d1_rank(rank, out):
+    """D1 on a rank: UNet-64 under DistributedDataParallel over D = 2, its
+    rows of the global batch, train-mode SyncBatchNorm2d; the f32 step,
+    then 3 + 10 bf16 steps timed; rank 0 serves the model's eval forward on
+    the fused conv."""
+    from torch.nn.parallel import DistributedDataParallel
+
+    from unet_torch_tpu_torch.core.mesh import make_mesh
+    from unet_torch_tpu_torch.eval.reports import make_predict_fn
+    from unet_torch_tpu_torch.kernels import fused_conv as fc
+    from unet_torch_tpu_torch.parallel import gather_state_tp, parallelize
+    from unet_torch_tpu_torch.train.optim import make_optimizer, poly_lr
+    from unet_torch_tpu_torch.train.steps import make_single_steps
+
+    dev = torch.device("cuda", 0)
+    mesh = make_mesh(PARALLEL_RANKS, 1)
+    model, x, y = d1_model_batch(dev)
+    parallelize(model, mesh)
+    net = DistributedDataParallel(model, device_ids=[0],
+                                  process_group=mesh.data_group,
+                                  broadcast_buffers=False)
+    opt = make_optimizer("Adam", model.parameters(), D1_LR, 1e-4)
+    step, _ = make_single_steps("dice_bce_mc", "dice_bce_mc", N_CLASSES,
+                                group=mesh.data_group)
+    rows = mesh.rows(BATCH)
+    x, y = x[rows], y[rows]
+    loss = step(net, opt, x, y, poly_lr(D1_LR, 0, 1000), None).item()
+    result = {"loss": loss,
+              "state": host_state(gather_state_tp(model, mesh)),
+              # the mean over the ranks, as DistributedDataParallel left it
+              "grads": {n: p.grad.detach().cpu()
+                        for n, p in model.named_parameters()},
+              "buffers": host_state(dict(model.named_buffers()))}
+    xb = x.to(torch.bfloat16)
+    times = timed_steps(lambda i: step(net, opt, xb, y,
+                                       poly_lr(D1_LR, i + 1, 1000), None),
+                        TRAIN_WARMUP + TRAIN_STEPS)
+    result["step_s"] = statistics.median(times[TRAIN_WARMUP:])
+    result["peak"] = torch.cuda.max_memory_allocated(dev)
+    fc.reset_launches()
+    if rank == 0:
+        predict = make_predict_fn(model, dev, torch.bfloat16, classes=True)
+        xs, _ = train_batch(np.random.RandomState(SEED + 22), BATCH, SIZE)
+        hist = check_classes(predict(xs))
+        torch.cuda.synchronize()
+        result["eval_hist"] = hist.tolist()
+    result["conv_launches"] = fc.fused_conv3x3_bn_relu.launches
+    result["conv_routes"] = dict(fc.fused_conv3x3_bn_relu.launches_by_route)
+    return result
+
+
+def check_d1(at, dev, smi):
+    """D1. Returns its numbers for the kernels line."""
+    from unet_torch_tpu_torch.train.optim import make_optimizer, poly_lr
+    from unet_torch_tpu_torch.train.steps import make_single_steps
+
+    def step_once(dtype):
+        model, x, y = d1_model_batch(dev)
+        before = host_state(model.state_dict())
+        model.to(dtype)
+        opt = make_optimizer("Adam", model.parameters(), D1_LR, 1e-4)
+        step, _ = make_single_steps("dice_bce_mc", "dice_bce_mc", N_CLASSES)
+        return model, before, step(model, opt, x.to(dtype), y,
+                                   poly_lr(D1_LR, 0, 1000), None).item()
+
+    ref = one_process_reference(at, step_once)
+    ref_loss = ref[0]
+    ranks, out = parallel_spawn("d1")
+    shutil.rmtree(out)
+    a, b = ranks
+    same = [k for k in a["buffers"] if torch.equal(a["buffers"][k],
+                                                  b["buffers"][k])]
+    if len(same) != len(a["buffers"]) or not a["buffers"]:
+        raise AssertionError("D1: the ranks' BN buffers differ: "
+                             f"{sorted(set(a['buffers']) - set(same))[:5]}")
+    loss_err, worst, worst_name, n_flip = compare_step(
+        "D1 UNet data parallel", a["loss"], a["grads"], a["state"], ref,
+        D1_LR, adam=True)
+    if a["conv_launches"] != len(conv_shapes(BASE, SIZE)) \
+            or a["conv_routes"] != UNET_ROUTES or b["conv_launches"]:
+        raise AssertionError(f"D1: rank 0's eval forward launched "
+                             f"{a['conv_launches']} fused convs "
+                             f"({a['conv_routes']}), rank 1 "
+                             f"{b['conv_launches']}")
+    step_s = max(r["step_s"] for r in ranks)
+    phase("D1 data parallel",
+          f"UNet-{BASE} dice_bce_mc {SIZE}x{SIZE}, D = {PARALLEL_RANKS} gloo "
+          f"ranks on one card ({smi}), global batch {BATCH} "
+          f"({BATCH // PARALLEL_RANKS} a rank), Adam, poly LR, train-mode "
+          f"SyncBatchNorm2d: the f32 step against one process: loss "
+          f"{a['loss']:.7f} vs {ref_loss:.7f} (rel err {loss_err:.2e}), "
+          f"the worst gradient {worst_name} at {worst:.2f} times the "
+          f"one-process f32 error against f64 (bound {T4_NOISE_RATIO:.0f}), "
+          f"the parameters within {PARALLEL_REL_TOL:.0e} of their peaks "
+          f"but for {n_flip} Adam sign flips of noise-level gradients "
+          f"(within 2 lr), the {len(same)} BN buffers bitwise "
+          f"equal across ranks; bf16 steps: median {step_s * 1e3:.2f} ms = "
+          f"{BATCH / step_s:.1f} img/s (the two ranks share one card: not a "
+          f"scaling figure), peak {a['peak'] / 2**30:.2f} GiB a rank; rank "
+          f"0's eval forward {a['conv_launches']} fused convs "
+          f"{a['conv_routes']}, classes {a['eval_hist']}")
+    return {"img_s": BATCH / step_s, "loss_rel_err": loss_err,
+            "worst_rel_err": worst, "conv_launches": a["conv_launches"]}
+
+
+def d2_model_batch(dev):
+    """The full-width TransUnet with attention dropout on, and its batch."""
+    from unet_torch_tpu_torch.core.rng import seed_everything
+    from unet_torch_tpu_torch.models.transunet.vit import Attention
+
+    model = seeded_transunet(seed_everything(SEED))
+    for m in model.modules():
+        if isinstance(m, Attention):
+            m.rate = m.dropout.p = D2_ATTENTION_DROPOUT
+    xs, ys = train_batch(np.random.RandomState(SEED + 23), BATCH, SIZE)
+    return (model.to(dev), torch.from_numpy(xs).to(dev),
+            torch.from_numpy(ys).to(dev))
+
+
+D2_LR = 0.01  # configs/transunet.yml's SGD
+
+
+def d2_rank(rank, out):
+    """D2 on a rank: TransUnet R50-ViT-B/16 split over M = 2 (6 heads and
+    half of each MLP a rank), dropout 0.1 and attention dropout 0.1; the
+    f32 step, 3 + 10 bf16 steps timed with their attention launches; the
+    gathered checkpoint written by rank 0; the sharded model's bf16 eval
+    forward."""
+    from unet_torch_tpu_torch import ckpt
+    from unet_torch_tpu_torch.core.mesh import make_mesh
+    from unet_torch_tpu_torch.kernels import attention as at
+    from unet_torch_tpu_torch.models.transunet.vit import Attention
+    from unet_torch_tpu_torch.parallel import gather_state_tp, parallelize
+    from unet_torch_tpu_torch.train.optim import make_optimizer, poly_lr
+    from unet_torch_tpu_torch.train.steps import make_single_steps
+
+    dev = torch.device("cuda", 0)
+    mesh = make_mesh(1, PARALLEL_RANKS)
+    model, x, y = d2_model_batch(dev)
+    parallelize(model, mesh)
+    opt = make_optimizer("SGD", model.parameters(), D2_LR, 1e-4)
+    step, _ = make_single_steps("dice_bce_mc", "dice_bce_mc", N_CLASSES)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    loss = step(model, opt, x, y, poly_lr(D2_LR, 0, 1000), gen).item()
+    result = {"loss": loss,
+              "state": host_state(gather_state_tp(model, mesh)),
+              "grads": host_state(gather_state_tp(model, mesh, {
+                  n: p.grad for n, p in model.named_parameters()}))}
+    xb = x.to(torch.bfloat16)
+    # each rank's heads: its share of the q projection over the head width
+    heads = {m.query.weight.shape[0] // m.head_dim
+             for m in model.modules() if isinstance(m, Attention)}
+    (width,) = {m.head_dim for m in model.modules()
+                if isinstance(m, Attention)}
+    at.attention_train_forward.launches = at.attention_backward.launches = 0
+    times = timed_steps(lambda i: step(model, opt, xb, y,
+                                       poly_lr(D2_LR, i + 1, 1000), gen),
+                        TRAIN_WARMUP + TRAIN_STEPS)
+    result.update(
+        step_s=statistics.median(times[TRAIN_WARMUP:]),
+        peak=torch.cuda.max_memory_allocated(dev), heads=sorted(heads),
+        fwd_launches=at.attention_train_forward.launches,
+        bwd_launches=at.attention_backward.launches,
+        route=at.attention_route(torch.bfloat16, width, width))
+    state = gather_state_tp(model, mesh)
+    if rank == 0:
+        ckpt.save_state_dict(os.path.join(out, "best.pt"), state)
+    at.fused_attention.launches = 0
+    model.eval()
+    with torch.inference_mode():
+        logits = model(xb)
+    torch.cuda.synchronize()
+    result["eval_logits"] = logits.float().cpu()
+    result["eval_attention_launches"] = at.fused_attention.launches
+    return result
+
+
+def check_d2_attention(at, dev):
+    """The train kernels at a D2 rank's shape (8, 6, 1024, 64) with its
+    offsets (0, 6, 12), rate 0.1, bf16, against their plain versions with
+    the same offsets, at T2's bounds. Returns the largest errors."""
+    gen = torch.Generator().manual_seed(SEED + 24)
+    q, k, v, g = (torch.randn((BATCH, 6, 1024, 64), generator=gen)
+                  .to(dev, torch.bfloat16) for _ in range(4))
+    offsets, rate, scale = (0, 6, 12), D2_ATTENTION_DROPOUT, 64 ** -0.5
+    args = (q, k, v, scale, None, 1234, rate)
+    o, lse = at.attention_train_forward(*args, offsets=offsets)
+    ref_o, ref_lse = at.attention_train_reference(*args, offsets=offsets)
+    bwd = (q, k, v, ref_o, ref_lse, g, scale, None, 1234, rate)
+    grads = at.attention_backward(*bwd, offsets=offsets)
+    refs = at.attention_backward_reference(*bwd, offsets=offsets)
+    o_err = (o.float() - ref_o.float()).abs().max().item()
+    lse_err = (lse - ref_lse).abs().max().item()
+    o_bound = (ATTN_REL_TOL[torch.bfloat16] / (1 - rate)
+               * v.float().abs().max().item())
+    g_rel = max((a.float() - r.float()).abs().max().item()
+                / r.float().abs().max().item() for a, r in zip(grads, refs))
+    if not (o_err <= o_bound and lse_err <= LSE_ABS_TOL
+            and g_rel <= GRAD_REL_TOL[torch.bfloat16]):
+        raise AssertionError(f"D2 attention with offsets {offsets}: o "
+                             f"{o_err} (bound {o_bound}), lse {lse_err}, "
+                             f"gradients {g_rel} of their peaks")
+    return o_err, lse_err, g_rel
+
+
+def check_d2(at, fc, dev, smi):
+    """D2. Returns its numbers for the kernels line."""
+    from unet_torch_tpu_torch import ckpt
+    from unet_torch_tpu_torch.core.rng import seed_everything
+    from unet_torch_tpu_torch.train.optim import make_optimizer, poly_lr
+    from unet_torch_tpu_torch.train.steps import make_single_steps
+
+    att_err = check_d2_attention(at, dev)
+
+    def step_once(dtype):
+        model, x, y = d2_model_batch(dev)
+        before = host_state(model.state_dict())
+        model.to(dtype)
+        opt = make_optimizer("SGD", model.parameters(), D2_LR, 1e-4)
+        step, _ = make_single_steps("dice_bce_mc", "dice_bce_mc", N_CLASSES)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        return model, before, step(model, opt, x.to(dtype), y,
+                                   poly_lr(D2_LR, 0, 1000), gen).item()
+
+    ref = one_process_reference(at, step_once)
+    ref_loss = ref[0]
+    x = torch.from_numpy(train_batch(np.random.RandomState(SEED + 23), BATCH,
+                                     SIZE)[0]).to(dev)
+    ranks, out = parallel_spawn("d2")
+    try:
+        a, b = ranks
+        loss_err, worst, worst_name, _ = compare_step(
+            "D2 TransUnet tensor parallel", a["loss"], a["grads"],
+            a["state"], ref, D2_LR, adam=False)
+        n_layers = 12
+        want = n_layers * (TRAIN_WARMUP + TRAIN_STEPS)
+        for r in ranks:
+            if (r["fwd_launches"], r["bwd_launches"]) != (want, want) \
+                    or r["heads"] != [6] or r["route"] != "wgmma" \
+                    or r["eval_attention_launches"] != n_layers:
+                raise AssertionError(
+                    f"D2: rank {r is b:d} launched {r['fwd_launches']} + "
+                    f"{r['bwd_launches']} train attention (expected {want} "
+                    f"each) on {r['heads']} heads by {r['route']}, "
+                    f"{r['eval_attention_launches']} eval attention")
+        # the replicated logits of the two ranks (each computes the layers
+        # outside the projections itself, with cuDNN's choices)
+        rank_err = (a["eval_logits"] - b["eval_logits"]).abs().max().item()
+        # the checkpoint served in one process
+        served = seeded_transunet(seed_everything(SEED + 1))
+        ckpt.load_weights(os.path.join(out, "best.pt"), served)
+        served = served.to(dev).eval()
+        fc.reset_launches()
+        at.fused_attention.launches = 0
+        with torch.inference_mode():
+            logits = served(x.to(torch.bfloat16))
+        torch.cuda.synchronize()
+        served_launches = {"fused_conv3x3_bn_relu":
+                           fc.fused_conv3x3_bn_relu.launches,
+                           "fused_attention": at.fused_attention.launches}
+    finally:
+        shutil.rmtree(out)
+    peak = a["eval_logits"].abs().max().item()
+    eval_err = (logits.float().cpu() - a["eval_logits"]).abs().max().item()
+    if not max(eval_err, rank_err) <= TP_EVAL_REL_TOL * peak:
+        raise AssertionError(f"D2: the checkpoint's bf16 eval forward in one "
+                             f"process is {eval_err} from the sharded "
+                             f"model's, the ranks' {rank_err} apart (bound "
+                             f"{TP_EVAL_REL_TOL * peak})")
+    step_s = max(r["step_s"] for r in ranks)
+    phase("D2 tensor parallel",
+          f"TransUnet R50-ViT-B/16 {SIZE}x{SIZE}, M = {PARALLEL_RANKS} gloo "
+          f"ranks on one card ({smi}), global batch {BATCH}, SGD, dropout "
+          f"0.1, attention dropout {D2_ATTENTION_DROPOUT}: the train kernels "
+          f"with a rank's offsets against plain: o {att_err[0]:.2e}, lse "
+          f"{att_err[1]:.2e}, gradients {att_err[2]:.2e} of their peaks; the "
+          f"f32 step against one process: loss {a['loss']:.7f} vs "
+          f"{ref_loss:.7f} (rel err {loss_err:.2e}), the worst gradient "
+          f"{worst_name} at {worst:.2f} times the one-process f32 error "
+          f"against f64 (bound {T4_NOISE_RATIO:.0f}); bf16 steps: median "
+          f"{step_s * 1e3:.2f} ms = {BATCH / step_s:.1f} img/s (the two "
+          f"ranks share one card: not a scaling figure), peak "
+          f"{a['peak'] / 2**30:.2f} GiB a rank, {a['fwd_launches']} + "
+          f"{a['bwd_launches']} attention launches a rank over "
+          f"{TRAIN_WARMUP + TRAIN_STEPS} steps on {a['heads'][0]} heads by "
+          f"{a['route']} 64/64; the gathered checkpoint in one process: "
+          f"bf16 eval forward {eval_err:.3e} from the sharded model's, the "
+          f"ranks' logits {rank_err:.3e} apart (bound "
+          f"{TP_EVAL_REL_TOL * peak:.3e}), launches {served_launches}")
+    return {"img_s": BATCH / step_s, "loss_rel_err": loss_err,
+            "worst_rel_err": worst,
+            "attention_train_forward": sum(r["fwd_launches"] for r in ranks),
+            "attention_backward": sum(r["bwd_launches"] for r in ranks),
+            "fused_attention": sum(r["eval_attention_launches"]
+                                   for r in ranks)
+            + served_launches["fused_attention"],
+            "conv_launches": served_launches["fused_conv3x3_bn_relu"]}
+
+
+D3_LR = 1e-4  # configs/cltr.yml's Adam
+
+
+def d3_model_batch(dev):
+    from unet_torch_tpu_torch.core.rng import seed_everything
+
+    model, criterion = seeded_cltr(seed_everything(SEED), dropout=0.0,
+                                   precision="f32")
+    model = model.to(dev)
+    batch = cltr_step_inputs(np.random.RandomState(SEED + 25), CLTR_BATCH,
+                             model, dev, torch.float32)
+    return model, criterion, batch
+
+
+def d3_rank(rank, out):
+    """D3 on a rank: configs/cltr.yml's model under DistributedDataParallel
+    over D = 2, its 8 crops of the batch, dropout off, f32; the auction on
+    its own images."""
+    from torch.nn.parallel import DistributedDataParallel
+
+    from unet_torch_tpu_torch.core.mesh import make_mesh
+    from unet_torch_tpu_torch.kernels import attention as at
+    from unet_torch_tpu_torch.kernels import auction as au
+    from unet_torch_tpu_torch.parallel import gather_state_tp, parallelize
+    from unet_torch_tpu_torch.train.cltr_steps import train_step
+    from unet_torch_tpu_torch.train.optim import make_optimizer
+
+    dev = torch.device("cuda", 0)
+    mesh = make_mesh(PARALLEL_RANKS, 1)
+    model, criterion, batch = d3_model_batch(dev)
+    parallelize(model, mesh)
+    net = DistributedDataParallel(model, device_ids=[0],
+                                  process_group=mesh.data_group,
+                                  broadcast_buffers=False)
+    opt = make_optimizer("Adam", model.parameters(), D3_LR, 1e-4)
+    rows = mesh.rows(CLTR_BATCH)
+    au.auction_lsap.launches = 0
+    at.attention_train_forward.launches = at.attention_backward.launches = 0
+    loss, _ = train_step(net, criterion, opt, *(t[rows] for t in batch),
+                         D3_LR, None, None, "auction", mesh.data_group)
+    return {"loss": loss.item(),
+            "state": host_state(gather_state_tp(model, mesh)),
+            "grads": {n: p.grad.detach().cpu()
+                      for n, p in model.named_parameters()},
+            "auction_launches": au.auction_lsap.launches,
+            "attention_train_forward": at.attention_train_forward.launches,
+            "attention_backward": at.attention_backward.launches}
+
+
+def check_d3(at, dev, smi):
+    """D3. Returns its numbers for the kernels line."""
+    from unet_torch_tpu_torch.train.cltr_steps import train_step
+    from unet_torch_tpu_torch.train.optim import make_optimizer
+
+    def step_once(dtype):
+        model, criterion, batch = d3_model_batch(dev)
+        before = host_state(model.state_dict())
+        model.to(dtype)
+        model.dtype = dtype
+        x, labels, points, valid = batch
+        opt = make_optimizer("Adam", model.parameters(), D3_LR, 1e-4)
+        loss, _ = train_step(model, criterion, opt, x.to(dtype), labels,
+                             points.to(dtype), valid, D3_LR, None, None,
+                             "auction")
+        return model, before, loss.item()
+
+    ref = one_process_reference(at, step_once)
+    ref_loss = ref[0]
+    ranks, out = parallel_spawn("d3")
+    shutil.rmtree(out)
+    a = ranks[0]
+    loss_err, worst, worst_name, n_flip = compare_step(
+        "D3 CLTR data parallel", a["loss"], a["grads"], a["state"], ref,
+        D3_LR, adam=True)
+    if [r["auction_launches"] for r in ranks] != [1] * PARALLEL_RANKS:
+        raise AssertionError(f"D3: auction launches by rank "
+                             f"{[r['auction_launches'] for r in ranks]}, "
+                             "expected one each")
+    phase("D3 CLTR data parallel",
+          f"configs/cltr.yml's model, {CLTR_CROP}x{CLTR_CROP} crops, D = "
+          f"{PARALLEL_RANKS} gloo ranks on one card ({smi}), global batch "
+          f"{CLTR_BATCH} ({CLTR_BATCH // PARALLEL_RANKS} a rank), Adam, "
+          f"auction matcher, dropout 0, f32: the step against one process: "
+          f"loss {a['loss']:.7f} vs {ref_loss:.7f} (rel err "
+          f"{loss_err:.2e}), the worst gradient {worst_name} at {worst:.2f} "
+          f"times the one-process f32 error against f64 (bound "
+          f"{T4_NOISE_RATIO:.0f}; {n_flip} Adam sign flips within 2 lr); "
+          f"auction launches by "
+          f"rank {[r['auction_launches'] for r in ranks]}, attention "
+          f"{[r['attention_train_forward'] for r in ranks]} + "
+          f"{[r['attention_backward'] for r in ranks]}")
+    return {"loss_rel_err": loss_err, "worst_rel_err": worst,
+            "auction_lsap": sum(r["auction_launches"] for r in ranks),
+            "attention_train_forward": sum(r["attention_train_forward"]
+                                           for r in ranks),
+            "attention_backward": sum(r["attention_backward"]
+                                      for r in ranks)}
+
+
+def check_parallel(at, fc, dev, smi):
+    """D1-D3, after the one-process phases, whose cached card memory is
+    freed first: the ranks are other processes."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"d1": check_d1(at, dev, smi), "d2": check_d2(at, fc, dev, smi),
+            "d3": check_d3(at, dev, smi)}
+
+
 def main(cltr_profile=False, cltr_two_batches_only=False,
-         attention_ab_only=False, unet_profile=False, topo_only=False):
+         attention_ab_only=False, unet_profile=False, topo_only=False,
+         parallel_only=False):
     # 1. device
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -3148,6 +3758,9 @@ def main(cltr_profile=False, cltr_two_batches_only=False,
         return
     if attention_ab_only:
         attention_ab(at, fc, au, vit, dev)
+        return
+    if parallel_only:
+        check_parallel(at, fc, dev, smi)
         return
     if topo_only:
         check_mask(at, build, dev)
@@ -3326,6 +3939,9 @@ def main(cltr_profile=False, cltr_two_batches_only=False,
     topo_s = check_topo_steps(dev)
     p3_launches, p3_img_s = check_topo_trainer(fc, dev)
 
+    # D1-D3: data- and tensor-parallel training, two gloo ranks on the card
+    pres = check_parallel(at, fc, dev, smi)
+
     # L. the library calls beside the kernels, for their times only
     lib_conv = library_conv_ms(shapes + tu_shapes, dev)
     lib_attn = library_attention_ms(dev)
@@ -3405,7 +4021,11 @@ def main(cltr_profile=False, cltr_two_batches_only=False,
             "multi_task_regTU_after_training":
                 v4_eval["fused_conv3x3_bn_relu"],
             # the topo loop's validation in its 5 warm-up epochs (P3)
-            "topo_wup_trainer": p3_launches},
+            "topo_wup_trainer": p3_launches,
+            # D1: rank 0's eval forward of the data-parallel UNet; D2: the
+            # tensor-parallel checkpoint served in one process
+            "d1_unet_data_parallel_eval": pres["d1"]["conv_launches"],
+            "d2_checkpoint_eval": pres["d2"]["conv_launches"]},
         # by route (wgmma, narrow, mma.sync, reg) in each eval forward
         "launches_by_route": {
             "unet": unet_routes, "transunet": tu_routes,
@@ -3472,7 +4092,10 @@ def main(cltr_profile=False, cltr_two_batches_only=False,
             "regression_t": v1_eval["fused_attention"],
             "multi_task_regTU": v2_eval["fused_attention"],
             "multitask_em": v3_eval["fused_attention"],
-            "multi_task_regTU_after_training": v4_eval["fused_attention"]},
+            "multi_task_regTU_after_training": v4_eval["fused_attention"],
+            # D2: both ranks' eval forward of the sharded model and the
+            # checkpoint's in one process
+            "d2_tensor_parallel_eval": pres["d2"]["fused_attention"]},
         # CLTR's eval forward: 6 encoder, 6 decoder self- and 6
         # cross-attentions at batch 16 (the trained model served 9 patches)
         "cltr": cltr_attention_numbers(cltr_bf16, (0, 1, 2, 3, 4), lib_cltr,
@@ -3505,7 +4128,11 @@ def main(cltr_profile=False, cltr_two_batches_only=False,
             "cltr_train": c3_launches["attention_train_forward"],
             "regression_t_train": v1_launches["attention_train_forward"],
             "multi_task_regTU_train":
-                v2_launches["attention_train_forward"]},
+                v2_launches["attention_train_forward"],
+            # both ranks, their 13 bf16 steps (D2) and their f32 step (D3)
+            "d2_tensor_parallel_train":
+                pres["d2"]["attention_train_forward"],
+            "d3_cltr_data_parallel": pres["d3"]["attention_train_forward"]},
         # one CLTR train step's 18 launches, bias and dropout 0.1 together
         "cltr": cltr_attention_numbers(cltr_train_bf16, (0, 1, 2, 6, 8),
                                        lib_cltr, 1, cltr_layers, lse=True),
@@ -3535,7 +4162,9 @@ def main(cltr_profile=False, cltr_two_batches_only=False,
             "transunet_train": n_bwd,
             "cltr_train": c3_launches["attention_backward"],
             "regression_t_train": v1_launches["attention_backward"],
-            "multi_task_regTU_train": v2_launches["attention_backward"]},
+            "multi_task_regTU_train": v2_launches["attention_backward"],
+            "d2_tensor_parallel_train": pres["d2"]["attention_backward"],
+            "d3_cltr_data_parallel": pres["d3"]["attention_backward"]},
         "cltr": cltr_attention_numbers(cltr_train_bf16, (3, 4, 5, 7, 9),
                                        lib_cltr, 2, cltr_layers,
                                        backward=True),
@@ -3594,7 +4223,10 @@ def main(cltr_profile=False, cltr_two_batches_only=False,
         "replaces": "unet_torch_tpu/kernels/auction.py:130",
         # one CLTR train step
         "launches": c3_launches["auction_lsap"],
-        "launches_by_path": {"cltr_train": c3_launches["auction_lsap"]},
+        "launches_by_path": {"cltr_train": c3_launches["auction_lsap"],
+                             # both ranks' step, each on its own images
+                             "d3_cltr_data_parallel":
+                                 pres["d3"]["auction_lsap"]},
         # matches, round counts and bid counts that differ from the plain
         # version, over all C1 cases and the step's own launch
         "max_abs_err": max(r["bad"] for r in aures + [step_auction]),
@@ -3675,6 +4307,8 @@ def main(cltr_profile=False, cltr_two_batches_only=False,
         "topo_pipeline_img_s": {n: BATCH / topo_s[f"{n}_pipeline"]
                                 for n in ("TopoLoss", "TopoCount")},
         "topo_trainer_pipelined_img_s": p3_img_s,
+        # D1-D3: two gloo ranks share the card, so no scaling figure
+        "parallel": pres,
         "native_pairing_ms": pairing_ms},
         "peaks": {"card": "NVIDIA H100 SXM data sheet",
                   "bf16_flops": PEAK_BF16, "f32_flops": PEAK_F32,
@@ -3712,6 +4346,10 @@ if __name__ == "__main__":
         "--topo", action="store_true",
         help="build, then only the mask probe (T1) and the topo phases "
              "(P1-P3)")
+    parser.add_argument(
+        "--parallel", action="store_true",
+        help="build, then only the data- and tensor-parallel phases D1-D3 "
+             "(two gloo ranks on the card)")
     cli = parser.parse_args()
     main(cli.cltr_profile, cli.cltr_two_batches, cli.attention_ab,
-         cli.unet_profile, cli.topo)
+         cli.unet_profile, cli.topo, cli.parallel)

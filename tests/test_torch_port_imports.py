@@ -93,6 +93,23 @@ loaded = sorted(m for m in sys.modules if m.split(".")[0] in (
 assert not loaded, loaded
 """
 
+# the parallel slice: the launch, the layout, the synchronised BatchNorm and
+# the tensor-parallel sharding, with what they import; nothing starts a
+# process group
+_PARALLEL_MODULES = r"""
+import sys
+import torch.distributed as dist
+from unet_torch_tpu_torch.core import dist as port_dist, mesh
+from unet_torch_tpu_torch.nn.sync_batchnorm import convert_sync_batchnorm
+from unet_torch_tpu_torch.parallel import gather_state_tp, parallelize
+from unet_torch_tpu_torch.parallel.tensor import shard_model_tp
+assert not dist.is_initialized() and port_dist.process_count() == 1
+assert mesh.make_mesh().size == 1
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in (
+    "jax", "jaxlib", "flax", "optax", "unet_torch_tpu"))
+assert not loaded, loaded
+"""
+
 _GREP = ("import unet_torch_tpu ", "import unet_torch_tpu.",
          "from unet_torch_tpu ", "from unet_torch_tpu.")
 
@@ -107,7 +124,7 @@ def _run(code):
 
 def test_port_imports_no_jax():
     # every module of the slice was imported
-    assert int(_run(_CHECK).split()[-1]) >= 59
+    assert int(_run(_CHECK).split()[-1]) >= 64
 
 
 def test_main_path_imports_no_jax_package():
@@ -120,6 +137,10 @@ def test_data_modules_import_no_jax():
 
 def test_topo_modules_import_no_jax():
     _run(_TOPO_MODULES)
+
+
+def test_parallel_modules_import_no_jax():
+    _run(_PARALLEL_MODULES)
 
 
 def test_no_source_line_imports_the_jax_package():

@@ -453,6 +453,43 @@ def test_train_kernels_match_plain_on_card(shape, dtype, rate):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("offsets", [(1, 2, 7), (5, 0, 3)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [ATTN_SHAPES[0], ATTN_SHAPES[1],
+                                   ATTN_SHAPES[4]])
+def test_train_kernels_with_offsets_match_plain_on_card(shape, dtype,
+                                                        offsets):
+    """A rank's share of a data- or tensor-parallel step: the train forward
+    and backward with (b_off, h_off, h_total) hash the whole batch's
+    batch*head, against the plain versions with the same offsets, at
+    test_train_kernels_match_plain_on_card's bounds (rate 0.3; the wgmma
+    widths (64, 64) and (64, 32) in bf16, mma.sync at (16, 48), f32)."""
+    _needs_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, g, bias = _train_inputs(shape, dtype)
+    scale, seed, rate = shape[4] ** -0.5, 77, 0.3
+    args = (q, k, v, scale, bias, seed, rate)
+    o, lse = port_attn.attention_train_forward(*args, offsets=offsets)
+    ref_o, ref_lse = port_attn.attention_train_reference(*args,
+                                                         offsets=offsets)
+    # the offsets move the mask: the call without them gives another o
+    assert not torch.equal(ref_o, port_attn.attention_train_reference(
+        *args)[0])
+    bwd_args = (q, k, v, ref_o, ref_lse, g, scale, bias, seed, rate)
+    grads = port_attn.attention_backward(*bwd_args, offsets=offsets)
+    refs = port_attn.attention_backward_reference(*bwd_args, offsets=offsets)
+    torch.cuda.synchronize()
+    o_bound = ((1e-5 if dtype == torch.float32 else 2 ** -7) / (1 - rate)
+               * v.float().abs().max().item())
+    assert (o.float() - ref_o.float()).abs().max().item() <= o_bound
+    assert (lse - ref_lse).abs().max().item() <= 1e-4
+    rel = 1e-5 if dtype == torch.float32 else 2 ** -6
+    for name, a, r in zip(("dq", "dk", "dv"), grads, refs):
+        err = (a.float() - r.float()).abs().max().item()
+        assert err <= rel * r.float().abs().max().item(), (name, err)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("rate", [0.0, 0.3])
 def test_autograd_on_card_matches_cpu(rate):
     """dropout_flash_attention's gradients in f32 (TF32 off), the kernels on

@@ -4,7 +4,9 @@ The reference's format: a torch `state_dict` saved with torch.save as
 models/epoch{N}.pt, best.pt and last_epoch.pt (`save_weights`, read back
 strictly by `load_weights`). The JAX package writes flax msgpack under the
 same names; `state_dict_from_jax_payload` converts one, read into numpy by
-the caller, through ckpt/bridge.py.
+the caller, through ckpt/bridge.py. A tensor-parallel run saves the full,
+unsharded state dict (parallel/tensor.py::gather_state_tp), so that every
+checkpoint loads into a model built in one process.
 
 `save_full` / `restore_full` also keep the optimizer's state and the step,
 for an exact resume (the reference loses its optimizer moments across
@@ -32,10 +34,15 @@ def _host_state_dict(model: nn.Module) -> dict:
     return {k: v.detach().cpu() for k, v in model.state_dict().items()}
 
 
+def save_state_dict(path: str, state: dict) -> None:
+    """A state_dict (moved to the CPU) to `path`."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    torch.save({k: v.detach().cpu() for k, v in state.items()}, path)
+
+
 def save_weights(path: str, model: nn.Module) -> None:
     """The model's state_dict (on the CPU) to `path`."""
-    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    torch.save(_host_state_dict(model), path)
+    save_state_dict(path, model.state_dict())
 
 
 def load_weights(path: str, model: nn.Module) -> nn.Module:

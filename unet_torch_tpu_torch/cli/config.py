@@ -8,10 +8,10 @@ resume, list-valued scalars indexed [0] (train.py:147-162), seed list as the
 sweep axis (train.py:182-183). Beside the reference's keys:
 
   train_config.precision:  'f32' (default) | 'bf16'
-  train_config.mesh:       {data: N, model: M}, read by the JAX package;
-                           the port trains on one device and refuses
-                           N or M > 1 and `distributed: true`
-                           (cli/train_cli.py::refuse_parallel)
+  train_config.mesh:       {data: N, model: M}: the ranks' layout, in the
+                           port as in the JAX package (the port: N * M
+                           processes, core/mesh.py; {} puts every rank on
+                           data)
 
 `remat`, `fold` and `fused_head` are options of the JAX package, parsed here
 with its defaults; the port warns and ignores them

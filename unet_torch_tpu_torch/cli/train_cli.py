@@ -1,6 +1,8 @@
 """Train CLI of the port (counterpart of unet_torch_tpu/cli/train_cli.py).
 
     python -m unet_torch_tpu_torch.cli.train_cli <config.yml> [--device cuda]
+    torchrun --nproc_per_node=N -m unet_torch_tpu_torch.cli.train_cli \
+        <config.yml> [--backend nccl|gloo]
 
 The reference's run: a seed sweep with one directory per seed
 (`save_dir/<basename>_seed{N}`), the config snapshot (`config.json`), resume
@@ -46,11 +48,24 @@ their dot maps too (`DataBinary(return_gt_dot=True)`) and train in the
 warm-up loop (`single_train_wup`, pairing on a max-pooled map with
 `train_config.topo_pair_downsample`).
 
-Datasets and loaders are the port's numpy ones (data/). `random_crop`,
-`distributed: true`, a `mesh` of more than one data or model shard and a
-launch of several processes (`WORLD_SIZE` > 1, as torchrun sets it) raise
-NotImplementedError with the reason (core/not_ported.py), before anything
-is written.
+Datasets and loaders are the port's numpy ones (data/). `random_crop`
+raises NotImplementedError with the reason (core/not_ported.py).
+
+Several processes: a launch with WORLD_SIZE > 1 (torchrun) or
+`distributed: true` starts torch.distributed (core/dist.py; NCCL with a card
+a rank, gloo on the CPU or where `--backend gloo` puts ranks on one card)
+and lays the ranks out as `train_config.mesh` says ({} puts every rank on
+`data`; {data: D, model: M} needs D * M ranks): rank d * M + m loads shard
+d of the train set at `batch_size // D` images a step, the transformer
+types split their heads and MLPs over the M ranks of one d, and every loop
+trains through DistributedDataParallel over the D ranks of one m (the same
+model as one process on the global batch; train/trainer.py). Each rank runs
+on cuda:LOCAL_RANK unless `--device` names a card. Rank 0 alone writes the
+config snapshot, the logs, the checkpoints (full, unsharded state dicts),
+the post-train test and `results.csv`. `distributed: true` without a
+launcher, a mesh whose product is not the number of ranks and NCCL with
+more ranks than cards on a host raise with the reason, before anything is
+written.
 """
 
 from __future__ import annotations
@@ -62,6 +77,7 @@ import os
 import warnings
 
 import numpy as np
+import torch
 
 from unet_torch_tpu_torch import losses
 from unet_torch_tpu_torch.ckpt import (
@@ -72,6 +88,14 @@ from unet_torch_tpu_torch.ckpt import (
 from unet_torch_tpu_torch.cli.config import Config
 from unet_torch_tpu_torch.core import not_ported
 from unet_torch_tpu_torch.core.device import resolve_device
+from unet_torch_tpu_torch.core.dist import (
+    is_main,
+    local_rank,
+    maybe_initialize,
+    process_count,
+    shutdown,
+)
+from unet_torch_tpu_torch.core.mesh import mesh_from_config
 from unet_torch_tpu_torch.core.precision import resolve_precision
 from unet_torch_tpu_torch.core.rng import seed_everything
 from unet_torch_tpu_torch.data.datasets import (
@@ -196,33 +220,35 @@ def build_datasets_and_model(cfg: Config, seed: int, generator=None):
     return train_ds, val_ds, model
 
 
-def refuse_parallel(train) -> None:
-    """Raises NotImplementedError, with the reason, on what would spread
-    training over several processes or devices: `distributed: true`, a
-    `mesh` whose `data` or `model` is above 1, and a launch of several
-    processes (`WORLD_SIZE` > 1, the port's counterpart of the coordinator
-    variables the JAX package's `core/dist.py::maybe_initialize` reads).
-    `mesh: {}` and `{data: 1, model: 1}` pass."""
-    if train.distributed:
-        not_ported.check(not_ported.TRAIN_OPTIONS, "option", "distributed")
-    if any(int(train.mesh.get(k) or 1) > 1 for k in ("data", "model")):
-        not_ported.check(not_ported.TRAIN_OPTIONS, "option", "mesh")
-    world = int(os.environ.get("WORLD_SIZE") or 1)
-    if world > 1:
-        raise NotImplementedError(
-            f"a launch of WORLD_SIZE={world} processes is not ported: "
-            + not_ported.TRAIN_OPTIONS["distributed"])
-
-
-def run_training(cfg: Config, device="cuda"):
-    refuse_parallel(cfg.train)
+def rank_device(device: str = "cuda") -> torch.device:
+    """The rank's device: a launch of several ranks runs each on
+    cuda:LOCAL_RANK where `device` is "cuda"; "cuda:N" and "cpu" stand."""
+    if device == "cuda" and process_count() > 1:
+        device = f"cuda:{local_rank()}"
     dev = resolve_device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    return dev
+
+
+def run_training(cfg: Config, device="cuda", backend=None):
+    maybe_initialize(force=cfg.train.distributed, backend=backend)
+    mesh = mesh_from_config(cfg.train.mesh)
+    if mesh.size == 1:
+        mesh = None  # one process: the single-device path
+    dev = rank_device(device)
     plot = importlib.util.find_spec("matplotlib") is not None
     dtype = resolve_precision(cfg.train.precision)
     losses.set_class_number(cfg.model.num_class)
     save_dir = cfg.dataset.save_dir
-    os.makedirs(save_dir, exist_ok=True)
-    cfg.dump_snapshot(save_dir)
+    if is_main():
+        os.makedirs(save_dir, exist_ok=True)
+        cfg.dump_snapshot(save_dir)
+    # each rank loads its shard of the train set at its share of the batch
+    batch, shard_kw = cfg.train.batch_size, {}
+    if mesh is not None and mesh.data > 1:
+        batch = mesh.local_batch(batch)
+        shard_kw = {"shard_index": mesh.d, "num_shards": mesh.data}
     test_image_list = (get_image_list(cfg.dataset.test_path[0])
                        if cfg.dataset.test_path else [])
     results, trainers = {}, {}
@@ -241,10 +267,10 @@ def run_training(cfg: Config, device="cuda"):
         print(f"Loss Function: {cfg.train.loss}")
         is_cltr = cfg.model.model_type == "CLTR"
         dataloaders = {
-            "train": NumpyLoader(train_ds, cfg.train.batch_size, shuffle=True,
-                                 seed=seed, num_workers=cfg.train.num_workers,
+            "train": NumpyLoader(train_ds, batch, shuffle=True, seed=seed,
+                                 num_workers=cfg.train.num_workers,
                                  **({"collate_fn": cltr_collate}
-                                    if is_cltr else {})),
+                                    if is_cltr else {}), **shard_kw),
             "val": NumpyLoader(val_ds, 1, shuffle=False,
                                **({"collate_fn": lambda items: items[0]}
                                   if is_cltr else {})),
@@ -260,7 +286,7 @@ def run_training(cfg: Config, device="cuda"):
             start_epoch=cfg.resume.epoch if cfg.resume.flag else 1,
             seed=seed, fused_head=cfg.model.fused_head,
             topo_pair_downsample=cfg.train.topo_pair_downsample, device=dev,
-            dtype=dtype, plot=plot)
+            dtype=dtype, plot=plot, mesh=mesh)
         if is_cltr:
             cltr_args = cfg.raw.get("cltr_config", {})
             trainer.criterion = model.criterion
@@ -269,10 +295,17 @@ def run_training(cfg: Config, device="cuda"):
         trainer.train()
         trainers[seed] = trainer
 
-        if test_image_list:
+        if not test_image_list:
+            continue
+        # a tensor-parallel model is served whole, from the gathered state
+        state = (trainer.full_state()
+                 if mesh is not None and mesh.model > 1 else None)
+        if is_main():
             if plot:
                 print("Testing best model:")
-                results[seed] = _post_train_test(trainer, cfg,
+                model = (trainer.model if state is None
+                         else _whole_model(cfg, seed, state, dev))
+                results[seed] = _post_train_test(model, trainer, cfg,
                                                  test_image_list, out_dir)
             else:
                 best = os.path.join(out_dir, "models", "best.pt")
@@ -283,7 +316,7 @@ def run_training(cfg: Config, device="cuda"):
                     f" --checkpoint {best} --out-dir {out_dir}")
             _delete_non_best(out_dir)
 
-    if results:
+    if results and is_main():
         import pandas as pd
 
         df = pd.DataFrame(results).transpose().sort_index()
@@ -291,12 +324,23 @@ def run_training(cfg: Config, device="cuda"):
     return trainers, results
 
 
-def _post_train_test(trainer, cfg: Config, test_image_list, out_dir):
+def _whole_model(cfg: Config, seed: int, state: dict, device):
+    """A model of the config built in one process, holding `state` (a full
+    state dict) on `device`."""
+    model = build_datasets_and_model(cfg, seed,
+                                     torch.Generator().manual_seed(seed))[2]
+    if "log_vars" in state and hasattr(model, "add_log_vars"):
+        model.add_log_vars()
+    model.load_state_dict(state, strict=True)
+    return model.to(device)
+
+
+def _post_train_test(model, trainer, cfg: Config, test_image_list, out_dir):
     """The best model through the eval suite of its model type into
     `out_dir`; `multi_task` has none, as in the JAX CLI."""
     m = cfg.model
     mt = m.model_type
-    args = (trainer.model, trainer.device, trainer.dtype,
+    args = (model, trainer.device, trainer.dtype,
             tuple(m.input_size), m.channel, m.num_class, test_image_list,
             out_dir)
     tsv_files = get_points_from_tsv(cfg.dataset.dot_annotation_path)
@@ -322,8 +366,15 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("config", help="the config path")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--backend", default=None,
+                    help="torch.distributed backend of a launch: nccl (a "
+                         "card a rank, the default with a card) or gloo")
     args = ap.parse_args(argv)
-    run_training(Config.load(args.config), device=args.device)
+    try:
+        run_training(Config.load(args.config), device=args.device,
+                     backend=args.backend)
+    finally:
+        shutdown()
 
 
 if __name__ == "__main__":

@@ -21,19 +21,6 @@ TRAIN_OPTIONS = {
         "val stacks, which Trainer.single_train's (x, y) loops cannot "
         "unpack, and its CLI builds the model at input_size, not at the "
         "256 crop (ROADMAP.md queue 3, faults of the reference)"),
-    "distributed": (
-        "the port trains in one process on one device; multi-GPU data "
-        "parallel (DDP) is ROADMAP.md item 13, and per-rank DDP would not "
-        "match the JAX package, whose GSPMD step computes the Dice sums "
-        "over the batch axis and the train-mode BatchNorm statistics over "
-        "the global batch, where DDP gives a mean of per-shard ones"),
-    "mesh": (
-        "the port trains in one process on one device: a mesh of data > 1 "
-        "is ROADMAP.md item 13's DDP (per-rank DDP would not match the "
-        "JAX package, whose GSPMD step computes the Dice sums and the "
-        "train-mode BatchNorm statistics over the global batch), and "
-        "model > 1, tensor parallelism of the transformer families, "
-        "waits for that item too; mesh: {} and {data: 1, model: 1} train"),
 }
 
 

@@ -7,11 +7,11 @@
 //
 // with mix32 murmur3's 32-bit finaliser and every product taken modulo
 // 2**32 (uint32 wraparound, as JAX's uint32 arithmetic). bh is the flat
-// batch*head index, row and col the global query and key indices, nk_p the
-// key count padded as the JAX package pads it (kernels/attention.py
-// dfa_nk_p), thr = min(int(rate * 2**32), 2**32 - 1). The mask is a function
-// of (seed, bh, row, col) alone, so every kernel regenerates the same bits
-// whatever tiles it walks.
+// batch*head index (`dropout_bh`), row and col the global query and key
+// indices, nk_p the key count padded as the JAX package pads it
+// (kernels/attention.py dfa_nk_p), thr = min(int(rate * 2**32), 2**32 - 1).
+// The mask is a function of (seed, bh, row, col) alone, so every kernel
+// regenerates the same bits whatever tiles it walks.
 //
 // Included by csrc/*.cu; kernels/build.py hashes this header with each
 // source.
@@ -29,6 +29,16 @@ __device__ __forceinline__ uint32_t mix32(uint32_t x) {
   x *= 0xC2B2AE35u;
   x ^= x >> 16;
   return x;
+}
+
+// The bh a block hashes. A rank that holds a share of the batch and of the
+// heads (data and tensor parallel training) launches on its local (b, h) =
+// (bh / H, bh % H), which is (b + b_off, h + h_off) of the whole batch of
+// h_total heads: hashing that flat index makes the rank's mask its slice of
+// the one-process mask. Zero offsets and h_total = H give bh itself.
+__device__ __forceinline__ uint32_t dropout_bh(int bh, int H, int b_off, int h_off, int h_total) {
+  const uint32_t b = static_cast<uint32_t>(bh / H + b_off);
+  return b * static_cast<uint32_t>(h_total) + static_cast<uint32_t>(bh % H + h_off);
 }
 
 __device__ __forceinline__ uint32_t dropout_base(uint32_t seed, uint32_t bh) {

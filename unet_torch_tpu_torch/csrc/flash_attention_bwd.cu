@@ -127,6 +127,7 @@ struct BwdParams {
   float scale;
   uint32_t seed, thr, nk_p;
   float inv_keep;
+  int b_off, h_off, h_total;  // the mask's global batch*head (dropout_bh)
 };
 
 // ---------------------------------------------------------------------------
@@ -209,7 +210,8 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkdv_bf16(const BwdParams p
   const float* dg = p.dsum + bhq;
   const float scale2 = p.scale * LOG2E;
   uint32_t base = 0;
-  if constexpr (DROPOUT) base = dropout_base(p.seed, static_cast<uint32_t>(bh));
+  if constexpr (DROPOUT)
+    base = dropout_base(p.seed, dropout_bh(bh, p.H, p.b_off, p.h_off, p.h_total));
 
   // this thread's two key rows (accumulator rows g and g + 8 of its warp)
   int key[2];
@@ -445,7 +447,8 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_bf16(const BwdParams p) 
   const float bmax2 = p.bias ? p.bias_max[bh / p.H] * LOG2E : 0.f;
   const float scale2 = p.scale * LOG2E;
   uint32_t base = 0;
-  if constexpr (DROPOUT) base = dropout_base(p.seed, static_cast<uint32_t>(bh));
+  if constexpr (DROPOUT)
+    base = dropout_base(p.seed, dropout_bh(bh, p.H, p.b_off, p.h_off, p.h_total));
 
   int row[2];
   float lse2[2], drow[2];
@@ -675,7 +678,8 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
   const int t4 = lane % 4;
   const float scale2 = p.scale * LOG2E;
   uint32_t folded = 0;
-  if constexpr (DROPOUT) folded = dropout_fold(dropout_base(p.seed, static_cast<uint32_t>(bh)));
+  if constexpr (DROPOUT)
+    folded = dropout_fold(dropout_base(p.seed, dropout_bh(bh, p.H, p.b_off, p.h_off, p.h_total)));
 
   int key[2];
   float bx[2] = {0.f, 0.f};
@@ -907,7 +911,7 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkdv_f32(const BwdParams p)
   const float* vg = static_cast<const float*>(p.v) + static_cast<long long>(bh) * Nk * dv;
   const float* bg = p.bias ? p.bias + static_cast<long long>(bh / p.H) * Nk : nullptr;
   const float bmax = p.bias ? p.bias_max[bh / p.H] : 0.f;
-  const uint32_t base = dropout_base(p.seed, static_cast<uint32_t>(bh));
+  const uint32_t base = dropout_base(p.seed, dropout_bh(bh, p.H, p.b_off, p.h_off, p.h_total));
   const int key = k0 + r;
 
   load_tile_f32<BT_F, THREADS>(Ks, kg, k0, Nk, dqk, ldk, tid);
@@ -993,7 +997,7 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_f32(const BwdParams p) {
   const float* vg = static_cast<const float*>(p.v) + static_cast<long long>(bh) * Nk * dv;
   const float* bg = p.bias ? p.bias + static_cast<long long>(bh / p.H) * Nk : nullptr;
   const float bmax = p.bias ? p.bias_max[bh / p.H] : 0.f;
-  const uint32_t base = dropout_base(p.seed, static_cast<uint32_t>(bh));
+  const uint32_t base = dropout_base(p.seed, dropout_bh(bh, p.H, p.b_off, p.h_off, p.h_total));
   const int row = q0 + r;
   const float lse = row < Nq ? p.lse[bhq + row] : 0.f;
   const float drow = row < Nq ? p.dsum[bhq + row] : 0.f;
@@ -1138,7 +1142,9 @@ cudaError_t launch_f32(BwdParams p, int BH, cudaStream_t stream) {
 // (B*H, Nq) float32 and dsum a (B*H, Nq) float32 scratch array that the first
 // kernel fills with D = rowsum(g * o); bias null or (B, Nk) float32 with
 // bias_max its (B,) row maxima; dqk, dv multiples of 16 in [16, 128]; Nq,
-// Nk >= 1. thr = 0 means no dropout. The caller checks all of this. route
+// Nk >= 1. thr = 0 means no dropout; b_off, h_off and h_total place the
+// call's batch*heads in the whole batch for the mask's hash (dropout_bh). The
+// caller checks all of this. route
 // names the kernels: 0 the f32 CUDA-core pair (dtype 0), 1 the bf16 mma.sync
 // pair (any widths), 2 the bf16 wgmma kernel (the width pairs (64, 64),
 // (32, 32) and (64, 32) only), which also needs dq_f32, a (B*H, Nq, dqk)
@@ -1150,7 +1156,8 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
                                    const void* bias_max, void* dq, void* dk, void* dv,
                                    void* dq_f32, int B, int H, int Nq, int Nk, int dqk, int dv_,
                                    float scale, unsigned seed, unsigned thr, unsigned nk_p,
-                                   float inv_keep, int dtype, int route, void* stream) {
+                                   float inv_keep, int b_off, int h_off, int h_total, int dtype,
+                                   int route, void* stream) {
   const int BH = B * H;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dqk < 16 || dqk > DMAX || dqk % 16 || dv_ < 16 || dv_ > DMAX || dv_ % 16 || Nq < 1 ||
@@ -1180,6 +1187,9 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
   p.thr = thr;
   p.nk_p = nk_p;
   p.inv_keep = inv_keep;
+  p.b_off = b_off;
+  p.h_off = h_off;
+  p.h_total = h_total;
   cudaError_t err = dtype == 0 ? launch_rowsum<float>(p, o, static_cast<float*>(dsum), BH, st)
                                : launch_rowsum<bf16>(p, o, static_cast<float*>(dsum), BH, st);
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -156,7 +156,8 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_bf16(const FwdParams p) {
   const float bmax2 = p.bias ? p.bias_max[bh / p.H] * LOG2E : 0.f;
   const float scale2 = p.scale * LOG2E;  // scores in the base-2 domain
   uint32_t base = 0;
-  if constexpr (DROPOUT) base = dropout_base(p.seed, static_cast<uint32_t>(bh));
+  if constexpr (DROPOUT)
+    base = dropout_base(p.seed, dropout_bh(bh, p.H, p.b_off, p.h_off, p.h_total));
 
   load_tile<BQ, DQK, THREADS>(Qs, qg, q0, Nq, dqk, tid);
   load_tile<BKV, DQK, THREADS>(Ks, kg, 0, Nk, dqk, tid);
@@ -344,7 +345,7 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_f32(const FwdParams p) {
   const float* vg = static_cast<const float*>(p.v) + static_cast<long long>(bh) * Nk * dv;
   const float* bg = p.bias ? p.bias + static_cast<long long>(bh / p.H) * Nk : nullptr;
   const float bmax = p.bias ? p.bias_max[bh / p.H] : 0.f;
-  const uint32_t base = dropout_base(p.seed, static_cast<uint32_t>(bh));
+  const uint32_t base = dropout_base(p.seed, dropout_bh(bh, p.H, p.b_off, p.h_off, p.h_total));
 
   load_tile_f32<BQ_F, THREADS>(Qs, qg, q0, Nq, dqk, ldk, tid);
   float acc[DMAX / 4];
@@ -458,7 +459,9 @@ cudaError_t launch_wgmma_widths(const FwdParams& p, int BH, cudaStream_t stream)
 // bias is null or a contiguous (B, Nk) float32 array with bias_max its (B,)
 // row maxima; lse is null (eval) or a (B*H, Nq) float32 array; dqk and dv
 // are multiples of 16 in [16, 128]; Nq, Nk >= 1. thr = 0 means no dropout;
-// otherwise keep = hash >= thr and survivors are scaled by inv_keep. The
+// otherwise keep = hash >= thr and survivors are scaled by inv_keep; the hash
+// keys on the batch*head of the whole batch, b_off, h_off and h_total giving
+// this call's place in it (dropout_hash.cuh dropout_bh). The
 // caller checks all of this. route names the kernel: 0 the f32 CUDA-core one
 // (dtype 0), 1 the bf16 mma.sync one (any widths), 2 the bf16 wgmma one (the
 // width pairs (64, 64), (32, 32) and (64, 32) only); the wrapper derives it
@@ -466,8 +469,8 @@ cudaError_t launch_wgmma_widths(const FwdParams& p, int BH, cudaStream_t stream)
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, const void* bias,
                                    const void* bias_max, void* o, void* lse, int B, int H, int Nq,
                                    int Nk, int dqk, int dv, float scale, unsigned seed,
-                                   unsigned thr, unsigned nk_p, float inv_keep, int dtype,
-                                   int route, void* stream) {
+                                   unsigned thr, unsigned nk_p, float inv_keep, int b_off,
+                                   int h_off, int h_total, int dtype, int route, void* stream) {
   const int BH = B * H;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dqk < 16 || dqk > DMAX || dqk % 16 || dv < 16 || dv > DMAX || dv % 16 || Nq < 1 || Nk < 1 ||
@@ -491,6 +494,9 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   p.thr = thr;
   p.nk_p = nk_p;
   p.inv_keep = inv_keep;
+  p.b_off = b_off;
+  p.h_off = h_off;
+  p.h_total = h_total;
   cudaError_t err;
   if (dtype == 0 && route == 0) {
     const int smem = smem_bytes_f32(dqk, dv);

@@ -55,6 +55,7 @@ struct FwdParams {
   float scale;
   uint32_t seed, thr, nk_p;  // dropout: keep = hash >= thr
   float inv_keep;            // 1 / (1 - rate)
+  int b_off, h_off, h_total;  // the mask's global batch*head (dropout_bh)
 };
 
 constexpr int BKV = 64;            // key rows per tile
@@ -205,7 +206,8 @@ __global__ void __launch_bounds__(WG_THREADS, MIN_BLOCKS)
   const int row0 = q0 + (HEADS == 1 ? wg * WG_ROWS : 0) + w * 16 + g;
   const uint32_t row[2] = {static_cast<uint32_t>(row0), static_cast<uint32_t>(row0 + 8)};
   uint32_t folded = 0;
-  if constexpr (DROPOUT) folded = dropout_fold(dropout_base(p.seed, static_cast<uint32_t>(bh)));
+  if constexpr (DROPOUT)
+    folded = dropout_fold(dropout_base(p.seed, dropout_bh(bh, p.H, p.b_off, p.h_off, p.h_total)));
 
   mbar_wait(q_full, 0);
   const unsigned char* Qt = Qs + wg * QB;

@@ -37,7 +37,11 @@ Dropout (train) is inverted dropout on the normalised probabilities, with
 the JAX package's counter-hash mask (`dropout_keep`): a pure function of
 (seed, batch*head, global row, global column) and of the padded key count
 `dfa_nk_p`, bit for bit the mask of `_dropout_flash_fwd` in interpret mode.
-The TPU's hardware-PRNG branch (`hw_prng`) is not carried over.
+The TPU's hardware-PRNG branch (`hw_prng`) is not carried over. A rank of a
+data- or tensor-parallel step holds a share of the batch rows and heads;
+the train calls take its `offsets`, (b_off, h_off, h_total), and hash the
+batch*head of the whole batch, (b + b_off) * h_total + h + h_off, so that
+its mask is its slice of the one-process mask, bit for bit.
 
 Every wrapper routes by the device of its tensors: a CPU tensor goes to the
 plain version, a CUDA tensor to the kernel, which raises on anything it does
@@ -133,12 +137,14 @@ def _mix32(x: torch.Tensor) -> torch.Tensor:
 
 
 def dropout_keep(seed: int, n_bh: int, nq: int, nk: int, nk_p: int, thr: int,
-                 *, row0: int = 0, device=None) -> torch.Tensor:
-    """The keep mask (n_bh, nq, nk) bool of batch*heads 0..n_bh-1, query rows
-    row0..row0+nq-1 and key columns 0..nk-1: bit for bit JAX's
-    `_dropout_keep(seed, bh, row0, 0, (nq, nk), nk_p, thr)`."""
+                 *, row0: int = 0, device=None, bh=None) -> torch.Tensor:
+    """The keep mask (n_bh, nq, nk) bool of batch*heads 0..n_bh-1 (or of the
+    n_bh indices `bh`), query rows row0..row0+nq-1 and key columns
+    0..nk-1: bit for bit JAX's `_dropout_keep(seed, bh, row0, 0, (nq, nk),
+    nk_p, thr)`."""
     i64 = dict(dtype=torch.int64, device=device)
-    bh = torch.arange(n_bh, **i64).view(-1, 1, 1)
+    bh = (torch.arange(n_bh, **i64) if bh is None
+          else bh.to(**i64)).view(-1, 1, 1)
     row = torch.arange(row0, row0 + nq, **i64).view(1, -1, 1) & _U32
     col = torch.arange(nk, **i64).view(1, 1, -1)
     base = _mix32((seed & _U32) ^ _mul32(bh, 2654435761))
@@ -160,35 +166,51 @@ def _train_scores(q, k, scale, bias):
     return s
 
 
-def _keep_mask(seed, rate, shape, nk_p, device):
+def mask_offsets(offsets, h: int) -> tuple:
+    """(b_off, h_off, h_total) of a call's batch rows and heads in the whole
+    batch; None is the whole batch itself, (0, 0, h)."""
+    return (0, 0, h) if offsets is None else tuple(int(o) for o in offsets)
+
+
+def global_bh(b: int, h: int, offsets=None, device=None) -> torch.Tensor:
+    """The (b * h,) flat batch*head indices of the whole batch that a call
+    of b rows and h heads at `offsets` holds."""
+    b_off, h_off, h_total = mask_offsets(offsets, h)
+    rows = torch.arange(b_off, b_off + b, device=device)
+    heads = torch.arange(h_off, h_off + h, device=device)
+    return (rows[:, None] * h_total + heads[None, :]).reshape(-1)
+
+
+def _keep_mask(seed, rate, shape, nk_p, device, offsets=None):
     b, h, nq, nk = shape
     nk_p = dfa_nk_p(nk) if nk_p is None else nk_p
     keep = dropout_keep(seed, b * h, nq, nk, nk_p, dropout_threshold(rate),
-                        device=device)
+                        device=device, bh=global_bh(b, h, offsets, device))
     return keep.view(b, h, nq, nk)
 
 
 def attention_train_reference(q, k, v, scale, bias=None, seed=0, rate=0.0,
-                              nk_p=None):
+                              nk_p=None, offsets=None):
     """The train forward: (o (B,H,Nq,Dv) in q's dtype, lse (B*H, Nq) f32).
 
     Mirrors `_dropout_flash_fwd`: f32 scores, the row log-sum-exp (natural
     log) before dropout, inverted dropout with the counter-hash mask on the
     normalised probabilities, the probabilities rounded to v's dtype and the
-    second product summed in f32. `nk_p` defaults to `dfa_nk_p(Nk)`."""
+    second product summed in f32. `nk_p` defaults to `dfa_nk_p(Nk)`;
+    `offsets` place the call in the whole batch (`mask_offsets`)."""
     b, h, nq, _ = q.shape
     s = _train_scores(q, k, scale, bias)
     lse = torch.logsumexp(s, dim=-1)
     p = torch.exp(s - lse[..., None])
     if rate > 0.0:
-        keep = _keep_mask(seed, rate, s.shape, nk_p, q.device)
+        keep = _keep_mask(seed, rate, s.shape, nk_p, q.device, offsets)
         p = torch.where(keep, p * (1.0 / (1.0 - rate)), 0.0)
     o = torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).float(), v.float())
     return o.to(q.dtype), lse.reshape(b * h, nq)
 
 
 def attention_backward_reference(q, k, v, o, lse, g, scale, bias=None,
-                                 seed=0, rate=0.0, nk_p=None):
+                                 seed=0, rate=0.0, nk_p=None, offsets=None):
     """(dq, dk, dv) of the train forward, from its (o, lse) and the output
     gradient g, as `_dropout_flash_bwd1` computes them: p recomputed from q,
     k and lse, the mask regenerated, D = rowsum(g * o) in f32, the products'
@@ -202,7 +224,7 @@ def attention_backward_reference(q, k, v, o, lse, g, scale, bias=None,
     dp = torch.einsum("bhqd,bhkd->bhqk", gf, v.float())
     p_drop = p
     if rate > 0.0:
-        keep = _keep_mask(seed, rate, s.shape, nk_p, q.device)
+        keep = _keep_mask(seed, rate, s.shape, nk_p, q.device, offsets)
         inv_keep = 1.0 / (1.0 - rate)
         p_drop = torch.where(keep, p * inv_keep, 0.0)
         dp = torch.where(keep, dp * inv_keep, 0.0)
@@ -247,13 +269,13 @@ _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 @functools.cache
 def _library() -> ctypes.CDLL:
     return _load("flash_attention_fwd",
-                 [_P] * 7 + [_I] * 6 + [_F, _U, _U, _U, _F, _I, _I, _P])
+                 [_P] * 7 + [_I] * 6 + [_F, _U, _U, _U, _F] + [_I] * 5 + [_P])
 
 
 @functools.cache
 def _bwd_library() -> ctypes.CDLL:
     return _load("flash_attention_bwd",
-                 [_P] * 13 + [_I] * 6 + [_F, _U, _U, _U, _F, _I, _I, _P])
+                 [_P] * 13 + [_I] * 6 + [_F, _U, _U, _U, _F] + [_I] * 5 + [_P])
 
 
 @functools.cache
@@ -328,7 +350,7 @@ def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def _flash_forward(q, k, v, scale, bias, lse, seed, rate):
+def _flash_forward(q, k, v, scale, bias, lse, seed, rate, offsets=None):
     """Launch flash_attention_fwd; lse None is the eval call."""
     b, h, nq, dqk = q.shape
     nk, dv = k.shape[2], v.shape[3]
@@ -341,7 +363,7 @@ def _flash_forward(q, k, v, scale, bias, lse, seed, rate):
             o.data_ptr(), None if lse is None else lse.data_ptr(),
             b, h, nq, nk, dqk, dv, float(scale), int(seed) & _U32,
             dropout_threshold(rate), dfa_nk_p(nk), 1.0 / (1.0 - rate),
-            _DTYPE_CODE[q.dtype],
+            *mask_offsets(offsets, h), _DTYPE_CODE[q.dtype],
             _ROUTE_CODE[attention_route(q.dtype, dqk, dv)],
             _stream(q.device))
     del keep_alive
@@ -349,17 +371,20 @@ def _flash_forward(q, k, v, scale, bias, lse, seed, rate):
     return o
 
 
-def attention_train_forward(q, k, v, scale, bias=None, seed=0, rate=0.0):
+def attention_train_forward(q, k, v, scale, bias=None, seed=0, rate=0.0,
+                            offsets=None):
     """The train forward, (o, lse (B*H, Nq) f32): the plain version on a CPU
     tensor, the flash kernel (csrc/flash_attention_fwd.cu with lse and, at
-    rate > 0, dropout) on a CUDA tensor."""
+    rate > 0, dropout) on a CUDA tensor. `offsets` (b_off, h_off, h_total)
+    place q's rows and heads in the whole batch for the mask."""
     if q.device.type == "cpu":
-        return attention_train_reference(q, k, v, scale, bias, seed, rate)
+        return attention_train_reference(q, k, v, scale, bias, seed, rate,
+                                         offsets=offsets)
     _cuda_only(q)
     _check(q, k, v, bias)
     b, h, nq, _ = q.shape
     lse = torch.empty((b * h, nq), dtype=torch.float32, device=q.device)
-    o = _flash_forward(q, k, v, scale, bias, lse, seed, rate)
+    o = _flash_forward(q, k, v, scale, bias, lse, seed, rate, offsets)
     attention_train_forward.launches += 1
     return o, lse
 
@@ -368,14 +393,14 @@ attention_train_forward.launches = 0
 
 
 def attention_backward(q, k, v, o, lse, g, scale, bias=None, seed=0,
-                       rate=0.0):
+                       rate=0.0, offsets=None):
     """(dq, dk, dv) of the train forward: the plain version on a CPU tensor,
     the flash backward kernels (csrc/flash_attention_bwd.cu: D = rowsum(g *
     o), which `_dfa_bwd` takes outside its Pallas kernel, then dk and dv,
-    then dq) on a CUDA tensor."""
+    then dq) on a CUDA tensor; `offsets` as the forward's."""
     if q.device.type == "cpu":
         return attention_backward_reference(q, k, v, o, lse, g, scale, bias,
-                                            seed, rate)
+                                            seed, rate, offsets=offsets)
     _cuda_only(q)
     b, h, nq, dqk = q.shape
     nk, dv = k.shape[2], v.shape[3]
@@ -407,7 +432,8 @@ def attention_backward(q, k, v, o, lse, g, scale, bias=None, seed=0,
             dq.data_ptr(), dk.data_ptr(), dvv.data_ptr(),
             None if dq_f32 is None else dq_f32.data_ptr(), b, h, nq, nk, dqk,
             dv, float(scale), int(seed) & _U32, dropout_threshold(rate),
-            dfa_nk_p(nk), 1.0 / (1.0 - rate), _DTYPE_CODE[q.dtype],
+            dfa_nk_p(nk), 1.0 / (1.0 - rate), *mask_offsets(offsets, h),
+            _DTYPE_CODE[q.dtype],
             _ROUTE_CODE[route], _stream(q.device))
     del keep_alive
     _raise_on(lib, "flash_attention_bwd", err)
@@ -489,28 +515,34 @@ packed2_attention.launches = 0
 class FlashAttention(torch.autograd.Function):
     """Train forward and backward kernels under autograd (the plain versions
     on CPU tensors). The bias gets no gradient, as `_masked_bwd` gives it a
-    zero one."""
+    zero one. `offsets` (b_off, h_off, h_total), or None, place the call's
+    rows and heads in the whole batch for the dropout mask."""
 
     @staticmethod
-    def forward(ctx, q, k, v, bias, seed, rate, scale):
-        o, lse = attention_train_forward(q, k, v, scale, bias, seed, rate)
+    def forward(ctx, q, k, v, bias, seed, rate, scale, offsets):
+        o, lse = attention_train_forward(q, k, v, scale, bias, seed, rate,
+                                         offsets)
         ctx.save_for_backward(q, k, v, bias, o, lse)
         ctx.seed, ctx.rate, ctx.scale = seed, rate, scale
+        ctx.offsets = offsets
         return o
 
     @staticmethod
     def backward(ctx, g):
         q, k, v, bias, o, lse = ctx.saved_tensors
         dq, dk, dv = attention_backward(q, k, v, o, lse, g.contiguous(),
-                                        ctx.scale, bias, ctx.seed, ctx.rate)
-        return dq, dk, dv, None, None, None, None
+                                        ctx.scale, bias, ctx.seed, ctx.rate,
+                                        ctx.offsets)
+        return dq, dk, dv, None, None, None, None, None
 
 
-def dropout_flash_attention(q, k, v, seed: int, scale: float, rate: float):
+def dropout_flash_attention(q, k, v, seed: int, scale: float, rate: float,
+                            offsets=None):
     """Train-mode attention with dropout on the probabilities (the JAX
     package's `dropout_flash_attention`): differentiable; the same seed
-    regenerates the same mask. Rate 0 runs no hash."""
-    return FlashAttention.apply(q, k, v, None, seed, rate, scale)
+    regenerates the same mask. Rate 0 runs no hash. `offsets` as
+    FlashAttention's."""
+    return FlashAttention.apply(q, k, v, None, seed, rate, scale, offsets)
 
 
 def fused_attention(q, k, v, scale=None, key_padding_mask=None):
@@ -524,7 +556,7 @@ def fused_attention(q, k, v, scale=None, key_padding_mask=None):
         scale = q.shape[-1] ** -0.5
     bias = None if key_padding_mask is None else padding_bias(key_padding_mask)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        return FlashAttention.apply(q, k, v, bias, 0, 0.0, scale)
+        return FlashAttention.apply(q, k, v, bias, 0, 0.0, scale, None)
     if q.device.type == "cpu":
         return attention_reference(q, k, v, scale, bias)
     _cuda_only(q)

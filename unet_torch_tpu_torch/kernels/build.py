@@ -16,6 +16,7 @@ instead of minutes); pointers and the stream are passed as integers.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
@@ -51,9 +52,12 @@ def _nvcc() -> str:
 def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless the library for this source exists.
 
-    The library is written to a temporary file and renamed into place, so
-    processes that build at the same time never load a half-written file;
-    its log is written first, so a library always has one."""
+    The ranks of a launch start together: one process builds a source while
+    the others wait on its lock file (an flock, which the system drops when
+    the holder exits) and then load what it built. The library is written
+    to a temporary file and renamed into place, so no process loads a
+    half-written file; its log is written first, so a library always has
+    one."""
     digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         digest.update(header.read_bytes())
@@ -62,6 +66,14 @@ def build(name: str) -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / f"{name}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not out.exists():
+            _compile(name, out)
+    return out
+
+
+def _compile(name: str, out: Path) -> None:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     try:
@@ -76,7 +88,6 @@ def build(name: str) -> Path:
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
-    return out
 
 
 def build_all(names) -> list[Path]:

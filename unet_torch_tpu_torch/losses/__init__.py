@@ -47,34 +47,35 @@ def set_class_number(n: int) -> None:
 
 
 _DISPATCH = {
-    "BCE": lambda p, t, w, n: bce_loss(p, t),
-    "TopK": lambda p, t, w, n: topk_bce_loss(p, t),
-    "BCE_HEM": lambda p, t, w, n: bce_hem_loss(p, t),
-    "CE": lambda p, t, w, n: softmax_cross_entropy(p, t, n),
-    "FL": lambda p, t, w, n: focal_loss(p, t, gamma=2.0),
-    "mse": lambda p, t, w, n: mse_loss(p, t),
-    "mseMC": lambda p, t, w, n: mse_mc_loss(p, t),
-    "rmse": lambda p, t, w, n: rmse_loss(p, t),
-    "l1loss": lambda p, t, w, n: l1_loss(p, t),
-    "dice": lambda p, t, w, n: binary_dice_loss(p, t),
-    "dice_bce": lambda p, t, w, n: dice_bce_loss(p, t, w),
-    "dice_bce_mc": lambda p, t, w, n: dice_bce_mc_loss(p, t, n, w),
-    "dice_score": lambda p, t, w, n: dice_score(p, t),
-    "dice_score_mc": lambda p, t, w, n: dice_score(p, t, n),
-    "log_cosh_dice_loss": lambda p, t, w, n: log_cosh_dice_loss(p, t, n),
-    "HausdorffDTLoss": lambda p, t, w, n: hausdorff_dt_loss(p, t),
-    "HausdorffERLoss": lambda p, t, w, n: hausdorff_er_loss(p, t),
-    "ActiveContourLoss": lambda p, t, w, n: active_contour_loss(p, t),
-    "Tversky": lambda p, t, w, n: focal_tversky_loss(p, t, alpha=0.4,
-                                                     beta=0.6),
+    "BCE": lambda p, t, w, n, g: bce_loss(p, t),
+    "TopK": lambda p, t, w, n, g: topk_bce_loss(p, t, group=g),
+    "BCE_HEM": lambda p, t, w, n, g: bce_hem_loss(p, t, group=g),
+    "CE": lambda p, t, w, n, g: softmax_cross_entropy(p, t, n),
+    "FL": lambda p, t, w, n, g: focal_loss(p, t, gamma=2.0),
+    "mse": lambda p, t, w, n, g: mse_loss(p, t),
+    "mseMC": lambda p, t, w, n, g: mse_mc_loss(p, t),
+    "rmse": lambda p, t, w, n, g: rmse_loss(p, t, group=g),
+    "l1loss": lambda p, t, w, n, g: l1_loss(p, t),
+    "dice": lambda p, t, w, n, g: binary_dice_loss(p, t),
+    "dice_bce": lambda p, t, w, n, g: dice_bce_loss(p, t, w),
+    "dice_bce_mc": lambda p, t, w, n, g: dice_bce_mc_loss(p, t, n, w, group=g),
+    "dice_score": lambda p, t, w, n, g: dice_score(p, t),
+    "dice_score_mc": lambda p, t, w, n, g: dice_score(p, t, n, g),
+    "log_cosh_dice_loss": lambda p, t, w, n, g: log_cosh_dice_loss(p, t, n, g),
+    "HausdorffDTLoss": lambda p, t, w, n, g: hausdorff_dt_loss(p, t),
+    "HausdorffERLoss": lambda p, t, w, n, g: hausdorff_er_loss(p, t),
+    "ActiveContourLoss": lambda p, t, w, n, g: active_contour_loss(
+        p, t, group=g),
+    "Tversky": lambda p, t, w, n, g: focal_tversky_loss(
+        p, t, alpha=0.4, beta=0.6, group=g),
     # the global (Hu-style) persistence matching against a binary mask
-    "TopoLoss": lambda p, t, w, n: topo_loss(p, t),
-    "MyTopoLoss1": lambda p, t, w, n: topo_loss(p, t),
-    "MyTopoLoss2": lambda p, t, w, n: topo_loss(p, t),
-    "MyTopoLossGraph": lambda p, t, w, n: topo_loss(p, t),
-    "MyTopoLossVR": lambda p, t, w, n: topo_loss(p, t),
+    "TopoLoss": lambda p, t, w, n, g: topo_loss(p, t),
+    "MyTopoLoss1": lambda p, t, w, n, g: topo_loss(p, t),
+    "MyTopoLoss2": lambda p, t, w, n, g: topo_loss(p, t),
+    "MyTopoLossGraph": lambda p, t, w, n, g: topo_loss(p, t),
+    "MyTopoLossVR": lambda p, t, w, n, g: topo_loss(p, t),
     # the localized (Abousamra-style) per-window constraint against a dot map
-    "TopoCount": lambda p, t, w, n: topocount_loss(p, t),
+    "TopoCount": lambda p, t, w, n, g: topocount_loss(p, t),
 }
 
 # the reference trainer's topo names (its warm-up loop's dispatch adds
@@ -92,16 +93,20 @@ def _check_key(loss_type: str) -> None:
 
 
 def calc_loss(pred, target, bce_weight: float = 0.5, loss_type: str = "mse",
-              num_classes: int | None = None):
-    """String-dispatch loss; NHWC logits, f32 result."""
+              num_classes: int | None = None, group=None):
+    """String-dispatch loss; NHWC logits, f32 result. `group`: the data
+    group of a rank holding a share of the batch (losses/functional.py),
+    None in one process."""
     _check_key(loss_type)
     n = num_classes if num_classes is not None else CLASS_NUMBER
-    return _DISPATCH[loss_type](pred, target, bce_weight, n)
+    return _DISPATCH[loss_type](pred, target, bce_weight, n, group)
 
 
-def get_loss_fn(loss_type: str, num_classes: int, bce_weight: float = 0.5):
+def get_loss_fn(loss_type: str, num_classes: int, bce_weight: float = 0.5,
+                group=None):
     """A (pred, target) -> loss callable; raises at once on a key the port
     does not have."""
     _check_key(loss_type)
     return functools.partial(calc_loss, bce_weight=bce_weight,
-                             loss_type=loss_type, num_classes=num_classes)
+                             loss_type=loss_type, num_classes=num_classes,
+                             group=group)

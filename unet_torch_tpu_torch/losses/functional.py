@@ -16,13 +16,28 @@ The JAX package's `*_planes_folded` family evaluates the same values on
 W-folded class planes for the TPU's fused head and is not carried over;
 `dice_bce_mc_loss` is also computed there on per-class planes for C <= 8
 (`_dice_bce_mc_planes`), which is the same value summed in another order.
+
+Data-parallel training: `group` is the data group of a rank that holds a
+share of the batch (core/mesh.py), None in one process. The losses whose
+value is not a mean over the batch of per-image terms are formed from sums
+over the whole batch (core/dist.py::all_reduce_sum, whose backward sums the
+gradients too), as the JAX package's GSPMD step forms them over the global
+batch: the multiclass Dice sums, the top-k selections of `TopK` and
+`BCE_HEM`, the Tversky sums, the active contour's sums and the root of
+`rmse`. Every rank then holds the whole batch's value, and the mean of the
+ranks' gradients that DistributedDataParallel takes is the one-process
+gradient. The means over the batch (CE, BCE, focal, mse, l1, the per-image
+binary Dice, the Hausdorff and topo losses) are the mean of the ranks'
+means, which DDP's mean already gives.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
+from unet_torch_tpu_torch.core.dist import all_gather_rows, all_reduce_sum
 from unet_torch_tpu_torch.kernels.minplus import minplus
 
 
@@ -47,18 +62,42 @@ def softmax_cross_entropy(logits, labels, num_classes: int):
     return -torch.mean(torch.sum(onehot * logp, dim=-1))
 
 
+def _global_topk_mean(select_by, values, k_div: int | None, k: int | None,
+                      group):
+    """The mean of `values` (flat) at the k largest entries of `select_by`
+    over the whole batch (k = n // k_div, or `k`): every rank gathers the
+    detached keys, selects globally and sums its own selected values."""
+    if group is None:
+        n = values.shape[0]
+        _, idx = torch.topk(select_by, n // k_div if k is None else k)
+        return torch.mean(values[idx])
+    keys = all_gather_rows(select_by.detach(), group)
+    n = keys.shape[0]
+    count = n // k_div if k is None else k
+    _, idx = torch.topk(keys, count)
+    local = values.shape[0]
+    start = dist.get_rank(group) * local
+    mine = torch.zeros(n, dtype=torch.bool, device=values.device)
+    mine[idx] = True
+    mine = mine[start:start + local]
+    return all_reduce_sum(torch.where(mine, values, 0.0).sum(), group) / count
+
+
 def multiclass_dice_loss(pred, target, num_classes: int, weights=None,
-                         softmax: bool = False):
+                         softmax: bool = False, group=None):
     """DiceLoss: one-hot target, per-class soft dice with squared
-    denominators, smooth 1e-5, mean over classes (or weighted sum / C)."""
+    denominators, smooth 1e-5, mean over classes (or weighted sum / C); the
+    sums over the whole batch of `group`'s ranks."""
     pred = pred.float()
     if softmax:
         pred = torch.softmax(pred, dim=-1)
     onehot = F.one_hot(target.long(), num_classes).float()
     smooth = 1e-5
-    intersect = torch.sum(pred * onehot, dim=(0, 1, 2))
-    z = torch.sum(pred * pred, dim=(0, 1, 2))
-    y = torch.sum(onehot * onehot, dim=(0, 1, 2))
+    sums = all_reduce_sum(torch.stack([
+        torch.sum(pred * onehot, dim=(0, 1, 2)),
+        torch.sum(pred * pred, dim=(0, 1, 2)),
+        torch.sum(onehot * onehot, dim=(0, 1, 2))]), group)
+    intersect, z, y = sums
     dice = 1.0 - (2.0 * intersect + smooth) / (z + y + smooth)
     if weights is None:
         return torch.mean(dice)
@@ -84,19 +123,21 @@ def binary_dice_loss(pred, target, smooth: float = 1.0):
     return torch.mean(1.0 - num / den)
 
 
-def dice_bce_mc_loss(pred, target, num_classes: int, bce_weight: float = 0.5):
+def dice_bce_mc_loss(pred, target, num_classes: int, bce_weight: float = 0.5,
+                     group=None):
     """dice_bce_mc, the flagship: bce_weight * CE + (1 - bce_weight) *
     DiceLoss(softmax)."""
     ce = softmax_cross_entropy(pred, target, num_classes)
-    dice = multiclass_dice_loss(pred, target, num_classes, softmax=True)
+    dice = multiclass_dice_loss(pred, target, num_classes, softmax=True,
+                                group=group)
     return bce_weight * ce + (1.0 - bce_weight) * dice
 
 
-def dice_score(pred, target, num_classes: int | None = None):
+def dice_score(pred, target, num_classes: int | None = None, group=None):
     """Dice coefficient (higher is better): the `dice_score(_mc)` metric."""
     if num_classes and num_classes > 1:
         return 1.0 - multiclass_dice_loss(pred, target, num_classes,
-                                          softmax=True)
+                                          softmax=True, group=group)
     return 1.0 - binary_dice_loss(pred, target)
 
 
@@ -110,24 +151,27 @@ def bce_loss(pred, target):
                                               target.float()))
 
 
-def topk_bce_loss(pred, target, topk: int = 2):
+def topk_bce_loss(pred, target, topk: int = 2, group=None):
     """TopKLoss: BCE over the 1/topk fraction of pixels with the lowest
-    ground-truth probability (hard-example mining)."""
+    ground-truth probability (hard-example mining), over the whole batch."""
     logits = _squeeze_last(pred).float().reshape(-1)
     labels = target.float().reshape(-1)
     fg = torch.sigmoid(logits)
     gt_prob = torch.where(labels > 0.5, fg, 1.0 - fg)
-    _, idx = torch.topk(-gt_prob, logits.shape[0] // topk)
-    return torch.mean(sigmoid_bce_with_logits(logits, labels)[idx])
+    return _global_topk_mean(-gt_prob, sigmoid_bce_with_logits(logits, labels),
+                             topk, None, group)
 
 
-def bce_hem_loss(pred, target, k: int = 500, batch_base: bool = False):
-    """BCE_HEM: the mean of the top-k pixel losses (or of the top-2 batch
-    items' mean losses)."""
+def bce_hem_loss(pred, target, k: int = 500, batch_base: bool = False,
+                 group=None):
+    """BCE_HEM: the mean of the top-k pixel losses of the whole batch (or of
+    the top-2 batch items' mean losses)."""
     ce = sigmoid_bce_with_logits(_squeeze_last(pred).float(), target.float())
     if batch_base:
-        return torch.mean(torch.topk(torch.mean(ce, dim=(1, 2)), 2).values)
-    return torch.mean(torch.topk(ce.reshape(-1), k).values)
+        per_item = torch.mean(ce, dim=(1, 2))
+        return _global_topk_mean(per_item, per_item, None, 2, group)
+    flat = ce.reshape(-1)
+    return _global_topk_mean(flat, flat, None, k, group)
 
 
 def focal_loss(pred, target, alpha: float = 0.25, gamma: float = 2.0):
@@ -150,8 +194,13 @@ def mse_mc_loss(pred, target):
     return torch.mean((pred.float() - target.float()) ** 2)
 
 
-def rmse_loss(pred, target):
-    return torch.sqrt(torch.mean((pred.float() - target.float()) ** 2))
+def rmse_loss(pred, target, group=None):
+    """The root of the whole batch's mean square."""
+    sq = (pred.float() - target.float()) ** 2
+    if group is None:
+        return torch.sqrt(torch.mean(sq))
+    total = all_reduce_sum(sq.sum(), group)
+    return torch.sqrt(total / (sq.numel() * dist.get_world_size(group)))
 
 
 def l1_loss(pred, target):
@@ -169,15 +218,16 @@ def dice_bce_loss(pred, target, bce_weight: float = 0.5):
             + (1.0 - bce_weight) * binary_dice_loss(pred, target))
 
 
-def log_cosh_dice_loss(pred, target, num_classes: int):
-    x = multiclass_dice_loss(pred, target, num_classes, softmax=True)
+def log_cosh_dice_loss(pred, target, num_classes: int, group=None):
+    x = multiclass_dice_loss(pred, target, num_classes, softmax=True,
+                             group=group)
     return torch.log((torch.exp(x) + torch.exp(-x)) / 2.0)
 
 
 def focal_tversky_loss(pred, target, smooth: float = 1.0, alpha: float = 0.5,
-                       beta: float = 0.5, gamma: float = 1.0):
+                       beta: float = 0.5, gamma: float = 1.0, group=None):
     """FocalTverskyLoss: binary (1 channel, sigmoid) or the mean over the
-    classes of a softmax."""
+    classes of a softmax; tp, fp and fn summed over the whole batch."""
     pred = pred.float()
     num_classes = pred.shape[-1]
     if num_classes == 1:
@@ -188,9 +238,9 @@ def focal_tversky_loss(pred, target, smooth: float = 1.0, alpha: float = 0.5,
         p = torch.softmax(pred, dim=-1).reshape(-1, num_classes)
         t = F.one_hot(target.long().reshape(-1), num_classes).float()
         dims = 0
-    tp = torch.sum(p * t, dim=dims)
-    fp = torch.sum((1.0 - t) * p, dim=dims)
-    fn = torch.sum(t * (1.0 - p), dim=dims)
+    tp, fp, fn = all_reduce_sum(torch.stack([
+        torch.sum(p * t, dim=dims), torch.sum((1.0 - t) * p, dim=dims),
+        torch.sum(t * (1.0 - p), dim=dims)]), group)
     tv = (tp + smooth) / (tp + alpha * fp + beta * fn + smooth)
     return torch.mean((1.0 - tv) ** gamma)
 
@@ -290,20 +340,21 @@ def hausdorff_er_loss(pred, target, alpha: float = 2.0, erosions: int = 10):
 # active contour
 # ---------------------------------------------------------------------------
 
-def active_contour_loss(pred, target, smooth: float = 1e-8):
+def active_contour_loss(pred, target, smooth: float = 1e-8, group=None):
     """ActiveContourLoss: contour length plus the two region terms, on NHWC
-    logits (spatial axes 1 and 2)."""
+    logits (spatial axes 1 and 2), each summed over the whole batch."""
     p = torch.sigmoid(pred.float())
     x = p[:, 1:, :, :] - p[:, :-1, :, :]
     y = p[:, :, 1:, :] - p[:, :, :-1, :]
     delta_x = x[:, 1:, :-2, :] ** 2
     delta_y = y[:, :-2, 1:, :] ** 2
-    length = torch.sum(torch.sqrt(torch.abs(delta_x + delta_y) + smooth))
     p0 = p[..., 0]
     t0 = (target if target.dim() == 3 else target[..., 0]).float()
-    region_in = torch.abs(torch.sum(p0 * (t0 - 1.0) ** 2))
-    region_out = torch.abs(torch.sum((1.0 - p0) * t0 ** 2))
-    return length + region_in + region_out
+    length, inside, outside = all_reduce_sum(torch.stack([
+        torch.sum(torch.sqrt(torch.abs(delta_x + delta_y) + smooth)),
+        torch.sum(p0 * (t0 - 1.0) ** 2),
+        torch.sum((1.0 - p0) * t0 ** 2)]), group)
+    return length + torch.abs(inside) + torch.abs(outside)
 
 
 # ---------------------------------------------------------------------------

@@ -15,7 +15,10 @@ from typing import Dict, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+
+from unet_torch_tpu_torch.core.dist import all_reduce_
 
 
 def dice_loss(inputs, targets, num_points):
@@ -150,9 +153,22 @@ class SetCriterion:
         return {"loss_ce": loss_ce, "loss_point": loss_point,
                 "cardinality_error": card_err}
 
-    def losses(self, outputs, tgt_labels, tgt_points, tgt_valid, match_src):
-        """match_src (L, B, T) -> (the weighted total, the loss dict)."""
-        num_points = tgt_valid.sum().float().clamp(min=1.0)
+    def losses(self, outputs, tgt_labels, tgt_points, tgt_valid, match_src,
+               group=None):
+        """match_src (L, B, T) -> (the weighted total, the loss dict).
+
+        The losses are sums over the batch divided by the number of target
+        points. With `group`, the data group of a rank holding a share of
+        the batch, that number is the whole batch's, max(N, 1), over the
+        group's size (DETR's convention), so that the mean over the ranks
+        that DistributedDataParallel takes is the one-process loss and
+        gradient; it stays a device tensor."""
+        num_points = tgt_valid.sum().float()
+        if group is not None:
+            num_points = all_reduce_(num_points, group)
+        num_points = num_points.clamp(min=1.0)
+        if group is not None:
+            num_points = num_points / dist.get_world_size(group)
         levels = _levels(outputs)
         loss_dict = {}
         n_aux = len(levels) - 1

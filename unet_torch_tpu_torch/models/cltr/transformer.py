@@ -18,6 +18,14 @@ JAX's counter hash bit for bit; each attention draws its 32-bit seed from
 the generator bound with `set_attention_seed_generator`, a host generator,
 so that drawing reads nothing from the device.
 
+Under tensor parallelism (parallel/tensor.py::shard_model_tp, the JAX
+package's roles): the encoder's stacked q, k, v projections and every
+`linear1` hold a rank's share of the output features, every `out_proj` and
+`linear2` its share of the input features; the decoder's content and
+positional projections stay whole, and its attentions take the rank's
+heads of them. Each rank's attention runs on its nhead / model heads with
+the mask of their place in the whole batch.
+
 Parameters are f32 and every layer computes in its input's dtype, except the
 reference-point head, which stays f32. Modules carry the reference's
 state_dict names (`encoder.layers.N.self_attn.in_proj_weight`,
@@ -38,8 +46,9 @@ from unet_torch_tpu_torch.kernels.attention import (
 from unet_torch_tpu_torch.models.cltr.position_encoding import (
     gen_sineembed_for_position,
 )
+from unet_torch_tpu_torch.core.dist import copy_to_group
 from unet_torch_tpu_torch.models.transunet.vit import LayerNorm, Linear
-from unet_torch_tpu_torch.nn.dropout import Dropout
+from unet_torch_tpu_torch.nn.dropout import Dropout, MeshBound
 
 
 class MLP(nn.Module):
@@ -60,13 +69,14 @@ class MLP(nn.Module):
 
 
 def raw_attention(q, k, v, num_heads, key_padding_mask=None,
-                  dropout_rate=0.0, seed=None):
+                  dropout_rate=0.0, seed=None, offsets=None):
     """Pre-projected multi-head attention: q, k (B, Nq/Nk, E), v (B, Nk, V),
     scale 1/sqrt(E/heads) -> (B, Nq, V).
 
     `seed` None or rate 0 is `fused_attention` (the eval kernel, or under
     autograd the train kernels at rate 0); otherwise the train kernels drop
-    probabilities at `dropout_rate` with the counter-hash mask of `seed`."""
+    probabilities at `dropout_rate` with the counter-hash mask of `seed`,
+    placed in the whole batch by `offsets` (kernels/attention.py)."""
     b, nq, e = q.shape
     nk, vd = k.shape[1], v.shape[-1]
     hd, vhd = e // num_heads, vd // num_heads
@@ -81,13 +91,29 @@ def raw_attention(q, k, v, num_heads, key_padding_mask=None,
         bias = (None if key_padding_mask is None
                 else padding_bias(key_padding_mask))
         out = FlashAttention.apply(qh, kh, vh, bias, seed,
-                                   float(dropout_rate), scale)
+                                   float(dropout_rate), scale, offsets)
     return out.transpose(1, 2).reshape(b, nq, vd)
 
 
-class RawAttention(nn.Module):
+def _heads(x, num_heads: int, mesh):
+    """The rank's num_heads / model heads of a (B, N, width) tensor whose
+    width is num_heads blocks, entered into the tensor-parallel group."""
+    b, n, width = x.shape
+    x = copy_to_group(x, mesh.model_group)
+    per = width // num_heads
+    h = num_heads // mesh.model
+    return x.reshape(b, n, num_heads, per)[:, :, mesh.m * h:(mesh.m + 1) * h] \
+        .reshape(b, n, h * per)
+
+
+class RawAttention(MeshBound, nn.Module):
     """Attention over projected q, k, v; only the out projection is
-    learned (the reference's vendored MultiheadAttention)."""
+    learned (the reference's vendored MultiheadAttention). With a mesh of
+    model > 1, q, k and v are whole and each rank keeps its heads of them
+    (`projected_heads` False: FullAttention's own projections give only the
+    rank's)."""
+
+    projected_heads = False
 
     def __init__(self, num_heads: int, vdim: int, dropout_rate: float = 0.0):
         super().__init__()
@@ -107,14 +133,24 @@ class RawAttention(nn.Module):
                                  device=gen.device))
 
     def forward(self, q, k, v, key_padding_mask=None):
-        out = raw_attention(q, k, v, self.num_heads, key_padding_mask,
-                            dropout_rate=self.rate, seed=self._seed())
+        mesh, heads, offsets = self.mesh, self.num_heads, None
+        if mesh is not None:
+            heads //= mesh.model
+            if mesh.model > 1 and not self.projected_heads:
+                q, k, v = (_heads(t, self.num_heads, mesh) for t in (q, k, v))
+            offsets = (mesh.d * q.shape[0], mesh.m * heads, self.num_heads)
+        out = raw_attention(q, k, v, heads, key_padding_mask,
+                            dropout_rate=self.rate, seed=self._seed(),
+                            offsets=offsets)
         return self.out_proj(out)
 
 
 class FullAttention(RawAttention):
     """torch's nn.MultiheadAttention: stacked q, k, v projections
-    (`in_proj_weight`, `in_proj_bias`), then RawAttention."""
+    (`in_proj_weight`, `in_proj_bias`), then RawAttention. Under tensor
+    parallelism each third of the stack holds the rank's heads."""
+
+    projected_heads = True
 
     def __init__(self, embed_dim: int, num_heads: int,
                  dropout_rate: float = 0.0):
@@ -124,6 +160,9 @@ class FullAttention(RawAttention):
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * embed_dim))
 
     def forward(self, q, k, v, key_padding_mask=None):
+        if self.mesh is not None:
+            q, k, v = (copy_to_group(t, self.mesh.model_group)
+                       for t in (q, k, v))
         w = self.in_proj_weight.to(q.dtype).chunk(3)
         bias = self.in_proj_bias.to(q.dtype).chunk(3)
         q, k, v = (F.linear(x, wi, bi) for x, wi, bi in zip((q, k, v), w,
@@ -157,7 +196,8 @@ class TransformerEncoderLayer(nn.Module):
         q = k = src + pos
         src2 = self.self_attn(q, k, src, key_padding_mask)
         src = self.norm1(src + self.dropout(src2))
-        src2 = self.linear2(self.dropout(F.relu(self.linear1(src))))
+        src2 = self.linear2(self.dropout(F.relu(self.linear1(src)),
+                                         model_dim=-1))
         return self.norm2(src + self.dropout(src2))
 
 
@@ -213,7 +253,8 @@ class TransformerDecoderLayer(nn.Module):
         tgt2 = self.cross_attn(q, k, v, key_padding_mask)
         tgt = self.norm2(tgt + self.dropout(tgt2))
 
-        tgt2 = self.linear2(self.dropout(F.relu(self.linear1(tgt))))
+        tgt2 = self.linear2(self.dropout(F.relu(self.linear1(tgt)),
+                                         model_dim=-1))
         return self.norm3(tgt + self.dropout(tgt2))
 
 

@@ -37,6 +37,12 @@ binds (nn/dropout.py::set_dropout_generator), as the JAX model draws from
 the step's `rng`; Conv2dReLU runs torch's conv (weight in the input's
 dtype), BN (f32 statistics) and ReLU.
 
+Under tensor parallelism (parallel/tensor.py::shard_model_tp) `query`,
+`key`, `value` and `fc1` hold a rank's share of the output features and
+`out` and `fc2` its share of the input features: each rank runs the
+attention on its num_heads / model heads (at the same head width), with the
+mask of those heads of the whole batch (`kernels/attention.py` offsets).
+
 The JAX package's W-folded decoder tail (FoldedDecoderTail, _FoldedHeadConv,
 _tail_fold_factor) is a TPU lane-padding workaround over the same parameters
 and is not carried over. Modules carry the reference's state_dict names, so
@@ -67,7 +73,8 @@ from unet_torch_tpu_torch.models.unet import (
     UNetMultitask,
     ignore_tpu_options,
 )
-from unet_torch_tpu_torch.nn.dropout import Dropout
+from unet_torch_tpu_torch.core.dist import copy_to_group
+from unet_torch_tpu_torch.nn.dropout import Dropout, MeshBound
 
 
 
@@ -92,7 +99,7 @@ class LayerNorm(nn.LayerNorm):
                             self.eps)
 
 
-class Attention(nn.Module):
+class Attention(MeshBound, nn.Module):
     """Multi-head self-attention. q, k and v come from one product with the
     three weights stacked; the heads go through the attention kernels as
     (B, heads, N, d).
@@ -108,12 +115,17 @@ class Attention(nn.Module):
     routes `vis` through its einsum attention: the f32 probabilities
     (`attention_probs`) are kept, detached, as `.weights`, then go through
     the dropout at `attention_dropout_rate` in train mode and multiply v.
-    No kernel can return them."""
+    No kernel can return them.
+
+    With a mesh bound (nn/dropout.py::set_mesh) the rows and heads are a
+    rank's share: its heads are the product's width over the head width,
+    and the kernels hash the mask of its place in the whole batch."""
 
     def __init__(self, hidden_size: int, num_heads: int,
                  attention_dropout_rate: float = 0.0, vis: bool = False):
         super().__init__()
         self.num_heads = num_heads
+        self.head_dim = hidden_size // num_heads
         self.rate = attention_dropout_rate
         self.vis = vis
         self.weights = None
@@ -123,20 +135,31 @@ class Attention(nn.Module):
         self.out = Linear(hidden_size, hidden_size)
         self.dropout = Dropout(attention_dropout_rate)
 
+    def offsets(self, b: int, heads: int):
+        """The kernels' (b_off, h_off, h_total) of this rank's b rows and
+        heads, or None in one process."""
+        mesh = self.mesh
+        if mesh is None:
+            return None
+        return (mesh.d * b, mesh.m * heads, heads * mesh.model)
+
     def forward(self, x):
-        b, n, hidden = x.shape
-        d = hidden // self.num_heads
+        b, n, _ = x.shape
+        d = self.head_dim
+        mesh = self.mesh
+        x = copy_to_group(x, None if mesh is None else mesh.model_group)
         w = torch.cat([self.query.weight, self.key.weight, self.value.weight])
         bias = torch.cat([self.query.bias, self.key.bias, self.value.bias])
         qkv = F.linear(x, w.to(x.dtype), bias.to(x.dtype))
+        heads = qkv.shape[-1] // (3 * d)
         # (B, N, 3, heads, d) -> (3, B, heads, N, d): q, k, v contiguous
-        qkv = qkv.view(b, n, 3, self.num_heads, d).permute(2, 0, 3, 1, 4)
+        qkv = qkv.view(b, n, 3, heads, d).permute(2, 0, 3, 1, 4)
         q, k, v = qkv.contiguous()
         scale = 1.0 / math.sqrt(d)
         if self.vis:
             p = attention_probs(q, k, scale)
             self.weights = p.detach()
-            p = self.dropout(p).to(v.dtype)
+            p = self.dropout(p, model_dim=1).to(v.dtype)
             ctx = torch.einsum("bhqk,bhkd->bhqd", p.float(),
                                v.float()).to(q.dtype)
         elif self.training and torch.is_grad_enabled():
@@ -148,10 +171,11 @@ class Attention(nn.Module):
                                        "generator: call set_dropout_generator")
                 seed = int(torch.randint(0, 2 ** 32, (), generator=gen,
                                          device=gen.device))
-            ctx = dropout_flash_attention(q, k, v, seed, scale, self.rate)
+            ctx = dropout_flash_attention(q, k, v, seed, scale, self.rate,
+                                          self.offsets(b, heads))
         else:
             ctx = fused_attention(q, k, v, scale=scale)
-        out = self.out(ctx.permute(0, 2, 1, 3).reshape(b, n, hidden))
+        out = self.out(ctx.permute(0, 2, 1, 3).reshape(b, n, heads * d))
         return self.dropout(out)
 
 
@@ -163,7 +187,8 @@ class Mlp(nn.Module):
         self.dropout = Dropout(dropout_rate)
 
     def forward(self, x):
-        x = self.dropout(F.gelu(self.fc1(x)))
+        # fc1's output is split over the model ranks under tensor parallelism
+        x = self.dropout(F.gelu(self.fc1(x)), model_dim=-1)
         return self.dropout(self.fc2(x))
 
 

@@ -7,6 +7,13 @@ seeds. Here every mask comes from the `torch.Generator` that the train step
 binds with `set_dropout_generator` (it must live on the activations'
 device), so a run is reproducible from its seed. Inverted dropout: P(keep)
 = 1 - p, survivors scaled by 1 / (1 - p), identity in eval mode.
+
+In a data- or tensor-parallel step (core/mesh.py) every rank binds the same
+generator state and draws the mask of the whole batch, then applies its
+slice: its batch rows and, where the input is split over the model ranks
+(the column-parallel fc1 / linear1 output: `model_dim`), its columns. A
+rank's dropout then equals the one-process port's on its share, and the
+ranks' generators stay in step.
 """
 
 from __future__ import annotations
@@ -15,7 +22,22 @@ import torch
 from torch import nn
 
 
-class Dropout(nn.Module):
+class MeshBound:
+    """A module whose train forward depends on the rank's place in the
+    (data, model) layout, bound by `set_mesh`; None is one process."""
+
+    mesh = None
+
+
+def set_mesh(module: nn.Module, mesh) -> None:
+    """Bind `mesh` (core/mesh.py::Mesh, or None) to every MeshBound module
+    of `module`: the dropouts and the attentions."""
+    for m in module.modules():
+        if isinstance(m, MeshBound):
+            m.mesh = mesh
+
+
+class Dropout(MeshBound, nn.Module):
     def __init__(self, p: float):
         super().__init__()
         if not 0.0 <= p <= 1.0:
@@ -26,7 +48,9 @@ class Dropout(nn.Module):
     def extra_repr(self) -> str:
         return f"p={self.p}"
 
-    def forward(self, x):
+    def forward(self, x, model_dim: int | None = None):
+        """`model_dim`: the dim of x split over the model ranks, or None
+        where x is replicated over them."""
         if not self.training or self.p == 0.0:
             return x
         if self.p == 1.0:
@@ -34,8 +58,19 @@ class Dropout(nn.Module):
         if self.generator is None:
             raise RuntimeError("train-mode dropout needs a generator: call "
                                "set_dropout_generator(model, generator)")
-        keep = torch.rand(x.shape, generator=self.generator,
-                          device=x.device) >= self.p
+        shape = list(x.shape)
+        mesh = self.mesh
+        if mesh is not None:
+            shape[0] *= mesh.data
+            if model_dim is not None:
+                shape[model_dim] *= mesh.model
+        u = torch.rand(shape, generator=self.generator, device=x.device)
+        if mesh is not None:
+            u = u.narrow(0, mesh.d * x.shape[0], x.shape[0])
+            if model_dim is not None:
+                u = u.narrow(model_dim, mesh.m * x.shape[model_dim],
+                             x.shape[model_dim])
+        keep = u >= self.p
         return torch.where(keep, x * (1.0 / (1.0 - self.p)), 0.0)
 
 

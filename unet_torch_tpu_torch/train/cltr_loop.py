@@ -10,19 +10,21 @@ The trainer's optional attributes, set by the train CLI: `criterion` (else
 built from the model), `cltr_fused_matcher` (True: the auction kernel;
 False: scipy on the host) and `cltr_clip_max_norm` (0: off). The loop trains
 the model as it is handed over: pretrained backbone weights and a resume
-checkpoint are loaded by the caller, in that order (cli/train_cli.py). The
-JAX loop's mesh and tensor-parallel placement is not part of this loop.
+checkpoint are loaded by the caller, in that order (cli/train_cli.py).
+Several ranks: the trainer's mesh places the model (train/trainer.py), the
+loop steps it through DistributedDataParallel over the data group, each
+rank matching its own images on the auction kernel with the point count
+of the whole batch (models/cltr/criterion.py); validation runs on every
+rank and rank 0's MAE and MRE decide.
 """
 
 from __future__ import annotations
 
-import os
 import time
 
 import numpy as np
 import torch
 
-from unet_torch_tpu_torch import ckpt
 from unet_torch_tpu_torch.models.cltr.criterion import (
     SetCriterion,
     build_weight_dict,
@@ -64,6 +66,7 @@ def cltr_train_loop(trainer):
             weight_dict=build_weight_dict(dec_layers=model.dec_layers,
                                           aux_loss=model.aux_loss))
         trainer.criterion = criterion
+    net = trainer.net(model)
     clip = float(getattr(trainer, "cltr_clip_max_norm", 0.0) or 0.0)
     opt = make_optimizer(trainer.optimizer_name, model.parameters(),
                          trainer.base_lr, trainer.weight_decay,
@@ -73,7 +76,6 @@ def cltr_train_loop(trainer):
     # the attention kernels' mask seeds: drawn on the host
     seed_generator = torch.Generator().manual_seed(
         trainer.generator.initial_seed())
-    last_path = os.path.join(trainer.save_dir_model, "last_epoch.pt")
 
     for epoch in range(trainer.start_epoch, trainer.num_epochs + 1):
         trainer._log(f"Epoch {epoch}/{trainer.num_epochs}", "-" * 10)
@@ -88,16 +90,17 @@ def cltr_train_loop(trainer):
                                                    model.channel_point)
             x, labels, points, valid = trainer._to_device(
                 np.asarray(imgs, np.float32), labels, points, valid)
-            loss, _ = train_step(model, criterion, opt, x, labels, points,
+            loss, _ = train_step(net, criterion, opt, x, labels, points,
                                  valid, trainer._current_lr(),
-                                 trainer.generator, seed_generator, matcher)
+                                 trainer.generator, seed_generator, matcher,
+                                 trainer.group)
             trainer.iter_num += 1
             losses.append(loss)
         # the epoch's first read from the device
         epoch_loss = torch.stack(losses).mean().item() if losses else 0.0
         trainer.train_loss_list.append(epoch_loss)
         trainer._log(f"Train loss on epoch {epoch}: {epoch_loss}")
-        ckpt.save_weights(last_path, model)
+        trainer.save_checkpoint("last_epoch.pt")
 
         mae = mre = 0.0
         batch_step = 0
@@ -115,6 +118,7 @@ def cltr_train_loop(trainer):
         if batch_step:
             mae /= batch_step
             mre /= batch_step
+        mae, mre = trainer.agree(mae, mre)
         trainer.val_loss_list.append(mae)
         trainer.val_score_list.append(mre)
         trainer._log(f"Val loss on epoch {epoch}: {mae}",

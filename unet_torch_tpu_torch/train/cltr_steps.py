@@ -24,11 +24,13 @@ from __future__ import annotations
 
 import torch
 
+from unet_torch_tpu_torch.core.dist import group_mean
 from unet_torch_tpu_torch.kernels.auction import auction_lsap_batched
 from unet_torch_tpu_torch.models.cltr.transformer import (
     set_attention_seed_generator,
 )
 from unet_torch_tpu_torch.nn.dropout import set_dropout_generator
+from unet_torch_tpu_torch.parallel import average_replicated_grads
 from unet_torch_tpu_torch.train.optim import clip_gradients
 
 MATCHERS = ("auction", "scipy")
@@ -53,24 +55,34 @@ def match_targets(criterion, outputs, tgt_labels, tgt_points, tgt_valid,
 
 
 def train_step(model, criterion, opt, x, tgt_labels, tgt_points, tgt_valid,
-               lr, generator, seed_generator, matcher: str = "auction"):
+               lr, generator, seed_generator, matcher: str = "auction",
+               group=None):
     """One optimizer step; returns (loss, loss_dict) as 0-d device tensors,
-    detached, without syncing to the host (with the auction matcher)."""
+    detached, without syncing to the host (with the auction matcher).
+
+    With `group`, the data group of a rank holding a share of the batch (and
+    `model` its DistributedDataParallel), the auction matches the rank's
+    images, the point count is the whole batch's and the returned losses
+    are the means over the group: the one-process step's."""
     model.train()
     set_dropout_generator(model, generator)
     set_attention_seed_generator(model, seed_generator)
-    for group in opt.param_groups:
-        group["lr"] = lr
+    for param_group in opt.param_groups:
+        param_group["lr"] = lr
     opt.zero_grad(set_to_none=True)
     out = model(x)
     match_src = match_targets(criterion, out, tgt_labels, tgt_points,
                               tgt_valid, matcher)
     loss, loss_dict = criterion.losses(out, tgt_labels, tgt_points,
-                                       tgt_valid, match_src)
+                                       tgt_valid, match_src, group)
     loss.backward()
+    average_replicated_grads(model)
     clip_gradients(opt)
     opt.step()
-    return loss.detach(), {k: v.detach() for k, v in loss_dict.items()}
+    # one collective for the total and the dict
+    means = group_mean(torch.stack([loss.detach(), *(
+        v.detach().float() for v in loss_dict.values())]), group)
+    return means[0], dict(zip(loss_dict, means[1:]))
 
 
 @torch.no_grad()

@@ -20,6 +20,17 @@ The topo warm-up loop's steps (`make_topo_steps`) take the batch's dot map
 too; their topo phase pairs on the host (losses/topo.py), so it syncs once a
 step, or, through `TopoPipeline`, pairs batch k in a worker thread while the
 device updates batch k - 2.
+
+Data-parallel training: the factories take `group`, the data group of a
+rank that holds a share of the batch (core/mesh.py), and the train steps
+take the model wrapped in DistributedDataParallel over it. The train loss
+is then formed over the whole batch where it is not a mean of per-image
+terms (losses/functional.py; the two-head `ratio` combine, a product of
+two batch means), and the returned losses are the means over
+the group: the one-process step's. The eval steps run on every rank on
+the whole validation batch, with no group. A tensor-parallel model's
+replicated gradients are averaged over its model group after each backward
+(parallel/tensor.py::average_replicated_grads).
 """
 
 from __future__ import annotations
@@ -32,8 +43,10 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
+from unet_torch_tpu_torch.core.dist import all_reduce_sum, group_mean
 from unet_torch_tpu_torch.losses import get_loss_fn
 from unet_torch_tpu_torch.losses.topo import (
     compute_pairing,
@@ -45,6 +58,7 @@ from unet_torch_tpu_torch.losses.topo import (
     window_dot_counts,
 )
 from unet_torch_tpu_torch.nn.dropout import set_dropout_generator
+from unet_torch_tpu_torch.parallel import average_replicated_grads
 from unet_torch_tpu_torch.train.optim import clip_gradients
 
 
@@ -54,12 +68,20 @@ def _warn_fused_head(fused_head: bool) -> None:
                       "the port ignores it", stacklevel=3)
 
 
+def unwrap(model):
+    """The module inside a DistributedDataParallel, or the model itself."""
+    return getattr(model, "module", model)
+
+
 def make_single_steps(loss_type: str, accuracy_metric: str, num_classes: int,
-                      relu_output: bool = False, fused_head: bool = False):
+                      relu_output: bool = False, fused_head: bool = False,
+                      group=None):
     """Steps for the single-head loop. `relu_output` (the `regression` model
     types) applies ReLU to the logits before the loss. `fused_head` is the
-    JAX package's TPU layout of the loss and is ignored."""
+    JAX package's TPU layout of the loss and is ignored. `group`: the data
+    group (module docstring)."""
     _warn_fused_head(fused_head)
+    train_loss_fn = get_loss_fn(loss_type, num_classes, group=group)
     loss_fn = get_loss_fn(loss_type, num_classes)
     score_fn = get_loss_fn(accuracy_metric, num_classes)
 
@@ -69,14 +91,15 @@ def make_single_steps(loss_type: str, accuracy_metric: str, num_classes: int,
     def train_step(model, opt, x, y, lr, generator):
         model.train()
         set_dropout_generator(model, generator)
-        for group in opt.param_groups:
-            group["lr"] = lr
+        for param_group in opt.param_groups:
+            param_group["lr"] = lr
         opt.zero_grad(set_to_none=True)
-        loss = loss_fn(head(model(x)), y)
+        loss = train_loss_fn(head(model(x)), y)
         loss.backward()
+        average_replicated_grads(model)
         clip_gradients(opt)
         opt.step()
-        return loss.detach()
+        return group_mean(loss.detach(), group)
 
     def eval_step(model, x, y):
         model.eval()
@@ -88,7 +111,8 @@ def make_single_steps(loss_type: str, accuracy_metric: str, num_classes: int,
 
 
 def make_multitask_steps(loss_type: str, num_classes: int,
-                         combine: str = "sum", fused_head: bool = False):
+                         combine: str = "sum", fused_head: bool = False,
+                         group=None):
     """Steps for the two-head loops. Both heads pass through ReLU before the
     loss. The per-head loss is `loss_type` for `combine="sum"` and fixed
     `mse` for `"uncertainty"` and `"ratio"`.
@@ -98,17 +122,20 @@ def make_multitask_steps(loss_type: str, num_classes: int,
     sum_i l_i / (2 sigma_i^2) + log sigma_i. `"ratio"` multiplies l1 + l2 by
     1 + 10 * mean |ratio_gt - ratio_pred| of the per-image count sums once
     `use_ratio` is true; a batch image whose two counts are both zero gives
-    0/0 = NaN there, as in the JAX package."""
+    0/0 = NaN there, as in the JAX package. `group`: the data group
+    (module docstring)."""
     if combine not in ("sum", "uncertainty", "ratio"):
         raise ValueError(f"Invalid combine {combine!r}")
     _warn_fused_head(fused_head)
-    head_loss = get_loss_fn(loss_type if combine == "sum" else "mse",
-                            num_classes)
+    name = loss_type if combine == "sum" else "mse"
+    eval_head_loss = get_loss_fn(name, num_classes)
+    train_head_loss = get_loss_fn(name, num_classes, group=group)
 
-    def combined(model, o1, o2, y1, y2, use_ratio):
+    def combined(model, o1, o2, y1, y2, use_ratio, head_loss=eval_head_loss,
+                 group=None):
         l1, l2 = head_loss(o1, y1), head_loss(o2, y2)
         if combine == "uncertainty":
-            stds = torch.exp(model.log_vars) ** 0.5
+            stds = torch.exp(unwrap(model).log_vars) ** 0.5
             coeff = 1.0 / (2.0 * stds ** 2)
             loss = (coeff[0] * l1 + torch.log(stds[0])
                     + coeff[1] * l2 + torch.log(stds[1]))
@@ -118,6 +145,11 @@ def make_multitask_steps(loss_type: str, num_classes: int,
                             for o in (o1, o2))
             ratio_acc = torch.mean(torch.abs(c1_gt / (c1_gt + c2_gt)
                                              - c1_pr / (c1_pr + c2_pr)))
+            if group is not None:
+                # a product of two means over the batch: both the whole
+                # batch's (the ranks' shares are equal)
+                l1, l2, ratio_acc = all_reduce_sum(torch.stack(
+                    [l1, l2, ratio_acc]), group) / dist.get_world_size(group)
             loss = torch.where(use_ratio,
                                (l1 + l2) * (1.0 + 10.0 * ratio_acc), l1 + l2)
         else:
@@ -127,16 +159,18 @@ def make_multitask_steps(loss_type: str, num_classes: int,
     def train_step(model, opt, x, y1, y2, lr, generator, use_ratio):
         model.train()
         set_dropout_generator(model, generator)
-        for group in opt.param_groups:
-            group["lr"] = lr
+        for param_group in opt.param_groups:
+            param_group["lr"] = lr
         opt.zero_grad(set_to_none=True)
         o1, o2 = model(x)
         loss, l1, l2 = combined(model, F.relu(o1), F.relu(o2), y1, y2,
-                                use_ratio)
+                                use_ratio, train_head_loss, group)
         loss.backward()
+        average_replicated_grads(model)
         clip_gradients(opt)
         opt.step()
-        return loss.detach(), l1.detach(), l2.detach()
+        return tuple(group_mean(torch.stack([loss.detach(), l1.detach(),
+                                             l2.detach()]), group))
 
     def eval_step(model, x, y1, y2, use_ratio):
         model.eval()
@@ -178,7 +212,7 @@ def _lap(split, name, since, device):
 def make_topo_steps(loss_type: str, num_classes: int,
                     relu_output: bool = False, max_bars: int = 64,
                     fused_head: bool = False, pair_downsample: int = 1,
-                    window: int = 64, bars_per_window: int = 8):
+                    window: int = 64, bars_per_window: int = 8, group=None):
     """Steps of the topo warm-up loop (counterpart of the JAX package's
     make_topo_steps): `(warm_step, warm_eval), (topo_step, topo_eval),
     TopoPipeline`.
@@ -201,7 +235,9 @@ def make_topo_steps(loss_type: str, num_classes: int,
     frameworks' sigmoids apart only where JAX's are apart too. `topo_eval`
     runs the pairing forward with a generator seeded with 0 (JAX's fixed
     key 0) and returns that train-mode output. `fused_head` is the JAX
-    package's TPU layout of the warm-up loss and is ignored."""
+    package's TPU layout of the warm-up loss and is ignored. `group`: the
+    data group (module docstring); every loss of this loop is a mean over
+    the images, so it only averages the reported losses."""
     _warn_fused_head(fused_head)
     ds = int(pair_downsample)
     localized = loss_type == "TopoCount"
@@ -213,20 +249,21 @@ def make_topo_steps(loss_type: str, num_classes: int,
     def _train_mode(model, opt, lr, generator):
         model.train()
         set_dropout_generator(model, generator)
-        for group in opt.param_groups:
-            group["lr"] = lr
+        for param_group in opt.param_groups:
+            param_group["lr"] = lr
         opt.zero_grad(set_to_none=True)
 
-    def _finish(opt, loss):
+    def _finish(model, opt, loss):
         loss.backward()
+        average_replicated_grads(model)
         clip_gradients(opt)
         opt.step()
-        return loss.detach()
+        return group_mean(loss.detach(), group)
 
     # ---- warm-up phase: the dice_bce step
     def warm_step(model, opt, x, y, gt_dot, lr, generator):
         _train_mode(model, opt, lr, generator)
-        return _finish(opt, warm_loss(head(model(x)), y))
+        return _finish(model, opt, warm_loss(head(model(x)), y))
 
     def warm_eval(model, x, y, gt_dot):
         model.eval()
@@ -302,7 +339,8 @@ def make_topo_steps(loss_type: str, num_classes: int,
         backward, the optimizer step."""
         pairing = _unpack(packed, x)
         _train_mode(model, opt, lr, generator)
-        return _finish(opt, _loss_from_pairing(head(model(x)), *pairing))
+        return _finish(model, opt,
+                       _loss_from_pairing(head(model(x)), *pairing))
 
     def _pairing(out, gt_dot, split=None, since=None):
         """Serial: the pooled logits and counts to the host, the likelihood

@@ -33,6 +33,17 @@ through epoch 5, then the topo loss against (labels, dot map) through
 
 `CLTR` runs train/cltr_loop.py::cltr_train_loop on this trainer. Any other
 model type, `multitask_em` among them, has no loop, as in the JAX package.
+
+Several ranks (`mesh`, core/mesh.py): the model takes its place in the
+layout (parallel/tensor.py::parallelize: its transformer projections
+sharded over the model ranks, its BatchNorms synchronised over the data
+ranks) and each loop trains it through DistributedDataParallel over the
+data group (`broadcast_buffers=False`: SyncBatchNorm2d keeps the buffers
+equal); each rank's loader yields its share of the batch. Validation runs
+on every rank on the whole validation set, and rank 0's val loss and
+score decide for all, so that every rank saves, stops and restores alike.
+Only rank 0 writes `logs.txt`, the checkpoints (the full, unsharded state
+dict, `gather_state_tp`, which every rank joins) and the plots.
 """
 
 from __future__ import annotations
@@ -45,7 +56,10 @@ import torch
 
 from unet_torch_tpu_torch import ckpt
 from unet_torch_tpu_torch.core import not_ported
+from unet_torch_tpu_torch.core.dist import broadcast_value, is_main
+from unet_torch_tpu_torch.core.mesh import shard_batch
 from unet_torch_tpu_torch.losses import TOPO_LOSSES
+from unet_torch_tpu_torch.parallel import gather_state_tp, parallelize
 from unet_torch_tpu_torch.train.optim import (
     ReduceLROnPlateau,
     make_optimizer,
@@ -78,8 +92,11 @@ class Trainer:
                  num_epochs, loss_function, accuracy_metric, num_classes,
                  lr_scheduler=None, start_epoch=1, seed=0, relu_output=None,
                  fused_head=False, topo_pair_downsample=1, device="cuda",
-                 dtype=torch.float32, plot=False):
-        self.model = model.to(device)
+                 dtype=torch.float32, plot=False, mesh=None):
+        self.mesh = mesh
+        # the data group: the ranks that share this rank's model shard
+        self.group = None if mesh is None else mesh.data_group
+        self.model = parallelize(model.to(device), mesh)
         self.model_type = model_type
         self.output_save_dir = output_save_dir
         self.dataloader = dataloaders
@@ -120,6 +137,8 @@ class Trainer:
         self.best_state = None
 
     def _log(self, *lines):
+        if not is_main():  # one rank owns logs.txt
+            return
         with open(os.path.join(self.output_save_dir, "logs.txt"), "a") as f:
             for ln in lines:
                 print(ln)
@@ -141,25 +160,52 @@ class Trainer:
         """numpy (x, y, ...) -> device tensors: x in the compute dtype, the
         others as given. From pinned memory without blocking the host on a
         card."""
-        tensors = [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
-        if self.device.type == "cuda":
-            tensors = [t.pin_memory() for t in tensors]
-        tensors = [t.to(self.device, non_blocking=True) for t in tensors]
-        return (tensors[0].to(self.dtype), *tensors[1:])
+        return shard_batch(arrays, self.device, self.dtype)
+
+    def net(self, model):
+        """The model the train steps drive: wrapped in
+        DistributedDataParallel over the data group when there is one."""
+        if self.group is None:
+            return model
+        from torch.nn.parallel import DistributedDataParallel
+
+        ids = [self.device.index] if self.device.type == "cuda" else None
+        return DistributedDataParallel(model, device_ids=ids,
+                                       process_group=self.group,
+                                       broadcast_buffers=False)
+
+    def full_state(self) -> dict:
+        """The model's full, unsharded state dict on the host; every rank
+        must call it (it gathers the tensor-parallel shards)."""
+        return {k: v.detach().cpu()
+                for k, v in gather_state_tp(self.model, self.mesh).items()}
+
+    def save_checkpoint(self, *names):
+        """The full state dict as models/<name> for each name, written by
+        rank 0; every rank must call it."""
+        state = self.full_state()
+        if is_main():
+            for name in names:
+                ckpt.save_state_dict(os.path.join(self.save_dir_model, name),
+                                     state)
+
+    def agree(self, *values):
+        """Rank 0's val numbers, on every rank: the saving and stopping
+        decisions are then the same on all."""
+        return broadcast_value(values) if self.mesh is not None else values
 
     def _save_best(self, epoch):
         self.best_state = {k: v.detach().clone()
                            for k, v in self.model.state_dict().items()}
-        for name in (f"epoch{epoch}.pt", "best.pt"):
-            ckpt.save_weights(os.path.join(self.save_dir_model, name),
-                              self.model)
+        self.save_checkpoint(f"epoch{epoch}.pt", "best.pt")
 
     def _restore_best(self):
         if self.best_state is not None:
             self.model.load_state_dict(self.best_state, strict=True)
 
     def plot_loss_functions(self, name):
-        if not self.plot or not self.train_loss_list or not self.val_loss_list:
+        if (not self.plot or not is_main() or not self.train_loss_list
+                or not self.val_loss_list):
             return
         import matplotlib
 
@@ -231,11 +277,13 @@ class Trainer:
 
     def single_train(self):
         model = self.model
+        net = self.net(model)
         opt = make_optimizer(self.optimizer_name, model.parameters(),
                              self.base_lr, self.weight_decay)
         train_step, eval_step = make_single_steps(
             self.loss_function, self.accuracy_metric, self.num_classes,
-            relu_output=self.relu_output, fused_head=self.fused_head)
+            relu_output=self.relu_output, fused_head=self.fused_head,
+            group=self.group)
 
         totaltime = 0.0
         for epoch in range(self.start_epoch, self.num_epochs + 1):
@@ -245,7 +293,7 @@ class Trainer:
             losses = []
             for batch in self.dataloader["train"]:
                 x, y = self._to_device(*batch[:2])
-                losses.append(train_step(model, opt, x, y,
+                losses.append(train_step(net, opt, x, y,
                                          self._current_lr(), self.generator))
                 self.iter_num += 1
             epoch_loss = _mean(losses)  # one sync
@@ -260,8 +308,7 @@ class Trainer:
                 "Current mean training time per epoch: {:.0f}m {:.0f}s".format(
                     mean_epoch // 60, mean_epoch % 60),
                 f"device memory: {self._device_mem()}")
-            ckpt.save_weights(os.path.join(self.save_dir_model,
-                                           "last_epoch.pt"), model)
+            self.save_checkpoint("last_epoch.pt")
 
             vlosses, vscores = [], []
             for batch in self.dataloader["val"]:
@@ -269,8 +316,7 @@ class Trainer:
                 loss, score, _ = eval_step(model, x, y)
                 vlosses.append(loss)
                 vscores.append(score)
-            val_loss = _mean(vlosses)
-            val_score = _mean(vscores)
+            val_loss, val_score = self.agree(_mean(vlosses), _mean(vscores))
             self.val_loss_list.append(val_loss)
             self.val_score_list.append(val_score)
             self._log(f"Val loss on epoch {epoch}: {val_loss}",
@@ -307,13 +353,15 @@ class Trainer:
         from unet_torch_tpu_torch.eval.metrics import mr_accuracy
 
         model = self.model
+        net = self.net(model)
         opt = make_optimizer(self.optimizer_name, model.parameters(),
                              self.base_lr, self.weight_decay)
         (warm_step, warm_eval), (_, topo_eval), TopoPipeline = \
             make_topo_steps(self.loss_function, self.num_classes,
                             relu_output=self.relu_output,
                             fused_head=self.fused_head,
-                            pair_downsample=self.topo_pair_downsample)
+                            pair_downsample=self.topo_pair_downsample,
+                            group=self.group)
 
         for epoch in range(self.start_epoch, self.num_epochs + 1):
             self._log(f"Epoch {epoch}/{self.num_epochs}", "-" * 10)
@@ -327,21 +375,20 @@ class Trainer:
             losses = []
             for batch in self.dataloader["train"]:
                 x, y, gt_dot = self._to_device(*batch)
-                loss = step(model, opt, x, y, gt_dot, self._current_lr(),
+                loss = step(net, opt, x, y, gt_dot, self._current_lr(),
                             self.generator)
                 self.iter_num += 1
                 if loss is not None:
                     losses.append(loss)
             if pipe is not None:
-                losses.extend(pipe.flush(model, opt, self.generator))
+                losses.extend(pipe.flush(net, opt, self.generator))
             epoch_loss = _mean(losses)
             time_elapsed = time.time() - since
             self.train_loss_list.append(epoch_loss)
             self._log(f"Train loss on epoch {epoch}: {epoch_loss}",
                       "Training Time for this epoch: {:.0f}m {:.0f}s".format(
                           time_elapsed // 60, time_elapsed % 60))
-            ckpt.save_weights(os.path.join(self.save_dir_model,
-                                           "last_epoch.pt"), model)
+            self.save_checkpoint("last_epoch.pt")
 
             vlosses, vscores = [], []
             for batch in self.dataloader["val"]:
@@ -350,8 +397,8 @@ class Trainer:
                 vlosses.append(loss)
                 vscores.append(mr_accuracy(out.float().cpu().numpy(),
                                            np.asarray(batch[2])))
-            val_loss = _mean(vlosses)
-            val_score = float(np.mean(vscores)) if vscores else 0.0
+            val_loss, val_score = self.agree(
+                _mean(vlosses), float(np.mean(vscores)) if vscores else 0.0)
             self.val_loss_list.append(val_loss)
             self.val_score_list.append(val_score)
             self._log(f"Val loss on epoch {epoch}: {val_loss}",
@@ -380,12 +427,13 @@ class Trainer:
             self.base_lr = self._lr = lr
         if combine == "uncertainty":
             model.add_log_vars()
+        net = self.net(model)
         opt = make_optimizer(optimizer_name, model.parameters(), self.base_lr,
                              0.0 if combine == "uncertainty"
                              else self.weight_decay)
         train_step, eval_step = make_multitask_steps(
             self.loss_function, self.num_classes, combine=combine,
-            fused_head=self.fused_head)
+            fused_head=self.fused_head, group=self.group)
         plateau = (ReduceLROnPlateau(self.base_lr) if combine == "ratio"
                    and not self.adaptive_lr else None)
         self.best_val_score = 1e15
@@ -399,7 +447,7 @@ class Trainer:
             losses, l1s, l2s = [], [], []
             for x, (y1, y2) in self.dataloader["train"]:
                 x, y1, y2 = self._to_device(x, y1, y2)
-                loss, l1, l2 = train_step(model, opt, x, y1, y2,
+                loss, l1, l2 = train_step(net, opt, x, y1, y2,
                                           self._current_lr(), self.generator,
                                           use_ratio)
                 self.iter_num += 1
@@ -417,8 +465,7 @@ class Trainer:
             self._log(f"Train loss on epoch {epoch}: {epoch_loss}",
                       "Training Time for this epoch: {:.0f}m {:.0f}s".format(
                           time_elapsed // 60, time_elapsed % 60))
-            ckpt.save_weights(os.path.join(self.save_dir_model,
-                                           "last_epoch.pt"), model)
+            self.save_checkpoint("last_epoch.pt")
 
             vlosses, v1s, v2s = [], [], []
             for x, (y1, y2) in self.dataloader["val"]:
@@ -427,7 +474,7 @@ class Trainer:
                 vlosses.append(loss)
                 v1s.append(l1)
                 v2s.append(l2)
-            val_loss = _mean(vlosses)
+            (val_loss,) = self.agree(_mean(vlosses))
             if combine == "ratio" and epoch <= 5:
                 continue  # the reference validates from epoch 6
             if plateau is not None:
