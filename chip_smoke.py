@@ -12,7 +12,7 @@
                                     mma.sync, in turns)
     python3 chip_smoke.py --topo   (build, then only T1 and the topo phases
                                     P1-P3)
-    python3 chip_smoke.py --parallel   (build, then only D1-D3)
+    python3 chip_smoke.py --parallel   (build, then only D1-D3, S1 and G1)
 
 Builds the Hopper kernels from unet_torch_tpu_torch/csrc, then:
 
@@ -123,7 +123,10 @@ Builds the Hopper kernels from unet_torch_tpu_torch/csrc, then:
                 LR, HausdorffDTLoss, on one fixed seeded batch: min-plus
                 launches per step, the loss finite and falling, img/s with
                 the kernel and with the plain min-plus, peak memory; the same
-                step under dice_bce beside it; then its eval forward (18
+                step under dice_bce beside it; the HausdorffDTLoss step
+                with remat (the blocks recomputed in the backward): its
+                first loss equal to the step's, img/s, peak memory below
+                the step's; then its eval forward (18
                 fused-conv launches: 17 wgmma, 1 narrow) with test_single's
                 sigmoid threshold
  M4. multitask  UNetMultitask base 64 as configs/multitask_reg.yml trains it
@@ -220,6 +223,26 @@ Builds the Hopper kernels from unet_torch_tpu_torch/csrc, then:
      parallel   16 (8 a rank), Adam, the auction matcher on each rank's
                 images, dropout 0, f32: the step against one process, as
                 D1; the auction's launches by rank
+ S1. spatial    UNet-64 at 512x512, batch 8, (D, M) = (1, 2) spatial ranks
+                of 256 rows each (parallel/spatial.py): the fused conv at
+                the 18 haloed strip shapes against plain; the bf16 eval
+                forward (18 fused convs a rank, 17 wgmma + 1 narrow) and the
+                f32 one, gathered, against the one-process forward (f32
+                within 1e-5, bf16 within 8 bf16 ulps of the logits' peak);
+                D1's f32 Adam step on the strips against one process, as
+                D1, BN buffers bitwise equal across ranks; the halo bytes
+                and exchanges of a forward and a step, the extra rows'
+                share; 10 bf16 forwards and 3 + 10 bf16 steps timed
+ G1. pipeline   TransUnet R50-ViT-B/16 at full width, 512x512, batch 8, S = 2
+                stages of 6 blocks, M = 4 microbatches of 2
+                (parallel/pipeline.py): the pipelined bf16 eval forward
+                against the one-process forward (8 bf16 ulps of the logits'
+                peak), 24 attention launches a rank on wgmma; the f32 SGD
+                step on the pipelined forward (eval-mode BN, the JAX dry
+                run's form) against one process, as D2, 24 + 24 attention
+                launches a rank; 10 bf16 forwards and 3 + 10 bf16 steps
+                timed, each stage's time in the handoffs beside the
+                textbook bubble (S - 1) / (M + S - 1); peak memory a rank
   L. library    one PyTorch library call beside each kernel that has one, for
                 the time only (nothing in the port calls them): cuDNN
                 conv2d with the scale folded into its weights, a bias and a
@@ -1532,6 +1555,25 @@ def check_binary_unet(at, fc, mp, dev, xs):
             times[TRAIN_WARMUP - 1:]), losses,
             torch.cuda.max_memory_allocated(dev), m)
     launches, step_s, losses, peak, trained = out["HausdorffDTLoss"]
+    # remat (models/unet.py): the same step, its blocks' activations
+    # recomputed in the backward; from the same weights, its first loss
+    m = copy.deepcopy(model)
+    m.remat = True
+    opt = make_optimizer("Adam", m.parameters(), lr, 1e-4)
+    train_step, _ = make_single_steps("HausdorffDTLoss", "dice_bce", 1)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    torch.cuda.reset_peak_memory_stats(dev)
+    remat_times, remat_losses = train_steps(train_step, m, opt, x, y, gen,
+                                            TRAIN_WARMUP + 2, lr=lr)
+    remat = {"first_loss": remat_losses[0],
+             "step_s": statistics.median(remat_times[TRAIN_WARMUP:]),
+             "peak": torch.cuda.max_memory_allocated(dev)}
+    if not (abs(remat["first_loss"] - losses[0]) <= 1e-5 * abs(losses[0])
+            and remat["peak"] < peak and falling(remat_losses)):
+        raise AssertionError(f"binary UNet remat step: losses "
+                             f"{remat_losses} (without remat {losses[0]} "
+                             f"first), peak {remat['peak']} against {peak}")
+    del m, opt
     # the same step with the plain min-plus in place of the kernel, for
     # comparison only
     train_step, _ = make_single_steps("HausdorffDTLoss", "dice_bce", 1)
@@ -1556,7 +1598,10 @@ def check_binary_unet(at, fc, mp, dev, xs):
           f"step {dice_s * 1e3:.2f} ms = {BATCH / dice_s:.1f} img/s, loss "
           f"{dice_losses[0]:.5f} -> {dice_losses[-1]:.5f}); peak device "
           f"memory {peak / 2**30:.2f} GiB (dice_bce "
-          f"{out['dice_bce'][3] / 2**30:.2f} GiB)")
+          f"{out['dice_bce'][3] / 2**30:.2f} GiB); with remat: first loss "
+          f"{remat['first_loss']:.7f} (without {losses[0]:.7f}), median "
+          f"{remat['step_s'] * 1e3:.2f} ms = {BATCH / remat['step_s']:.1f} "
+          f"img/s, peak {remat['peak'] / 2**30:.2f} GiB")
     # served as test_single serves it: sigmoid and threshold on the device
     predict = make_predict_fn(trained, dev, torch.bfloat16, binary=True)
     reset_counts(at, fc)
@@ -1580,7 +1625,9 @@ def check_binary_unet(at, fc, mp, dev, xs):
           f"{eval_launches['fused_conv3x3_bn_relu']} fused conv launches "
           f"{eval_routes}, foreground share {mask.mean():.4f}, median "
           f"{fwd_s * 1e3:.2f} ms = {BATCH / fwd_s:.1f} img/s")
-    return launches, step_s, plain_s, dice_s, eval_launches, eval_routes
+    remat["plain_peak"] = peak
+    return (launches, step_s, plain_s, dice_s, eval_launches, eval_routes,
+            remat)
 
 
 def multitask_conv_shapes(base, size):
@@ -3159,7 +3206,8 @@ def parallel_rank(rank, world, port, case, out):
     from unet_torch_tpu_torch.core.dist import maybe_initialize
 
     maybe_initialize(force=True, backend="gloo")
-    result = {"d1": d1_rank, "d2": d2_rank, "d3": d3_rank}[case](rank, out)
+    result = {"d1": d1_rank, "d2": d2_rank, "d3": d3_rank, "s1": s1_rank,
+              "g1": g1_rank}[case](rank, out)
     torch.save(result, os.path.join(out, f"rank{rank}.pt"))
     torch.distributed.destroy_process_group()
 
@@ -3341,8 +3389,9 @@ def d1_rank(rank, out):
     return result
 
 
-def check_d1(at, dev, smi):
-    """D1. Returns its numbers for the kernels line."""
+def d1_reference(at, dev):
+    """The one-process f32 and f64 Adam step of D1's UNet-64 on D1's batch
+    (one_process_reference's tuple), which D1 and S1 are held against."""
     from unet_torch_tpu_torch.train.optim import make_optimizer, poly_lr
     from unet_torch_tpu_torch.train.steps import make_single_steps
 
@@ -3355,7 +3404,12 @@ def check_d1(at, dev, smi):
         return model, before, step(model, opt, x.to(dtype), y,
                                    poly_lr(D1_LR, 0, 1000), None).item()
 
-    ref = one_process_reference(at, step_once)
+    return one_process_reference(at, step_once)
+
+
+def check_d1(at, dev, smi, ref):
+    """D1, against `ref` (d1_reference). Returns its numbers for the
+    kernels line."""
     ref_loss = ref[0]
     ranks, out = parallel_spawn("d1")
     shutil.rmtree(out)
@@ -3688,15 +3742,439 @@ def check_d3(at, dev, smi):
                                       for r in ranks)}
 
 
+# ---------------------------------------------------------------------------
+# S1, G1: spatial partitioning of the UNet and the pipelined TransUnet
+# encoder, two gloo ranks on one card
+# ---------------------------------------------------------------------------
+
+# G1: 4 microbatches of 2 over S = 2 stages of 6 blocks
+G1_MICRO = 4
+
+
+def strip_conv_shapes(base, size, strips):
+    """(rows, W, Cin, Cout) of the 18 convs of a UNet forward on one of
+    `strips` strips of the height, each with its halo rows (+2)."""
+    return [(h // strips + 2, h, cin, cout)
+            for h, cin, cout in conv_shapes(base, size)]
+
+
+def check_strip_kernels(fc, dev):
+    """The fused conv at each haloed strip shape of S1 (bf16, batch 8)
+    against its plain version at phase 3's bound. Returns {shape: (err,
+    ms, back-to-back ms, plain ms, bound ms)}."""
+    gen = torch.Generator().manual_seed(SEED + 26)
+    results = {}
+    for rows, w, cin, cout in dict.fromkeys(strip_conv_shapes(
+            BASE, SIZE, PARALLEL_RANKS)):
+        x = torch.randn(BATCH, rows, w, cin, generator=gen)
+        wt = torch.randn(3, 3, cin, cout, generator=gen) * (
+            2.0 / (9 * cin)) ** 0.5
+        bn = (torch.rand(cout, generator=gen) + 0.5,
+              torch.randn(cout, generator=gen) * 0.1,
+              torch.randn(cout, generator=gen) * 0.1,
+              torch.rand(cout, generator=gen) + 0.5)
+        x, wt = x.to(dev, torch.bfloat16), wt.to(dev, torch.bfloat16)
+        scale, bias = fc.fold_bn(*(t.to(dev) for t in bn))
+        with torch.inference_mode():
+            out = fc.fused_conv3x3_bn_relu(x, wt, scale, bias)
+            ref = fc.fused_conv3x3_bn_relu_reference(x, wt, scale, bias)
+            err = (out.float() - ref.float()).abs().max().item()
+            bound = REL_TOL[torch.bfloat16] * ref.float().abs().max().item()
+            if not err <= bound:
+                raise AssertionError(
+                    f"S1: the fused conv disagrees with plain at the strip "
+                    f"shape {(rows, w, cin, cout)}: {err} > {bound}")
+
+            def kernel():
+                return fc.fused_conv3x3_bn_relu(x, wt, scale, bias)
+
+            ms, burst_ms = median_ms(kernel), median_ms(kernel, burst=BURST)
+            plain_ms = median_ms(lambda: fc.fused_conv3x3_bn_relu_reference(
+                x, wt, scale, bias))
+        pixels = BATCH * rows * w
+        bound_ms = max(2 * 9 * cin * cout * pixels / PEAK_BF16,
+                       (2 * pixels * (cin + cout) + 2 * 9 * cin * cout
+                        + 8 * cout) / PEAK_BYTES) * 1e3
+        results[(rows, w, cin, cout)] = (err, ms, burst_ms, plain_ms,
+                                         bound_ms)
+        del x, wt, out, ref
+    return results
+
+
+def s1_rank(rank, out):
+    """S1 on a rank: UNet-64 spatialized over (D, M) = (1, 2), the rank's
+    256 rows; the eval forward in f32 and bf16 (fused conv launches,
+    exchanges), then D1's f32 Adam step on its strip and 3 + 10 bf16 steps
+    timed."""
+    from torch.nn.parallel import DistributedDataParallel
+
+    from unet_torch_tpu_torch.core.mesh import make_mesh
+    from unet_torch_tpu_torch.core.rng import seed_everything
+    from unet_torch_tpu_torch.kernels import fused_conv as fc
+    from unet_torch_tpu_torch.nn import blocks
+    from unet_torch_tpu_torch.parallel.spatial import (
+        gather_spatial,
+        shard_spatial,
+        spatialize,
+    )
+    from unet_torch_tpu_torch.train.optim import make_optimizer, poly_lr
+    from unet_torch_tpu_torch.train.steps import make_single_steps
+
+    dev = torch.device("cuda", 0)
+    mesh = make_mesh(1, PARALLEL_RANKS, role="spatial")
+    # the bytes each exchange sends from this rank: a row to each neighbour
+    neighbours = (mesh.m > 0) + (mesh.m < mesh.model - 1)
+    sent = []
+    exchange = blocks.exchange_rows
+
+    def counted(x, group, halo=1, dim=2):
+        sent.append(neighbours * halo * x.numel() // x.shape[dim]
+                    * x.element_size())
+        return exchange(x, group, halo, dim)
+
+    blocks.exchange_rows = counted
+    result = {}
+    model = spatialize(seeded_unet(seed_everything(SEED)).to(dev), mesh)
+    model.eval()
+    xs = eval_batch(np.random.RandomState(SEED))
+    with torch.inference_mode():
+        (x32,) = shard_spatial(mesh, [xs], dev)
+        result["eval_f32"] = gather_spatial(model(x32), mesh).cpu()
+        xb = x32.to(torch.bfloat16)
+        fc.reset_launches()
+        sent.clear()
+        logits = model(xb)
+        torch.cuda.synchronize()
+        result.update(
+            eval_launches=fc.fused_conv3x3_bn_relu.launches,
+            eval_routes=dict(fc.fused_conv3x3_bn_relu.launches_by_route),
+            eval_exchanges=(len(sent), sum(sent)),
+            eval_bf16=gather_spatial(logits, mesh).cpu())
+        times = []
+        for _ in range(REPS + 2):
+            t0 = time.perf_counter()
+            model(xb)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        result["fwd_s"] = statistics.median(times[2:])
+    del model
+    model, x, y = d1_model_batch(dev)
+    spatialize(model, mesh)
+    net = DistributedDataParallel(model, device_ids=[0],
+                                  process_group=mesh.world_group,
+                                  broadcast_buffers=False)
+    opt = make_optimizer("Adam", model.parameters(), D1_LR, 1e-4)
+    step, _ = make_single_steps("dice_bce_mc", "dice_bce_mc", N_CLASSES,
+                                group=mesh.world_group)
+    strip = mesh.strip(SIZE)
+    x, y = x[:, strip].contiguous(), y[:, strip].contiguous()
+    loss = step(net, opt, x, y, poly_lr(D1_LR, 0, 1000), None).item()
+    result.update(
+        loss=loss, state=host_state(model.state_dict()),
+        grads={n: p.grad.detach().cpu() for n, p in model.named_parameters()},
+        buffers=host_state(dict(model.named_buffers())))
+    xb = x.to(torch.bfloat16)
+    torch.cuda.reset_peak_memory_stats(dev)
+    sent.clear()
+    n_steps = TRAIN_WARMUP + TRAIN_STEPS
+    times = timed_steps(lambda i: step(net, opt, xb, y,
+                                       poly_lr(D1_LR, i + 1, 1000), None),
+                        n_steps)
+    # the backward exchanges the halo rows' gradients as the forward sent
+    # the rows
+    result.update(step_s=statistics.median(times[TRAIN_WARMUP:]),
+                  peak=torch.cuda.max_memory_allocated(dev),
+                  step_exchanges=(2 * len(sent) // n_steps,
+                                  2 * sum(sent) // n_steps))
+    blocks.exchange_rows = exchange
+    return result
+
+
+def check_s1(fc, dev, smi, ref):
+    """S1, its step against `ref` (d1_reference). Returns its numbers for
+    the kernels line."""
+    from unet_torch_tpu_torch.core.rng import seed_everything
+
+    kernels = check_strip_kernels(fc, dev)
+    model = seeded_unet(seed_everything(SEED)).to(dev).eval()
+    xs = torch.from_numpy(eval_batch(np.random.RandomState(SEED))).to(dev)
+    with torch.inference_mode():
+        one32 = model(xs).cpu()
+        one16 = model(xs.to(torch.bfloat16)).float().cpu()
+    del model
+    torch.cuda.empty_cache()
+    ranks, out = parallel_spawn("s1")
+    shutil.rmtree(out)
+    a, b = ranks
+    errs = {}
+    for name, one, tol in (("f32", one32, MODEL_REL_TOL),
+                           ("bf16", one16, TP_EVAL_REL_TOL)):
+        peak = one.abs().max().item()
+        err = max((r[f"eval_{name}"].float() - one).abs().max().item()
+                  for r in ranks)
+        if not err <= tol * peak:
+            raise AssertionError(f"S1: the gathered {name} logits are {err} "
+                                 f"from the one-process forward's (bound "
+                                 f"{tol * peak})")
+        errs[name] = (err, tol * peak, all(torch.equal(
+            r[f"eval_{name}"].float(), one) for r in ranks))
+    for r in ranks:
+        if (r["eval_launches"] != len(conv_shapes(BASE, SIZE))
+                or r["eval_routes"] != UNET_ROUTES):
+            raise AssertionError(f"S1: a rank's bf16 eval forward launched "
+                                 f"{r['eval_launches']} fused convs "
+                                 f"({r['eval_routes']}), expected 18 "
+                                 f"{UNET_ROUTES}")
+    same = [k for k in a["buffers"] if torch.equal(a["buffers"][k],
+                                                  b["buffers"][k])]
+    if len(same) != len(a["buffers"]) or not a["buffers"]:
+        raise AssertionError("S1: the ranks' BN buffers differ: "
+                             f"{sorted(set(a['buffers']) - set(same))[:5]}")
+    loss_err, worst, worst_name, n_flip = compare_step(
+        "S1 UNet spatial", a["loss"], a["grads"], a["state"], ref, D1_LR,
+        adam=True)
+    # the halo's extra rows, as a share of the convs' operations
+    shapes = strip_conv_shapes(BASE, SIZE, PARALLEL_RANKS)
+    extra = (sum(2 * w * cin * cout for _, w, cin, cout in shapes)
+             / sum((rows - 2) * w * cin * cout
+                   for rows, w, cin, cout in shapes))
+    step_s = max(r["step_s"] for r in ranks)
+    fwd_s = max(r["fwd_s"] for r in ranks)
+    ms = sum(kernels[sh][1] for sh in shapes)
+    burst = sum(kernels[sh][2] for sh in shapes)
+    bound = sum(kernels[sh][4] for sh in shapes)
+    phase("S1 spatial",
+          f"UNet-{BASE} {SIZE}x{SIZE} batch {BATCH}, (D, M) = (1, "
+          f"{PARALLEL_RANKS}) gloo ranks on one card ({smi}), "
+          f"{SIZE // PARALLEL_RANKS} rows a rank: the fused conv at the 18 "
+          f"haloed strip shapes against plain, worst "
+          f"{max(k[0] for k in kernels.values()):.3e}, one launch each "
+          f"{ms:.4f} ms, back to back {burst:.4f} ms (bound {bound:.4f}); "
+          f"eval forward {a['eval_launches']} fused convs a rank "
+          f"{a['eval_routes']}, gathered logits against one process: f32 "
+          f"{errs['f32'][0]:.3e} (bound {errs['f32'][1]:.3e}"
+          f"{', bitwise' if errs['f32'][2] else ''}), bf16 "
+          f"{errs['bf16'][0]:.3e} (bound {errs['bf16'][1]:.3e}"
+          f"{', bitwise' if errs['bf16'][2] else ''}); bf16 forward median "
+          f"{fwd_s * 1e3:.2f} ms = {BATCH / fwd_s:.1f} img/s; a forward's "
+          f"exchanges a rank {a['eval_exchanges'][0]} of "
+          f"{a['eval_exchanges'][1] / 2**20:.3f} MiB sent, a step's "
+          f"{a['step_exchanges'][0]} of {a['step_exchanges'][1] / 2**20:.3f} "
+          f"MiB; the halo rows add {extra * 100:.2f}% to the convs' "
+          f"operations; the f32 Adam step against one process: loss "
+          f"{a['loss']:.7f} vs {ref[0]:.7f} (rel err {loss_err:.2e}), the "
+          f"worst gradient {worst_name} at {worst:.2f} times the one-process "
+          f"f32 error against f64 (bound {T4_NOISE_RATIO:.0f}; {n_flip} Adam "
+          f"sign flips within 2 lr), the {len(same)} BN buffers bitwise equal "
+          f"across ranks; bf16 steps: median {step_s * 1e3:.2f} ms = "
+          f"{BATCH / step_s:.1f} img/s (two ranks share one card: not a "
+          f"scaling figure), peak {a['peak'] / 2**30:.2f} GiB a rank")
+    return {"img_s": BATCH / step_s, "eval_img_s": BATCH / fwd_s,
+            "loss_rel_err": loss_err, "worst_rel_err": worst,
+            "eval_err": {k: v[0] for k, v in errs.items()},
+            "conv_launches": sum(r["eval_launches"] for r in ranks),
+            "strip_kernels_ms": ms, "strip_kernels_back_to_back_ms": burst,
+            "strip_kernels_bound_ms": bound,
+            "halo_mib": {"forward": a["eval_exchanges"][1] / 2**20,
+                         "step": a["step_exchanges"][1] / 2**20},
+            "extra_rows_share": extra, "peak_gib": a["peak"] / 2**30}
+
+
+def g1_model_batch(dev):
+    """The full-width TransUnet and D2's batch."""
+    from unet_torch_tpu_torch.core.rng import seed_everything
+
+    model = seeded_transunet(seed_everything(SEED))
+    xs, ys = train_batch(np.random.RandomState(SEED + 23), BATCH, SIZE)
+    return (model.to(dev), torch.from_numpy(xs).to(dev),
+            torch.from_numpy(ys).to(dev))
+
+
+def g1_rank(rank, out):
+    """G1 on a rank: the TransUnet's encoder over S = 2 stages of 6 blocks,
+    M = 4 microbatches of 2; the bf16 eval forward (attention launches),
+    the f32 SGD step on the pipelined forward, then the bf16 forward and
+    step timed, each stage's time in the handoffs apart."""
+    from unet_torch_tpu_torch.core import dist as port_dist
+    from unet_torch_tpu_torch.core.mesh import make_mesh
+    from unet_torch_tpu_torch.kernels import attention as at
+    from unet_torch_tpu_torch.parallel import pipeline as pp
+    from unet_torch_tpu_torch.train.optim import make_optimizer, poly_lr
+
+    dev = torch.device("cuda", 0)
+    mesh = make_mesh(1, PARALLEL_RANKS, role="pipeline")
+    waits = []
+    p2p, broadcast = port_dist._p2p, pp.broadcast_from
+
+    def timed(fn):
+        def wait(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return fn(*args)
+            finally:
+                waits.append(time.perf_counter() - t0)
+        return wait
+
+    port_dist._p2p, pp.broadcast_from = timed(p2p), timed(broadcast)
+    model, x, y = g1_model_batch(dev)
+    pp.stage_layers(model.transformer.encoder, mesh)
+    model.eval()
+    xs = torch.from_numpy(eval_batch(np.random.RandomState(SEED))).to(
+        dev, torch.bfloat16)
+    result = {"blocks": len(model.transformer.encoder.layer)}
+    at.fused_attention.launches = 0
+    with torch.inference_mode():
+        logits = pp.pipelined_vit_forward(model, xs, mesh, G1_MICRO)
+        torch.cuda.synchronize()
+        result["eval_launches"] = at.fused_attention.launches
+        result["eval_logits"] = logits.float().cpu()
+        times, wait = [], []
+        for _ in range(REPS + 2):
+            waits.clear()
+            t0 = time.perf_counter()
+            pp.pipelined_vit_forward(model, xs, mesh, G1_MICRO)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            wait.append(sum(waits))
+        result["fwd_s"] = statistics.median(times[2:])
+        result["fwd_wait_s"] = statistics.median(wait[2:])
+    opt = make_optimizer("SGD", model.parameters(), D2_LR, 1e-4)
+    step = pp.make_pipeline_step("dice_bce_mc", N_CLASSES, mesh, G1_MICRO)
+    at.attention_train_forward.launches = at.attention_backward.launches = 0
+    loss = step(model, opt, x, y, poly_lr(D2_LR, 0, 1000)).item()
+    result.update(
+        loss=loss,
+        step_launches=(at.attention_train_forward.launches,
+                       at.attention_backward.launches),
+        state=host_state(pp.gather_stage_state(model, mesh)),
+        grads=host_state(pp.gather_stage_state(model, mesh, {
+            n: p.grad for n, p in model.named_parameters()})))
+    xb = x.to(torch.bfloat16)
+    torch.cuda.reset_peak_memory_stats(dev)
+    times, wait = [], []
+    for i in range(TRAIN_WARMUP + TRAIN_STEPS):
+        waits.clear()
+        t0 = time.perf_counter()
+        step(model, opt, xb, y, poly_lr(D2_LR, i + 1, 1000))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        wait.append(sum(waits))
+    result.update(step_s=statistics.median(times[TRAIN_WARMUP:]),
+                  step_wait_s=statistics.median(wait[TRAIN_WARMUP:]),
+                  peak=torch.cuda.max_memory_allocated(dev),
+                  route=at.attention_route(torch.bfloat16, 64, 64))
+    port_dist._p2p, pp.broadcast_from = p2p, broadcast
+    return result
+
+
+def check_g1(at, dev, smi):
+    """G1. Returns its numbers for the kernels line."""
+    from unet_torch_tpu_torch.losses import get_loss_fn
+    from unet_torch_tpu_torch.train.optim import make_optimizer, poly_lr
+
+    def step_once(dtype):
+        model, x, y = g1_model_batch(dev)
+        before = host_state(model.state_dict())
+        model.to(dtype).eval()
+        opt = make_optimizer("SGD", model.parameters(), D2_LR, 1e-4)
+        for group in opt.param_groups:
+            group["lr"] = poly_lr(D2_LR, 0, 1000)
+        loss = get_loss_fn("dice_bce_mc", N_CLASSES)(model(x.to(dtype)), y)
+        loss.backward()
+        opt.step()
+        return model, before, loss.item()
+
+    ref = one_process_reference(at, step_once)
+    model = g1_model_batch(dev)[0].eval()
+    xs = torch.from_numpy(eval_batch(np.random.RandomState(SEED))).to(
+        dev, torch.bfloat16)
+    with torch.inference_mode():
+        one16 = model(xs).float().cpu()
+    del model
+    torch.cuda.empty_cache()
+    ranks, out = parallel_spawn("g1")
+    shutil.rmtree(out)
+    a = ranks[0]
+    loss_err, worst, worst_name, _ = compare_step(
+        "G1 TransUnet pipeline", a["loss"], a["grads"], a["state"], ref,
+        D2_LR, adam=False)
+    per = 12 // PARALLEL_RANKS
+    for r in ranks:
+        if (r["blocks"], r["eval_launches"], r["step_launches"],
+                r["route"]) != (per, per * G1_MICRO,
+                                (per * G1_MICRO, per * G1_MICRO), "wgmma"):
+            raise AssertionError(
+                f"G1: a rank held {r['blocks']} blocks and launched "
+                f"{r['eval_launches']} eval and {r['step_launches']} train "
+                f"attention kernels on {r['route']}, expected {per}, "
+                f"{per * G1_MICRO} and ({per * G1_MICRO}, {per * G1_MICRO}) "
+                "on wgmma")
+    peak = one16.abs().max().item()
+    eval_err = max((r["eval_logits"] - one16).abs().max().item()
+                   for r in ranks)
+    if not eval_err <= TP_EVAL_REL_TOL * peak:
+        raise AssertionError(f"G1: the pipelined bf16 eval forward is "
+                             f"{eval_err} from the one-process forward's "
+                             f"(bound {TP_EVAL_REL_TOL * peak})")
+    bubble = (PARALLEL_RANKS - 1) / (G1_MICRO + PARALLEL_RANKS - 1)
+    stages = "; ".join(
+        f"stage {i}: forward busy {(r['fwd_s'] - r['fwd_wait_s']) * 1e3:.2f}"
+        f" ms, waiting {r['fwd_wait_s'] * 1e3:.2f} ms "
+        f"({r['fwd_wait_s'] / r['fwd_s'] * 100:.1f}%), step busy "
+        f"{(r['step_s'] - r['step_wait_s']) * 1e3:.2f} ms, waiting "
+        f"{r['step_wait_s'] * 1e3:.2f} ms "
+        f"({r['step_wait_s'] / r['step_s'] * 100:.1f}%)"
+        for i, r in enumerate(ranks))
+    step_s = max(r["step_s"] for r in ranks)
+    fwd_s = max(r["fwd_s"] for r in ranks)
+    phase("G1 pipeline",
+          f"TransUnet R50-ViT-B/16 {SIZE}x{SIZE} batch {BATCH}, S = "
+          f"{PARALLEL_RANKS} gloo stages of {per} blocks on one card ({smi}),"
+          f" M = {G1_MICRO} microbatches of {BATCH // G1_MICRO}: bf16 eval "
+          f"forward {eval_err:.3e} from one process's (bound "
+          f"{TP_EVAL_REL_TOL * peak:.3e}), {a['eval_launches']} attention "
+          f"launches a rank; the f32 SGD step on the pipelined forward "
+          f"against one process: loss {a['loss']:.7f} vs {ref[0]:.7f} (rel "
+          f"err {loss_err:.2e}), the worst gradient {worst_name} at "
+          f"{worst:.2f} times the one-process f32 error against f64 (bound "
+          f"{T4_NOISE_RATIO:.0f}), {a['step_launches'][0]} + "
+          f"{a['step_launches'][1]} attention launches a rank on "
+          f"{a['route']} 64/64; bf16 forward median {fwd_s * 1e3:.2f} ms = "
+          f"{BATCH / fwd_s:.1f} img/s, step median {step_s * 1e3:.2f} ms = "
+          f"{BATCH / step_s:.1f} img/s (two ranks share one card: not a "
+          f"scaling figure); the textbook bubble (S-1)/(M+S-1) = "
+          f"{bubble * 100:.0f}%, measured (time in the handoffs and the "
+          f"output's broadcast, after a device sync) {stages}; peak "
+          f"{max(r['peak'] for r in ranks) / 2**30:.2f} GiB a rank")
+    return {"img_s": BATCH / step_s, "eval_img_s": BATCH / fwd_s,
+            "loss_rel_err": loss_err, "worst_rel_err": worst,
+            "eval_err": eval_err,
+            "fused_attention": sum(r["eval_launches"] for r in ranks),
+            "attention_train_forward": sum(r["step_launches"][0]
+                                           for r in ranks),
+            "attention_backward": sum(r["step_launches"][1] for r in ranks),
+            "wait_share": {"forward": [r["fwd_wait_s"] / r["fwd_s"]
+                                       for r in ranks],
+                           "step": [r["step_wait_s"] / r["step_s"]
+                                    for r in ranks]},
+            "bubble": bubble, "peak_gib": max(r["peak"]
+                                              for r in ranks) / 2**30}
+
+
 def check_parallel(at, fc, dev, smi):
-    """D1-D3, after the one-process phases, whose cached card memory is
-    freed first: the ranks are other processes."""
+    """D1-D3, S1 and G1, after the one-process phases, whose cached card
+    memory is freed first: the ranks are other processes."""
     import gc
 
     gc.collect()
     torch.cuda.empty_cache()
-    return {"d1": check_d1(at, dev, smi), "d2": check_d2(at, fc, dev, smi),
-            "d3": check_d3(at, dev, smi)}
+    d1_ref = d1_reference(at, dev)
+    return {"d1": check_d1(at, dev, smi, d1_ref),
+            "d2": check_d2(at, fc, dev, smi),
+            "d3": check_d3(at, dev, smi),
+            "s1": check_s1(fc, dev, smi, d1_ref),
+            "g1": check_g1(at, dev, smi)}
 
 
 def main(cltr_profile=False, cltr_two_batches_only=False,
@@ -3912,8 +4390,8 @@ def main(cltr_profile=False, cltr_two_batches_only=False,
     # M1-M5: the min-plus kernel, the binary, two-head and attention UNets
     mpres = check_minplus(mp, dev)
     check_edt(dev)
-    m3_launches, dt_step_s, dt_plain_s, dice_step_s, m3_eval, m3_routes = \
-        check_binary_unet(at, fc, mp, dev, xs)
+    (m3_launches, dt_step_s, dt_plain_s, dice_step_s, m3_eval, m3_routes,
+     m3_remat) = check_binary_unet(at, fc, mp, dev, xs)
     mt_step_s, mt_eval, att_eval, mt_routes, att_routes = check_multitask(
         at, fc, dev, xs)
     m5_eval = check_multitask_trainer(at, fc, dev, xs)
@@ -4025,7 +4503,9 @@ def main(cltr_profile=False, cltr_two_batches_only=False,
             # D1: rank 0's eval forward of the data-parallel UNet; D2: the
             # tensor-parallel checkpoint served in one process
             "d1_unet_data_parallel_eval": pres["d1"]["conv_launches"],
-            "d2_checkpoint_eval": pres["d2"]["conv_launches"]},
+            "d2_checkpoint_eval": pres["d2"]["conv_launches"],
+            # S1: both ranks' bf16 eval forward of their 256-row strips
+            "s1_spatial_eval": pres["s1"]["conv_launches"]},
         # by route (wgmma, narrow, mma.sync, reg) in each eval forward
         "launches_by_route": {
             "unet": unet_routes, "transunet": tu_routes,
@@ -4095,7 +4575,9 @@ def main(cltr_profile=False, cltr_two_batches_only=False,
             "multi_task_regTU_after_training": v4_eval["fused_attention"],
             # D2: both ranks' eval forward of the sharded model and the
             # checkpoint's in one process
-            "d2_tensor_parallel_eval": pres["d2"]["fused_attention"]},
+            "d2_tensor_parallel_eval": pres["d2"]["fused_attention"],
+            # G1: both stages' bf16 eval forward, 6 blocks x 4 microbatches
+            "g1_pipeline_eval": pres["g1"]["fused_attention"]},
         # CLTR's eval forward: 6 encoder, 6 decoder self- and 6
         # cross-attentions at batch 16 (the trained model served 9 patches)
         "cltr": cltr_attention_numbers(cltr_bf16, (0, 1, 2, 3, 4), lib_cltr,
@@ -4132,7 +4614,9 @@ def main(cltr_profile=False, cltr_two_batches_only=False,
             # both ranks, their 13 bf16 steps (D2) and their f32 step (D3)
             "d2_tensor_parallel_train":
                 pres["d2"]["attention_train_forward"],
-            "d3_cltr_data_parallel": pres["d3"]["attention_train_forward"]},
+            "d3_cltr_data_parallel": pres["d3"]["attention_train_forward"],
+            # G1: both stages' f32 step on the pipelined forward
+            "g1_pipeline_train": pres["g1"]["attention_train_forward"]},
         # one CLTR train step's 18 launches, bias and dropout 0.1 together
         "cltr": cltr_attention_numbers(cltr_train_bf16, (0, 1, 2, 6, 8),
                                        lib_cltr, 1, cltr_layers, lse=True),
@@ -4164,7 +4648,8 @@ def main(cltr_profile=False, cltr_two_batches_only=False,
             "regression_t_train": v1_launches["attention_backward"],
             "multi_task_regTU_train": v2_launches["attention_backward"],
             "d2_tensor_parallel_train": pres["d2"]["attention_backward"],
-            "d3_cltr_data_parallel": pres["d3"]["attention_backward"]},
+            "d3_cltr_data_parallel": pres["d3"]["attention_backward"],
+            "g1_pipeline_train": pres["g1"]["attention_backward"]},
         "cltr": cltr_attention_numbers(cltr_train_bf16, (3, 4, 5, 7, 9),
                                        lib_cltr, 2, cltr_layers,
                                        backward=True),
@@ -4288,6 +4773,11 @@ def main(cltr_profile=False, cltr_two_batches_only=False,
         "binary_unet_hausdorff_dt_img_s": BATCH / dt_step_s,
         "binary_unet_plain_minplus_img_s": BATCH / dt_plain_s,
         "binary_unet_dice_bce_img_s": BATCH / dice_step_s,
+        # models/unet.py remat: the HausdorffDTLoss step recomputing its
+        # blocks in the backward
+        "binary_unet_remat_img_s": BATCH / m3_remat["step_s"],
+        "binary_unet_remat_peak_gib": m3_remat["peak"] / 2**30,
+        "binary_unet_peak_gib": m3_remat["plain_peak"] / 2**30,
         "multitask_unet_img_s": BATCH / mt_step_s,
         "regression_t_img_s": BATCH / v1_step_s,
         "regression_t_peak_gib": v1_peak / 2**30,

@@ -1,6 +1,7 @@
 """The port's own copies of the framework-free modules (cli/config.py, data/*,
 eval/matching.py, eval/peaks.py, the report accumulators in
-eval/results.py, and the native pairing native/ph0.*) against their
+eval/results.py, utils/logger.py, and the native pairing native/ph0.*)
+against their
 originals in the JAX package: on the same seeded numpy inputs both give
 equal values, not close ones."""
 
@@ -453,3 +454,26 @@ def test_native_ph0_equals_original(case, bars):
 def test_native_count_components_equals_original():
     mask = _ph0_inputs()[2]
     assert _both(_pair("native.ph0"), lambda m: m.count_components(mask)) == 3
+
+
+# ------------------------------------------------------------ utils/logger
+
+def test_logger_equals_original(monkeypatch):
+    """The same series through SmoothedValue and MetricLogger.log_every,
+    with a clock that ticks alike for both: equal values and lines."""
+    import time
+
+    def run(m):
+        clock = iter(np.arange(0.0, 100.0, 0.25))
+        monkeypatch.setattr(time, "time", lambda: float(next(clock)))
+        value = m.SmoothedValue(window_size=4)
+        for x in (3.0, 1.0, 4.0, 1.0, 5.0, 9.0):
+            value.update(x, n=2)
+        lines = []
+        logger = m.MetricLogger(print_fn=lines.append)
+        for i in logger.log_every(list(range(7)), 3, header="Epoch 2"):
+            logger.update(loss=1.0 / (i + 1), acc=i)
+        return ([value.median, value.avg, value.global_avg, value.max,
+                 value.value, str(value)], str(logger), lines)
+
+    _both(_pair("utils.logger"), run)

@@ -51,8 +51,10 @@ from unet_torch_tpu_torch.models.cltr import segmentation, transformer
 from unet_torch_tpu_torch.models.transunet import configs, resnetv2, vit
 from unet_torch_tpu_torch.models.unet import build_model
 from unet_torch_tpu_torch.nn import blocks, dropout
+from unet_torch_tpu_torch.parallel import pipeline, spatial
 from unet_torch_tpu_torch.train import cltr_loop, cltr_steps, optim, steps
 from unet_torch_tpu_torch.train import trainer
+from unet_torch_tpu_torch.utils import debug, logger
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in (
     "jax", "jaxlib", "flax", "optax", "unet_torch_tpu"))
 assert not loaded, loaded

@@ -14,7 +14,8 @@ sweep axis (train.py:182-183). Beside the reference's keys:
                            data)
 
 `remat`, `fold` and `fused_head` are options of the JAX package, parsed here
-with its defaults; the port warns and ignores them
+with its defaults; the port recomputes the plain UNet's blocks under
+`remat` (models/unet.py), and warns about and ignores the rest
 (models/unet.py::ignore_tpu_options, train/steps.py).
 `topo_pair_downsample` is the topo loop's pooling of the map it pairs
 (train/steps.py::make_topo_steps).
@@ -49,8 +50,8 @@ class ModelConfig:
     dropout: bool = False
     anydepth: bool = False
     # options of the JAX package (activation rematerialisation, W-folded
-    # activations, loss on folded class planes): parsed, warned about and
-    # ignored by the port
+    # activations, loss on folded class planes): remat of the plain UNet
+    # runs, the others are parsed, warned about and ignored by the port
     remat: bool = False
     fold: bool = True
     fused_head: bool = True

@@ -18,10 +18,22 @@ term formed from all ranks' shares (a Dice sum, a BatchNorm statistic) and
 averaged by DistributedDataParallel gives every parameter its one-process
 gradient. A group of None is one process: every collective here is then the
 identity.
+
+The point-to-point ops move tensors between neighbours of a group, in its
+rank order: `exchange_rows`, the halo of a strip of the image's height
+(parallel/spatial.py), and `send_next` / `recv_prev` / `broadcast_from`, the
+stage handoffs of a pipeline (parallel/pipeline.py). Each is differentiable,
+its backward the adjoint of its forward. Gloo's `send` and `recv` take CPU
+tensors only, so under gloo a CUDA tensor crosses through a pinned host
+buffer; under NCCL it goes directly. Every one is posted through
+`batch_isend_irecv` (NCCL needs a rank's sends and receives to one peer in
+one group call) and waited for at most P2P_TIMEOUT, so that a peer that never
+answers raises instead of hanging the step.
 """
 
 from __future__ import annotations
 
+import datetime
 import os
 
 import torch
@@ -205,3 +217,181 @@ def reduce_from_group(x: torch.Tensor, group) -> torch.Tensor:
     if group is None:
         return x
     return _ReduceFromGroup.apply(x, group)
+
+
+# the longest a point-to-point op waits for its peer before it raises
+P2P_TIMEOUT = datetime.timedelta(seconds=300)
+
+
+def _staged(t: torch.Tensor, group) -> bool:
+    """True where `t` crosses through a host buffer: a CUDA tensor under
+    gloo, whose point-to-point ops take CPU tensors only."""
+    return t.device.type == "cuda" and dist.get_backend(group) == "gloo"
+
+
+def _p2p(group, sends, recvs) -> list:
+    """Post `sends` [(tensor, peer, tag)] and `recvs` [(like, peer, tag)],
+    peers by their rank in `group`, and wait for all of them; returns a
+    received tensor for each of `recvs`, of its `like`'s shape, dtype and
+    device."""
+    ops, out = [], []
+    for t, peer, tag in sends:
+        t = t.detach()
+        if _staged(t, group):
+            t = torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t)
+        else:
+            t = t.contiguous()
+        ops.append(dist.P2POp(dist.isend, t, dist.get_global_rank(group, peer),
+                              group, tag))
+    for like, peer, tag in recvs:
+        staged = _staged(like, group)
+        buf = torch.empty(like.shape, dtype=like.dtype,
+                          device="cpu" if staged else like.device,
+                          pin_memory=staged)
+        ops.append(dist.P2POp(dist.irecv, buf,
+                              dist.get_global_rank(group, peer), group, tag))
+        out.append(buf)
+    for work in dist.batch_isend_irecv(ops) if ops else ():
+        work.wait(P2P_TIMEOUT)
+    return [buf.to(like.device) for buf, (like, _, _) in zip(out, recvs)]
+
+
+# the tags of the two directions along a group's rank order
+_DOWN, _UP = 0, 1
+
+
+def _swap_edges(top: torch.Tensor, bottom: torch.Tensor, group):
+    """Send `top` to the previous rank of `group` and `bottom` to the next;
+    returns (the previous rank's `bottom`, the next rank's `top`), zeros at
+    either end of the order."""
+    index, size = dist.get_rank(group), dist.get_world_size(group)
+    sends, recvs = [], []
+    if index > 0:
+        sends.append((top, index - 1, _UP))
+        recvs.append((bottom, index - 1, _DOWN))
+    if index < size - 1:
+        sends.append((bottom, index + 1, _DOWN))
+        recvs.append((top, index + 1, _UP))
+    got = _p2p(group, sends, recvs)
+    above = got.pop(0) if index > 0 else torch.zeros_like(bottom)
+    below = got.pop(0) if index < size - 1 else torch.zeros_like(top)
+    return above, below
+
+
+class _ExchangeRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, halo, dim):
+        ctx.group, ctx.halo, ctx.dim = group, halo, dim
+        n = x.shape[dim]
+        above, below = _swap_edges(x.narrow(dim, 0, halo),
+                                   x.narrow(dim, n - halo, halo), group)
+        return torch.cat([above, x, below], dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, halo, dim = ctx.group, ctx.halo, ctx.dim
+        n = g.shape[dim] - 2 * halo
+        # the halo rows' gradients go back to the neighbours they came from,
+        # and theirs of this strip's edge rows come back here
+        top, bottom = _swap_edges(g.narrow(dim, 0, halo),
+                                  g.narrow(dim, halo + n, halo), group)
+        dx = g.narrow(dim, halo, n).clone(
+            memory_format=torch.contiguous_format)
+        dx.narrow(dim, 0, halo).add_(top)
+        dx.narrow(dim, n - halo, halo).add_(bottom)
+        return dx, None, None, None
+
+
+def exchange_rows(x: torch.Tensor, group, halo: int = 1,
+                  dim: int = 2) -> torch.Tensor:
+    """The strip `x` with `halo` rows of each neighbour in `group`'s rank
+    order along `dim` (the previous rank's last rows before, the next
+    rank's first after), zero rows at the image's top and bottom: what a
+    pad-`halo` conv reads of the whole image around this strip. The
+    backward adds each halo row's gradient into the neighbour's edge row it
+    came from."""
+    if x.shape[dim] < halo:
+        raise ValueError(f"a strip of {x.shape[dim]} rows has no {halo} "
+                         "rows to exchange")
+    return _ExchangeRows.apply(x, group, halo, dim)
+
+
+class _RecvPrev(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, like, group, tag):
+        ctx.group, ctx.tag = group, tag
+        index = dist.get_rank(group)
+        return _p2p(group, [], [(like, index - 1, tag)])[0]
+
+    @staticmethod
+    def backward(ctx, g):
+        _p2p(ctx.group, [(g, dist.get_rank(ctx.group) - 1, ctx.tag)], [])
+        return None, None, None
+
+
+def recv_prev(like: torch.Tensor, group, tag: int = 0) -> torch.Tensor:
+    """A tensor of `like`'s shape, dtype and device from the previous rank
+    of `group` (its `send_next` of the same tag). Where `like` requires
+    grad, the result is a node of the graph whose backward sends the
+    gradient back to that rank; `like`, which gives only the shape, gets no
+    gradient but anchors the node: differentiate with respect to it to run
+    the backward."""
+    return _RecvPrev.apply(like, group, tag)
+
+
+class _SendNext(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, tag):
+        ctx.group, ctx.tag = group, tag
+        ctx.like = (x.shape, x.dtype, x.device)
+        _p2p(group, [(x, dist.get_rank(group) + 1, tag)], [])
+        return x.new_zeros(())
+
+    @staticmethod
+    def backward(ctx, _):
+        shape, dtype, device = ctx.like
+        like = torch.empty(shape, dtype=dtype, device=device)
+        g = _p2p(ctx.group, [],
+                 [(like, dist.get_rank(ctx.group) + 1, ctx.tag)])[0]
+        return g, None, None
+
+
+def send_next(x: torch.Tensor, group, tag: int = 0) -> torch.Tensor:
+    """Send `x` to the next rank of `group` (its `recv_prev` of the same
+    tag). Returns a 0-d zero, a node of the graph whose backward receives
+    the gradient of `x` from that rank: differentiate it (with any
+    gradient) to pull the gradient back."""
+    return _SendNext.apply(x, group, tag)
+
+
+def broadcast_adjoint(g: torch.Tensor, src: int, group) -> torch.Tensor:
+    """The backward of `broadcast_from`: every rank differentiated its copy
+    of the one loss, so their mean is that loss's gradient, which rank
+    `src` takes; the others take zero."""
+    g = all_reduce_(g.clone(memory_format=torch.contiguous_format),
+                    group) / dist.get_world_size(group)
+    return g if dist.get_rank(group) == src else torch.zeros_like(g)
+
+
+class _BroadcastFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, src, group):
+        ctx.src, ctx.group = src, group
+        y = x.detach().clone(memory_format=torch.contiguous_format)
+        dist.broadcast(y, dist.get_global_rank(group, src), group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return broadcast_adjoint(g, ctx.src, ctx.group), None, None
+
+
+def broadcast_from(x: torch.Tensor, src: int, group) -> torch.Tensor:
+    """Rank `src` of `group`'s `x` on every rank of the group (the others'
+    `x` gives the shape). Differentiable: each rank differentiates its copy
+    of one loss, so the backward hands the source the mean of the ranks'
+    gradients (not their sum, which would count the loss once a rank) and
+    the others zero. None: `x`."""
+    if group is None:
+        return x
+    return _BroadcastFrom.apply(x, src, group)

@@ -275,7 +275,11 @@ class Conv2dReLU(nn.Sequential):
     and `.2`. In eval mode BN folds its running statistics into a scale and
     bias and the three run as one fused_conv3x3_bn_relu call (the Hopper
     kernel on a CUDA tensor); in train mode they run as torch's conv (the
-    weight cast to the input's dtype), BN and ReLU."""
+    weight cast to the input's dtype), BN and ReLU. The kernel is
+    inference-only, so an eval-mode forward that autograd records (the
+    pipelined forward's train step, whose BN keeps its running statistics
+    as the JAX package's does) runs the train path's conv, BN on the
+    running statistics, and ReLU."""
 
     def __init__(self, in_channels: int, out_channels: int):
         super().__init__(
@@ -286,7 +290,8 @@ class Conv2dReLU(nn.Sequential):
 
     def forward(self, x):
         conv, bn = self[0], self[1]
-        if self.training:
+        if self.training or (torch.is_grad_enabled() and (
+                x.requires_grad or conv.weight.requires_grad)):
             y = F.conv2d(x.permute(0, 3, 1, 2), conv.weight.to(x.dtype),
                          padding=1)
             return F.relu(bn(y)).permute(0, 2, 3, 1)

@@ -12,14 +12,24 @@ no copy).
 
 Channel codes (reference Model.py:99-104): -1 -> 1 input channel (HED
 hematoxylin), -2 -> 3 channels (Macenko-normalised RGB).
+
+`UNet(remat=True)` (the `single` and `regression` types, as in the JAX CLI)
+recomputes its first DoubleConv, its Down blocks and its Up blocks in the
+backward instead of keeping their activations (the JAX `nn.remat` of the
+same blocks), through `torch.utils.checkpoint`. The recompute replays the
+dropout generator's state of the forward, so it draws the same masks, and
+keeps the BatchNorms' running statistics as the forward left them, so they
+are updated once a step.
 """
 
 from __future__ import annotations
 
+import contextlib
 import warnings
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from unet_torch_tpu_torch.core import not_ported
 from unet_torch_tpu_torch.nn.blocks import (
@@ -31,7 +41,8 @@ from unet_torch_tpu_torch.nn.blocks import (
     reset_parameters,
 )
 
-# options of the JAX package that shape TPU layouts or memory; no meaning here
+# options of the JAX package that shape TPU layouts; no meaning here (`remat`
+# has one for the plain UNet, which takes it itself)
 _TPU_OPTIONS = ("fold", "remat", "head_dtype")
 
 # the TransUnet types the CLIs train and serve, built by
@@ -48,13 +59,47 @@ def resolve_channels(n_channels: int) -> int:
     return n_channels
 
 
+@contextlib.contextmanager
+def _replay(block: nn.Module, generator, state):
+    """The recompute of `block`: its dropout generator at `state` (the
+    forward's), then back where it was; its buffers (BN running statistics,
+    batch counts) kept as the forward left them."""
+    now = None if generator is None else generator.get_state()
+    buffers = [(b, b.clone()) for b in block.buffers()]
+    if generator is not None:
+        generator.set_state(state)
+    try:
+        yield
+    finally:
+        if generator is not None:
+            generator.set_state(now)
+        with torch.no_grad():
+            for b, value in buffers:
+                b.copy_(value)
+
+
+def recompute(block: nn.Module, *args):
+    """block(*args), its activations recomputed in the backward where
+    autograd records a train-mode forward (module docstring)."""
+    if not (block.training and torch.is_grad_enabled()):
+        return block(*args)
+    generator = next((m.generator for m in block.modules()
+                      if getattr(m, "generator", None) is not None), None)
+    state = None if generator is None else generator.get_state()
+    return checkpoint(block, *args, use_reentrant=False, context_fn=lambda: (
+        contextlib.nullcontext(), _replay(block, generator, state)))
+
+
 class UNet(nn.Module):
-    """Vanilla U-Net. Input (B,H,W,C_in) -> logits (B,H,W,n_classes)."""
+    """Vanilla U-Net. Input (B,H,W,C_in) -> logits (B,H,W,n_classes).
+    `remat`: recompute the blocks' activations in the backward (module
+    docstring)."""
 
     def __init__(self, n_channels: int, n_classes: int, base: int = 64,
                  dropout: bool = False, dropout_p: float = 0.5,
-                 generator=None):
+                 generator=None, remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.inc = DoubleConv(n_channels, base)
         self.down1 = Down(base, base * 2, dropout, dropout_p)
         self.down2 = Down(base * 2, base * 4, dropout, dropout_p)
@@ -68,15 +113,16 @@ class UNet(nn.Module):
         reset_parameters(self, generator)
 
     def forward(self, x):
-        x1 = self.inc(x.permute(0, 3, 1, 2))
-        x2 = self.down1(x1)
-        x3 = self.down2(x2)
-        x4 = self.down3(x3)
-        x5 = self.down4(x4)
-        x = self.up1(x5, x4)
-        x = self.up2(x, x3)
-        x = self.up3(x, x2)
-        x = self.up4(x, x1)
+        run = recompute if self.remat else (lambda block, *args: block(*args))
+        x1 = run(self.inc, x.permute(0, 3, 1, 2))
+        x2 = run(self.down1, x1)
+        x3 = run(self.down2, x2)
+        x4 = run(self.down3, x3)
+        x5 = run(self.down4, x4)
+        x = run(self.up1, x5, x4)
+        x = run(self.up2, x, x3)
+        x = run(self.up3, x, x2)
+        x = run(self.up4, x, x1)
         return self.outc(x).permute(0, 2, 3, 1)
 
 
@@ -180,12 +226,16 @@ def build_model(model_type: str, *, n_channels: int, n_classes: int,
     """Model factory for the UNet family (`TransUnet_unet_fallback` is the
     plain UNet, as in the JAX package).
 
-    `fold`, `remat` and `head_dtype` are accepted for config compatibility
-    with the JAX package and ignored with a warning."""
-    ignore_tpu_options(tpu_options)
+    `remat` recomputes the plain UNet's blocks in the backward (`single`,
+    `regression`, the types the JAX CLI passes it for); `fold`,
+    `head_dtype` and `remat` for the other types are accepted for config
+    compatibility with the JAX package and ignored with a warning."""
     if model_type in ("single", "regression", "TransUnet_unet_fallback"):
+        remat = bool(tpu_options.pop("remat", False))
+        ignore_tpu_options(tpu_options)
         return UNet(resolve_channels(n_channels), n_classes, base, dropout,
-                    dropout_p, generator=generator)
+                    dropout_p, generator=generator, remat=remat)
+    ignore_tpu_options(tpu_options)
     if model_type in ("multi_task", "multi_task_reg"):
         return UNetMultitask(resolve_channels(n_channels), n_classes, base,
                              dropout, dropout_p, generator=generator)

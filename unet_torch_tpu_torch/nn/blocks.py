@@ -20,6 +20,13 @@ conv (weight cast to the input's dtype), BN (batch statistics in f32, the
 running ones kept f32 with torch's unbiased variance update, as the
 reference's BatchNorm2d keeps them) and ReLU. Dropout draws from the
 generator bound by nn/dropout.py::set_dropout_generator.
+
+Under a spatial mesh (parallel/spatial.py::spatialize) a rank holds a strip
+of the image's height, and DoubleConv, the family's only 3x3 convs, reads
+one row of each neighbouring strip (core/dist.py::exchange_rows) before
+each conv: in train mode torch's conv then pads the width alone; in eval
+mode the fused conv runs on the haloed strip and keeps its inner rows,
+which are the strip's rows of the whole image's conv.
 """
 
 from __future__ import annotations
@@ -30,11 +37,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from unet_torch_tpu_torch.core.dist import exchange_rows
 from unet_torch_tpu_torch.kernels.fused_conv import (
     fold_bn,
     fused_conv3x3_bn_relu,
 )
-from unet_torch_tpu_torch.nn.dropout import Dropout
+from unet_torch_tpu_torch.nn.dropout import Dropout, MeshBound
 
 
 def reset_parameters(module: nn.Module, generator=None) -> None:
@@ -59,8 +67,9 @@ def reset_parameters(module: nn.Module, generator=None) -> None:
             m.reset_parameters()
 
 
-class DoubleConv(nn.Module):
-    """(Conv3x3 pad=1 bias=False -> BatchNorm -> ReLU) * 2."""
+class DoubleConv(MeshBound, nn.Module):
+    """(Conv3x3 pad=1 bias=False -> BatchNorm -> ReLU) * 2; on a strip of a
+    spatial mesh, with the neighbours' rows (module docstring)."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  mid_channels: int | None = None):
@@ -75,20 +84,34 @@ class DoubleConv(nn.Module):
             nn.ReLU(inplace=True),
         )
 
+    def _strips(self):
+        """The group of the strips of the height, or None."""
+        mesh = self.mesh
+        if mesh is None or mesh.role != "spatial":
+            return None
+        return mesh.model_group
+
     def forward(self, x):
+        group = self._strips()
+        pairs = ((self.double_conv[0], self.double_conv[1]),
+                 (self.double_conv[3], self.double_conv[4]))
         if self.training:
-            for conv, bn in ((self.double_conv[0], self.double_conv[1]),
-                             (self.double_conv[3], self.double_conv[4])):
-                x = F.relu(bn(F.conv2d(x, conv.weight.to(x.dtype),
-                                       padding=1)))
+            for conv, bn in pairs:
+                w = conv.weight.to(x.dtype)
+                y = (F.conv2d(x, w, padding=1) if group is None else
+                     F.conv2d(exchange_rows(x, group), w, padding=(0, 1)))
+                x = F.relu(bn(y))
             return x
         h = x.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
-        for conv, bn in ((self.double_conv[0], self.double_conv[1]),
-                         (self.double_conv[3], self.double_conv[4])):
+        for conv, bn in pairs:
             scale, bias = fold_bn(bn.weight, bn.bias, bn.running_mean,
                                   bn.running_var, bn.eps)
             w = conv.weight.permute(2, 3, 1, 0).to(h.dtype).contiguous()
-            h = fused_conv3x3_bn_relu(h, w, scale, bias)
+            if group is None:
+                h = fused_conv3x3_bn_relu(h, w, scale, bias)
+            else:
+                h = fused_conv3x3_bn_relu(exchange_rows(h, group, dim=1), w,
+                                          scale, bias)[:, 1:-1]
         return h.permute(0, 3, 1, 2)
 
 

@@ -8,10 +8,11 @@ binds with `set_dropout_generator` (it must live on the activations'
 device), so a run is reproducible from its seed. Inverted dropout: P(keep)
 = 1 - p, survivors scaled by 1 / (1 - p), identity in eval mode.
 
-In a data- or tensor-parallel step (core/mesh.py) every rank binds the same
-generator state and draws the mask of the whole batch, then applies its
-slice: its batch rows and, where the input is split over the model ranks
-(the column-parallel fc1 / linear1 output: `model_dim`), its columns. A
+In a data-, tensor- or spatially parallel step (core/mesh.py) every rank
+binds the same generator state and draws the mask of the whole batch, then
+applies its slice: its batch rows; where the input is split over the model
+ranks (the column-parallel fc1 / linear1 output: `model_dim`), its
+columns; under a spatial mesh, its strip of the height of an NCHW input. A
 rank's dropout then equals the one-process port's on its share, and the
 ranks' generators stay in step.
 """
@@ -50,7 +51,8 @@ class Dropout(MeshBound, nn.Module):
 
     def forward(self, x, model_dim: int | None = None):
         """`model_dim`: the dim of x split over the model ranks, or None
-        where x is replicated over them."""
+        where x is replicated over them (under a spatial mesh: the
+        height)."""
         if not self.training or self.p == 0.0:
             return x
         if self.p == 1.0:
@@ -60,6 +62,8 @@ class Dropout(MeshBound, nn.Module):
                                "set_dropout_generator(model, generator)")
         shape = list(x.shape)
         mesh = self.mesh
+        if mesh is not None and mesh.role == "spatial":
+            model_dim = 2  # the height of an NCHW activation
         if mesh is not None:
             shape[0] *= mesh.data
             if model_dim is not None:

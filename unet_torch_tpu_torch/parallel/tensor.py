@@ -143,6 +143,7 @@ def shard_model_tp(model: nn.Module, mesh) -> nn.Module:
     shares, the encoder's stacked q, k, v sliced by heads, and the mesh is
     bound to the dropouts and attentions. In place; returns the model. A
     mesh of model 1 only binds the mesh."""
+    mesh.check_role("tensor", "tensor parallelism")
     set_mesh(model, mesh)
     if mesh.model == 1:
         return model

@@ -30,7 +30,10 @@ two batch means), and the returned losses are the means over
 the group: the one-process step's. The eval steps run on every rank on
 the whole validation batch, with no group. A tensor-parallel model's
 replicated gradients are averaged over its model group after each backward
-(parallel/tensor.py::average_replicated_grads).
+(parallel/tensor.py::average_replicated_grads). Under a spatial mesh a rank
+holds a strip of its batch rows: the group is then the world group
+(`mesh.world_group`), which DistributedDataParallel and the loss's sums
+span (parallel/spatial.py).
 """
 
 from __future__ import annotations
