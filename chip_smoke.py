@@ -12,7 +12,8 @@
                                     mma.sync, in turns)
     python3 chip_smoke.py --topo   (build, then only T1 and the topo phases
                                     P1-P3)
-    python3 chip_smoke.py --parallel   (build, then only D1-D3, S1 and G1)
+    python3 chip_smoke.py --parallel   (build, then only D1-D3, S1, G1, S2
+                                    and S3)
 
 Builds the Hopper kernels from unet_torch_tpu_torch/csrc, then:
 
@@ -243,6 +244,28 @@ Builds the Hopper kernels from unet_torch_tpu_torch/csrc, then:
                 launches a rank; 10 bf16 forwards and 3 + 10 bf16 steps
                 timed, each stage's time in the handoffs beside the
                 textbook bubble (S - 1) / (M + S - 1); peak memory a rank
+ S2. spatial    TransUnet R50-ViT-B/16 at 512x512, batch 8, (D, M) = (1, 2)
+     TransUnet  spatial ranks of 256 rows each: the fused conv at the
+                decoder's 9 haloed strip shapes and the attention kernels at
+                a strip's shape (8, 12, 512 queries, 1024 keys, 64), the
+                train calls and the mask probe at the query-row offset 512,
+                against plain, with plain, bound and library times; the bf16
+                eval forward (12 attention and 9 fused convs a rank) and the
+                f32 one, gathered, against the one-process forward (f32
+                within 1e-5, bf16 within 8 bf16 ulps of the logits' peak);
+                D2's f32 SGD step with dropout and attention dropout 0.1 on
+                the strips against one process, as D2; the halo and gather
+                bytes of a forward and a step; 10 bf16 forwards and 3 + 10
+                bf16 steps timed (12 + 12 attention launches a step)
+ S3. spatial    configs/cltr.yml's model, batch 16 crops of 256x256,
+     CLTR       (D, M) = (1, 2), 128 rows a rank: the encoder's attention at
+                a strip's shape (16, 8, 32 queries, 64 keys, 32) as in S2;
+                infer_step's outputs on every rank against one process's (f32
+                within 1e-5, bf16 within 8 bf16 ulps of each output's peak,
+                18 attention launches a rank); D3's f32 Adam step on the
+                strips, the auction on the replicated outputs (one launch a
+                rank, the one-process step's matches), against one process,
+                as D3; 10 bf16 infer_steps and 3 + 10 bf16 steps timed
   L. library    one PyTorch library call beside each kernel that has one, for
                 the time only (nothing in the port calls them): cuDNN
                 conv2d with the scale folded into its weights, a bias and a
@@ -3207,7 +3230,7 @@ def parallel_rank(rank, world, port, case, out):
 
     maybe_initialize(force=True, backend="gloo")
     result = {"d1": d1_rank, "d2": d2_rank, "d3": d3_rank, "s1": s1_rank,
-              "g1": g1_rank}[case](rank, out)
+              "g1": g1_rank, "s2": s2_rank, "s3": s3_rank}[case](rank, out)
     torch.save(result, os.path.join(out, f"rank{rank}.pt"))
     torch.distributed.destroy_process_group()
 
@@ -3549,14 +3572,12 @@ def check_d2_attention(at, dev):
     return o_err, lse_err, g_rel
 
 
-def check_d2(at, fc, dev, smi):
-    """D2. Returns its numbers for the kernels line."""
-    from unet_torch_tpu_torch import ckpt
-    from unet_torch_tpu_torch.core.rng import seed_everything
+def d2_reference(at, dev):
+    """The one-process f32 and f64 SGD step of D2's TransUnet on D2's batch
+    with its dropouts (one_process_reference's tuple), which D2 and S2 are
+    held against."""
     from unet_torch_tpu_torch.train.optim import make_optimizer, poly_lr
     from unet_torch_tpu_torch.train.steps import make_single_steps
-
-    att_err = check_d2_attention(at, dev)
 
     def step_once(dtype):
         model, x, y = d2_model_batch(dev)
@@ -3568,7 +3589,16 @@ def check_d2(at, fc, dev, smi):
         return model, before, step(model, opt, x.to(dtype), y,
                                    poly_lr(D2_LR, 0, 1000), gen).item()
 
-    ref = one_process_reference(at, step_once)
+    return one_process_reference(at, step_once)
+
+
+def check_d2(at, fc, dev, smi, ref):
+    """D2, against `ref` (d2_reference). Returns its numbers for the
+    kernels line."""
+    from unet_torch_tpu_torch import ckpt
+    from unet_torch_tpu_torch.core.rng import seed_everything
+
+    att_err = check_d2_attention(at, dev)
     ref_loss = ref[0]
     x = torch.from_numpy(train_batch(np.random.RandomState(SEED + 23), BATCH,
                                      SIZE)[0]).to(dev)
@@ -3692,8 +3722,39 @@ def d3_rank(rank, out):
             "attention_backward": at.attention_backward.launches}
 
 
-def check_d3(at, dev, smi):
-    """D3. Returns its numbers for the kernels line."""
+@contextlib.contextmanager
+def recorded_matches(costs=None):
+    """A list that collects the matches of every CLTR train step run
+    inside the block (train/cltr_steps.py's match_targets, wrapped), on
+    the valid target slots: -1 on a padded slot, whose query no loss reads
+    and which the auction fills from whatever prices its bids left. A list
+    `costs` collects each step's cost matrices (L, B, Q, T) on the host."""
+    from unet_torch_tpu_torch.train import cltr_steps
+
+    matches, match_targets = [], cltr_steps.match_targets
+
+    def recorded(criterion, outputs, tgt_labels, tgt_points, tgt_valid,
+                 *args, **kw):
+        match = match_targets(criterion, outputs, tgt_labels, tgt_points,
+                              tgt_valid, *args, **kw)
+        matches.append(torch.where(tgt_valid, match, -1))
+        if costs is not None:
+            with torch.no_grad():
+                costs.append(criterion.all_cost_matrices(
+                    outputs, tgt_labels, tgt_points, tgt_valid).cpu())
+        return match
+
+    cltr_steps.match_targets = recorded
+    try:
+        yield matches
+    finally:
+        cltr_steps.match_targets = match_targets
+
+
+def d3_reference(at, dev):
+    """The one-process f32 and f64 Adam step of D3's CLTR on D3's batch
+    (one_process_reference's tuple), which D3 and S3 are held against, and
+    the f32 step's matches and costs on the host."""
     from unet_torch_tpu_torch.train.cltr_steps import train_step
     from unet_torch_tpu_torch.train.optim import make_optimizer
 
@@ -3709,7 +3770,15 @@ def check_d3(at, dev, smi):
                              "auction")
         return model, before, loss.item()
 
-    ref = one_process_reference(at, step_once)
+    costs = []
+    with recorded_matches(costs) as matches:
+        ref = one_process_reference(at, step_once)
+    return ref, (matches[0].cpu(), costs[0])
+
+
+def check_d3(at, dev, smi, ref):
+    """D3, against `ref` (d3_reference's first). Returns its numbers for
+    the kernels line."""
     ref_loss = ref[0]
     ranks, out = parallel_spawn("d3")
     shutil.rmtree(out)
@@ -3758,14 +3827,17 @@ def strip_conv_shapes(base, size, strips):
             for h, cin, cout in conv_shapes(base, size)]
 
 
-def check_strip_kernels(fc, dev):
-    """The fused conv at each haloed strip shape of S1 (bf16, batch 8)
-    against its plain version at phase 3's bound. Returns {shape: (err,
-    ms, back-to-back ms, plain ms, bound ms)}."""
+def check_strip_kernels(fc, dev, shapes=None, tag="S1"):
+    """The fused conv at each haloed strip shape (rows, W, Cin, Cout) of S1
+    (or `shapes`; bf16, batch 8) against its plain version at phase 3's
+    bound. Returns {shape: (err, ms, back-to-back ms, plain ms, bound ms,
+    cuDNN's ms as in L)}."""
+    import torch.nn.functional as F
+
     gen = torch.Generator().manual_seed(SEED + 26)
     results = {}
-    for rows, w, cin, cout in dict.fromkeys(strip_conv_shapes(
-            BASE, SIZE, PARALLEL_RANKS)):
+    shapes = shapes or strip_conv_shapes(BASE, SIZE, PARALLEL_RANKS)
+    for rows, w, cin, cout in dict.fromkeys(shapes):
         x = torch.randn(BATCH, rows, w, cin, generator=gen)
         wt = torch.randn(3, 3, cin, cout, generator=gen) * (
             2.0 / (9 * cin)) ** 0.5
@@ -3782,8 +3854,8 @@ def check_strip_kernels(fc, dev):
             bound = REL_TOL[torch.bfloat16] * ref.float().abs().max().item()
             if not err <= bound:
                 raise AssertionError(
-                    f"S1: the fused conv disagrees with plain at the strip "
-                    f"shape {(rows, w, cin, cout)}: {err} > {bound}")
+                    f"{tag}: the fused conv disagrees with plain at the "
+                    f"strip shape {(rows, w, cin, cout)}: {err} > {bound}")
 
             def kernel():
                 return fc.fused_conv3x3_bn_relu(x, wt, scale, bias)
@@ -3791,13 +3863,20 @@ def check_strip_kernels(fc, dev):
             ms, burst_ms = median_ms(kernel), median_ms(kernel, burst=BURST)
             plain_ms = median_ms(lambda: fc.fused_conv3x3_bn_relu_reference(
                 x, wt, scale, bias))
+            # L's cuDNN call at the same shape, rows padded as the kernel's
+            xc = x.permute(0, 3, 1, 2)
+            wc = (wt.float() * scale).permute(3, 2, 0, 1).to(
+                torch.bfloat16).contiguous(memory_format=torch.channels_last)
+            bc = bias.to(torch.bfloat16)
+            lib_ms = median_ms(lambda: torch.relu_(F.conv2d(
+                xc, wc, bc, padding=1)))
         pixels = BATCH * rows * w
         bound_ms = max(2 * 9 * cin * cout * pixels / PEAK_BF16,
                        (2 * pixels * (cin + cout) + 2 * 9 * cin * cout
                         + 8 * cout) / PEAK_BYTES) * 1e3
         results[(rows, w, cin, cout)] = (err, ms, burst_ms, plain_ms,
-                                         bound_ms)
-        del x, wt, out, ref
+                                         bound_ms, lib_ms)
+        del x, wt, out, ref, xc, wc
     return results
 
 
@@ -4162,6 +4241,620 @@ def check_g1(at, dev, smi):
                                               for r in ranks) / 2**30}
 
 
+# ---------------------------------------------------------------------------
+# S2, S3: spatial partitioning of the TransUnet and CLTR families, two gloo
+# ranks on one card
+# ---------------------------------------------------------------------------
+
+# the attention shapes on a strip of S2 (the ViT, 512 of 1024 tokens a rank)
+# and S3 (CLTR's encoder, 32 of 64 tokens a rank), and the train kernels'
+# offsets of rank 1: its query rows start at the strip's first token
+S2_ATTN_SHAPE = (BATCH, 12, 1024 // PARALLEL_RANKS, 1024, 64, 64)
+S3_ATTN_SHAPE = (CLTR_BATCH, 8, 64 // PARALLEL_RANKS, 64, 32, 32)
+STRIP_DROPOUT = 0.1
+
+
+class TrafficCount:
+    """The bytes a rank's strip collectives move, counted by wrapping
+    core/dist.py: each halo exchange's rows sent to its neighbours
+    (`_swap_edges`), and each gather's all-reduce payload, the whole
+    zero-padded tensor, in the forward and in its backward
+    (`_AllGatherDim`)."""
+
+    def __init__(self):
+        from unet_torch_tpu_torch.core import dist
+
+        self.dist = dist
+        self.halo = self.gather = 0
+        self.saved = (dist._swap_edges, dist._AllGatherDim.forward,
+                      dist._AllGatherDim.backward)
+        swap, fwd, bwd = self.saved
+
+        def swap_counted(top, bottom, group):
+            index = torch.distributed.get_rank(group)
+            size = torch.distributed.get_world_size(group)
+            self.halo += ((index > 0) * top.numel() * top.element_size()
+                          + (index < size - 1) * bottom.numel()
+                          * bottom.element_size())
+            return swap(top, bottom, group)
+
+        def fwd_counted(ctx, x, group, dim):
+            y = fwd(ctx, x, group, dim)
+            self.gather += y.numel() * y.element_size()
+            return y
+
+        def bwd_counted(ctx, g):
+            self.gather += g.numel() * g.element_size()
+            return bwd(ctx, g)
+
+        dist._swap_edges = swap_counted
+        dist._AllGatherDim.forward = staticmethod(fwd_counted)
+        dist._AllGatherDim.backward = staticmethod(bwd_counted)
+
+    def take(self):
+        """(halo bytes, gather bytes) since the last take."""
+        out = (self.halo, self.gather)
+        self.halo = self.gather = 0
+        return out
+
+    def close(self):
+        d = self.dist
+        swap, fwd, bwd = self.saved
+        d._swap_edges = swap
+        d._AllGatherDim.forward = staticmethod(fwd)
+        d._AllGatherDim.backward = staticmethod(bwd)
+
+
+def strip_attention_numbers(at, dev, shape, q_off, tag):
+    """The attention kernels at a strip's shape `shape` (the rank's Nq
+    queries against every strip's Nk keys, bf16): the eval forward, the
+    train forward at STRIP_DROPOUT with the query-row offset `q_off` and
+    its backward, each against its plain version with the same offsets at
+    T2's bounds, and the keep-mask probe at q_off bit for bit against the
+    plain hash; times of one launch and back to back, plain, bound and
+    scaled_dot_product_attention (whose dropout draws another mask: the
+    times only). Returns {"eval" | "train_fwd" | "bwd": (err, ms,
+    back-to-back ms, plain ms, bound ms, bound by, library ms)}."""
+    import torch.nn.functional as F
+
+    b, h, nq, nk, dqk, dv = shape
+    gen = torch.Generator().manual_seed(SEED + 28)
+    q, k, v, g = (torch.randn(s, generator=gen).to(dev, torch.bfloat16)
+                  for s in ((b, h, nq, dqk), (b, h, nk, dqk), (b, h, nk, dv),
+                            (b, h, nq, dv)))
+    scale, seed, rate = dqk ** -0.5, 4321, STRIP_DROPOUT
+    offsets = (0, 0, h, q_off)
+    vmax = v.float().abs().max().item()
+    out = {}
+    with torch.inference_mode():
+        o = at.fused_attention(q, k, v, scale=scale)
+        ref = at.attention_reference(q, k, v, scale)
+        err = (o.float() - ref.float()).abs().max().item()
+        if not err <= ATTN_REL_TOL[torch.bfloat16] * vmax:
+            raise AssertionError(f"{tag}: the eval attention at the strip "
+                                 f"shape {shape} is {err} from plain")
+
+        def kernel():
+            return at.fused_attention(q, k, v, scale=scale)
+
+        lib = median_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+        out["eval"] = (err, median_ms(kernel), median_ms(kernel, burst=BURST),
+                       median_ms(lambda: at.attention_reference(q, k, v,
+                                                                scale)),
+                       *attention_bound(shape)[:2], lib)
+    args = (q, k, v, scale, None, seed, rate)
+    o, lse = at.attention_train_forward(*args, offsets=offsets)
+    ref_o, ref_lse = at.attention_train_reference(*args, offsets=offsets)
+    o_err = (o.float() - ref_o.float()).abs().max().item()
+    lse_err = (lse - ref_lse).abs().max().item()
+    bwd = (q, k, v, ref_o, ref_lse, g, scale, None, seed, rate)
+    grads = at.attention_backward(*bwd, offsets=offsets)
+    refs = at.attention_backward_reference(*bwd, offsets=offsets)
+    g_rel = max((a.float() - r.float()).abs().max().item()
+                / r.float().abs().max().item() for a, r in zip(grads, refs))
+    if not (o_err <= ATTN_REL_TOL[torch.bfloat16] / (1 - rate) * vmax
+            and lse_err <= LSE_ABS_TOL
+            and g_rel <= GRAD_REL_TOL[torch.bfloat16]):
+        raise AssertionError(f"{tag}: the train attention at {shape} with "
+                             f"q_off {q_off}: o {o_err}, lse {lse_err}, "
+                             f"gradients {g_rel} of their peaks")
+    # the offset moves the mask: without it the output differs
+    if torch.equal(ref_o, at.attention_train_reference(*args)[0]):
+        raise AssertionError(f"{tag}: q_off {q_off} left the mask as it was")
+    mask = at.dropout_keep_mask(b * h, nq, nk, seed, rate, dev, q_off=q_off)
+    want = at.dropout_keep(seed, b * h, nq, nk, at.dfa_nk_p(nk),
+                           at.dropout_threshold(rate), row0=q_off,
+                           device=dev)
+    mask_bad = int((mask.bool() != want).sum())
+    if mask_bad:
+        raise AssertionError(f"{tag}: the probe's mask at q_off {q_off} "
+                             f"differs from the plain hash in {mask_bad} "
+                             "elements")
+
+    def fwd():
+        return at.attention_train_forward(*args, offsets=offsets)
+
+    def back():
+        return at.attention_backward(*bwd, offsets=offsets)
+
+    ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+
+    def lib_fwd():
+        return F.scaled_dot_product_attention(ql, kl, vl, dropout_p=rate)
+
+    lo = lib_fwd()
+    out["train_fwd"] = (
+        o_err, median_ms(fwd), median_ms(fwd, burst=BURST),
+        median_ms(lambda: at.attention_train_reference(*args,
+                                                       offsets=offsets)),
+        *attention_bound(shape, lse=True)[:2], median_ms(lib_fwd))
+    out["bwd"] = (
+        g_rel, median_ms(back), median_ms(back, burst=BURST),
+        median_ms(lambda: at.attention_backward_reference(*bwd,
+                                                          offsets=offsets)),
+        *attention_bound(shape, backward=True)[:2],
+        median_ms(lambda: torch.autograd.grad(lo, (ql, kl, vl), g,
+                                              retain_graph=True)))
+    return out
+
+
+@contextlib.contextmanager
+def plain_eval_kernels():
+    """The eval forwards' kernels on their plain versions (the fused conv
+    and the eval attention of the TransUnet and CLTR models): the f64
+    forwards that S2 and S3 anchor their f32 comparisons to (no kernel
+    takes f64)."""
+    from unet_torch_tpu_torch.kernels import attention as at
+    from unet_torch_tpu_torch.models.cltr import transformer
+    from unet_torch_tpu_torch.models.transunet import vit
+
+    # in the inputs' dtype throughout (the plain versions in the kernels'
+    # modules round their sums as the kernels do, in f32)
+    def attention(q, k, v, scale=None, key_padding_mask=None):
+        s = q @ k.transpose(-1, -2) * (q.shape[-1] ** -0.5 if scale is None
+                                       else scale)
+        if key_padding_mask is not None:
+            s = s + at.padding_bias(key_padding_mask).to(s.dtype)[
+                :, None, None, :]
+        return torch.softmax(s, dim=-1) @ v
+
+    def conv(x, w, scale, bias):
+        y = torch.nn.functional.conv2d(x.permute(0, 3, 1, 2),
+                                       w.permute(3, 2, 0, 1), padding=1)
+        return torch.relu(y.permute(0, 2, 3, 1) * scale.to(x.dtype)
+                          + bias.to(x.dtype))
+
+    saved = (vit.fused_attention, vit.fused_conv3x3_bn_relu,
+             transformer.fused_attention)
+    vit.fused_attention = transformer.fused_attention = attention
+    vit.fused_conv3x3_bn_relu = conv
+    try:
+        yield
+    finally:
+        (vit.fused_attention, vit.fused_conv3x3_bn_relu,
+         transformer.fused_attention) = saved
+
+
+def check_f32_forward(tag, ours, one32, one64):
+    """A multi-rank f32 forward `ours` against one process's `one32`:
+    within MODEL_REL_TOL of the peak, or, where one process's own f32
+    forward is further than that from its f64 forward `one64` (a deep
+    network's f32 rounding, which cuDNN's and cuBLAS's choices of
+    algorithm by shape reorder), no further from the f64 forward than
+    T4_NOISE_RATIO times it: T4's bound, which the multi-rank gradients
+    keep. Returns (err, bound, the one-process f32 error against f64, the
+    multi-rank one)."""
+    peak = one32.abs().max().item()
+    err = (ours - one32).abs().max().item()
+    noise = (one32.double() - one64).abs().max().item()
+    own = (ours.double() - one64).abs().max().item()
+    bound = max(MODEL_REL_TOL * peak, T4_NOISE_RATIO * noise)
+    if not (err <= MODEL_REL_TOL * peak or own <= T4_NOISE_RATIO * noise):
+        raise AssertionError(
+            f"{tag}: the f32 forward is {err} from one process's (bound "
+            f"{MODEL_REL_TOL * peak}) and {own} from its f64 forward, whose "
+            f"f32 forward is {noise} from it (bound {T4_NOISE_RATIO:.0f} "
+            "times that)")
+    return err, bound, noise, own
+
+
+def attention_summary(nums):
+    return "; ".join(
+        f"{name} err {r[0]:.2e}, {r[1]:.4f} ms, back to back {r[2]:.4f}, "
+        f"plain {r[3]:.4f}, bound {r[4]:.4f} ({r[5]}), library {r[6]:.4f}"
+        for name, r in nums.items())
+
+
+def s2_rank(rank, out):
+    """S2 on a rank: TransUnet R50-ViT-B/16 spatialized over (D, M) =
+    (1, 2), the rank's 256 rows; the eval forward in f32 and bf16 (its
+    launches, halo and gather bytes), then D2's f32 SGD step with dropout
+    and attention dropout 0.1 on its strip, and 3 + 10 bf16 steps timed."""
+    from torch.nn.parallel import DistributedDataParallel
+
+    from unet_torch_tpu_torch.core.mesh import make_mesh
+    from unet_torch_tpu_torch.core.rng import seed_everything
+    from unet_torch_tpu_torch.kernels import attention as at
+    from unet_torch_tpu_torch.kernels import fused_conv as fc
+    from unet_torch_tpu_torch.parallel.spatial import (
+        gather_spatial,
+        shard_spatial,
+        spatialize,
+    )
+    from unet_torch_tpu_torch.train.optim import make_optimizer, poly_lr
+    from unet_torch_tpu_torch.train.steps import make_single_steps
+
+    dev = torch.device("cuda", 0)
+    mesh = make_mesh(1, PARALLEL_RANKS, role="spatial")
+    traffic = TrafficCount()
+    result = {}
+    model = spatialize(seeded_transunet(seed_everything(SEED)).to(dev),
+                       mesh).eval()
+    xs = eval_batch(np.random.RandomState(SEED))
+    with torch.inference_mode():
+        (x32,) = shard_spatial(mesh, [xs], dev)
+        result["eval_f32"] = gather_spatial(model(x32), mesh).cpu()
+        xb = x32.to(torch.bfloat16)
+        fc.reset_launches()
+        at.fused_attention.launches = 0
+        traffic.take()
+        logits = model(xb)
+        torch.cuda.synchronize()
+        result.update(
+            eval_conv_launches=fc.fused_conv3x3_bn_relu.launches,
+            eval_conv_routes=dict(fc.fused_conv3x3_bn_relu.launches_by_route),
+            eval_attention_launches=at.fused_attention.launches,
+            eval_bytes=traffic.take(),
+            eval_bf16=gather_spatial(logits, mesh).float().cpu())
+        times = []
+        for _ in range(REPS + 2):
+            t0 = time.perf_counter()
+            model(xb)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        result["fwd_s"] = statistics.median(times[2:])
+    del model, logits
+    torch.cuda.empty_cache()
+    model, x, y = d2_model_batch(dev)
+    spatialize(model, mesh)
+    net = DistributedDataParallel(model, device_ids=[0],
+                                  process_group=mesh.world_group,
+                                  broadcast_buffers=False)
+    opt = make_optimizer("SGD", model.parameters(), D2_LR, 1e-4)
+    step, _ = make_single_steps("dice_bce_mc", "dice_bce_mc", N_CLASSES,
+                                group=mesh.world_group)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    strip = mesh.strip(SIZE)
+    x, y = x[:, strip].contiguous(), y[:, strip].contiguous()
+    loss = step(net, opt, x, y, poly_lr(D2_LR, 0, 1000), gen).item()
+    result.update(
+        loss=loss, state=host_state(model.state_dict()),
+        grads={n: p.grad.detach().cpu() for n, p in model.named_parameters()},
+        buffers=host_state(dict(model.named_buffers())))
+    xb = x.to(torch.bfloat16)
+    torch.cuda.reset_peak_memory_stats(dev)
+    at.attention_train_forward.launches = at.attention_backward.launches = 0
+    traffic.take()
+    n_steps = TRAIN_WARMUP + TRAIN_STEPS
+    times = timed_steps(lambda i: step(net, opt, xb, y,
+                                       poly_lr(D2_LR, i + 1, 1000), gen),
+                        n_steps)
+    halo, gather = traffic.take()
+    result.update(step_s=statistics.median(times[TRAIN_WARMUP:]),
+                  peak=torch.cuda.max_memory_allocated(dev),
+                  fwd_launches=at.attention_train_forward.launches,
+                  bwd_launches=at.attention_backward.launches,
+                  step_bytes=(halo // n_steps, gather // n_steps))
+    traffic.close()
+    return result
+
+
+def check_s2(at, fc, dev, smi, ref):
+    """S2, its step against `ref` (d2_reference). Returns its numbers for
+    the kernels line."""
+    from unet_torch_tpu_torch.core.rng import seed_everything
+
+    size = SIZE // PARALLEL_RANKS
+    conv_shapes_ = [(h // PARALLEL_RANKS + 2, h, cin, cout)
+                    for h, cin, cout in transunet_conv_shapes(SIZE)]
+    kernels = check_strip_kernels(fc, dev, conv_shapes_, "S2")
+    attn = strip_attention_numbers(at, dev, S2_ATTN_SHAPE,
+                                   S2_ATTN_SHAPE[2], "S2")
+    model = seeded_transunet(seed_everything(SEED)).to(dev).eval()
+    xs = torch.from_numpy(eval_batch(np.random.RandomState(SEED))).to(dev)
+    with torch.inference_mode():
+        one32 = model(xs).cpu()
+        one16 = model(xs.to(torch.bfloat16)).float().cpu()
+        with plain_eval_kernels():
+            one64 = model.double()(xs.double()).cpu()
+    del model
+    torch.cuda.empty_cache()
+    ranks, out = parallel_spawn("s2")
+    shutil.rmtree(out)
+    a, b = ranks
+    errs = {"f32": max((check_f32_forward("S2", r["eval_f32"], one32, one64)
+                        for r in ranks), key=lambda e: e[0])}
+    peak = one16.abs().max().item()
+    err = max((r["eval_bf16"] - one16).abs().max().item() for r in ranks)
+    if not err <= TP_EVAL_REL_TOL * peak:
+        raise AssertionError(f"S2: the gathered bf16 logits are {err} from "
+                             f"the one-process forward's (bound "
+                             f"{TP_EVAL_REL_TOL * peak})")
+    errs["bf16"] = (err, TP_EVAL_REL_TOL * peak)
+    want = TRAIN_WARMUP + TRAIN_STEPS
+    for r in ranks:
+        if (r["eval_attention_launches"], r["eval_conv_launches"],
+                r["eval_conv_routes"], r["fwd_launches"],
+                r["bwd_launches"]) != (12, 9, DECODER_ROUTES, 12 * want,
+                                       12 * want):
+            raise AssertionError(
+                f"S2: a rank launched {r['eval_attention_launches']} eval "
+                f"attention and {r['eval_conv_launches']} fused convs "
+                f"({r['eval_conv_routes']}) in its eval forward, "
+                f"{r['fwd_launches']} + {r['bwd_launches']} train attention "
+                f"in {want} steps; expected 12, 9 ({DECODER_ROUTES}), "
+                f"{12 * want} + {12 * want}")
+    same = [k for k in a["buffers"] if torch.equal(a["buffers"][k],
+                                                  b["buffers"][k])]
+    if len(same) != len(a["buffers"]) or not a["buffers"]:
+        raise AssertionError("S2: the ranks' BN buffers differ: "
+                             f"{sorted(set(a['buffers']) - set(same))[:5]}")
+    loss_err, worst, worst_name, _ = compare_step(
+        "S2 TransUnet spatial", a["loss"], a["grads"], a["state"], ref,
+        D2_LR, adam=False)
+    step_s = max(r["step_s"] for r in ranks)
+    fwd_s = max(r["fwd_s"] for r in ranks)
+    conv = [kernels[sh] for sh in conv_shapes_]
+    phase("S2 spatial",
+          f"TransUnet R50-ViT-B/16 {SIZE}x{SIZE} batch {BATCH}, (D, M) = "
+          f"(1, {PARALLEL_RANKS}) gloo ranks on one card ({smi}), {size} "
+          f"rows a rank: the fused conv at the 9 haloed strip shapes "
+          f"against plain, worst {max(k[0] for k in conv):.3e}, one launch "
+          f"each {sum(k[1] for k in conv):.4f} ms, back to back "
+          f"{sum(k[2] for k in conv):.4f} (bound "
+          f"{sum(k[4] for k in conv):.4f}, plain "
+          f"{sum(k[3] for k in conv):.4f}, cuDNN "
+          f"{sum(k[5] for k in conv):.4f}); attention at {S2_ATTN_SHAPE} "
+          f"(train calls at q_off {S2_ATTN_SHAPE[2]}, rate {STRIP_DROPOUT}; "
+          f"the probe's mask there bit-exact): "
+          f"{attention_summary(attn)}; eval forward a rank "
+          f"{a['eval_attention_launches']} attention and "
+          f"{a['eval_conv_launches']} fused convs {a['eval_conv_routes']}, "
+          f"gathered logits against one process: f32 {errs['f32'][0]:.3e} "
+          f"(bound {errs['f32'][1]:.3e}; against the f64 forward "
+          f"{errs['f32'][3]:.3e}, one process's f32 {errs['f32'][2]:.3e}), "
+          f"bf16 {errs['bf16'][0]:.3e} (bound {errs['bf16'][1]:.3e}); bf16 "
+          f"forward median {fwd_s * 1e3:.2f} ms"
+          f" = {BATCH / fwd_s:.1f} img/s; a forward's halo "
+          f"{a['eval_bytes'][0] / 2**20:.3f} MiB sent and gathers "
+          f"{a['eval_bytes'][1] / 2**20:.3f} MiB all-reduced a rank, a "
+          f"step's {a['step_bytes'][0] / 2**20:.3f} and "
+          f"{a['step_bytes'][1] / 2**20:.3f} MiB; the f32 SGD step with "
+          f"dropout and attention dropout 0.1 against one process: loss "
+          f"{a['loss']:.7f} vs {ref[0]:.7f} (rel err {loss_err:.2e}), the "
+          f"worst gradient {worst_name} at {worst:.2f} times the one-process"
+          f" f32 error against f64 (bound {T4_NOISE_RATIO:.0f}), the "
+          f"{len(same)} BN buffers bitwise equal across ranks; bf16 steps: "
+          f"median {step_s * 1e3:.2f} ms = {BATCH / step_s:.1f} img/s (two "
+          f"ranks share one card: not a scaling figure), "
+          f"{a['fwd_launches']} + {a['bwd_launches']} attention launches a "
+          f"rank over {want} steps, peak {a['peak'] / 2**30:.2f} GiB a rank")
+    return {"img_s": BATCH / step_s, "eval_img_s": BATCH / fwd_s,
+            "loss_rel_err": loss_err, "worst_rel_err": worst,
+            "eval_err": {k: v[0] for k, v in errs.items()},
+            "eval_f32_vs_f64": {"one_process": errs["f32"][2],
+                                "strips": errs["f32"][3]},
+            "conv_launches": sum(r["eval_conv_launches"] for r in ranks),
+            "fused_attention": sum(r["eval_attention_launches"]
+                                   for r in ranks),
+            "attention_train_forward": sum(r["fwd_launches"] for r in ranks),
+            "attention_backward": sum(r["bwd_launches"] for r in ranks),
+            "strip_conv": {str(sh): kernels[sh] for sh in conv_shapes_},
+            "strip_attention": {"shape": S2_ATTN_SHAPE, **attn},
+            "bytes_mib": {"forward": [v / 2**20 for v in a["eval_bytes"]],
+                          "step": [v / 2**20 for v in a["step_bytes"]]},
+            "peak_gib": a["peak"] / 2**30}
+
+
+def s3_rank(rank, out):
+    """S3 on a rank: configs/cltr.yml's model spatialized over (D, M) =
+    (1, 2), 128 rows of each crop a rank; infer_step in f32 and bf16 (its
+    attention launches), D3's f32 Adam step on the strips (the auction on
+    the replicated outputs), then 3 + 10 bf16 steps timed."""
+    from torch.nn.parallel import DistributedDataParallel
+
+    from unet_torch_tpu_torch.core.mesh import make_mesh
+    from unet_torch_tpu_torch.core.rng import seed_everything
+    from unet_torch_tpu_torch.kernels import attention as at
+    from unet_torch_tpu_torch.kernels import auction as au
+    from unet_torch_tpu_torch.parallel.spatial import spatialize
+    from unet_torch_tpu_torch.train.cltr_steps import infer_step, train_step
+    from unet_torch_tpu_torch.train.optim import make_optimizer
+
+    dev = torch.device("cuda", 0)
+    mesh = make_mesh(1, PARALLEL_RANKS, role="spatial")
+    strip = mesh.strip(CLTR_CROP)
+    traffic = TrafficCount()
+    result = {}
+    model, _ = seeded_cltr(seed_everything(SEED), precision="f32")
+    model = spatialize(model.to(dev), mesh)
+    xs = cltr_batch(np.random.RandomState(SEED + 27), CLTR_BATCH,
+                    CLTR_CROP)[0]
+    x = torch.from_numpy(xs[:, strip]).to(dev)
+    result["eval_f32"] = tuple(t.cpu() for t in infer_step(model, x))
+    model.dtype = torch.bfloat16
+    at.fused_attention.launches = 0
+    traffic.take()
+    out16 = infer_step(model, x)
+    torch.cuda.synchronize()
+    result.update(eval_bf16=tuple(t.cpu() for t in out16),
+                  eval_launches=at.fused_attention.launches,
+                  eval_bytes=traffic.take())
+    times = []
+    for _ in range(REPS + 2):
+        t0 = time.perf_counter()
+        infer_step(model, x)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    result["fwd_s"] = statistics.median(times[2:])
+    del model
+    torch.cuda.empty_cache()
+    model, criterion, batch = d3_model_batch(dev)
+    spatialize(model, mesh)
+    net = DistributedDataParallel(model, device_ids=[0],
+                                  process_group=mesh.world_group,
+                                  broadcast_buffers=False)
+    opt = make_optimizer("Adam", model.parameters(), D3_LR, 1e-4)
+    x, *targets = batch
+    x = x[:, strip].contiguous()
+    au.auction_lsap.launches = 0
+    at.attention_train_forward.launches = at.attention_backward.launches = 0
+    with recorded_matches() as matches:
+        loss, _ = train_step(net, criterion, opt, x, *targets, D3_LR, None,
+                             None, "auction", mesh.data_group)
+    result.update(
+        loss=loss.item(), match=matches[0].cpu(),
+        state=host_state(model.state_dict()),
+        grads={n: p.grad.detach().cpu() for n, p in model.named_parameters()},
+        auction_launches=au.auction_lsap.launches,
+        fwd_launches=at.attention_train_forward.launches,
+        bwd_launches=at.attention_backward.launches)
+    model.dtype = torch.bfloat16
+    xb = x.to(torch.bfloat16)
+    torch.cuda.reset_peak_memory_stats(dev)
+    traffic.take()
+    n_steps = TRAIN_WARMUP + TRAIN_STEPS
+    times = timed_steps(lambda i: train_step(
+        net, criterion, opt, xb, *targets, D3_LR, None, None, "auction",
+        mesh.data_group), n_steps)
+    halo, gather = traffic.take()
+    result.update(step_s=statistics.median(times[TRAIN_WARMUP:]),
+                  peak=torch.cuda.max_memory_allocated(dev),
+                  step_bytes=(halo // n_steps, gather // n_steps))
+    traffic.close()
+    return result
+
+
+def same_matches(tag, match, ref_match, costs):
+    """The matches of a multi-rank CLTR step against the one-process step's
+    (recorded_matches' form), up to ties: at each (level, image) whose
+    matches differ, both assignments cost the same under the one-process
+    costs, to 1e-6 of their sum (a strip's forward rounds the outputs
+    otherwise, and the auction breaks ties between queries of equal cost
+    by the order of its bids). Returns (slots that differ, the largest
+    relative cost difference)."""
+    worst = 0.0
+    costs = costs.double()
+    for lv, b in zip(*torch.nonzero((match != ref_match).any(-1),
+                                    as_tuple=True)):
+        slots = torch.nonzero(ref_match[lv, b] >= 0).flatten()
+        c = costs[lv, b]
+        ours = c[match[lv, b, slots], slots].sum().item()
+        theirs = c[ref_match[lv, b, slots], slots].sum().item()
+        rel = abs(ours - theirs) / max(abs(theirs), 1e-30)
+        if not rel <= 1e-6:
+            raise AssertionError(
+                f"{tag}: level {int(lv)} image {int(b)} matched other "
+                f"queries, costing {ours} against the one-process "
+                f"assignment's {theirs}")
+        worst = max(worst, rel)
+    return int((match != ref_match).sum()), worst
+
+
+def check_s3(at, dev, smi, ref, ref_matches):
+    """S3, its step against `ref` and `ref_matches` (d3_reference's matches
+    and costs). Returns its numbers for the kernels line."""
+    from unet_torch_tpu_torch.core.rng import seed_everything
+    from unet_torch_tpu_torch.train.cltr_steps import infer_step
+
+    attn = strip_attention_numbers(at, dev, S3_ATTN_SHAPE,
+                                   S3_ATTN_SHAPE[2], "S3")
+    model, _ = seeded_cltr(seed_everything(SEED), precision="f32")
+    model = model.to(dev)
+    x = torch.from_numpy(cltr_batch(np.random.RandomState(SEED + 27),
+                                    CLTR_BATCH, CLTR_CROP)[0]).to(dev)
+    one32 = tuple(t.cpu() for t in infer_step(model, x))
+    model.dtype = torch.bfloat16
+    one16 = tuple(t.cpu() for t in infer_step(model, x))
+    model.dtype = torch.float64
+    with plain_eval_kernels():
+        one64 = tuple(t.cpu() for t in infer_step(model.double(), x))
+    del model
+    torch.cuda.empty_cache()
+    ranks, out = parallel_spawn("s3")
+    shutil.rmtree(out)
+    a = ranks[0]
+    errs = {}
+    for i, what in enumerate(("logits", "points")):
+        errs[("f32", what)] = max(
+            (check_f32_forward(f"S3 {what}", r["eval_f32"][i], one32[i],
+                               one64[i]) for r in ranks),
+            key=lambda e: e[0])
+        peak = one16[i].abs().max().item()
+        err = max((r["eval_bf16"][i].float() - one16[i].float())
+                  .abs().max().item() for r in ranks)
+        if not err <= TP_EVAL_REL_TOL * peak:
+            raise AssertionError(
+                f"S3: infer_step's bf16 {what} are {err} from the "
+                f"one-process forward's (bound {TP_EVAL_REL_TOL * peak})")
+        errs[("bf16", what)] = (err, TP_EVAL_REL_TOL * peak)
+    ties = max(same_matches("S3", r["match"], *ref_matches) for r in ranks)
+    for r in ranks:
+        if (r["eval_launches"], r["auction_launches"], r["fwd_launches"],
+                r["bwd_launches"]) != (18, 1, 18, 18):
+            raise AssertionError(
+                f"S3: a rank launched {r['eval_launches']} eval attention, "
+                f"{r['auction_launches']} auction and {r['fwd_launches']} + "
+                f"{r['bwd_launches']} train attention; expected 18, 1, "
+                "18 + 18")
+    loss_err, worst, worst_name, n_flip = compare_step(
+        "S3 CLTR spatial", a["loss"], a["grads"], a["state"], ref, D3_LR,
+        adam=True)
+    step_s = max(r["step_s"] for r in ranks)
+    fwd_s = max(r["fwd_s"] for r in ranks)
+    phase("S3 spatial",
+          f"configs/cltr.yml's model, batch {CLTR_BATCH} crops of "
+          f"{CLTR_CROP}x{CLTR_CROP}, (D, M) = (1, {PARALLEL_RANKS}) gloo "
+          f"ranks on one card ({smi}), {CLTR_CROP // PARALLEL_RANKS} rows a "
+          f"rank: the encoder's attention at {S3_ATTN_SHAPE} (train calls "
+          f"at q_off {S3_ATTN_SHAPE[2]}, rate {STRIP_DROPOUT}; the probe's "
+          f"mask there bit-exact): {attention_summary(attn)}; infer_step's "
+          f"outputs on every rank against one process: "
+          + ", ".join(f"{n} {w} {e[0]:.3e} (bound {e[1]:.3e}"
+                      + (f"; against f64 {e[3]:.3e}, one process's f32 "
+                         f"{e[2]:.3e}" if n == "f32" else "") + ")"
+                      for (n, w), e in errs.items())
+          + f"; {a['eval_launches']} eval attention launches a rank, bf16 "
+          f"infer median {fwd_s * 1e3:.2f} ms = {CLTR_BATCH / fwd_s:.1f} "
+          f"img/s; a forward's halo {a['eval_bytes'][0] / 2**20:.3f} MiB "
+          f"sent and gathers {a['eval_bytes'][1] / 2**20:.3f} MiB "
+          f"all-reduced a rank, a step's {a['step_bytes'][0] / 2**20:.3f} "
+          f"and {a['step_bytes'][1] / 2**20:.3f} MiB; the f32 Adam step "
+          f"(auction, {a['auction_launches']} launch a rank; the matches the "
+          f"one-process step's but for {ties[0]} of "
+          f"{int((ref_matches[0] >= 0).sum())} target slots at ties, cost "
+          f"within {ties[1]:.1e} of its "
+          f"assignment's) against one process: loss {a['loss']:.7f} "
+          f"vs {ref[0]:.7f} (rel err {loss_err:.2e}), the worst gradient "
+          f"{worst_name} at {worst:.2f} times the one-process f32 error "
+          f"against f64 (bound {T4_NOISE_RATIO:.0f}; {n_flip} Adam sign "
+          f"flips within 2 lr); bf16 steps: median {step_s * 1e3:.2f} ms = "
+          f"{CLTR_BATCH / step_s:.1f} img/s (two ranks share one card: not "
+          f"a scaling figure), peak {a['peak'] / 2**30:.2f} GiB a rank")
+    return {"img_s": CLTR_BATCH / step_s, "eval_img_s": CLTR_BATCH / fwd_s,
+            "loss_rel_err": loss_err, "worst_rel_err": worst,
+            "eval_err": {f"{n}_{w}": e[0] for (n, w), e in errs.items()},
+            "fused_attention": sum(r["eval_launches"] for r in ranks),
+            "attention_train_forward": sum(r["fwd_launches"] for r in ranks),
+            "attention_backward": sum(r["bwd_launches"] for r in ranks),
+            "auction_lsap": sum(r["auction_launches"] for r in ranks),
+            "matches_at_ties": ties[0],
+            "strip_attention": {"shape": S3_ATTN_SHAPE, **attn},
+            "bytes_mib": {"forward": [v / 2**20 for v in a["eval_bytes"]],
+                          "step": [v / 2**20 for v in a["step_bytes"]]},
+            "peak_gib": a["peak"] / 2**30}
+
+
 def check_parallel(at, fc, dev, smi):
     """D1-D3, S1 and G1, after the one-process phases, whose cached card
     memory is freed first: the ranks are other processes."""
@@ -4170,11 +4863,15 @@ def check_parallel(at, fc, dev, smi):
     gc.collect()
     torch.cuda.empty_cache()
     d1_ref = d1_reference(at, dev)
+    d2_ref = d2_reference(at, dev)
+    d3_ref, d3_matches = d3_reference(at, dev)
     return {"d1": check_d1(at, dev, smi, d1_ref),
-            "d2": check_d2(at, fc, dev, smi),
-            "d3": check_d3(at, dev, smi),
+            "d2": check_d2(at, fc, dev, smi, d2_ref),
+            "d3": check_d3(at, dev, smi, d3_ref),
             "s1": check_s1(fc, dev, smi, d1_ref),
-            "g1": check_g1(at, dev, smi)}
+            "g1": check_g1(at, dev, smi),
+            "s2": check_s2(at, fc, dev, smi, d2_ref),
+            "s3": check_s3(at, dev, smi, d3_ref, d3_matches)}
 
 
 def main(cltr_profile=False, cltr_two_batches_only=False,
@@ -4505,7 +5202,12 @@ def main(cltr_profile=False, cltr_two_batches_only=False,
             "d1_unet_data_parallel_eval": pres["d1"]["conv_launches"],
             "d2_checkpoint_eval": pres["d2"]["conv_launches"],
             # S1: both ranks' bf16 eval forward of their 256-row strips
-            "s1_spatial_eval": pres["s1"]["conv_launches"]},
+            "s1_spatial_eval": pres["s1"]["conv_launches"],
+            # S2: both ranks' TransUnet bf16 eval forward on their strips
+            "s2_spatial_eval": pres["s2"]["conv_launches"]},
+        # S2's nine haloed strip shapes (rows, W, Cin, Cout): error, ms,
+        # back-to-back ms, plain ms, bound ms, cuDNN ms
+        "s2_strip_shapes": pres["s2"]["strip_conv"],
         # by route (wgmma, narrow, mma.sync, reg) in each eval forward
         "launches_by_route": {
             "unet": unet_routes, "transunet": tu_routes,
@@ -4577,7 +5279,14 @@ def main(cltr_profile=False, cltr_two_batches_only=False,
             # checkpoint's in one process
             "d2_tensor_parallel_eval": pres["d2"]["fused_attention"],
             # G1: both stages' bf16 eval forward, 6 blocks x 4 microbatches
-            "g1_pipeline_eval": pres["g1"]["fused_attention"]},
+            "g1_pipeline_eval": pres["g1"]["fused_attention"],
+            # S2, S3: both ranks' eval forward on their strips
+            "s2_spatial_eval": pres["s2"]["fused_attention"],
+            "s3_spatial_eval": pres["s3"]["fused_attention"]},
+        # a strip's shape of S2 and S3: error, ms, back-to-back ms, plain,
+        # bound, bound by, library ms
+        "strip_shapes": {"s2": pres["s2"]["strip_attention"]["eval"],
+                         "s3": pres["s3"]["strip_attention"]["eval"]},
         # CLTR's eval forward: 6 encoder, 6 decoder self- and 6
         # cross-attentions at batch 16 (the trained model served 9 patches)
         "cltr": cltr_attention_numbers(cltr_bf16, (0, 1, 2, 3, 4), lib_cltr,
@@ -4616,7 +5325,13 @@ def main(cltr_profile=False, cltr_two_batches_only=False,
                 pres["d2"]["attention_train_forward"],
             "d3_cltr_data_parallel": pres["d3"]["attention_train_forward"],
             # G1: both stages' f32 step on the pipelined forward
-            "g1_pipeline_train": pres["g1"]["attention_train_forward"]},
+            "g1_pipeline_train": pres["g1"]["attention_train_forward"],
+            # S2: both ranks' 13 bf16 steps; S3: both ranks' f32 step
+            "s2_spatial_train": pres["s2"]["attention_train_forward"],
+            "s3_spatial_train": pres["s3"]["attention_train_forward"]},
+        # at a strip's shape with its query-row offset, rate 0.1
+        "strip_shapes": {"s2": pres["s2"]["strip_attention"]["train_fwd"],
+                         "s3": pres["s3"]["strip_attention"]["train_fwd"]},
         # one CLTR train step's 18 launches, bias and dropout 0.1 together
         "cltr": cltr_attention_numbers(cltr_train_bf16, (0, 1, 2, 6, 8),
                                        lib_cltr, 1, cltr_layers, lse=True),
@@ -4649,7 +5364,11 @@ def main(cltr_profile=False, cltr_two_batches_only=False,
             "multi_task_regTU_train": v2_launches["attention_backward"],
             "d2_tensor_parallel_train": pres["d2"]["attention_backward"],
             "d3_cltr_data_parallel": pres["d3"]["attention_backward"],
-            "g1_pipeline_train": pres["g1"]["attention_backward"]},
+            "g1_pipeline_train": pres["g1"]["attention_backward"],
+            "s2_spatial_train": pres["s2"]["attention_backward"],
+            "s3_spatial_train": pres["s3"]["attention_backward"]},
+        "strip_shapes": {"s2": pres["s2"]["strip_attention"]["bwd"],
+                         "s3": pres["s3"]["strip_attention"]["bwd"]},
         "cltr": cltr_attention_numbers(cltr_train_bf16, (3, 4, 5, 7, 9),
                                        lib_cltr, 2, cltr_layers,
                                        backward=True),
@@ -4672,6 +5391,8 @@ def main(cltr_profile=False, cltr_two_batches_only=False,
         "replaces": "benchmarks/tpu_dfa_check.py:41",
         # a probe: its own path (T1, one mask per case), not the train step
         "launches": mask_launches,
+        # S2 and S3 also hold it at a strip's query-row offset against the
+        # plain hash (one launch each, not counted here)
         "launches_by_path": {"mask_probe": mask_launches},
         # elements that differ from the plain hash
         "max_abs_err": max(r[0] for r in mres.values()),
@@ -4711,7 +5432,11 @@ def main(cltr_profile=False, cltr_two_batches_only=False,
         "launches_by_path": {"cltr_train": c3_launches["auction_lsap"],
                              # both ranks' step, each on its own images
                              "d3_cltr_data_parallel":
-                                 pres["d3"]["auction_lsap"]},
+                                 pres["d3"]["auction_lsap"],
+                             # both ranks' step, each on the replicated
+                             # outputs of the whole batch
+                             "s3_spatial_train":
+                                 pres["s3"]["auction_lsap"]},
         # matches, round counts and bid counts that differ from the plain
         # version, over all C1 cases and the step's own launch
         "max_abs_err": max(r["bad"] for r in aures + [step_auction]),
@@ -4838,8 +5563,8 @@ if __name__ == "__main__":
              "(P1-P3)")
     parser.add_argument(
         "--parallel", action="store_true",
-        help="build, then only the data- and tensor-parallel phases D1-D3 "
-             "(two gloo ranks on the card)")
+        help="build, then only the parallel phases D1-D3, S1, G1, S2 and "
+             "S3 (two gloo ranks on the card)")
     cli = parser.parse_args()
     main(cli.cltr_profile, cli.cltr_two_batches, cli.attention_ab,
          cli.unet_profile, cli.topo, cli.parallel)

@@ -50,7 +50,8 @@ from unet_torch_tpu_torch.models.cltr import model, position_encoding
 from unet_torch_tpu_torch.models.cltr import segmentation, transformer
 from unet_torch_tpu_torch.models.transunet import configs, resnetv2, vit
 from unet_torch_tpu_torch.models.unet import build_model
-from unet_torch_tpu_torch.nn import blocks, dropout
+from unet_torch_tpu_torch.core import dist, mesh
+from unet_torch_tpu_torch.nn import blocks, dropout, strips
 from unet_torch_tpu_torch.parallel import pipeline, spatial
 from unet_torch_tpu_torch.train import cltr_loop, cltr_steps, optim, steps
 from unet_torch_tpu_torch.train import trainer

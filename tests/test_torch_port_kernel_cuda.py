@@ -367,6 +367,27 @@ MASK_SHAPES += [(n_bh, nq, nk, None, 0.1) for n_bh in (1, 96)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("q_off", [1, 512, 70000])
+@pytest.mark.parametrize("shape", MASK_SHAPES[:3])
+def test_keep_mask_probe_with_a_query_row_offset_is_bit_exact_on_card(
+        shape, q_off):
+    """A strip's rows of the mask, from q_off on: the probe against the
+    plain hash of the same rows and against the slice of the whole mask."""
+    _needs_card()
+    n_bh, nq, nk, nk_p, rate = shape
+    mask = port_attn.dropout_keep_mask(n_bh, nq, nk, 1234, rate, "cuda",
+                                       nk_p=nk_p, q_off=q_off)
+    ref = port_attn.dropout_keep(
+        1234, n_bh, nq, nk, nk_p or port_attn.dfa_nk_p(nk),
+        port_attn.dropout_threshold(rate), row0=q_off, device="cuda")
+    assert torch.equal(mask.bool(), ref)
+    if q_off < 1000:
+        whole = port_attn.dropout_keep_mask(n_bh, q_off + nq, nk, 1234,
+                                            rate, "cuda", nk_p=nk_p)
+        assert torch.equal(mask, whole[:, q_off:])
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("shape", MASK_SHAPES)
 def test_keep_mask_probe_is_bit_exact_on_card(shape):
     _needs_card()
@@ -453,15 +474,17 @@ def test_train_kernels_match_plain_on_card(shape, dtype, rate):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("offsets", [(1, 2, 7), (5, 0, 3)])
+@pytest.mark.parametrize("offsets", [(1, 2, 7), (5, 0, 3), (0, 0, 8, 64),
+                                     (1, 1, 8, 4097)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [ATTN_SHAPES[0], ATTN_SHAPES[1],
                                    ATTN_SHAPES[4]])
 def test_train_kernels_with_offsets_match_plain_on_card(shape, dtype,
                                                         offsets):
-    """A rank's share of a data- or tensor-parallel step: the train forward
-    and backward with (b_off, h_off, h_total) hash the whole batch's
-    batch*head, against the plain versions with the same offsets, at
+    """A rank's share of a data-, tensor- or spatially parallel step: the
+    train forward and backward with (b_off, h_off, h_total[, q_off]) hash
+    the whole batch's batch*head and the whole sequence's query rows,
+    against the plain versions with the same offsets, at
     test_train_kernels_match_plain_on_card's bounds (rate 0.3; the wgmma
     widths (64, 64) and (64, 32) in bf16, mma.sync at (16, 48), f32)."""
     _needs_card()

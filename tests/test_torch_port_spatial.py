@@ -360,15 +360,24 @@ def test_a_strip_not_a_multiple_of_16_rows_raises():
 
 
 def test_spatialize_refuses_transformers_and_other_roles():
+    """The transformer families are spatially partitioned too (their
+    strip layers take the mesh; tests/test_torch_port_spatial_transformers.py
+    runs them); a mesh of another role, or a module of no family, is
+    refused."""
+    from unet_torch_tpu_torch.models import cltr as pc
     from unet_torch_tpu_torch.models.transunet.vit import VisionTransformer
     from unet_torch_tpu_torch.parallel.spatial import spatialize
 
-    from test_torch_port_parallel import vit_config
+    from test_torch_port_parallel import CLTR, vit_config
     from unet_torch_tpu_torch.models.transunet.configs import CONFIGS
 
-    with pytest.raises(NotImplementedError, match="every token"):
-        spatialize(VisionTransformer(vit_config(CONFIGS), 64, 3),
-                   _one_process_mesh())
+    mesh = _one_process_mesh()
+    vit = spatialize(VisionTransformer(vit_config(CONFIGS), 64, 3), mesh)
+    cltr = spatialize(pc.ConditionalDETR(**CLTR), mesh)
+    assert vit.transformer.encoder.layer[0].attn.mesh is mesh
+    assert cltr.transformer.encoder.layers[0].self_attn.mesh is mesh
+    with pytest.raises(TypeError, match="none of the spatially"):
+        spatialize(torch.nn.Linear(2, 2), mesh)
     with pytest.raises(ValueError, match="'spatial' role"):
         spatialize(build_model("unet"), _one_process_mesh("tensor"))
 

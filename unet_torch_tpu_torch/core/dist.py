@@ -19,6 +19,15 @@ averaged by DistributedDataParallel gives every parameter its one-process
 gradient. A group of None is one process: every collective here is then the
 identity.
 
+`all_gather_dim` concatenates the ranks' shares along a dim (the keys and
+values of every strip of an image's tokens); its backward hands each rank
+the sum over the ranks of the gradient of its share, which is a
+reduce-scatter. `exclusive_prefix_sum` adds the shares of the ranks before
+this one (the rows of the strips above, for a position embedding's
+cumulative count); its backward adds the gradients of the ranks after it.
+Both run on `all_reduce` of zero-padded tensors, which gloo runs on CUDA
+tensors.
+
 The point-to-point ops move tensors between neighbours of a group, in its
 rank order: `exchange_rows`, the halo of a strip of the image's height
 (parallel/spatial.py), and `send_next` / `recv_prev` / `broadcast_from`, the
@@ -166,17 +175,64 @@ def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
     return _AllReduceSum.apply(x, group)
 
 
-def all_gather_rows(x: torch.Tensor, group) -> torch.Tensor:
-    """The concatenation along dim 0 of every rank's `x` (all of one shape)
-    in the group's rank order, by the all-reduce of zero-padded tensors
-    (gloo on CUDA tensors runs all_reduce, not all_gather). Not
-    differentiable. None: `x`."""
+class _AllGatherDim(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        n, index = x.shape[dim], dist.get_rank(group)
+        shape = list(x.shape)
+        shape[dim] *= dist.get_world_size(group)
+        full = x.new_zeros(shape)
+        full.narrow(dim, index * n, n).copy_(x)
+        return all_reduce_(full, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, dim = ctx.group, ctx.dim
+        n = g.shape[dim] // dist.get_world_size(group)
+        total = all_reduce_(g.clone(memory_format=torch.contiguous_format),
+                            group)
+        return (total.narrow(dim, dist.get_rank(group) * n, n).contiguous(),
+                None, None)
+
+
+def all_gather_dim(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """Every rank's `x` (all of one shape) concatenated along `dim` in the
+    group's rank order, on every rank. Differentiable: each rank
+    differentiates its own loss, so the gradient of a rank's share is the
+    sum over the ranks of their gradients of it (a reduce-scatter). None:
+    `x`."""
     if group is None:
         return x
-    n, index = x.shape[0], dist.get_rank(group)
-    full = x.new_zeros((n * dist.get_world_size(group), *x.shape[1:]))
-    full[index * n:(index + 1) * n] = x
+    return _AllGatherDim.apply(x, group, dim)
+
+
+def _stacked(x: torch.Tensor, group) -> torch.Tensor:
+    """(size, *x.shape): every rank's `x` by its rank in `group`."""
+    full = x.new_zeros((dist.get_world_size(group), *x.shape))
+    full[dist.get_rank(group)] = x
     return all_reduce_(full, group)
+
+
+class _ExclusivePrefixSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _stacked(x, group)[:dist.get_rank(group)].sum(0)
+
+    @staticmethod
+    def backward(ctx, g):
+        index = dist.get_rank(ctx.group)
+        return _stacked(g.contiguous(), ctx.group)[index + 1:].sum(0), None
+
+
+def exclusive_prefix_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of `x` over the ranks of `group` before this one (zeros on
+    the first), differentiable: the gradient of a rank's `x` is the sum of
+    the gradients of the ranks after it. None: zeros."""
+    if group is None:
+        return torch.zeros_like(x)
+    return _ExclusivePrefixSum.apply(x, group)
 
 
 class _CopyToGroup(torch.autograd.Function):
@@ -263,57 +319,68 @@ _DOWN, _UP = 0, 1
 def _swap_edges(top: torch.Tensor, bottom: torch.Tensor, group):
     """Send `top` to the previous rank of `group` and `bottom` to the next;
     returns (the previous rank's `bottom`, the next rank's `top`), zeros at
-    either end of the order."""
+    either end of the order. An empty `top` or `bottom` (the same on every
+    rank) crosses nowhere."""
     index, size = dist.get_rank(group), dist.get_world_size(group)
+    from_prev = index > 0 and bottom.numel() > 0
+    from_next = index < size - 1 and top.numel() > 0
     sends, recvs = [], []
-    if index > 0:
+    if index > 0 and top.numel():
         sends.append((top, index - 1, _UP))
+    if from_prev:
         recvs.append((bottom, index - 1, _DOWN))
-    if index < size - 1:
+    if index < size - 1 and bottom.numel():
         sends.append((bottom, index + 1, _DOWN))
+    if from_next:
         recvs.append((top, index + 1, _UP))
     got = _p2p(group, sends, recvs)
-    above = got.pop(0) if index > 0 else torch.zeros_like(bottom)
-    below = got.pop(0) if index < size - 1 else torch.zeros_like(top)
+    above = got.pop(0) if from_prev else torch.zeros_like(bottom)
+    below = got.pop(0) if from_next else torch.zeros_like(top)
     return above, below
 
 
 class _ExchangeRows(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group, halo, dim):
-        ctx.group, ctx.halo, ctx.dim = group, halo, dim
+    def forward(ctx, x, group, above, below, dim):
+        ctx.group, ctx.above, ctx.below, ctx.dim = group, above, below, dim
         n = x.shape[dim]
-        above, below = _swap_edges(x.narrow(dim, 0, halo),
-                                   x.narrow(dim, n - halo, halo), group)
-        return torch.cat([above, x, below], dim)
+        # the first `below` rows go up, the last `above` rows down
+        up, down = _swap_edges(x.narrow(dim, 0, below),
+                               x.narrow(dim, n - above, above), group)
+        return torch.cat([up, x, down], dim)
 
     @staticmethod
     def backward(ctx, g):
-        group, halo, dim = ctx.group, ctx.halo, ctx.dim
-        n = g.shape[dim] - 2 * halo
+        group, above, below, dim = ctx.group, ctx.above, ctx.below, ctx.dim
+        n = g.shape[dim] - above - below
         # the halo rows' gradients go back to the neighbours they came from,
         # and theirs of this strip's edge rows come back here
-        top, bottom = _swap_edges(g.narrow(dim, 0, halo),
-                                  g.narrow(dim, halo + n, halo), group)
-        dx = g.narrow(dim, halo, n).clone(
+        top, bottom = _swap_edges(g.narrow(dim, 0, above),
+                                  g.narrow(dim, above + n, below), group)
+        dx = g.narrow(dim, above, n).clone(
             memory_format=torch.contiguous_format)
-        dx.narrow(dim, 0, halo).add_(top)
-        dx.narrow(dim, n - halo, halo).add_(bottom)
-        return dx, None, None, None
+        dx.narrow(dim, 0, below).add_(top)
+        dx.narrow(dim, n - above, above).add_(bottom)
+        return dx, None, None, None, None
 
 
-def exchange_rows(x: torch.Tensor, group, halo: int = 1,
-                  dim: int = 2) -> torch.Tensor:
-    """The strip `x` with `halo` rows of each neighbour in `group`'s rank
-    order along `dim` (the previous rank's last rows before, the next
-    rank's first after), zero rows at the image's top and bottom: what a
-    pad-`halo` conv reads of the whole image around this strip. The
+def exchange_rows(x: torch.Tensor, group, halo: int = 1, dim: int = 2, *,
+                  above: int | None = None,
+                  below: int | None = None) -> torch.Tensor:
+    """The strip `x` with `above` rows of the previous rank in `group`'s
+    rank order before it (that rank's last rows) and `below` rows of the
+    next after it (its first rows), along `dim`, both `halo` unless given;
+    zero rows at the image's top and bottom: what a conv padded by `above`
+    rows at the top and reading `below` rows past the strip's end sees of
+    the whole image (a k x k conv with padding p: p and k - 1 - p). The
     backward adds each halo row's gradient into the neighbour's edge row it
     came from."""
-    if x.shape[dim] < halo:
-        raise ValueError(f"a strip of {x.shape[dim]} rows has no {halo} "
-                         "rows to exchange")
-    return _ExchangeRows.apply(x, group, halo, dim)
+    above = halo if above is None else above
+    below = halo if below is None else below
+    if x.shape[dim] < max(above, below):
+        raise ValueError(f"a strip of {x.shape[dim]} rows has no "
+                         f"{max(above, below)} rows to exchange")
+    return _ExchangeRows.apply(x, group, above, below, dim)
 
 
 class _RecvPrev(torch.autograd.Function):

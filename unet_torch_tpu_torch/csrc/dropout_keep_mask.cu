@@ -51,7 +51,7 @@ template <bool VEC>
 __global__ void __launch_bounds__(THREADS)
     keep_mask_kernel(unsigned char* __restrict__ out, int BH, int Nq, int Nk, uint32_t chunks,
                      uint32_t step_rows, uint32_t step_chunks, uint32_t seed, uint32_t thr,
-                     uint32_t nk_p) {
+                     uint32_t nk_p, uint32_t q_off) {
   const uint32_t first = blockIdx.x * (THREADS * ITEMS) + threadIdx.x;
   uint32_t row = first / chunks;
   uint32_t chunk = first - row * chunks;
@@ -76,7 +76,8 @@ __global__ void __launch_bounds__(THREADS)
     for (int k = 0; k < ITEMS; ++k) {
       if (rows[k] >= static_cast<uint32_t>(Nq)) break;
       const uint32_t col0 = chunk_of[k] * 16;
-      const uint32_t idx0 = rows[k] * nk_p + col0;  // modulo 2**32, as JAX's uint32
+      // modulo 2**32, as JAX's uint32; the hash's row is the sequence's
+      const uint32_t idx0 = (rows[k] + q_off) * nk_p + col0;
       uint32_t w[4] = {0u, 0u, 0u, 0u};
 #pragma unroll
       for (int c = 0; c < 16; ++c)
@@ -97,9 +98,11 @@ __global__ void __launch_bounds__(THREADS)
 }  // namespace
 
 // out: a contiguous (BH, Nq, Nk) uint8 array, 16-byte aligned; BH, Nq,
-// Nk >= 1 and Nq * ceil(Nk / 16) < 2**31. Returns the launch's cudaError_t.
+// Nk >= 1 and Nq * ceil(Nk / 16) < 2**31; row r of out is the mask's row
+// q_off + r (a strip's rows, as the attention kernels hash them). Returns
+// the launch's cudaError_t.
 extern "C" int dropout_keep_mask(void* out, int BH, int Nq, int Nk, unsigned seed, unsigned thr,
-                                 unsigned nk_p, void* stream) {
+                                 unsigned nk_p, unsigned q_off, void* stream) {
   if (BH < 1 || Nq < 1 || Nk < 1) return static_cast<int>(cudaErrorInvalidValue);
   const long long chunks = (Nk + 15LL) / 16;
   const long long items = static_cast<long long>(Nq) * chunks;
@@ -113,10 +116,10 @@ extern "C" int dropout_keep_mask(void* out, int BH, int Nq, int Nk, unsigned see
   const auto s = static_cast<cudaStream_t>(stream);
   if (Nk % 16 == 0)
     keep_mask_kernel<true><<<grid, THREADS, 0, s>>>(dst, BH, Nq, Nk, c, step_rows, step_chunks,
-                                                    seed, thr, nk_p);
+                                                    seed, thr, nk_p, q_off);
   else
     keep_mask_kernel<false><<<grid, THREADS, 0, s>>>(dst, BH, Nq, Nk, c, step_rows, step_chunks,
-                                                     seed, thr, nk_p);
+                                                     seed, thr, nk_p, q_off);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -128,6 +128,7 @@ struct BwdParams {
   uint32_t seed, thr, nk_p;
   float inv_keep;
   int b_off, h_off, h_total;  // the mask's global batch*head (dropout_bh)
+  int q_off;                  // the mask's global row of query row 0
 };
 
 // ---------------------------------------------------------------------------
@@ -299,8 +300,8 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkdv_bf16(const BwdParams p
         const bool valid = key[i] < Nk && q0 + qc < Nq;
         st[j][e] = valid ? exp2f(x - Lt[qc]) : 0.f;
         if constexpr (DROPOUT) {
-          if (dropout_keep(base, static_cast<uint32_t>(q0 + qc), static_cast<uint32_t>(key[i]),
-                           p.nk_p, p.thr))
+          if (dropout_keep(base, static_cast<uint32_t>(p.q_off + q0 + qc),
+                           static_cast<uint32_t>(key[i]), p.nk_p, p.thr))
             keep_bits |= 1u << (j * 4 + e);
         }
       }
@@ -533,8 +534,8 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_bf16(const BwdParams p) 
         const float pr = col < Nk && row[i] < Nq ? exp2f(x - lse2[i]) : 0.f;
         float d = dp[j][e];
         if constexpr (DROPOUT)
-          d = dropout_keep(base, static_cast<uint32_t>(row[i]), static_cast<uint32_t>(col),
-                           p.nk_p, p.thr)
+          d = dropout_keep(base, static_cast<uint32_t>(p.q_off + row[i]),
+                           static_cast<uint32_t>(col), p.nk_p, p.thr)
                   ? d * p.inv_keep
                   : 0.f;
         s[j][e] = pr * (d - drow[i]);
@@ -725,7 +726,8 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
     if constexpr (DROPOUT) {
 #pragma unroll
       for (int i = 0; i < 2; ++i)
-        idx0[i] = static_cast<uint32_t>(t * 64 + 2 * t4) * p.nk_p + static_cast<uint32_t>(key[i]);
+        idx0[i] = static_cast<uint32_t>(p.q_off + t * 64 + 2 * t4) * p.nk_p +
+                  static_cast<uint32_t>(key[i]);
     }
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
@@ -937,7 +939,7 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkdv_f32(const BwdParams p)
         float dp = dot_f32(Gs + qi * ldv, Vs + r * ldv, dv);
         pd = pr;
         if (p.thr != 0u) {
-          const bool keep = dropout_keep(base, q0 + qi, key, p.nk_p, p.thr);
+          const bool keep = dropout_keep(base, p.q_off + q0 + qi, key, p.nk_p, p.thr);
           pd = keep ? pr * p.inv_keep : 0.f;
           dp = keep ? dp * p.inv_keep : 0.f;
         }
@@ -1022,7 +1024,7 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_f32(const BwdParams p) {
             expf(score_f32(Qs + r * ldk, Ks + kj * ldk, dqk, p.scale, bg, key, bmax) - lse);
         float dp = dot_f32(Gs + r * ldv, Vs + kj * ldv, dv);
         if (p.thr != 0u)
-          dp = dropout_keep(base, row, key, p.nk_p, p.thr) ? dp * p.inv_keep : 0.f;
+          dp = dropout_keep(base, p.q_off + row, key, p.nk_p, p.thr) ? dp * p.inv_keep : 0.f;
         ds = pr * (dp - drow);
       }
       Ss[r * LDP_F + kj] = ds;
@@ -1143,7 +1145,8 @@ cudaError_t launch_f32(BwdParams p, int BH, cudaStream_t stream) {
 // kernel fills with D = rowsum(g * o); bias null or (B, Nk) float32 with
 // bias_max its (B,) row maxima; dqk, dv multiples of 16 in [16, 128]; Nq,
 // Nk >= 1. thr = 0 means no dropout; b_off, h_off and h_total place the
-// call's batch*heads in the whole batch for the mask's hash (dropout_bh). The
+// call's batch*heads in the whole batch for the mask's hash (dropout_bh),
+// q_off its query rows in the whole sequence (the hash's row). The
 // caller checks all of this. route
 // names the kernels: 0 the f32 CUDA-core pair (dtype 0), 1 the bf16 mma.sync
 // pair (any widths), 2 the bf16 wgmma kernel (the width pairs (64, 64),
@@ -1156,8 +1159,8 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
                                    const void* bias_max, void* dq, void* dk, void* dv,
                                    void* dq_f32, int B, int H, int Nq, int Nk, int dqk, int dv_,
                                    float scale, unsigned seed, unsigned thr, unsigned nk_p,
-                                   float inv_keep, int b_off, int h_off, int h_total, int dtype,
-                                   int route, void* stream) {
+                                   float inv_keep, int b_off, int h_off, int h_total, int q_off,
+                                   int dtype, int route, void* stream) {
   const int BH = B * H;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dqk < 16 || dqk > DMAX || dqk % 16 || dv_ < 16 || dv_ > DMAX || dv_ % 16 || Nq < 1 ||
@@ -1190,6 +1193,7 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
   p.b_off = b_off;
   p.h_off = h_off;
   p.h_total = h_total;
+  p.q_off = q_off;
   cudaError_t err = dtype == 0 ? launch_rowsum<float>(p, o, static_cast<float*>(dsum), BH, st)
                                : launch_rowsum<bf16>(p, o, static_cast<float*>(dsum), BH, st);
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -240,7 +240,7 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_bf16(const FwdParams p) {
         float pr = exp2f(s[j][e] - m_new[e >> 1]);
         l_run[e >> 1] += pr;  // the row sum is taken before dropout
         if constexpr (DROPOUT) {
-          const uint32_t row = q0 + warp * 16 + g + 8 * (e >> 1);
+          const uint32_t row = p.q_off + q0 + warp * 16 + g + 8 * (e >> 1);
           const uint32_t col = k0 + j * 8 + 2 * t4 + (e & 1);
           pr = dropout_keep(base, row, col, p.nk_p, p.thr) ? pr * p.inv_keep : 0.f;
         }
@@ -383,7 +383,8 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_f32(const FwdParams p) {
       float pr = expf(x[jj] - m_new);
       l_run += pr;  // the row sum is taken before dropout
       if (p.thr != 0u)
-        pr = dropout_keep(base, q0 + r, k0 + c + 4 * jj, p.nk_p, p.thr) ? pr * p.inv_keep : 0.f;
+        pr = dropout_keep(base, p.q_off + q0 + r, k0 + c + 4 * jj, p.nk_p, p.thr) ? pr * p.inv_keep
+                                                                                : 0.f;
       Ps[r * LDP + c + 4 * jj] = pr;
     }
     __syncwarp();  // a row's four threads are in one warp
@@ -461,7 +462,9 @@ cudaError_t launch_wgmma_widths(const FwdParams& p, int BH, cudaStream_t stream)
 // are multiples of 16 in [16, 128]; Nq, Nk >= 1. thr = 0 means no dropout;
 // otherwise keep = hash >= thr and survivors are scaled by inv_keep; the hash
 // keys on the batch*head of the whole batch, b_off, h_off and h_total giving
-// this call's place in it (dropout_hash.cuh dropout_bh). The
+// this call's place in it (dropout_hash.cuh dropout_bh), and on the query
+// row of the whole sequence, q_off + the call's row (a strip of the
+// image's tokens starts at q_off). The
 // caller checks all of this. route names the kernel: 0 the f32 CUDA-core one
 // (dtype 0), 1 the bf16 mma.sync one (any widths), 2 the bf16 wgmma one (the
 // width pairs (64, 64), (32, 32) and (64, 32) only); the wrapper derives it
@@ -470,7 +473,8 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
                                    const void* bias_max, void* o, void* lse, int B, int H, int Nq,
                                    int Nk, int dqk, int dv, float scale, unsigned seed,
                                    unsigned thr, unsigned nk_p, float inv_keep, int b_off,
-                                   int h_off, int h_total, int dtype, int route, void* stream) {
+                                   int h_off, int h_total, int q_off, int dtype, int route,
+                                   void* stream) {
   const int BH = B * H;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dqk < 16 || dqk > DMAX || dqk % 16 || dv < 16 || dv > DMAX || dv % 16 || Nq < 1 || Nk < 1 ||
@@ -497,6 +501,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   p.b_off = b_off;
   p.h_off = h_off;
   p.h_total = h_total;
+  p.q_off = q_off;
   cudaError_t err;
   if (dtype == 0 && route == 0) {
     const int smem = smem_bytes_f32(dqk, dv);

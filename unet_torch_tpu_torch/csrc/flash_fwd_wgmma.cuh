@@ -56,6 +56,7 @@ struct FwdParams {
   uint32_t seed, thr, nk_p;  // dropout: keep = hash >= thr
   float inv_keep;            // 1 / (1 - rate)
   int b_off, h_off, h_total;  // the mask's global batch*head (dropout_bh)
+  int q_off;                  // the mask's global row of query row 0
 };
 
 constexpr int BKV = 64;            // key rows per tile
@@ -204,7 +205,9 @@ __global__ void __launch_bounds__(WG_THREADS, MIN_BLOCKS)
   const float bmax2 = p.bias ? p.bias_max[bh / p.H] * LOG2E : 0.f;
   const float scale2 = p.scale * LOG2E;  // scores in the base-2 domain
   const int row0 = q0 + (HEADS == 1 ? wg * WG_ROWS : 0) + w * 16 + g;
-  const uint32_t row[2] = {static_cast<uint32_t>(row0), static_cast<uint32_t>(row0 + 8)};
+  // the mask's rows: this thread's query rows in the whole sequence
+  const uint32_t row[2] = {static_cast<uint32_t>(row0 + p.q_off),
+                           static_cast<uint32_t>(row0 + 8 + p.q_off)};
   uint32_t folded = 0;
   if constexpr (DROPOUT)
     folded = dropout_fold(dropout_base(p.seed, dropout_bh(bh, p.H, p.b_off, p.h_off, p.h_total)));

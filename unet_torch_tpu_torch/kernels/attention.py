@@ -38,10 +38,13 @@ the JAX package's counter-hash mask (`dropout_keep`): a pure function of
 (seed, batch*head, global row, global column) and of the padded key count
 `dfa_nk_p`, bit for bit the mask of `_dropout_flash_fwd` in interpret mode.
 The TPU's hardware-PRNG branch (`hw_prng`) is not carried over. A rank of a
-data- or tensor-parallel step holds a share of the batch rows and heads;
-the train calls take its `offsets`, (b_off, h_off, h_total), and hash the
-batch*head of the whole batch, (b + b_off) * h_total + h + h_off, so that
-its mask is its slice of the one-process mask, bit for bit.
+data- or tensor-parallel step holds a share of the batch rows and heads,
+and a rank of a spatially partitioned one a strip of the query rows (its
+image rows' tokens, against the keys of every strip); the train calls take
+its `offsets`, (b_off, h_off, h_total, q_off), and hash the batch*head of
+the whole batch, (b + b_off) * h_total + h + h_off, and the query row of
+the whole sequence, q_off + the call's row, so that its mask is its slice
+of the one-process mask, bit for bit.
 
 Every wrapper routes by the device of its tensors: a CPU tensor goes to the
 plain version, a CUDA tensor to the kernel, which raises on anything it does
@@ -167,15 +170,20 @@ def _train_scores(q, k, scale, bias):
 
 
 def mask_offsets(offsets, h: int) -> tuple:
-    """(b_off, h_off, h_total) of a call's batch rows and heads in the whole
-    batch; None is the whole batch itself, (0, 0, h)."""
-    return (0, 0, h) if offsets is None else tuple(int(o) for o in offsets)
+    """(b_off, h_off, h_total, q_off) of a call's batch rows, heads and
+    query rows in the whole batch and sequence; None is the whole batch
+    itself, (0, 0, h, 0), and a triple (b_off, h_off, h_total) starts at
+    query row 0."""
+    if offsets is None:
+        return (0, 0, h, 0)
+    offsets = tuple(int(o) for o in offsets)
+    return offsets + (0,) * (4 - len(offsets))
 
 
 def global_bh(b: int, h: int, offsets=None, device=None) -> torch.Tensor:
     """The (b * h,) flat batch*head indices of the whole batch that a call
     of b rows and h heads at `offsets` holds."""
-    b_off, h_off, h_total = mask_offsets(offsets, h)
+    b_off, h_off, h_total, _ = mask_offsets(offsets, h)
     rows = torch.arange(b_off, b_off + b, device=device)
     heads = torch.arange(h_off, h_off + h, device=device)
     return (rows[:, None] * h_total + heads[None, :]).reshape(-1)
@@ -185,7 +193,8 @@ def _keep_mask(seed, rate, shape, nk_p, device, offsets=None):
     b, h, nq, nk = shape
     nk_p = dfa_nk_p(nk) if nk_p is None else nk_p
     keep = dropout_keep(seed, b * h, nq, nk, nk_p, dropout_threshold(rate),
-                        device=device, bh=global_bh(b, h, offsets, device))
+                        row0=mask_offsets(offsets, h)[3], device=device,
+                        bh=global_bh(b, h, offsets, device))
     return keep.view(b, h, nq, nk)
 
 
@@ -269,18 +278,18 @@ _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 @functools.cache
 def _library() -> ctypes.CDLL:
     return _load("flash_attention_fwd",
-                 [_P] * 7 + [_I] * 6 + [_F, _U, _U, _U, _F] + [_I] * 5 + [_P])
+                 [_P] * 7 + [_I] * 6 + [_F, _U, _U, _U, _F] + [_I] * 6 + [_P])
 
 
 @functools.cache
 def _bwd_library() -> ctypes.CDLL:
     return _load("flash_attention_bwd",
-                 [_P] * 13 + [_I] * 6 + [_F, _U, _U, _U, _F] + [_I] * 5 + [_P])
+                 [_P] * 13 + [_I] * 6 + [_F, _U, _U, _U, _F] + [_I] * 6 + [_P])
 
 
 @functools.cache
 def _mask_library() -> ctypes.CDLL:
-    return _load("dropout_keep_mask", [_P, _I, _I, _I, _U, _U, _U, _P])
+    return _load("dropout_keep_mask", [_P, _I, _I, _I, _U, _U, _U, _U, _P])
 
 
 @functools.cache
@@ -375,8 +384,9 @@ def attention_train_forward(q, k, v, scale, bias=None, seed=0, rate=0.0,
                             offsets=None):
     """The train forward, (o, lse (B*H, Nq) f32): the plain version on a CPU
     tensor, the flash kernel (csrc/flash_attention_fwd.cu with lse and, at
-    rate > 0, dropout) on a CUDA tensor. `offsets` (b_off, h_off, h_total)
-    place q's rows and heads in the whole batch for the mask."""
+    rate > 0, dropout) on a CUDA tensor. `offsets` (b_off, h_off, h_total,
+    q_off) place q's batch rows, heads and query rows in the whole batch
+    for the mask (`mask_offsets`)."""
     if q.device.type == "cpu":
         return attention_train_reference(q, k, v, scale, bias, seed, rate,
                                          offsets=offsets)
@@ -445,21 +455,26 @@ attention_backward.launches = 0
 
 
 def dropout_keep_mask(n_bh: int, nq: int, nk: int, seed: int, rate: float,
-                      device, nk_p: int | None = None) -> torch.Tensor:
-    """The keep mask as (n_bh, Nq, Nk) uint8 0/1 on `device`: the plain hash
-    on the CPU, the probe kernel (csrc/dropout_keep_mask.cu, the device
-    function the attention kernels share) on a GPU."""
+                      device, nk_p: int | None = None,
+                      q_off: int = 0) -> torch.Tensor:
+    """The keep mask as (n_bh, Nq, Nk) uint8 0/1 on `device`, of the query
+    rows q_off..q_off+Nq-1: the plain hash on the CPU, the probe kernel
+    (csrc/dropout_keep_mask.cu, the device function the attention kernels
+    share) on a GPU."""
     device = torch.device(device)
     nk_p = dfa_nk_p(nk) if nk_p is None else nk_p
     thr = dropout_threshold(rate)
     if device.type == "cpu":
-        return dropout_keep(seed, n_bh, nq, nk, nk_p, thr).to(torch.uint8)
+        return dropout_keep(seed, n_bh, nq, nk, nk_p, thr,
+                            row0=q_off).to(torch.uint8)
     if device.type != "cuda":
         raise ValueError(f"no mask kernel for device {device}")
     if min(n_bh, nq, nk) < 1 or n_bh * nq * nk >= 2**62:
         raise ValueError(f"bad mask shape ({n_bh}, {nq}, {nk})")
     if n_bh >= 2**31 or nq >= 2**31 or nk >= 2**31:
         raise ValueError("each mask dimension must fit a 32-bit int")
+    if not 0 <= q_off < 2**32:
+        raise ValueError(f"q_off {q_off} must fit a 32-bit unsigned int")
     if nq * -(-nk // 16) >= 2**31:
         raise ValueError(f"Nq * ceil(Nk / 16) must be below 2**31, got "
                          f"({nq}, {nk})")
@@ -468,7 +483,7 @@ def dropout_keep_mask(n_bh: int, nq: int, nk: int, seed: int, rate: float,
     with torch.cuda.device(device):
         err = lib.dropout_keep_mask(out.data_ptr(), n_bh, nq, nk,
                                     int(seed) & _U32, thr, nk_p & _U32,
-                                    _stream(device))
+                                    q_off, _stream(device))
     _raise_on(lib, "dropout_keep_mask", err)
     dropout_keep_mask.launches += 1
     return out
@@ -515,8 +530,9 @@ packed2_attention.launches = 0
 class FlashAttention(torch.autograd.Function):
     """Train forward and backward kernels under autograd (the plain versions
     on CPU tensors). The bias gets no gradient, as `_masked_bwd` gives it a
-    zero one. `offsets` (b_off, h_off, h_total), or None, place the call's
-    rows and heads in the whole batch for the dropout mask."""
+    zero one. `offsets` (b_off, h_off, h_total[, q_off]), or None, place
+    the call's rows, heads and query rows in the whole batch for the
+    dropout mask (`mask_offsets`)."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias, seed, rate, scale, offsets):

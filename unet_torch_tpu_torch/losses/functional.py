@@ -37,7 +37,7 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
-from unet_torch_tpu_torch.core.dist import all_gather_rows, all_reduce_sum
+from unet_torch_tpu_torch.core.dist import all_gather_dim, all_reduce_sum
 from unet_torch_tpu_torch.kernels.minplus import minplus
 
 
@@ -71,7 +71,7 @@ def _global_topk_mean(select_by, values, k_div: int | None, k: int | None,
         n = values.shape[0]
         _, idx = torch.topk(select_by, n // k_div if k is None else k)
         return torch.mean(values[idx])
-    keys = all_gather_rows(select_by.detach(), group)
+    keys = all_gather_dim(select_by.detach(), group, 0)
     n = keys.shape[0]
     count = n // k_div if k is None else k
     _, idx = torch.topk(keys, count)

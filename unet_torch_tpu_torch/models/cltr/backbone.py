@@ -10,6 +10,14 @@ model keeps them in `batch_stats`. Modules carry torchvision's `resnet50`
 state_dict names (`conv1`, `bn1`, `layer1.0.conv1`, `layer1.0.downsample.0`
 and `.1`, ...), so a torchvision checkpoint loads natively
 (`load_pretrained_resnet50`).
+
+On a strip of a spatial mesh (parallel/spatial.py) the convs read their
+neighbours' rows (nn/strips.py::strip_conv2d: 3 above and 3 below the 7x7/2
+conv1, 1 and 1 the 3x3s) and the padded 3/2 max pool one row each way; the
+image's own border rows are zeros there, which the pool reads as torch's
+-inf padding would, since its input is a ReLU's. Frozen BN is local. Each
+strided layer starts its strips at even rows: a strip's height is a
+multiple of 32.
 """
 
 from __future__ import annotations
@@ -17,6 +25,10 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from unet_torch_tpu_torch.core.dist import exchange_rows
+from unet_torch_tpu_torch.nn.dropout import MeshBound
+from unet_torch_tpu_torch.nn.strips import strip_conv2d
 
 
 class FrozenBatchNorm(nn.Module):
@@ -38,7 +50,7 @@ class FrozenBatchNorm(nn.Module):
                 + shift.to(x.dtype).view(1, -1, 1, 1))
 
 
-class Conv2d(nn.Conv2d):
+class Conv2d(MeshBound, nn.Conv2d):
     """Bias-free conv whose f32 weight is cast to the input's dtype."""
 
     def __init__(self, cin, cout, kernel, stride=1, padding=0):
@@ -46,7 +58,8 @@ class Conv2d(nn.Conv2d):
                          bias=False)
 
     def forward(self, x):
-        return self._conv_forward(x, self.weight.to(x.dtype), None)
+        return strip_conv2d(x, self.weight.to(x.dtype), None, self.stride,
+                            self.padding, self.strip_group)
 
 
 class Bottleneck(nn.Module):
@@ -73,7 +86,7 @@ class Bottleneck(nn.Module):
         return F.relu(y + residual)
 
 
-class ResNet50(nn.Module):
+class ResNet50(MeshBound, nn.Module):
     """torchvision-layout ResNet-50 trunk; `layers` are the unit counts."""
 
     def __init__(self, layers=(3, 4, 6, 3), return_interm: bool = False,
@@ -104,7 +117,12 @@ class ResNet50(nn.Module):
             memory_format=torch.channels_last)
         x = F.relu(self.bn1(self.conv1(x)))
         # torch pads the pool's border with -inf: padding never wins
-        x = F.max_pool2d(x, 3, stride=2, padding=1)
+        group = self.strip_group
+        if group is None:
+            x = F.max_pool2d(x, 3, stride=2, padding=1)
+        else:
+            x = F.max_pool2d(exchange_rows(x, group), 3, stride=2,
+                             padding=(0, 1))
         interm = []
         for li in range(1, 5):
             x = getattr(self, f"layer{li}")(x)

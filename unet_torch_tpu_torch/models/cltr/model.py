@@ -6,6 +6,12 @@ ResNet-50 with frozen BN -> 1x1 input_proj -> conditional-DETR transformer
 reference-point offsets; 2000 queries; auxiliary outputs per decoder layer.
 Images are NHWC and are cast to the model's compute `dtype`; parameters stay
 f32. Logits and points leave in f32: the criterion stays in full precision.
+
+On a spatial mesh (parallel/spatial.py) a rank's images are its strips of
+the rows: the backbone, the padding mask (by the global nearest index), the
+position embeddings and the encoder run on the strip, the decoder on the
+gathered memory, replicated on every strip's rank (transformer.py), so the
+outputs are the whole images' on every rank.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ from unet_torch_tpu_torch.models.cltr.transformer import (
     reset_parameters,
 )
 from unet_torch_tpu_torch.models.transunet.vit import Linear
+from unet_torch_tpu_torch.nn.dropout import MeshBound
 
 
 def inverse_sigmoid(x, eps=1e-5):
@@ -46,12 +53,21 @@ def nearest_index(n_in: int, n_out: int, device=None):
     return ((i + 0.5) * ratio.item()).floor().long().clamp(max=n_in - 1)
 
 
-def feature_mask(mask, b: int, fh: int, fw: int, device):
+def feature_mask(mask, b: int, fh: int, fw: int, device, m: int = 0,
+                 strips: int = 1):
     """The (B, H, W) padding mask nearest-resized to the feature map, or all
-    False without one."""
+    False without one. With `strips`, mask and map are strip m of equal
+    strips of the image and of the map: the map's rows take the image rows
+    of their global nearest index, which lie in the strip."""
     if mask is None:
         return torch.zeros((b, fh, fw), dtype=torch.bool, device=device)
-    rows = nearest_index(mask.shape[1], fh, device)
+    h = mask.shape[1]
+    rows = nearest_index(h * strips, fh * strips, device)[
+        m * fh:(m + 1) * fh] - m * h
+    if strips > 1 and not (0 <= int(rows.min()) and int(rows.max()) < h):
+        raise ValueError(f"feature rows of strip {m} read image rows outside "
+                         "it: the strips' heights are not the map's times "
+                         "the backbone's stride")
     cols = nearest_index(mask.shape[2], fw, device)
     return mask[:, rows][:, :, cols]
 
@@ -65,7 +81,7 @@ class InputProj(nn.Conv2d):
                         self.bias.to(x.dtype))
 
 
-class ConditionalDETR(nn.Module):
+class ConditionalDETR(MeshBound, nn.Module):
     def __init__(self, num_classes: int = 2, num_queries: int = 2000,
                  channel_point: int = 3, hidden_dim: int = 256,
                  nheads: int = 8, enc_layers: int = 6, dec_layers: int = 6,
@@ -111,9 +127,12 @@ class ConditionalDETR(nn.Module):
         channel_point), 'aux_outputs': [...]}, f32."""
         feat = self.backbone(images.to(self.dtype))
         b, fh, fw, _ = feat.shape
-        fmask = feature_mask(mask, b, fh, fw, feat.device)
+        group = self.strip_group
+        strip = (0, 1) if group is None else (self.mesh.m, self.mesh.model)
+        fmask = feature_mask(mask, b, fh, fw, feat.device, *strip)
         if self.pos_embed is None:
-            pos = sine_position_embedding(fmask, self.hidden_dim // 2)
+            pos = sine_position_embedding(fmask, self.hidden_dim // 2,
+                                          group=group)
         else:
             pos = self.pos_embed(feat)
         hs, reference = self.transformer(self.input_proj(feat), fmask,

@@ -1,6 +1,12 @@
 """Positional encodings of the CLTR transformer (counterpart of
 unet_torch_tpu/models/cltr/position_encoding.py): NHWC maps, batch-first
 tokens, f32.
+
+On a strip of a spatial mesh (`group`, the strips' ranks in order) the
+sine embedding counts a column's unmasked rows from the image's top: the
+strip's own cumulative count plus the strips' above it
+(core/dist.py::exclusive_prefix_sum), normalised by the whole column's
+count; the learned one reads its rows by their global index.
 """
 
 from __future__ import annotations
@@ -9,6 +15,9 @@ import math
 
 import torch
 from torch import nn
+
+from unet_torch_tpu_torch.core.dist import all_reduce_sum, exclusive_prefix_sum
+from unet_torch_tpu_torch.nn.dropout import MeshBound
 
 
 def _interleave_sin_cos(x):
@@ -19,14 +28,20 @@ def _interleave_sin_cos(x):
 
 
 def sine_position_embedding(mask, num_pos_feats=128, temperature=10000,
-                            normalize=True, scale=2 * math.pi):
-    """mask: (B, H, W) bool, True on padded pixels -> (B, H, W, 2*feats)."""
+                            normalize=True, scale=2 * math.pi, group=None):
+    """mask: (B, H, W) bool, True on padded pixels -> (B, H, W, 2*feats);
+    with `group`, mask is a strip of the image (module docstring)."""
     not_mask = (~mask).to(torch.float32)
     y_embed = torch.cumsum(not_mask, dim=1)
+    total = y_embed[:, -1:, :]
+    if group is not None:
+        column = not_mask.sum(dim=1, keepdim=True)
+        y_embed = y_embed + exclusive_prefix_sum(column, group)
+        total = all_reduce_sum(column, group)
     x_embed = torch.cumsum(not_mask, dim=2)
     if normalize:
         eps = 1e-6
-        y_embed = y_embed / (y_embed[:, -1:, :] + eps) * scale
+        y_embed = y_embed / (total + eps) * scale
         x_embed = x_embed / (x_embed[:, :, -1:] + eps) * scale
     dim_t = torch.arange(num_pos_feats, dtype=torch.float32,
                          device=mask.device)
@@ -37,7 +52,7 @@ def sine_position_embedding(mask, num_pos_feats=128, temperature=10000,
     return torch.cat([pos_y, pos_x], dim=3)
 
 
-class PositionEmbeddingLearned(nn.Module):
+class PositionEmbeddingLearned(MeshBound, nn.Module):
     """Learned 50x50 row and column embeddings, U(0, 1) at the start."""
 
     def __init__(self, num_pos_feats: int = 256, generator=None):
@@ -49,7 +64,8 @@ class PositionEmbeddingLearned(nn.Module):
 
     def forward(self, x):
         b, h, w, _ = x.shape
-        row = self.row_embed.weight[:h]
+        first = 0 if self.strip_group is None else self.mesh.m * h
+        row = self.row_embed.weight[first:first + h]
         col = self.col_embed.weight[:w]
         feats = row.shape[-1]
         pos = torch.cat([col[None, :, :].expand(h, w, feats),

@@ -26,6 +26,19 @@ positional projections stay whole, and its attentions take the rank's
 heads of them. Each rank's attention runs on its nhead / model heads with
 the mask of their place in the whole batch.
 
+On a spatial mesh (the "spatial" role, parallel/spatial.py) a rank's tokens
+are its strip of the image's rows. The encoder's self-attention keeps the
+strip's queries and gathers the keys and values of every strip
+(core/dist.py::all_gather_dim), its mask's query rows from the strip's
+first token; its token-wise layers are local. After the encoder the memory,
+its positions and the key-padding mask are gathered once, and the decoder
+runs on every strip's rank, replicated (its dropouts and attention masks
+are the whole batch's rows, alike on every strip). Every rank then
+differentiates its own copy of the one loss: the gather's backward sums the
+ranks' gradients of a strip, M times that loss's, and
+DistributedDataParallel's mean over the world group divides the M back out
+(train/cltr_steps.py).
+
 Parameters are f32 and every layer computes in its input's dtype, except the
 reference-point head, which stays f32. Modules carry the reference's
 state_dict names (`encoder.layers.N.self_attn.in_proj_weight`,
@@ -46,7 +59,7 @@ from unet_torch_tpu_torch.kernels.attention import (
 from unet_torch_tpu_torch.models.cltr.position_encoding import (
     gen_sineembed_for_position,
 )
-from unet_torch_tpu_torch.core.dist import copy_to_group
+from unet_torch_tpu_torch.core.dist import all_gather_dim, copy_to_group
 from unet_torch_tpu_torch.models.transunet.vit import LayerNorm, Linear
 from unet_torch_tpu_torch.nn.dropout import Dropout, MeshBound
 
@@ -106,14 +119,26 @@ def _heads(x, num_heads: int, mesh):
         .reshape(b, n, h * per)
 
 
+def gather_mask(mask, group):
+    """A (B, N_strip) bool key-padding mask of every strip, (B, N), or
+    None without one."""
+    if mask is None or group is None:
+        return mask
+    with torch.no_grad():
+        return all_gather_dim(mask.float(), group, 1) > 0.5
+
+
 class RawAttention(MeshBound, nn.Module):
     """Attention over projected q, k, v; only the out projection is
     learned (the reference's vendored MultiheadAttention). With a mesh of
-    model > 1, q, k and v are whole and each rank keeps its heads of them
-    (`projected_heads` False: FullAttention's own projections give only the
-    rank's)."""
+    model > 1 under the tensor role, q, k and v are whole and each rank
+    keeps its heads of them (`projected_heads` False: FullAttention's own
+    projections give only the rank's). Under the spatial role an attention
+    whose queries are the image's tokens (`strip_queries`) gathers k and v
+    of every strip; the key-padding mask comes whole."""
 
     projected_heads = False
+    strip_queries = False
 
     def __init__(self, num_heads: int, vdim: int, dropout_rate: float = 0.0):
         super().__init__()
@@ -134,7 +159,13 @@ class RawAttention(MeshBound, nn.Module):
 
     def forward(self, q, k, v, key_padding_mask=None):
         mesh, heads, offsets = self.mesh, self.num_heads, None
-        if mesh is not None:
+        if mesh is not None and mesh.role == "spatial":
+            q_off, group = 0, self.strip_group
+            if self.strip_queries and group is not None:
+                q_off = mesh.m * q.shape[1]
+                k, v = all_gather_dim(torch.stack([k, v]), group, 2)
+            offsets = (mesh.d * q.shape[0], 0, heads, q_off)
+        elif mesh is not None:
             heads //= mesh.model
             if mesh.model > 1 and not self.projected_heads:
                 q, k, v = (_heads(t, self.num_heads, mesh) for t in (q, k, v))
@@ -148,9 +179,11 @@ class RawAttention(MeshBound, nn.Module):
 class FullAttention(RawAttention):
     """torch's nn.MultiheadAttention: stacked q, k, v projections
     (`in_proj_weight`, `in_proj_bias`), then RawAttention. Under tensor
-    parallelism each third of the stack holds the rank's heads."""
+    parallelism each third of the stack holds the rank's heads. It is the
+    encoder's self-attention: its queries are the image's tokens."""
 
     projected_heads = True
+    strip_queries = True
 
     def __init__(self, embed_dim: int, num_heads: int,
                  dropout_rate: float = 0.0):
@@ -160,7 +193,7 @@ class FullAttention(RawAttention):
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * embed_dim))
 
     def forward(self, q, k, v, key_padding_mask=None):
-        if self.mesh is not None:
+        if self.mesh is not None and self.mesh.role == "tensor":
             q, k, v = (copy_to_group(t, self.mesh.model_group)
                        for t in (q, k, v))
         w = self.in_proj_weight.to(q.dtype).chunk(3)
@@ -195,10 +228,10 @@ class TransformerEncoderLayer(nn.Module):
     def forward(self, src, pos, key_padding_mask=None):
         q = k = src + pos
         src2 = self.self_attn(q, k, src, key_padding_mask)
-        src = self.norm1(src + self.dropout(src2))
+        src = self.norm1(src + self.dropout(src2, spatial_dim=1))
         src2 = self.linear2(self.dropout(F.relu(self.linear1(src)),
-                                         model_dim=-1))
-        return self.norm2(src + self.dropout(src2))
+                                         model_dim=-1, spatial_dim=1))
+        return self.norm2(src + self.dropout(src2, spatial_dim=1))
 
 
 class TransformerDecoderLayer(nn.Module):
@@ -231,7 +264,8 @@ class TransformerDecoderLayer(nn.Module):
         q = self.sa_qcontent_proj(tgt) + self.sa_qpos_proj(query_pos)
         k = self.sa_kcontent_proj(tgt) + self.sa_kpos_proj(query_pos)
         tgt2 = self.self_attn(q, k, self.sa_v_proj(tgt))
-        tgt = self.norm1(tgt + self.dropout(tgt2))
+        # the queries are replicated over a spatial mesh's strips
+        tgt = self.norm1(tgt + self.dropout(tgt2, spatial_dim=None))
 
         q = self.ca_qcontent_proj(tgt)
         k = self.ca_kcontent_proj(memory)
@@ -251,11 +285,11 @@ class TransformerDecoderLayer(nn.Module):
                        k_pos.view(b, hw, self.nhead, hd)],
                       dim=3).view(b, hw, d * 2)
         tgt2 = self.cross_attn(q, k, v, key_padding_mask)
-        tgt = self.norm2(tgt + self.dropout(tgt2))
+        tgt = self.norm2(tgt + self.dropout(tgt2, spatial_dim=None))
 
         tgt2 = self.linear2(self.dropout(F.relu(self.linear1(tgt)),
-                                         model_dim=-1))
-        return self.norm3(tgt + self.dropout(tgt2))
+                                         model_dim=-1, spatial_dim=None))
+        return self.norm3(tgt + self.dropout(tgt2, spatial_dim=None))
 
 
 class TransformerEncoder(nn.Module):
@@ -304,7 +338,7 @@ class TransformerDecoder(nn.Module):
         return torch.stack(intermediate), reference_points
 
 
-class Transformer(nn.Module):
+class Transformer(MeshBound, nn.Module):
     """src (B, H, W, C), mask (B, H, W) bool or None, query_embed (Q, C),
     pos_embed (B, H, W, C) -> (hs (L, B, Q, C), reference_points (B, Q, 2)
     f32), and with `return_memory` the encoder memory (B, H, W, C)."""
@@ -327,12 +361,18 @@ class Transformer(nn.Module):
         src = src.reshape(b, h * w, c)
         pos = pos_embed.reshape(b, h * w, -1).to(dtype)
         mask_flat = None if mask is None else mask.reshape(b, h * w)
+        # a strip's keys are every strip's: so is their padding mask
+        group = self.strip_group
+        mask_flat = gather_mask(mask_flat, group)
         query_pos = query_embed[None].expand(b, -1, -1).to(dtype)
         memory = self.encoder(src, pos, mask_flat)
+        if group is not None:
+            memory = all_gather_dim(memory, group, 1)
+            pos = all_gather_dim(pos, group, 1)
         hs, reference_points = self.decoder(memory, pos, query_pos,
                                             mask_flat)
         if self.return_memory:
-            return hs, reference_points, memory.reshape(b, h, w, c)
+            return hs, reference_points, memory.reshape(b, -1, w, c)
         return hs, reference_points
 
 

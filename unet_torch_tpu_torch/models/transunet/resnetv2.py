@@ -13,6 +13,22 @@ Modules carry the reference's state_dict names (root.conv, root.gn,
 body.block{b}.unit{u}.{conv1,gn1,...,downsample,gn_proj}). Activations are
 NCHW in channels_last memory; parameters stay f32 and each layer computes in
 its input's dtype.
+
+On a strip of a spatial mesh (parallel/spatial.py; M strips of S rows,
+S a multiple of 16) the convs read their neighbours' rows and the
+GroupNorms sum their statistics over the strips (nn/strips.py). The
+height halves four times: the root conv (S/2 rows a strip), the pool, and
+the first units of blocks 2 and 3 (S/8, S/16). The pool is VALID and
+floors (the whole image's root map of R rows pools to R/2 - 1), so its
+strips are uneven. Ownership rule: a pooled row j belongs to the strip
+that holds root row 2j, the top of its window; every strip owns S/4 pooled
+rows but the last, which owns S/4 - 1, and each reads the first root row
+of the strip below it (exchange_rows with 0 rows above, 1 below; the last
+strip, whose window would pass the image's end, reads none). Every later
+strided conv starts its strips at even rows, so from block 2 on the
+strips are even again. The skip of block 1 is padded at the bottom and
+the right to S/4 rows a strip: the padded zero row belongs to the last
+strip, and no GroupNorm sees it (the skips only feed the decoder).
 """
 
 from __future__ import annotations
@@ -23,23 +39,32 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from unet_torch_tpu_torch.core.dist import exchange_rows
+from unet_torch_tpu_torch.nn.dropout import MeshBound
+from unet_torch_tpu_torch.nn.strips import strip_conv2d, strip_group_norm
 
-class StdConv2d(nn.Conv2d):
+
+class StdConv2d(MeshBound, nn.Conv2d):
     """Conv2d with its weight standardised on every call."""
 
     def forward(self, x):
         var, mean = torch.var_mean(self.weight, dim=(1, 2, 3), keepdim=True,
                                    unbiased=False)
         w = (self.weight - mean) / torch.sqrt(var + 1e-5)
-        return F.conv2d(x, w.to(x.dtype), None, self.stride, self.padding)
+        return strip_conv2d(x, w.to(x.dtype), None, self.stride,
+                            self.padding, self.strip_group)
 
 
-class GroupNorm(nn.GroupNorm):
+class GroupNorm(MeshBound, nn.GroupNorm):
     """GroupNorm in the input's dtype (statistics in f32 inside torch)."""
 
     def forward(self, x):
-        return F.group_norm(x, self.num_groups, self.weight.to(x.dtype),
-                            self.bias.to(x.dtype), self.eps)
+        group = self.strip_group
+        if group is None:
+            return F.group_norm(x, self.num_groups, self.weight.to(x.dtype),
+                                self.bias.to(x.dtype), self.eps)
+        return strip_group_norm(x, self.num_groups, self.weight, self.bias,
+                                self.eps, group)
 
 
 def _conv1x1(cin, cout, stride=1):
@@ -75,7 +100,7 @@ class PreActBottleneck(nn.Module):
         return self.relu(residual + y)
 
 
-class ResNetV2(nn.Module):
+class ResNetV2(MeshBound, nn.Module):
     """NCHW in -> (bottleneck features, [skip 1/8, skip 1/4, root 1/2])."""
 
     def __init__(self, block_units=(3, 4, 9), width_factor: int = 1):
@@ -101,13 +126,25 @@ class ResNetV2(nn.Module):
         self.body = nn.Sequential(OrderedDict(blocks))
 
     def forward(self, x):
-        in_size = x.shape[2]
+        group, strips = self.strip_group, 1
+        if group is not None:
+            strips = self.mesh.model
+        in_size = x.shape[2] * strips
         x = self.root(x)
         features = [x]
+        if group is not None:
+            # a pooled row's window reads the first root row of the strip
+            # below; the last strip's would pass the image's end
+            x = exchange_rows(x, group, above=0, below=1)
+            if self.mesh.m == strips - 1:
+                x = x[:, :, :-1]
         x = F.max_pool2d(x, 3, stride=2)
         for i, block in enumerate(self.body):
             x = block(x)
             if i < len(self.body) - 1:
-                pad = int(in_size / 4 / (i + 1)) - x.shape[2]
-                features.append(F.pad(x, (0, pad, 0, pad)) if pad else x)
+                size = int(in_size / 4 / (i + 1))
+                pad_w = size - x.shape[3]
+                pad_h = size // strips - x.shape[2]
+                features.append(F.pad(x, (0, pad_w, 0, pad_h))
+                                if pad_w or pad_h else x)
         return x, features[::-1]

@@ -43,6 +43,22 @@ Under tensor parallelism (parallel/tensor.py::shard_model_tp) `query`,
 attention on its num_heads / model heads (at the same head width), with the
 mask of those heads of the whole batch (`kernels/attention.py` offsets).
 
+On a spatial mesh (parallel/spatial.py::spatialize) rank (d, m) holds its
+batch rows and its strip of the image's rows. The ResNetV2 runs on the
+strip (resnetv2.py); the tokens of a strip are its rows of the patch grid,
+contiguous in the row-major sequence, so it adds its rows of the position
+embeddings, and every token-wise layer (LayerNorm, MLP, projections) is
+local. Attention keeps the strip's queries and gathers the keys and values
+of every strip (core/dist.py::all_gather_dim, whose backward sums the
+ranks' partial dk and dv): the eval kernel at Nq = N / M and Nk = N, and
+the train kernels with the mask's query-row offset q_off = m N / M. The
+decoder reshapes a strip's tokens to (B, N / M / w, w, hidden), reads its
+neighbours' rows before every 3x3 conv (the fused conv on the haloed strip
+in eval, torch's conv in train, whose BN statistics spatialize sums over
+the world group) and upsamples from the global row positions
+(nn/strips.py::upsample_rows_2x). `vis` refuses a spatial mesh: the
+probabilities' rows are the ranks'.
+
 The JAX package's W-folded decoder tail (FoldedDecoderTail, _FoldedHeadConv,
 _tail_fold_factor) is a TPU lane-padding workaround over the same parameters
 and is not carried over. Modules carry the reference's state_dict names, so
@@ -73,8 +89,13 @@ from unet_torch_tpu_torch.models.unet import (
     UNetMultitask,
     ignore_tpu_options,
 )
-from unet_torch_tpu_torch.core.dist import copy_to_group
+from unet_torch_tpu_torch.core.dist import (
+    all_gather_dim,
+    copy_to_group,
+    exchange_rows,
+)
 from unet_torch_tpu_torch.nn.dropout import Dropout, MeshBound
+from unet_torch_tpu_torch.nn.strips import strip_conv2d, upsample_rows_2x
 
 
 
@@ -119,7 +140,10 @@ class Attention(MeshBound, nn.Module):
 
     With a mesh bound (nn/dropout.py::set_mesh) the rows and heads are a
     rank's share: its heads are the product's width over the head width,
-    and the kernels hash the mask of its place in the whole batch."""
+    and the kernels hash the mask of its place in the whole batch. Under a
+    spatial mesh the tokens are the rank's strip: k and v are gathered
+    from every strip, and the mask's query rows start at the strip's
+    first token."""
 
     def __init__(self, hidden_size: int, num_heads: int,
                  attention_dropout_rate: float = 0.0, vis: bool = False):
@@ -135,27 +159,38 @@ class Attention(MeshBound, nn.Module):
         self.out = Linear(hidden_size, hidden_size)
         self.dropout = Dropout(attention_dropout_rate)
 
-    def offsets(self, b: int, heads: int):
-        """The kernels' (b_off, h_off, h_total) of this rank's b rows and
-        heads, or None in one process."""
+    def offsets(self, b: int, heads: int, n: int):
+        """The kernels' (b_off, h_off, h_total, q_off) of this rank's b rows,
+        heads and n query tokens, or None in one process."""
         mesh = self.mesh
         if mesh is None:
             return None
-        return (mesh.d * b, mesh.m * heads, heads * mesh.model)
+        if mesh.role == "spatial":
+            return (mesh.d * b, 0, heads, mesh.m * n)
+        return (mesh.d * b, mesh.m * heads, heads * mesh.model, 0)
 
     def forward(self, x):
         b, n, _ = x.shape
         d = self.head_dim
-        mesh = self.mesh
-        x = copy_to_group(x, None if mesh is None else mesh.model_group)
+        mesh, strips = self.mesh, self.strip_group
+        tp = mesh is not None and mesh.role == "tensor"
+        x = copy_to_group(x, mesh.model_group if tp else None)
         w = torch.cat([self.query.weight, self.key.weight, self.value.weight])
         bias = torch.cat([self.query.bias, self.key.bias, self.value.bias])
         qkv = F.linear(x, w.to(x.dtype), bias.to(x.dtype))
         heads = qkv.shape[-1] // (3 * d)
         # (B, N, 3, heads, d) -> (3, B, heads, N, d): q, k, v contiguous
-        qkv = qkv.view(b, n, 3, heads, d).permute(2, 0, 3, 1, 4)
-        q, k, v = qkv.contiguous()
+        qkv = qkv.view(b, n, 3, heads, d).permute(2, 0, 3, 1, 4).contiguous()
+        q = qkv[0]
+        # every strip's keys and values, in one collective
+        k, v = all_gather_dim(qkv[1:], strips, 3)
         scale = 1.0 / math.sqrt(d)
+        if self.vis and strips is not None:
+            raise NotImplementedError(
+                "vis=True keeps each layer's (B, heads, N, N) probabilities; "
+                "on a spatial mesh a rank computes its strip's rows of them "
+                "only, which the port does not gather: run vis in one "
+                "process")
         if self.vis:
             p = attention_probs(q, k, scale)
             self.weights = p.detach()
@@ -172,11 +207,11 @@ class Attention(MeshBound, nn.Module):
                 seed = int(torch.randint(0, 2 ** 32, (), generator=gen,
                                          device=gen.device))
             ctx = dropout_flash_attention(q, k, v, seed, scale, self.rate,
-                                          self.offsets(b, heads))
+                                          self.offsets(b, heads, n))
         else:
             ctx = fused_attention(q, k, v, scale=scale)
         out = self.out(ctx.permute(0, 2, 1, 3).reshape(b, n, heads * d))
-        return self.dropout(out)
+        return self.dropout(out, spatial_dim=1)
 
 
 class Mlp(nn.Module):
@@ -187,9 +222,10 @@ class Mlp(nn.Module):
         self.dropout = Dropout(dropout_rate)
 
     def forward(self, x):
-        # fc1's output is split over the model ranks under tensor parallelism
-        x = self.dropout(F.gelu(self.fc1(x)), model_dim=-1)
-        return self.dropout(self.fc2(x))
+        # fc1's output is split over the model ranks under tensor
+        # parallelism; the tokens over the strips under a spatial mesh
+        x = self.dropout(F.gelu(self.fc1(x)), model_dim=-1, spatial_dim=1)
+        return self.dropout(self.fc2(x), spatial_dim=1)
 
 
 class Block(nn.Module):
@@ -222,8 +258,9 @@ class Encoder(nn.Module):
         return self.encoder_norm(x).to(dtype)
 
 
-class Embeddings(nn.Module):
-    """NCHW image -> ((B, n_patches, hidden) tokens, ResNetV2 skips or None)."""
+class Embeddings(MeshBound, nn.Module):
+    """NCHW image -> ((B, n_patches, hidden) tokens, ResNetV2 skips or None);
+    on a strip, its tokens (module docstring)."""
 
     def __init__(self, config, img_size: int):
         super().__init__()
@@ -255,7 +292,11 @@ class Embeddings(nn.Module):
         x = F.conv2d(x, pe.weight.to(x.dtype), pe.bias.to(x.dtype),
                      stride=pe.stride)
         x = x.flatten(2).transpose(1, 2)
-        return self.dropout(x + self.position_embeddings), features
+        pos = self.position_embeddings
+        if self.strip_group is not None:
+            n = x.shape[1]
+            pos = pos[:, self.mesh.m * n:(self.mesh.m + 1) * n]
+        return self.dropout(x + pos, spatial_dim=1), features
 
 
 class Transformer(nn.Module):
@@ -270,7 +311,7 @@ class Transformer(nn.Module):
         return self.encoder(x, dtype), features
 
 
-class Conv2dReLU(nn.Sequential):
+class Conv2dReLU(MeshBound, nn.Sequential):
     """conv3x3 (no bias) -> BatchNorm -> ReLU on NHWC tensors, as `.0`, `.1`
     and `.2`. In eval mode BN folds its running statistics into a scale and
     bias and the three run as one fused_conv3x3_bn_relu call (the Hopper
@@ -279,7 +320,9 @@ class Conv2dReLU(nn.Sequential):
     inference-only, so an eval-mode forward that autograd records (the
     pipelined forward's train step, whose BN keeps its running statistics
     as the JAX package's does) runs the train path's conv, BN on the
-    running statistics, and ReLU."""
+    running statistics, and ReLU. On a strip it reads its neighbours' rows
+    first: the fused conv runs on the haloed strip, whose inner rows it
+    keeps."""
 
     def __init__(self, in_channels: int, out_channels: int):
         super().__init__(
@@ -290,18 +333,22 @@ class Conv2dReLU(nn.Sequential):
 
     def forward(self, x):
         conv, bn = self[0], self[1]
+        group = self.strip_group
         if self.training or (torch.is_grad_enabled() and (
                 x.requires_grad or conv.weight.requires_grad)):
-            y = F.conv2d(x.permute(0, 3, 1, 2), conv.weight.to(x.dtype),
-                         padding=1)
+            y = strip_conv2d(x.permute(0, 3, 1, 2), conv.weight.to(x.dtype),
+                             None, 1, 1, group)
             return F.relu(bn(y)).permute(0, 2, 3, 1)
         scale, bias = fold_bn(bn.weight, bn.bias, bn.running_mean,
                               bn.running_var, bn.eps)
         w = conv.weight.permute(2, 3, 1, 0).to(x.dtype).contiguous()
-        return fused_conv3x3_bn_relu(x.contiguous(), w, scale, bias)
+        if group is None:
+            return fused_conv3x3_bn_relu(x.contiguous(), w, scale, bias)
+        return fused_conv3x3_bn_relu(exchange_rows(x, group, dim=1), w, scale,
+                                     bias)[:, 1:-1]
 
 
-class DecoderBlock(nn.Module):
+class DecoderBlock(MeshBound, nn.Module):
     def __init__(self, in_channels: int, out_channels: int,
                  skip_channels: int = 0):
         super().__init__()
@@ -309,14 +356,19 @@ class DecoderBlock(nn.Module):
         self.conv2 = Conv2dReLU(out_channels, out_channels)
 
     def forward(self, x, skip=None):
-        x = bilinear_upsample_2x(x)
+        group = self.strip_group
+        if group is None:
+            x = bilinear_upsample_2x(x)
+        else:
+            x = upsample_rows_2x(x, group, self.mesh.m, self.mesh.model)
         if skip is not None:
             x = torch.cat([x, skip], dim=-1)
         return self.conv2(self.conv1(x))
 
 
-class DecoderCup(nn.Module):
-    """(B, n_patches, hidden) tokens + NCHW skips -> NHWC features."""
+class DecoderCup(MeshBound, nn.Module):
+    """(B, n_patches, hidden) tokens + NCHW skips -> NHWC features; on a
+    strip, its tokens and skips -> its rows of the features."""
 
     head_channels = 512
 
@@ -335,8 +387,9 @@ class DecoderCup(nn.Module):
 
     def forward(self, hidden_states, features=None):
         b, n_patch, hidden = hidden_states.shape
-        h = w = math.isqrt(n_patch)
-        x = self.conv_more(hidden_states.reshape(b, h, w, hidden))
+        strips = 1 if self.strip_group is None else self.mesh.model
+        w = math.isqrt(n_patch * strips)
+        x = self.conv_more(hidden_states.reshape(b, n_patch // w, w, hidden))
         for i, block in enumerate(self.blocks):
             skip = None
             if features is not None and i < self.n_skip:
@@ -345,7 +398,7 @@ class DecoderCup(nn.Module):
         return x
 
 
-class SegmentationHead(nn.Sequential):
+class SegmentationHead(MeshBound, nn.Sequential):
     """conv3x3 with bias on NHWC features, as `.0`."""
 
     def __init__(self, in_channels: int, out_channels: int):
@@ -353,8 +406,8 @@ class SegmentationHead(nn.Sequential):
 
     def forward(self, x):
         conv = self[0]
-        y = F.conv2d(x.permute(0, 3, 1, 2), conv.weight.to(x.dtype),
-                     conv.bias.to(x.dtype), padding=1)
+        y = strip_conv2d(x.permute(0, 3, 1, 2), conv.weight.to(x.dtype),
+                         conv.bias.to(x.dtype), 1, 1, self.strip_group)
         return y.permute(0, 2, 3, 1)
 
 

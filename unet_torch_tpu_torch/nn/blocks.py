@@ -84,15 +84,8 @@ class DoubleConv(MeshBound, nn.Module):
             nn.ReLU(inplace=True),
         )
 
-    def _strips(self):
-        """The group of the strips of the height, or None."""
-        mesh = self.mesh
-        if mesh is None or mesh.role != "spatial":
-            return None
-        return mesh.model_group
-
     def forward(self, x):
-        group = self._strips()
+        group = self.strip_group
         pairs = ((self.double_conv[0], self.double_conv[1]),
                  (self.double_conv[3], self.double_conv[4]))
         if self.training:

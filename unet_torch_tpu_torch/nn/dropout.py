@@ -12,9 +12,12 @@ In a data-, tensor- or spatially parallel step (core/mesh.py) every rank
 binds the same generator state and draws the mask of the whole batch, then
 applies its slice: its batch rows; where the input is split over the model
 ranks (the column-parallel fc1 / linear1 output: `model_dim`), its
-columns; under a spatial mesh, its strip of the height of an NCHW input. A
-rank's dropout then equals the one-process port's on its share, and the
-ranks' generators stay in step.
+columns; under a spatial mesh, its strip along the dim the caller names
+(`spatial_dim`: the height of an NCHW activation by default, the tokens of
+a (B, N, C) sequence whose strips are the image's rows, None where the
+input is replicated over the strips, as CLTR's decoder is). A rank's
+dropout then equals the one-process port's on its share, and the ranks'
+generators stay in step.
 """
 
 from __future__ import annotations
@@ -28,6 +31,15 @@ class MeshBound:
     (data, model) layout, bound by `set_mesh`; None is one process."""
 
     mesh = None
+
+    @property
+    def strip_group(self):
+        """The model group of a spatial mesh, whose ranks hold the strips
+        of the image's height, or None (one strip: the whole image)."""
+        mesh = self.mesh
+        if mesh is None or mesh.role != "spatial":
+            return None
+        return mesh.model_group
 
 
 def set_mesh(module: nn.Module, mesh) -> None:
@@ -49,10 +61,11 @@ class Dropout(MeshBound, nn.Module):
     def extra_repr(self) -> str:
         return f"p={self.p}"
 
-    def forward(self, x, model_dim: int | None = None):
-        """`model_dim`: the dim of x split over the model ranks, or None
-        where x is replicated over them (under a spatial mesh: the
-        height)."""
+    def forward(self, x, model_dim: int | None = None,
+                spatial_dim: int | None = 2):
+        """`model_dim`: the dim of x split over the model ranks of a tensor-
+        parallel mesh, or None where x is replicated over them;
+        `spatial_dim`: the same under a spatial mesh (module docstring)."""
         if not self.training or self.p == 0.0:
             return x
         if self.p == 1.0:
@@ -63,7 +76,7 @@ class Dropout(MeshBound, nn.Module):
         shape = list(x.shape)
         mesh = self.mesh
         if mesh is not None and mesh.role == "spatial":
-            model_dim = 2  # the height of an NCHW activation
+            model_dim = spatial_dim
         if mesh is not None:
             shape[0] *= mesh.data
             if model_dim is not None:

@@ -1,5 +1,5 @@
-"""Spatial (height) partitioning of the UNet family (counterpart of
-unet_torch_tpu/parallel/spatial.py).
+"""Spatial (height) partitioning of the UNet, TransUnet and CLTR families
+(counterpart of unet_torch_tpu/parallel/spatial.py).
 
 The JAX package shards an image batch `P("data", "model")`: the batch over
 `data`, the height over `model`, and XLA inserts the halo exchange of every
@@ -13,14 +13,28 @@ statistics are summed over the world group (every rank holds a share of
 the batch's pixels). The max pools, the 2x2 transposed convs, the 1x1 convs
 and the attention gates read no row of another strip.
 
+The transformer families (models/transunet/, models/cltr/) take the same
+layout: their convs read their neighbours' rows and their GroupNorms sum
+over the strips (nn/strips.py), a strip's tokens are its rows of the patch
+grid, and every attention whose queries are image tokens gathers the keys
+and values of every strip (core/dist.py::all_gather_dim) and hashes its
+dropout mask at the strip's first query row. The TransUnet's decoder runs
+on the strips; CLTR's decoder runs replicated on the gathered memory.
+
 A train step on a strip takes the world group (`mesh.world_group`): the
 model under DistributedDataParallel over it, the losses' batch-coupled sums
 over it (train/steps.py `group`). The means of per-pixel terms need
 nothing more: DDP's mean over equal strips is the whole batch's mean.
 
-A strip's height must be a multiple of 2**DEPTH (16 for the UNet family):
-each max pool halves it, and a pool window must not straddle two strips.
-XLA reshards such an image; the port raises instead.
+A CLTR step takes DistributedDataParallel over the world group too, and
+the criterion's point count over the data group (train/cltr_steps.py):
+the model ranks of one data rank hold the same outputs.
+
+A strip's height must be a multiple of each family's rule (`strip_rule`):
+16 for the UNet family (its four max pools) and the hybrid TransUnet (the
+R50 root, pool and blocks 2 and 3 each halve it), the patch height for a
+plain ViT, 32 for CLTR (ResNet-50 halves it five times). XLA reshards
+other images; the port raises instead.
 """
 
 from __future__ import annotations
@@ -31,13 +45,16 @@ from torch import nn
 
 from unet_torch_tpu_torch.core.dist import all_reduce_
 from unet_torch_tpu_torch.core.mesh import shard_batch
+from unet_torch_tpu_torch.models.cltr.model import ConditionalDETR
+from unet_torch_tpu_torch.models.transunet.vit import _TransUnet
 from unet_torch_tpu_torch.models.unet import UNet, UNetAttention, UNetMultitask
 from unet_torch_tpu_torch.nn.dropout import set_mesh
 from unet_torch_tpu_torch.nn.sync_batchnorm import convert_sync_batchnorm
 
 # the UNet family's max pools
 DEPTH = 4
-SPATIAL_MODELS = (UNet, UNetMultitask, UNetAttention)
+SPATIAL_MODELS = (UNet, UNetAttention, UNetMultitask, _TransUnet,
+                  ConditionalDETR)
 
 
 def spatial_layout(mesh, shape) -> tuple | None:
@@ -71,38 +88,56 @@ def gather_spatial(y: torch.Tensor, mesh) -> torch.Tensor:
     return all_reduce_(full, mesh.world_group)
 
 
-def check_strip(height: int) -> None:
-    """Raise where a strip of `height` rows cannot be pooled DEPTH times
-    within itself."""
-    if height % 2 ** DEPTH:
+UNET_RULE = (2 ** DEPTH, f"the UNet's {DEPTH} max pools would pair rows of "
+             "two strips")
+HYBRID_RULE = (16, "the R50 root conv, its max pool and the first units of "
+               "blocks 2 and 3 each halve the height, and each must start "
+               "every strip at an even row")
+CLTR_RULE = (32, "ResNet-50 halves the height five times (conv1, the max "
+             "pool, layers 2-4), and each must start every strip at an "
+             "even row")
+
+
+def strip_rule(model: nn.Module) -> tuple:
+    """(multiple, reason): the rows a strip of `model`'s input must be a
+    multiple of, and why."""
+    if isinstance(model, (UNet, UNetAttention, UNetMultitask)):
+        return UNET_RULE
+    if isinstance(model, ConditionalDETR):
+        return CLTR_RULE
+    if isinstance(model, _TransUnet):
+        embeddings = model.transformer.embeddings
+        if hasattr(embeddings, "hybrid_model"):
+            return HYBRID_RULE
+        patch = embeddings.patch_embeddings.kernel_size[0]
+        return (patch, f"a {patch}-row patch would straddle two strips")
+    names = [c.__name__ for c in SPATIAL_MODELS]
+    raise TypeError(f"{type(model).__name__} is none of the spatially "
+                    f"partitioned families: {names}")
+
+
+def check_strip(height: int, rule: tuple = UNET_RULE) -> None:
+    """Raise where a strip of `height` rows breaks `rule` (strip_rule's)."""
+    multiple, reason = rule
+    if height % multiple:
         raise ValueError(
-            f"a strip of {height} rows is not a multiple of {2 ** DEPTH}: "
-            f"the UNet's {DEPTH} max pools would pair rows of two strips "
-            "(XLA reshards such an image; the port does not). Choose a "
-            "height that divides into strips of a multiple of "
-            f"{2 ** DEPTH} rows")
-
-
-def _strip_hook(module, args):
-    check_strip(args[0].shape[1])
+            f"a strip of {height} rows is not a multiple of {multiple}: "
+            f"{reason} (XLA reshards such an image; the port does not). "
+            "Choose a height that divides into strips of a multiple of "
+            f"{multiple} rows")
 
 
 def spatialize(model: nn.Module, mesh) -> nn.Module:
-    """The model's place on a spatial mesh: the mesh bound to its
-    DoubleConvs and dropouts, its BatchNorms' statistics over the world
-    group, and a check that each input strip's height is a multiple of
-    2**DEPTH. In place; returns the model. A UNet-family model only: the
-    TransUnet and CLTR families raise."""
+    """The model's place on a spatial mesh: the mesh bound to its strip
+    layers, dropouts and attentions, its BatchNorms' statistics over the
+    world group, and a check that each input strip's height keeps the
+    family's rule (`strip_rule`). In place; returns the model. A model of
+    SPATIAL_MODELS only."""
     mesh.check_role("spatial", "spatialize")
-    if not isinstance(model, SPATIAL_MODELS):
-        raise NotImplementedError(
-            f"{type(model).__name__} is not spatially partitioned by the "
-            "port: only the UNet family's convs are local to a strip; a "
-            "transformer's attention reads every token of the image, so a "
-            "strip would need every other strip's keys and values (XLA "
-            "gathers them in the JAX package; ROADMAP queue 1)")
+    rule = strip_rule(model)
     set_mesh(model, mesh)
     convert_sync_batchnorm(model, mesh.world_group)
     if mesh.model > 1:
-        model.register_forward_pre_hook(_strip_hook)
+        model.register_forward_pre_hook(
+            lambda module, args: check_strip(args[0].shape[1], rule))
     return model
