@@ -12,8 +12,12 @@
                                     mma.sync, in turns)
     python3 chip_smoke.py --topo   (build, then only T1 and the topo phases
                                     P1-P3)
-    python3 chip_smoke.py --parallel   (build, then only D1-D3, S1, G1, S2
-                                    and S3)
+    python3 chip_smoke.py --parallel   (build, then only D1-D3, S1, G1, S2,
+                                    S3 and V5)
+    python3 chip_smoke.py --cards N   (build, then the parallel phases on
+                                    N NCCL ranks, a card each: with four,
+                                    D2's f32 step at (D, M) = (2, 2) and
+                                    (1, 4); then D1, S1, G1, S3, S2 and D2)
 
 Builds the Hopper kernels from unet_torch_tpu_torch/csrc, then:
 
@@ -208,14 +212,14 @@ Builds the Hopper kernels from unet_torch_tpu_torch/csrc, then:
                 against the one-process step in f64, every updated tensor
                 within 1e-4 of its peak but where the two steps'
                 gradients differ), the BN buffers
-                bitwise equal across ranks; 3 + 10 bf16 steps timed (img/s
+                bitwise equal across ranks; 1 + 3 bf16 steps timed (img/s
                 of two ranks sharing one card: no scaling figure); rank 0's
                 eval forward on the fused conv
  D2. tensor     TransUnet R50-ViT-B/16 at full width, 512x512, M = 2 ranks
      parallel   (6 heads and half of each MLP a rank), global batch 8, SGD,
                 dropout 0.1 and attention dropout 0.1: the train kernels at a
                 rank's shape with its mask offsets against their plain
-                versions; the f32 step against one process, as D1; 3 + 10
+                versions; the f32 step against one process, as D1; 1 + 3
                 bf16 steps timed with their attention launches (12 + 12 a
                 step on the wgmma 64/64 route); the gathered checkpoint
                 loaded in one process, its bf16 eval forward against the
@@ -233,7 +237,7 @@ Builds the Hopper kernels from unet_torch_tpu_torch/csrc, then:
                 D1's f32 Adam step on the strips against one process, as
                 D1, BN buffers bitwise equal across ranks; the halo bytes
                 and exchanges of a forward and a step, the extra rows'
-                share; 10 bf16 forwards and 3 + 10 bf16 steps timed
+                share; 1 + 3 bf16 forwards and 1 + 3 bf16 steps timed
  G1. pipeline   TransUnet R50-ViT-B/16 at full width, 512x512, batch 8, S = 2
                 stages of 6 blocks, M = 4 microbatches of 2
                 (parallel/pipeline.py): the pipelined bf16 eval forward
@@ -241,8 +245,8 @@ Builds the Hopper kernels from unet_torch_tpu_torch/csrc, then:
                 peak), 24 attention launches a rank on wgmma; the f32 SGD
                 step on the pipelined forward (eval-mode BN, the JAX dry
                 run's form) against one process, as D2, 24 + 24 attention
-                launches a rank; 10 bf16 forwards and 3 + 10 bf16 steps
-                timed, each stage's time in the handoffs beside the
+                launches a rank; 1 + 3 bf16 forwards and 1 + 3 bf16
+                steps timed, each stage's time in the handoffs beside the
                 textbook bubble (S - 1) / (M + S - 1); peak memory a rank
  S2. spatial    TransUnet R50-ViT-B/16 at 512x512, batch 8, (D, M) = (1, 2)
      TransUnet  spatial ranks of 256 rows each: the fused conv at the
@@ -255,8 +259,8 @@ Builds the Hopper kernels from unet_torch_tpu_torch/csrc, then:
                 within 1e-5, bf16 within 8 bf16 ulps of the logits' peak);
                 D2's f32 SGD step with dropout and attention dropout 0.1 on
                 the strips against one process, as D2; the halo and gather
-                bytes of a forward and a step; 10 bf16 forwards and 3 + 10
-                bf16 steps timed (12 + 12 attention launches a step)
+                bytes of a forward and a step; 1 + 3 bf16 forwards and
+                1 + 3 bf16 steps timed (12 + 12 attention launches a step)
  S3. spatial    configs/cltr.yml's model, batch 16 crops of 256x256,
      CLTR       (D, M) = (1, 2), 128 rows a rank: the encoder's attention at
                 a strip's shape (16, 8, 32 queries, 64 keys, 32) as in S2;
@@ -265,7 +269,16 @@ Builds the Hopper kernels from unet_torch_tpu_torch/csrc, then:
                 18 attention launches a rank); D3's f32 Adam step on the
                 strips, the auction on the replicated outputs (one launch a
                 rank, the one-process step's matches), against one process,
-                as D3; 10 bf16 infer_steps and 3 + 10 bf16 steps timed
+                as D3; 1 + 3 bf16 infer_steps and 1 + 3 bf16 steps timed
+ V5. vis on     D2's TransUnet with vis=True, eval, f32, batch 2 at 512x512,
+     meshes     (D, M) = (1, 2) gloo ranks on the card as a tensor mesh,
+                then as a spatial mesh: every layer's attn_weights (the
+                tensor mesh's whole, its heads gathered by the attention; a
+                strip's query rows, gathered over the strips) within 1e-5
+                of the one-process forward's on the rank's card, the logits
+                within 1e-4 of the peak of vis=False's on the same mesh; 0
+                eval attention launches with vis (the plain einsum, as in
+                JAX), 12 without
   L. library    one PyTorch library call beside each kernel that has one, for
                 the time only (nothing in the port calls them): cuDNN
                 conv2d with the scale folded into its weights, a bias and a
@@ -450,11 +463,12 @@ def phase(name, msg):
 
 
 def nvidia_smi() -> str:
-    return subprocess.run(
+    """nvidia-smi's name and power limit, a card's line after another's."""
+    return "; ".join(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip()
+    ).stdout.strip().splitlines())
 
 
 def conv_shapes(base: int, size: int):
@@ -3189,12 +3203,38 @@ def attention_ab(at, fc, au, vit, dev):
 
 
 # ---------------------------------------------------------------------------
-# D1-D3: data- and tensor-parallel training, two gloo ranks on one card
+# D1-D3: data- and tensor-parallel training, two gloo ranks on one card, or
+# with --cards N, N NCCL ranks on a card each
 # ---------------------------------------------------------------------------
 
-# the ranks of D1-D3: two processes share cuda:0 over gloo (NCCL refuses two
-# ranks on one device), so their img/s is no scaling figure
+# the ranks of the parallel phases: two processes share cuda:0 over gloo
+# (NCCL refuses two ranks on one device), so their img/s is no scaling
+# figure; with --cards N, N processes over NCCL, rank r on card r
 PARALLEL_RANKS = 2
+CARDS = None
+# what parallel_spawn hands every rank of a case besides (set there)
+RANK_OPTS = {}
+
+
+def world() -> int:
+    """The number of ranks the parallel phases spawn."""
+    return CARDS or PARALLEL_RANKS
+
+
+def rank_device():
+    """The card of this rank (parallel_rank sets it)."""
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def ranks_where(smi) -> str:
+    """What follows a phase's count of ranks in its line."""
+    return (f"NCCL ranks, a card each ({smi})" if CARDS
+            else f"gloo ranks on one card ({smi})")
+
+
+def scaling_note() -> str:
+    return ("" if CARDS else
+            " (the ranks share one card: not a scaling figure)")
 # the f32 multi-rank step against the one-process step on the same card:
 # the loss and each updated tensor within this share of its peak
 PARALLEL_REL_TOL = 1e-4
@@ -3205,6 +3245,10 @@ PARALLEL_REL_TOL = 1e-4
 # the sharded model's bf16 eval forward: 8 bf16 ulps of the logits' peak
 TP_EVAL_REL_TOL = 8 * 2.0 ** -7
 D2_ATTENTION_DROPOUT = 0.1
+# the parallel phases' timed forwards and bf16 steps: a warm-up, then the
+# median of a few (their checks run on the f32 step before them)
+PARALLEL_WARMUP = 1
+PARALLEL_STEPS = 3
 
 
 def free_port() -> int:
@@ -3215,38 +3259,43 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def parallel_rank(rank, world, port, case, out):
-    """One rank of a D phase, in a spawned process: cuda:0 before any other
-    CUDA call, torch.distributed over gloo, the case, its result to
+def parallel_rank(rank, world_size, port, case, out, cards, opts):
+    """One rank of a parallel phase, in a spawned process: its card before
+    any other CUDA call (cuda:0 for gloo ranks, card `rank` with `cards`),
+    torch.distributed over gloo or NCCL, the case, its result to
     `out`/rank<rank>.pt. An exception ends the process with a nonzero code,
     which start_processes raises in the parent."""
-    torch.cuda.set_device(0)
+    global CARDS, RANK_OPTS
+    CARDS, RANK_OPTS = cards, opts
+    torch.cuda.set_device(rank if cards else 0)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
-                      LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world),
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world_size),
+                      LOCAL_RANK=str(rank),
+                      LOCAL_WORLD_SIZE=str(world_size),
                       MASTER_ADDR="localhost", MASTER_PORT=str(port))
     from unet_torch_tpu_torch.core.dist import maybe_initialize
 
-    maybe_initialize(force=True, backend="gloo")
+    maybe_initialize(force=True, backend="nccl" if cards else "gloo")
     result = {"d1": d1_rank, "d2": d2_rank, "d3": d3_rank, "s1": s1_rank,
-              "g1": g1_rank, "s2": s2_rank, "s3": s3_rank}[case](rank, out)
+              "g1": g1_rank, "s2": s2_rank, "s3": s3_rank, "v5": v5_rank,
+              "d2_cards": d2_cards_rank}[case](rank, out)
     torch.save(result, os.path.join(out, f"rank{rank}.pt"))
     torch.distributed.destroy_process_group()
 
 
-def parallel_spawn(case):
-    """Run `case` on PARALLEL_RANKS spawned ranks (the kernels were built
-    before, in this process); returns (their results in rank order, the
-    directory they wrote, which the caller removes)."""
+def parallel_spawn(case, **opts):
+    """Run `case` on world() spawned ranks (the kernels were built before,
+    in this process), each given `opts` as RANK_OPTS; returns (their results
+    in rank order, the directory they wrote, which the caller removes)."""
     import torch.multiprocessing as tmp
 
     out = tempfile.mkdtemp(prefix=f"chip_smoke_{case}_")
-    tmp.start_processes(parallel_rank, args=(PARALLEL_RANKS, free_port(),
-                                             case, out),
-                        nprocs=PARALLEL_RANKS, start_method="spawn")
+    tmp.start_processes(parallel_rank, args=(world(), free_port(), case, out,
+                                             CARDS, opts),
+                        nprocs=world(), start_method="spawn")
     return [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
-            for r in range(PARALLEL_RANKS)], out
+            for r in range(world())], out
 
 
 def host_state(state):
@@ -3322,7 +3371,7 @@ def compare_step(name, loss, grads, state, ref, lr, adam):
     worst, worst_name, _ = gradient_noise_ratio(grads, g32, g64)
     if not worst <= T4_NOISE_RATIO:
         raise AssertionError(f"{name}: gradient {worst_name} {worst:.2f} "
-                             "times the one-process f32 error (bound "
+                             f"times the one-process f32 error (bound "
                              f"{T4_NOISE_RATIO:.0f})")
     n_flip = 0
     for key, r in ref_state.items():
@@ -3350,6 +3399,18 @@ def compare_step(name, loss, grads, state, ref, lr, adam):
     return loss_err, worst, worst_name, n_flip
 
 
+def same_buffers(tag, ranks):
+    """Every rank's BN buffers bitwise equal to rank 0's; returns their
+    count."""
+    first = ranks[0]["buffers"]
+    differ = sorted({k for r in ranks[1:] for k in first
+                     if not torch.equal(first[k], r["buffers"][k])})
+    if differ or not first:
+        raise AssertionError(f"{tag}: the ranks' BN buffers differ: "
+                             f"{differ[:5]}")
+    return len(first)
+
+
 def d1_model_batch(dev):
     from unet_torch_tpu_torch.core.rng import seed_everything
 
@@ -3364,7 +3425,7 @@ D1_LR = 1e-3  # configs/segmentation_mc.yml's Adam
 def d1_rank(rank, out):
     """D1 on a rank: UNet-64 under DistributedDataParallel over D = 2, its
     rows of the global batch, train-mode SyncBatchNorm2d; the f32 step,
-    then 3 + 10 bf16 steps timed; rank 0 serves the model's eval forward on
+    then 1 + 3 bf16 steps timed; rank 0 serves the model's eval forward on
     the fused conv."""
     from torch.nn.parallel import DistributedDataParallel
 
@@ -3375,11 +3436,11 @@ def d1_rank(rank, out):
     from unet_torch_tpu_torch.train.optim import make_optimizer, poly_lr
     from unet_torch_tpu_torch.train.steps import make_single_steps
 
-    dev = torch.device("cuda", 0)
-    mesh = make_mesh(PARALLEL_RANKS, 1)
+    dev = rank_device()
+    mesh = make_mesh(world(), 1)
     model, x, y = d1_model_batch(dev)
     parallelize(model, mesh)
-    net = DistributedDataParallel(model, device_ids=[0],
+    net = DistributedDataParallel(model, device_ids=[dev.index],
                                   process_group=mesh.data_group,
                                   broadcast_buffers=False)
     opt = make_optimizer("Adam", model.parameters(), D1_LR, 1e-4)
@@ -3397,8 +3458,8 @@ def d1_rank(rank, out):
     xb = x.to(torch.bfloat16)
     times = timed_steps(lambda i: step(net, opt, xb, y,
                                        poly_lr(D1_LR, i + 1, 1000), None),
-                        TRAIN_WARMUP + TRAIN_STEPS)
-    result["step_s"] = statistics.median(times[TRAIN_WARMUP:])
+                        PARALLEL_WARMUP + PARALLEL_STEPS)
+    result["step_s"] = statistics.median(times[PARALLEL_WARMUP:])
     result["peak"] = torch.cuda.max_memory_allocated(dev)
     fc.reset_launches()
     if rank == 0:
@@ -3436,36 +3497,32 @@ def check_d1(at, dev, smi, ref):
     ref_loss = ref[0]
     ranks, out = parallel_spawn("d1")
     shutil.rmtree(out)
-    a, b = ranks
-    same = [k for k in a["buffers"] if torch.equal(a["buffers"][k],
-                                                  b["buffers"][k])]
-    if len(same) != len(a["buffers"]) or not a["buffers"]:
-        raise AssertionError("D1: the ranks' BN buffers differ: "
-                             f"{sorted(set(a['buffers']) - set(same))[:5]}")
+    a = ranks[0]
+    n_same = same_buffers("D1", ranks)
     loss_err, worst, worst_name, n_flip = compare_step(
         "D1 UNet data parallel", a["loss"], a["grads"], a["state"], ref,
         D1_LR, adam=True)
+    others = [r["conv_launches"] for r in ranks[1:]]
     if a["conv_launches"] != len(conv_shapes(BASE, SIZE)) \
-            or a["conv_routes"] != UNET_ROUTES or b["conv_launches"]:
+            or a["conv_routes"] != UNET_ROUTES or any(others):
         raise AssertionError(f"D1: rank 0's eval forward launched "
                              f"{a['conv_launches']} fused convs "
-                             f"({a['conv_routes']}), rank 1 "
-                             f"{b['conv_launches']}")
+                             f"({a['conv_routes']}), the others {others}")
     step_s = max(r["step_s"] for r in ranks)
     phase("D1 data parallel",
-          f"UNet-{BASE} dice_bce_mc {SIZE}x{SIZE}, D = {PARALLEL_RANKS} gloo "
-          f"ranks on one card ({smi}), global batch {BATCH} "
-          f"({BATCH // PARALLEL_RANKS} a rank), Adam, poly LR, train-mode "
+          f"UNet-{BASE} dice_bce_mc {SIZE}x{SIZE}, D = {world()} "
+          f"{ranks_where(smi)}, global batch {BATCH} "
+          f"({BATCH // world()} a rank), Adam, poly LR, train-mode "
           f"SyncBatchNorm2d: the f32 step against one process: loss "
           f"{a['loss']:.7f} vs {ref_loss:.7f} (rel err {loss_err:.2e}), "
           f"the worst gradient {worst_name} at {worst:.2f} times the "
           f"one-process f32 error against f64 (bound {T4_NOISE_RATIO:.0f}), "
           f"the parameters within {PARALLEL_REL_TOL:.0e} of their peaks "
           f"but for {n_flip} Adam sign flips of noise-level gradients "
-          f"(within 2 lr), the {len(same)} BN buffers bitwise "
+          f"(within 2 lr), the {n_same} BN buffers bitwise "
           f"equal across ranks; bf16 steps: median {step_s * 1e3:.2f} ms = "
-          f"{BATCH / step_s:.1f} img/s (the two ranks share one card: not a "
-          f"scaling figure), peak {a['peak'] / 2**30:.2f} GiB a rank; rank "
+          f"{BATCH / step_s:.1f} img/s{scaling_note()}, peak "
+          f"{a['peak'] / 2**30:.2f} GiB a rank; rank "
           f"0's eval forward {a['conv_launches']} fused convs "
           f"{a['conv_routes']}, classes {a['eval_hist']}")
     return {"img_s": BATCH / step_s, "loss_rel_err": loss_err,
@@ -3492,7 +3549,7 @@ D2_LR = 0.01  # configs/transunet.yml's SGD
 def d2_rank(rank, out):
     """D2 on a rank: TransUnet R50-ViT-B/16 split over M = 2 (6 heads and
     half of each MLP a rank), dropout 0.1 and attention dropout 0.1; the
-    f32 step, 3 + 10 bf16 steps timed with their attention launches; the
+    f32 step, 1 + 3 bf16 steps timed with their attention launches; the
     gathered checkpoint written by rank 0; the sharded model's bf16 eval
     forward."""
     from unet_torch_tpu_torch import ckpt
@@ -3503,8 +3560,8 @@ def d2_rank(rank, out):
     from unet_torch_tpu_torch.train.optim import make_optimizer, poly_lr
     from unet_torch_tpu_torch.train.steps import make_single_steps
 
-    dev = torch.device("cuda", 0)
-    mesh = make_mesh(1, PARALLEL_RANKS)
+    dev = rank_device()
+    mesh = make_mesh(1, world())
     model, x, y = d2_model_batch(dev)
     parallelize(model, mesh)
     opt = make_optimizer("SGD", model.parameters(), D2_LR, 1e-4)
@@ -3524,9 +3581,9 @@ def d2_rank(rank, out):
     at.attention_train_forward.launches = at.attention_backward.launches = 0
     times = timed_steps(lambda i: step(model, opt, xb, y,
                                        poly_lr(D2_LR, i + 1, 1000), gen),
-                        TRAIN_WARMUP + TRAIN_STEPS)
+                        PARALLEL_WARMUP + PARALLEL_STEPS)
     result.update(
-        step_s=statistics.median(times[TRAIN_WARMUP:]),
+        step_s=statistics.median(times[PARALLEL_WARMUP:]),
         peak=torch.cuda.max_memory_allocated(dev), heads=sorted(heads),
         fwd_launches=at.attention_train_forward.launches,
         bwd_launches=at.attention_backward.launches,
@@ -3545,13 +3602,15 @@ def d2_rank(rank, out):
 
 
 def check_d2_attention(at, dev):
-    """The train kernels at a D2 rank's shape (8, 6, 1024, 64) with its
-    offsets (0, 6, 12), rate 0.1, bf16, against their plain versions with
-    the same offsets, at T2's bounds. Returns the largest errors."""
+    """The train kernels at rank 1's shape in D2 (8, 12 / M, 1024, 64) with
+    its offsets (0, 12 / M, 12), rate 0.1, bf16, against their plain
+    versions with the same offsets, at T2's bounds. Returns the largest
+    errors."""
+    heads = 12 // world()
     gen = torch.Generator().manual_seed(SEED + 24)
-    q, k, v, g = (torch.randn((BATCH, 6, 1024, 64), generator=gen)
+    q, k, v, g = (torch.randn((BATCH, heads, 1024, 64), generator=gen)
                   .to(dev, torch.bfloat16) for _ in range(4))
-    offsets, rate, scale = (0, 6, 12), D2_ATTENTION_DROPOUT, 64 ** -0.5
+    offsets, rate, scale = (0, heads, 12), D2_ATTENTION_DROPOUT, 64 ** -0.5
     args = (q, k, v, scale, None, 1234, rate)
     o, lse = at.attention_train_forward(*args, offsets=offsets)
     ref_o, ref_lse = at.attention_train_reference(*args, offsets=offsets)
@@ -3604,24 +3663,26 @@ def check_d2(at, fc, dev, smi, ref):
                                      SIZE)[0]).to(dev)
     ranks, out = parallel_spawn("d2")
     try:
-        a, b = ranks
+        a = ranks[0]
         loss_err, worst, worst_name, _ = compare_step(
             "D2 TransUnet tensor parallel", a["loss"], a["grads"],
             a["state"], ref, D2_LR, adam=False)
         n_layers = 12
-        want = n_layers * (TRAIN_WARMUP + TRAIN_STEPS)
-        for r in ranks:
+        want = n_layers * (PARALLEL_WARMUP + PARALLEL_STEPS)
+        for i, r in enumerate(ranks):
             if (r["fwd_launches"], r["bwd_launches"]) != (want, want) \
-                    or r["heads"] != [6] or r["route"] != "wgmma" \
+                    or r["heads"] != [12 // world()] \
+                    or r["route"] != "wgmma" \
                     or r["eval_attention_launches"] != n_layers:
                 raise AssertionError(
-                    f"D2: rank {r is b:d} launched {r['fwd_launches']} + "
+                    f"D2: rank {i} launched {r['fwd_launches']} + "
                     f"{r['bwd_launches']} train attention (expected {want} "
                     f"each) on {r['heads']} heads by {r['route']}, "
                     f"{r['eval_attention_launches']} eval attention")
-        # the replicated logits of the two ranks (each computes the layers
+        # the replicated logits of the ranks (each computes the layers
         # outside the projections itself, with cuDNN's choices)
-        rank_err = (a["eval_logits"] - b["eval_logits"]).abs().max().item()
+        rank_err = max((a["eval_logits"] - r["eval_logits"]).abs().max()
+                       .item() for r in ranks)
         # the checkpoint served in one process
         served = seeded_transunet(seed_everything(SEED + 1))
         ckpt.load_weights(os.path.join(out, "best.pt"), served)
@@ -3645,8 +3706,8 @@ def check_d2(at, fc, dev, smi, ref):
                              f"{TP_EVAL_REL_TOL * peak})")
     step_s = max(r["step_s"] for r in ranks)
     phase("D2 tensor parallel",
-          f"TransUnet R50-ViT-B/16 {SIZE}x{SIZE}, M = {PARALLEL_RANKS} gloo "
-          f"ranks on one card ({smi}), global batch {BATCH}, SGD, dropout "
+          f"TransUnet R50-ViT-B/16 {SIZE}x{SIZE}, M = {world()} "
+          f"{ranks_where(smi)}, global batch {BATCH}, SGD, dropout "
           f"0.1, attention dropout {D2_ATTENTION_DROPOUT}: the train kernels "
           f"with a rank's offsets against plain: o {att_err[0]:.2e}, lse "
           f"{att_err[1]:.2e}, gradients {att_err[2]:.2e} of their peaks; the "
@@ -3654,11 +3715,12 @@ def check_d2(at, fc, dev, smi, ref):
           f"{ref_loss:.7f} (rel err {loss_err:.2e}), the worst gradient "
           f"{worst_name} at {worst:.2f} times the one-process f32 error "
           f"against f64 (bound {T4_NOISE_RATIO:.0f}); bf16 steps: median "
-          f"{step_s * 1e3:.2f} ms = {BATCH / step_s:.1f} img/s (the two "
-          f"ranks share one card: not a scaling figure), peak "
+          f"{step_s * 1e3:.2f} ms = {BATCH / step_s:.1f} img/s"
+          f"{scaling_note()}, peak "
           f"{a['peak'] / 2**30:.2f} GiB a rank, {a['fwd_launches']} + "
           f"{a['bwd_launches']} attention launches a rank over "
-          f"{TRAIN_WARMUP + TRAIN_STEPS} steps on {a['heads'][0]} heads by "
+          f"{PARALLEL_WARMUP + PARALLEL_STEPS} steps on {a['heads'][0]} "
+          f"heads by "
           f"{a['route']} 64/64; the gathered checkpoint in one process: "
           f"bf16 eval forward {eval_err:.3e} from the sharded model's, the "
           f"ranks' logits {rank_err:.3e} apart (bound "
@@ -3700,11 +3762,11 @@ def d3_rank(rank, out):
     from unet_torch_tpu_torch.train.cltr_steps import train_step
     from unet_torch_tpu_torch.train.optim import make_optimizer
 
-    dev = torch.device("cuda", 0)
-    mesh = make_mesh(PARALLEL_RANKS, 1)
+    dev = rank_device()
+    mesh = make_mesh(world(), 1)
     model, criterion, batch = d3_model_batch(dev)
     parallelize(model, mesh)
-    net = DistributedDataParallel(model, device_ids=[0],
+    net = DistributedDataParallel(model, device_ids=[dev.index],
                                   process_group=mesh.data_group,
                                   broadcast_buffers=False)
     opt = make_optimizer("Adam", model.parameters(), D3_LR, 1e-4)
@@ -3786,14 +3848,14 @@ def check_d3(at, dev, smi, ref):
     loss_err, worst, worst_name, n_flip = compare_step(
         "D3 CLTR data parallel", a["loss"], a["grads"], a["state"], ref,
         D3_LR, adam=True)
-    if [r["auction_launches"] for r in ranks] != [1] * PARALLEL_RANKS:
+    if [r["auction_launches"] for r in ranks] != [1] * world():
         raise AssertionError(f"D3: auction launches by rank "
                              f"{[r['auction_launches'] for r in ranks]}, "
                              "expected one each")
     phase("D3 CLTR data parallel",
           f"configs/cltr.yml's model, {CLTR_CROP}x{CLTR_CROP} crops, D = "
-          f"{PARALLEL_RANKS} gloo ranks on one card ({smi}), global batch "
-          f"{CLTR_BATCH} ({CLTR_BATCH // PARALLEL_RANKS} a rank), Adam, "
+          f"{world()} {ranks_where(smi)}, global batch "
+          f"{CLTR_BATCH} ({CLTR_BATCH // world()} a rank), Adam, "
           f"auction matcher, dropout 0, f32: the step against one process: "
           f"loss {a['loss']:.7f} vs {ref_loss:.7f} (rel err "
           f"{loss_err:.2e}), the worst gradient {worst_name} at {worst:.2f} "
@@ -3836,7 +3898,7 @@ def check_strip_kernels(fc, dev, shapes=None, tag="S1"):
 
     gen = torch.Generator().manual_seed(SEED + 26)
     results = {}
-    shapes = shapes or strip_conv_shapes(BASE, SIZE, PARALLEL_RANKS)
+    shapes = shapes or strip_conv_shapes(BASE, SIZE, world())
     for rows, w, cin, cout in dict.fromkeys(shapes):
         x = torch.randn(BATCH, rows, w, cin, generator=gen)
         wt = torch.randn(3, 3, cin, cout, generator=gen) * (
@@ -3883,7 +3945,7 @@ def check_strip_kernels(fc, dev, shapes=None, tag="S1"):
 def s1_rank(rank, out):
     """S1 on a rank: UNet-64 spatialized over (D, M) = (1, 2), the rank's
     256 rows; the eval forward in f32 and bf16 (fused conv launches,
-    exchanges), then D1's f32 Adam step on its strip and 3 + 10 bf16 steps
+    exchanges), then D1's f32 Adam step on its strip and 1 + 3 bf16 steps
     timed."""
     from torch.nn.parallel import DistributedDataParallel
 
@@ -3899,8 +3961,8 @@ def s1_rank(rank, out):
     from unet_torch_tpu_torch.train.optim import make_optimizer, poly_lr
     from unet_torch_tpu_torch.train.steps import make_single_steps
 
-    dev = torch.device("cuda", 0)
-    mesh = make_mesh(1, PARALLEL_RANKS, role="spatial")
+    dev = rank_device()
+    mesh = make_mesh(1, world(), role="spatial")
     # the bytes each exchange sends from this rank: a row to each neighbour
     neighbours = (mesh.m > 0) + (mesh.m < mesh.model - 1)
     sent = []
@@ -3930,16 +3992,16 @@ def s1_rank(rank, out):
             eval_exchanges=(len(sent), sum(sent)),
             eval_bf16=gather_spatial(logits, mesh).cpu())
         times = []
-        for _ in range(REPS + 2):
+        for _ in range(PARALLEL_WARMUP + PARALLEL_STEPS):
             t0 = time.perf_counter()
             model(xb)
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
-        result["fwd_s"] = statistics.median(times[2:])
+        result["fwd_s"] = statistics.median(times[PARALLEL_WARMUP:])
     del model
     model, x, y = d1_model_batch(dev)
     spatialize(model, mesh)
-    net = DistributedDataParallel(model, device_ids=[0],
+    net = DistributedDataParallel(model, device_ids=[dev.index],
                                   process_group=mesh.world_group,
                                   broadcast_buffers=False)
     opt = make_optimizer("Adam", model.parameters(), D1_LR, 1e-4)
@@ -3955,13 +4017,13 @@ def s1_rank(rank, out):
     xb = x.to(torch.bfloat16)
     torch.cuda.reset_peak_memory_stats(dev)
     sent.clear()
-    n_steps = TRAIN_WARMUP + TRAIN_STEPS
+    n_steps = PARALLEL_WARMUP + PARALLEL_STEPS
     times = timed_steps(lambda i: step(net, opt, xb, y,
                                        poly_lr(D1_LR, i + 1, 1000), None),
                         n_steps)
     # the backward exchanges the halo rows' gradients as the forward sent
     # the rows
-    result.update(step_s=statistics.median(times[TRAIN_WARMUP:]),
+    result.update(step_s=statistics.median(times[PARALLEL_WARMUP:]),
                   peak=torch.cuda.max_memory_allocated(dev),
                   step_exchanges=(2 * len(sent) // n_steps,
                                   2 * sum(sent) // n_steps))
@@ -3984,7 +4046,7 @@ def check_s1(fc, dev, smi, ref):
     torch.cuda.empty_cache()
     ranks, out = parallel_spawn("s1")
     shutil.rmtree(out)
-    a, b = ranks
+    a = ranks[0]
     errs = {}
     for name, one, tol in (("f32", one32, MODEL_REL_TOL),
                            ("bf16", one16, TP_EVAL_REL_TOL)):
@@ -4004,16 +4066,12 @@ def check_s1(fc, dev, smi, ref):
                                  f"{r['eval_launches']} fused convs "
                                  f"({r['eval_routes']}), expected 18 "
                                  f"{UNET_ROUTES}")
-    same = [k for k in a["buffers"] if torch.equal(a["buffers"][k],
-                                                  b["buffers"][k])]
-    if len(same) != len(a["buffers"]) or not a["buffers"]:
-        raise AssertionError("S1: the ranks' BN buffers differ: "
-                             f"{sorted(set(a['buffers']) - set(same))[:5]}")
+    n_same = same_buffers("S1", ranks)
     loss_err, worst, worst_name, n_flip = compare_step(
         "S1 UNet spatial", a["loss"], a["grads"], a["state"], ref, D1_LR,
         adam=True)
     # the halo's extra rows, as a share of the convs' operations
-    shapes = strip_conv_shapes(BASE, SIZE, PARALLEL_RANKS)
+    shapes = strip_conv_shapes(BASE, SIZE, world())
     extra = (sum(2 * w * cin * cout for _, w, cin, cout in shapes)
              / sum((rows - 2) * w * cin * cout
                    for rows, w, cin, cout in shapes))
@@ -4024,8 +4082,8 @@ def check_s1(fc, dev, smi, ref):
     bound = sum(kernels[sh][4] for sh in shapes)
     phase("S1 spatial",
           f"UNet-{BASE} {SIZE}x{SIZE} batch {BATCH}, (D, M) = (1, "
-          f"{PARALLEL_RANKS}) gloo ranks on one card ({smi}), "
-          f"{SIZE // PARALLEL_RANKS} rows a rank: the fused conv at the 18 "
+          f"{world()}) {ranks_where(smi)}, "
+          f"{SIZE // world()} rows a rank: the fused conv at the 18 "
           f"haloed strip shapes against plain, worst "
           f"{max(k[0] for k in kernels.values()):.3e}, one launch each "
           f"{ms:.4f} ms, back to back {burst:.4f} ms (bound {bound:.4f}); "
@@ -4044,10 +4102,10 @@ def check_s1(fc, dev, smi, ref):
           f"{a['loss']:.7f} vs {ref[0]:.7f} (rel err {loss_err:.2e}), the "
           f"worst gradient {worst_name} at {worst:.2f} times the one-process "
           f"f32 error against f64 (bound {T4_NOISE_RATIO:.0f}; {n_flip} Adam "
-          f"sign flips within 2 lr), the {len(same)} BN buffers bitwise equal "
+          f"sign flips within 2 lr), the {n_same} BN buffers bitwise equal "
           f"across ranks; bf16 steps: median {step_s * 1e3:.2f} ms = "
-          f"{BATCH / step_s:.1f} img/s (two ranks share one card: not a "
-          f"scaling figure), peak {a['peak'] / 2**30:.2f} GiB a rank")
+          f"{BATCH / step_s:.1f} img/s{scaling_note()}, peak "
+          f"{a['peak'] / 2**30:.2f} GiB a rank")
     return {"img_s": BATCH / step_s, "eval_img_s": BATCH / fwd_s,
             "loss_rel_err": loss_err, "worst_rel_err": worst,
             "eval_err": {k: v[0] for k, v in errs.items()},
@@ -4080,8 +4138,8 @@ def g1_rank(rank, out):
     from unet_torch_tpu_torch.parallel import pipeline as pp
     from unet_torch_tpu_torch.train.optim import make_optimizer, poly_lr
 
-    dev = torch.device("cuda", 0)
-    mesh = make_mesh(1, PARALLEL_RANKS, role="pipeline")
+    dev = rank_device()
+    mesh = make_mesh(1, world(), role="pipeline")
     waits = []
     p2p, broadcast = port_dist._p2p, pp.broadcast_from
 
@@ -4109,15 +4167,15 @@ def g1_rank(rank, out):
         result["eval_launches"] = at.fused_attention.launches
         result["eval_logits"] = logits.float().cpu()
         times, wait = [], []
-        for _ in range(REPS + 2):
+        for _ in range(PARALLEL_WARMUP + PARALLEL_STEPS):
             waits.clear()
             t0 = time.perf_counter()
             pp.pipelined_vit_forward(model, xs, mesh, G1_MICRO)
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
             wait.append(sum(waits))
-        result["fwd_s"] = statistics.median(times[2:])
-        result["fwd_wait_s"] = statistics.median(wait[2:])
+        result["fwd_s"] = statistics.median(times[PARALLEL_WARMUP:])
+        result["fwd_wait_s"] = statistics.median(wait[PARALLEL_WARMUP:])
     opt = make_optimizer("SGD", model.parameters(), D2_LR, 1e-4)
     step = pp.make_pipeline_step("dice_bce_mc", N_CLASSES, mesh, G1_MICRO)
     at.attention_train_forward.launches = at.attention_backward.launches = 0
@@ -4132,15 +4190,15 @@ def g1_rank(rank, out):
     xb = x.to(torch.bfloat16)
     torch.cuda.reset_peak_memory_stats(dev)
     times, wait = [], []
-    for i in range(TRAIN_WARMUP + TRAIN_STEPS):
+    for i in range(PARALLEL_WARMUP + PARALLEL_STEPS):
         waits.clear()
         t0 = time.perf_counter()
         step(model, opt, xb, y, poly_lr(D2_LR, i + 1, 1000))
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         wait.append(sum(waits))
-    result.update(step_s=statistics.median(times[TRAIN_WARMUP:]),
-                  step_wait_s=statistics.median(wait[TRAIN_WARMUP:]),
+    result.update(step_s=statistics.median(times[PARALLEL_WARMUP:]),
+                  step_wait_s=statistics.median(wait[PARALLEL_WARMUP:]),
                   peak=torch.cuda.max_memory_allocated(dev),
                   route=at.attention_route(torch.bfloat16, 64, 64))
     port_dist._p2p, pp.broadcast_from = p2p, broadcast
@@ -4178,7 +4236,7 @@ def check_g1(at, dev, smi):
     loss_err, worst, worst_name, _ = compare_step(
         "G1 TransUnet pipeline", a["loss"], a["grads"], a["state"], ref,
         D2_LR, adam=False)
-    per = 12 // PARALLEL_RANKS
+    per = 12 // world()
     for r in ranks:
         if (r["blocks"], r["eval_launches"], r["step_launches"],
                 r["route"]) != (per, per * G1_MICRO,
@@ -4196,7 +4254,7 @@ def check_g1(at, dev, smi):
         raise AssertionError(f"G1: the pipelined bf16 eval forward is "
                              f"{eval_err} from the one-process forward's "
                              f"(bound {TP_EVAL_REL_TOL * peak})")
-    bubble = (PARALLEL_RANKS - 1) / (G1_MICRO + PARALLEL_RANKS - 1)
+    bubble = (world() - 1) / (G1_MICRO + world() - 1)
     stages = "; ".join(
         f"stage {i}: forward busy {(r['fwd_s'] - r['fwd_wait_s']) * 1e3:.2f}"
         f" ms, waiting {r['fwd_wait_s'] * 1e3:.2f} ms "
@@ -4209,7 +4267,7 @@ def check_g1(at, dev, smi):
     fwd_s = max(r["fwd_s"] for r in ranks)
     phase("G1 pipeline",
           f"TransUnet R50-ViT-B/16 {SIZE}x{SIZE} batch {BATCH}, S = "
-          f"{PARALLEL_RANKS} gloo stages of {per} blocks on one card ({smi}),"
+          f"{world()} stages of {per} blocks, {ranks_where(smi)},"
           f" M = {G1_MICRO} microbatches of {BATCH // G1_MICRO}: bf16 eval "
           f"forward {eval_err:.3e} from one process's (bound "
           f"{TP_EVAL_REL_TOL * peak:.3e}), {a['eval_launches']} attention "
@@ -4221,8 +4279,8 @@ def check_g1(at, dev, smi):
           f"{a['step_launches'][1]} attention launches a rank on "
           f"{a['route']} 64/64; bf16 forward median {fwd_s * 1e3:.2f} ms = "
           f"{BATCH / fwd_s:.1f} img/s, step median {step_s * 1e3:.2f} ms = "
-          f"{BATCH / step_s:.1f} img/s (two ranks share one card: not a "
-          f"scaling figure); the textbook bubble (S-1)/(M+S-1) = "
+          f"{BATCH / step_s:.1f} img/s{scaling_note()}; the textbook "
+          f"bubble (S-1)/(M+S-1) = "
           f"{bubble * 100:.0f}%, measured (time in the handoffs and the "
           f"output's broadcast, after a device sync) {stages}; peak "
           f"{max(r['peak'] for r in ranks) / 2**30:.2f} GiB a rank")
@@ -4249,60 +4307,114 @@ def check_g1(at, dev, smi):
 # the attention shapes on a strip of S2 (the ViT, 512 of 1024 tokens a rank)
 # and S3 (CLTR's encoder, 32 of 64 tokens a rank), and the train kernels'
 # offsets of rank 1: its query rows start at the strip's first token
-S2_ATTN_SHAPE = (BATCH, 12, 1024 // PARALLEL_RANKS, 1024, 64, 64)
-S3_ATTN_SHAPE = (CLTR_BATCH, 8, 64 // PARALLEL_RANKS, 64, 32, 32)
+def s2_attn_shape():
+    return (BATCH, 12, 1024 // world(), 1024, 64, 64)
+
+
+def s3_attn_shape():
+    return (CLTR_BATCH, 8, 64 // world(), 64, 32, 32)
+
+
+
 STRIP_DROPOUT = 0.1
 
 
 class TrafficCount:
     """The bytes a rank's strip collectives move, counted by wrapping
     core/dist.py: each halo exchange's rows sent to its neighbours
-    (`_swap_edges`), and each gather's all-reduce payload, the whole
-    zero-padded tensor, in the forward and in its backward
-    (`_AllGatherDim`)."""
+    (`_swap_edges`), and the collectives of each gather, forward and
+    backward (the `_AllGatherDim` installed when it is made; torch.distributed's
+    all_reduce, all_gather_into_tensor and reduce_scatter_tensor inside it):
+    their payload, the bytes this rank hands them (an all-reduce's whole
+    tensor, an all-gather's share, a reduce-scatter's whole input), and what
+    a ring over M ranks sends from each: 2 (M - 1) / M of an all-reduce's
+    tensor, (M - 1) / M of an all-gather's output and of a reduce-scatter's
+    input. Beside them, the same of the all-reduce of a whole zero-padded
+    tensor that each all-gather and reduce-scatter stands for (the gather's
+    form before it was one)."""
 
     def __init__(self):
         from unet_torch_tpu_torch.core import dist
 
-        self.dist = dist
-        self.halo = self.gather = 0
-        self.saved = (dist._swap_edges, dist._AllGatherDim.forward,
-                      dist._AllGatherDim.backward)
-        swap, fwd, bwd = self.saved
+        tdist = torch.distributed
+        self.dist, self.cls = dist, dist._AllGatherDim
+        self.halo = self.payload = self.ring = 0
+        self.padded = self.padded_ring = 0
+        self.inside = False
+        self.saved = (dist._swap_edges, self.cls.forward, self.cls.backward,
+                      tdist.all_reduce, tdist.all_gather_into_tensor,
+                      tdist.reduce_scatter_tensor)
+        swap, fwd, bwd, all_reduce, gather, scatter = self.saved
 
         def swap_counted(top, bottom, group):
-            index = torch.distributed.get_rank(group)
-            size = torch.distributed.get_world_size(group)
+            index = tdist.get_rank(group)
+            size = tdist.get_world_size(group)
             self.halo += ((index > 0) * top.numel() * top.element_size()
                           + (index < size - 1) * bottom.numel()
                           * bottom.element_size())
             return swap(top, bottom, group)
 
-        def fwd_counted(ctx, x, group, dim):
-            y = fwd(ctx, x, group, dim)
-            self.gather += y.numel() * y.element_size()
-            return y
+        def counted(collective, payload, ring, whole=None):
+            def call(*args, **kwargs):
+                # core/dist.py passes the group by name
+                if self.inside:
+                    m = tdist.get_world_size(kwargs.get("group"))
+                    self.payload += payload(*args)
+                    self.ring += ring(*args) * (m - 1) // m
+                    if whole is not None:
+                        self.padded += whole(*args)
+                        self.padded_ring += 2 * whole(*args) * (m - 1) // m
+                return collective(*args, **kwargs)
+            return call
 
-        def bwd_counted(ctx, g):
-            self.gather += g.numel() * g.element_size()
-            return bwd(ctx, g)
+        def nbytes(t):
+            return t.numel() * t.element_size()
+
+        def inside(fn):
+            def run(*args):
+                self.inside = True
+                try:
+                    return fn(*args)
+                finally:
+                    self.inside = False
+            return staticmethod(run)
 
         dist._swap_edges = swap_counted
-        dist._AllGatherDim.forward = staticmethod(fwd_counted)
-        dist._AllGatherDim.backward = staticmethod(bwd_counted)
+        self.cls.forward, self.cls.backward = inside(fwd), inside(bwd)
+        tdist.all_reduce = counted(all_reduce, nbytes,
+                                   lambda t: 2 * nbytes(t))
+        tdist.all_gather_into_tensor = counted(
+            gather, lambda out, x: nbytes(x), lambda out, x: nbytes(out),
+            lambda out, x: nbytes(out))
+        tdist.reduce_scatter_tensor = counted(
+            scatter, lambda out, x: nbytes(x), lambda out, x: nbytes(x),
+            lambda out, x: nbytes(x))
 
     def take(self):
-        """(halo bytes, gather bytes) since the last take."""
-        out = (self.halo, self.gather)
-        self.halo = self.gather = 0
+        """(halo bytes, gather payload, gather ring bytes, the zero-padded
+        all-reduces' payload and ring bytes) since the last take."""
+        out = (self.halo, self.payload, self.ring, self.padded,
+               self.padded_ring)
+        self.halo = self.payload = self.ring = 0
+        self.padded = self.padded_ring = 0
         return out
 
     def close(self):
-        d = self.dist
-        swap, fwd, bwd = self.saved
-        d._swap_edges = swap
-        d._AllGatherDim.forward = staticmethod(fwd)
-        d._AllGatherDim.backward = staticmethod(bwd)
+        tdist = torch.distributed
+        (self.dist._swap_edges, fwd, bwd, tdist.all_reduce,
+         tdist.all_gather_into_tensor, tdist.reduce_scatter_tensor) = \
+            self.saved
+        self.cls.forward = staticmethod(fwd)
+        self.cls.backward = staticmethod(bwd)
+
+
+def padded_text(nums):
+    """A rank's gathers of a forward and a step (`nums`' eval_bytes and
+    step_bytes) as the zero-padded all-reduces they stand for."""
+    fwd, step = nums["eval_bytes"], nums["step_bytes"]
+    return (f"; as zero-padded all-reduces the same gathers would hand "
+            f"over {fwd[3] / 2**20:.3f} ({fwd[4] / 2**20:.3f}) MiB a forward"
+            f" and {step[3] / 2**20:.3f} ({step[4] / 2**20:.3f}) a step")
 
 
 def strip_attention_numbers(at, dev, shape, q_off, tag):
@@ -4469,7 +4581,7 @@ def s2_rank(rank, out):
     """S2 on a rank: TransUnet R50-ViT-B/16 spatialized over (D, M) =
     (1, 2), the rank's 256 rows; the eval forward in f32 and bf16 (its
     launches, halo and gather bytes), then D2's f32 SGD step with dropout
-    and attention dropout 0.1 on its strip, and 3 + 10 bf16 steps timed."""
+    and attention dropout 0.1 on its strip, and 1 + 3 bf16 steps timed."""
     from torch.nn.parallel import DistributedDataParallel
 
     from unet_torch_tpu_torch.core.mesh import make_mesh
@@ -4484,8 +4596,8 @@ def s2_rank(rank, out):
     from unet_torch_tpu_torch.train.optim import make_optimizer, poly_lr
     from unet_torch_tpu_torch.train.steps import make_single_steps
 
-    dev = torch.device("cuda", 0)
-    mesh = make_mesh(1, PARALLEL_RANKS, role="spatial")
+    dev = rank_device()
+    mesh = make_mesh(1, world(), role="spatial")
     traffic = TrafficCount()
     result = {}
     model = spatialize(seeded_transunet(seed_everything(SEED)).to(dev),
@@ -4507,17 +4619,17 @@ def s2_rank(rank, out):
             eval_bytes=traffic.take(),
             eval_bf16=gather_spatial(logits, mesh).float().cpu())
         times = []
-        for _ in range(REPS + 2):
+        for _ in range(PARALLEL_WARMUP + PARALLEL_STEPS):
             t0 = time.perf_counter()
             model(xb)
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
-        result["fwd_s"] = statistics.median(times[2:])
+        result["fwd_s"] = statistics.median(times[PARALLEL_WARMUP:])
     del model, logits
     torch.cuda.empty_cache()
     model, x, y = d2_model_batch(dev)
     spatialize(model, mesh)
-    net = DistributedDataParallel(model, device_ids=[0],
+    net = DistributedDataParallel(model, device_ids=[dev.index],
                                   process_group=mesh.world_group,
                                   broadcast_buffers=False)
     opt = make_optimizer("SGD", model.parameters(), D2_LR, 1e-4)
@@ -4535,16 +4647,15 @@ def s2_rank(rank, out):
     torch.cuda.reset_peak_memory_stats(dev)
     at.attention_train_forward.launches = at.attention_backward.launches = 0
     traffic.take()
-    n_steps = TRAIN_WARMUP + TRAIN_STEPS
+    n_steps = PARALLEL_WARMUP + PARALLEL_STEPS
     times = timed_steps(lambda i: step(net, opt, xb, y,
                                        poly_lr(D2_LR, i + 1, 1000), gen),
                         n_steps)
-    halo, gather = traffic.take()
-    result.update(step_s=statistics.median(times[TRAIN_WARMUP:]),
+    result.update(step_s=statistics.median(times[PARALLEL_WARMUP:]),
                   peak=torch.cuda.max_memory_allocated(dev),
                   fwd_launches=at.attention_train_forward.launches,
                   bwd_launches=at.attention_backward.launches,
-                  step_bytes=(halo // n_steps, gather // n_steps))
+                  step_bytes=[b // n_steps for b in traffic.take()])
     traffic.close()
     return result
 
@@ -4554,12 +4665,13 @@ def check_s2(at, fc, dev, smi, ref):
     the kernels line."""
     from unet_torch_tpu_torch.core.rng import seed_everything
 
-    size = SIZE // PARALLEL_RANKS
-    conv_shapes_ = [(h // PARALLEL_RANKS + 2, h, cin, cout)
+    size = SIZE // world()
+    conv_shapes_ = [(h // world() + 2, h, cin, cout)
                     for h, cin, cout in transunet_conv_shapes(SIZE)]
     kernels = check_strip_kernels(fc, dev, conv_shapes_, "S2")
-    attn = strip_attention_numbers(at, dev, S2_ATTN_SHAPE,
-                                   S2_ATTN_SHAPE[2], "S2")
+    s2_shape = s2_attn_shape()
+    attn = strip_attention_numbers(at, dev, s2_shape,
+                                   s2_shape[2], "S2")
     model = seeded_transunet(seed_everything(SEED)).to(dev).eval()
     xs = torch.from_numpy(eval_batch(np.random.RandomState(SEED))).to(dev)
     with torch.inference_mode():
@@ -4571,7 +4683,7 @@ def check_s2(at, fc, dev, smi, ref):
     torch.cuda.empty_cache()
     ranks, out = parallel_spawn("s2")
     shutil.rmtree(out)
-    a, b = ranks
+    a = ranks[0]
     errs = {"f32": max((check_f32_forward("S2", r["eval_f32"], one32, one64)
                         for r in ranks), key=lambda e: e[0])}
     peak = one16.abs().max().item()
@@ -4581,7 +4693,7 @@ def check_s2(at, fc, dev, smi, ref):
                              f"the one-process forward's (bound "
                              f"{TP_EVAL_REL_TOL * peak})")
     errs["bf16"] = (err, TP_EVAL_REL_TOL * peak)
-    want = TRAIN_WARMUP + TRAIN_STEPS
+    want = PARALLEL_WARMUP + PARALLEL_STEPS
     for r in ranks:
         if (r["eval_attention_launches"], r["eval_conv_launches"],
                 r["eval_conv_routes"], r["fwd_launches"],
@@ -4594,11 +4706,7 @@ def check_s2(at, fc, dev, smi, ref):
                 f"{r['fwd_launches']} + {r['bwd_launches']} train attention "
                 f"in {want} steps; expected 12, 9 ({DECODER_ROUTES}), "
                 f"{12 * want} + {12 * want}")
-    same = [k for k in a["buffers"] if torch.equal(a["buffers"][k],
-                                                  b["buffers"][k])]
-    if len(same) != len(a["buffers"]) or not a["buffers"]:
-        raise AssertionError("S2: the ranks' BN buffers differ: "
-                             f"{sorted(set(a['buffers']) - set(same))[:5]}")
+    n_same = same_buffers("S2", ranks)
     loss_err, worst, worst_name, _ = compare_step(
         "S2 TransUnet spatial", a["loss"], a["grads"], a["state"], ref,
         D2_LR, adam=False)
@@ -4607,15 +4715,15 @@ def check_s2(at, fc, dev, smi, ref):
     conv = [kernels[sh] for sh in conv_shapes_]
     phase("S2 spatial",
           f"TransUnet R50-ViT-B/16 {SIZE}x{SIZE} batch {BATCH}, (D, M) = "
-          f"(1, {PARALLEL_RANKS}) gloo ranks on one card ({smi}), {size} "
+          f"(1, {world()}) {ranks_where(smi)}, {size} "
           f"rows a rank: the fused conv at the 9 haloed strip shapes "
           f"against plain, worst {max(k[0] for k in conv):.3e}, one launch "
           f"each {sum(k[1] for k in conv):.4f} ms, back to back "
           f"{sum(k[2] for k in conv):.4f} (bound "
           f"{sum(k[4] for k in conv):.4f}, plain "
           f"{sum(k[3] for k in conv):.4f}, cuDNN "
-          f"{sum(k[5] for k in conv):.4f}); attention at {S2_ATTN_SHAPE} "
-          f"(train calls at q_off {S2_ATTN_SHAPE[2]}, rate {STRIP_DROPOUT}; "
+          f"{sum(k[5] for k in conv):.4f}); attention at {s2_shape} "
+          f"(train calls at q_off {s2_shape[2]}, rate {STRIP_DROPOUT}; "
           f"the probe's mask there bit-exact): "
           f"{attention_summary(attn)}; eval forward a rank "
           f"{a['eval_attention_launches']} attention and "
@@ -4627,16 +4735,19 @@ def check_s2(at, fc, dev, smi, ref):
           f"forward median {fwd_s * 1e3:.2f} ms"
           f" = {BATCH / fwd_s:.1f} img/s; a forward's halo "
           f"{a['eval_bytes'][0] / 2**20:.3f} MiB sent and gathers "
-          f"{a['eval_bytes'][1] / 2**20:.3f} MiB all-reduced a rank, a "
+          f"{a['eval_bytes'][1] / 2**20:.3f} MiB handed to the collectives "
+          f"({a['eval_bytes'][2] / 2**20:.3f} MiB sent in a ring) a rank, a "
           f"step's {a['step_bytes'][0] / 2**20:.3f} and "
-          f"{a['step_bytes'][1] / 2**20:.3f} MiB; the f32 SGD step with "
+          f"{a['step_bytes'][1] / 2**20:.3f} "
+          f"({a['step_bytes'][2] / 2**20:.3f}) MiB{padded_text(a)}; the f32 "
+          f"SGD step with "
           f"dropout and attention dropout 0.1 against one process: loss "
           f"{a['loss']:.7f} vs {ref[0]:.7f} (rel err {loss_err:.2e}), the "
           f"worst gradient {worst_name} at {worst:.2f} times the one-process"
           f" f32 error against f64 (bound {T4_NOISE_RATIO:.0f}), the "
-          f"{len(same)} BN buffers bitwise equal across ranks; bf16 steps: "
-          f"median {step_s * 1e3:.2f} ms = {BATCH / step_s:.1f} img/s (two "
-          f"ranks share one card: not a scaling figure), "
+          f"{n_same} BN buffers bitwise equal across ranks; bf16 steps: "
+          f"median {step_s * 1e3:.2f} ms = {BATCH / step_s:.1f} img/s"
+          f"{scaling_note()}, "
           f"{a['fwd_launches']} + {a['bwd_launches']} attention launches a "
           f"rank over {want} steps, peak {a['peak'] / 2**30:.2f} GiB a rank")
     return {"img_s": BATCH / step_s, "eval_img_s": BATCH / fwd_s,
@@ -4650,7 +4761,7 @@ def check_s2(at, fc, dev, smi, ref):
             "attention_train_forward": sum(r["fwd_launches"] for r in ranks),
             "attention_backward": sum(r["bwd_launches"] for r in ranks),
             "strip_conv": {str(sh): kernels[sh] for sh in conv_shapes_},
-            "strip_attention": {"shape": S2_ATTN_SHAPE, **attn},
+            "strip_attention": {"shape": s2_shape, **attn},
             "bytes_mib": {"forward": [v / 2**20 for v in a["eval_bytes"]],
                           "step": [v / 2**20 for v in a["step_bytes"]]},
             "peak_gib": a["peak"] / 2**30}
@@ -4660,7 +4771,7 @@ def s3_rank(rank, out):
     """S3 on a rank: configs/cltr.yml's model spatialized over (D, M) =
     (1, 2), 128 rows of each crop a rank; infer_step in f32 and bf16 (its
     attention launches), D3's f32 Adam step on the strips (the auction on
-    the replicated outputs), then 3 + 10 bf16 steps timed."""
+    the replicated outputs), then 1 + 3 bf16 steps timed."""
     from torch.nn.parallel import DistributedDataParallel
 
     from unet_torch_tpu_torch.core.mesh import make_mesh
@@ -4671,8 +4782,8 @@ def s3_rank(rank, out):
     from unet_torch_tpu_torch.train.cltr_steps import infer_step, train_step
     from unet_torch_tpu_torch.train.optim import make_optimizer
 
-    dev = torch.device("cuda", 0)
-    mesh = make_mesh(1, PARALLEL_RANKS, role="spatial")
+    dev = rank_device()
+    mesh = make_mesh(1, world(), role="spatial")
     strip = mesh.strip(CLTR_CROP)
     traffic = TrafficCount()
     result = {}
@@ -4691,17 +4802,17 @@ def s3_rank(rank, out):
                   eval_launches=at.fused_attention.launches,
                   eval_bytes=traffic.take())
     times = []
-    for _ in range(REPS + 2):
+    for _ in range(PARALLEL_WARMUP + PARALLEL_STEPS):
         t0 = time.perf_counter()
         infer_step(model, x)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-    result["fwd_s"] = statistics.median(times[2:])
+    result["fwd_s"] = statistics.median(times[PARALLEL_WARMUP:])
     del model
     torch.cuda.empty_cache()
     model, criterion, batch = d3_model_batch(dev)
     spatialize(model, mesh)
-    net = DistributedDataParallel(model, device_ids=[0],
+    net = DistributedDataParallel(model, device_ids=[dev.index],
                                   process_group=mesh.world_group,
                                   broadcast_buffers=False)
     opt = make_optimizer("Adam", model.parameters(), D3_LR, 1e-4)
@@ -4723,14 +4834,13 @@ def s3_rank(rank, out):
     xb = x.to(torch.bfloat16)
     torch.cuda.reset_peak_memory_stats(dev)
     traffic.take()
-    n_steps = TRAIN_WARMUP + TRAIN_STEPS
+    n_steps = PARALLEL_WARMUP + PARALLEL_STEPS
     times = timed_steps(lambda i: train_step(
         net, criterion, opt, xb, *targets, D3_LR, None, None, "auction",
         mesh.data_group), n_steps)
-    halo, gather = traffic.take()
-    result.update(step_s=statistics.median(times[TRAIN_WARMUP:]),
+    result.update(step_s=statistics.median(times[PARALLEL_WARMUP:]),
                   peak=torch.cuda.max_memory_allocated(dev),
-                  step_bytes=(halo // n_steps, gather // n_steps))
+                  step_bytes=[b // n_steps for b in traffic.take()])
     traffic.close()
     return result
 
@@ -4767,8 +4877,9 @@ def check_s3(at, dev, smi, ref, ref_matches):
     from unet_torch_tpu_torch.core.rng import seed_everything
     from unet_torch_tpu_torch.train.cltr_steps import infer_step
 
-    attn = strip_attention_numbers(at, dev, S3_ATTN_SHAPE,
-                                   S3_ATTN_SHAPE[2], "S3")
+    s3_shape = s3_attn_shape()
+    attn = strip_attention_numbers(at, dev, s3_shape,
+                                   s3_shape[2], "S3")
     model, _ = seeded_cltr(seed_everything(SEED), precision="f32")
     model = model.to(dev)
     x = torch.from_numpy(cltr_batch(np.random.RandomState(SEED + 27),
@@ -4814,10 +4925,10 @@ def check_s3(at, dev, smi, ref, ref_matches):
     fwd_s = max(r["fwd_s"] for r in ranks)
     phase("S3 spatial",
           f"configs/cltr.yml's model, batch {CLTR_BATCH} crops of "
-          f"{CLTR_CROP}x{CLTR_CROP}, (D, M) = (1, {PARALLEL_RANKS}) gloo "
-          f"ranks on one card ({smi}), {CLTR_CROP // PARALLEL_RANKS} rows a "
-          f"rank: the encoder's attention at {S3_ATTN_SHAPE} (train calls "
-          f"at q_off {S3_ATTN_SHAPE[2]}, rate {STRIP_DROPOUT}; the probe's "
+          f"{CLTR_CROP}x{CLTR_CROP}, (D, M) = (1, {world()}) "
+          f"{ranks_where(smi)}, {CLTR_CROP // world()} rows a "
+          f"rank: the encoder's attention at {s3_shape} (train calls "
+          f"at q_off {s3_shape[2]}, rate {STRIP_DROPOUT}; the probe's "
           f"mask there bit-exact): {attention_summary(attn)}; infer_step's "
           f"outputs on every rank against one process: "
           + ", ".join(f"{n} {w} {e[0]:.3e} (bound {e[1]:.3e}"
@@ -4827,9 +4938,12 @@ def check_s3(at, dev, smi, ref, ref_matches):
           + f"; {a['eval_launches']} eval attention launches a rank, bf16 "
           f"infer median {fwd_s * 1e3:.2f} ms = {CLTR_BATCH / fwd_s:.1f} "
           f"img/s; a forward's halo {a['eval_bytes'][0] / 2**20:.3f} MiB "
-          f"sent and gathers {a['eval_bytes'][1] / 2**20:.3f} MiB "
-          f"all-reduced a rank, a step's {a['step_bytes'][0] / 2**20:.3f} "
-          f"and {a['step_bytes'][1] / 2**20:.3f} MiB; the f32 Adam step "
+          f"sent and gathers {a['eval_bytes'][1] / 2**20:.3f} MiB handed to "
+          f"the collectives ({a['eval_bytes'][2] / 2**20:.3f} MiB sent in a "
+          f"ring) a rank, a step's {a['step_bytes'][0] / 2**20:.3f} "
+          f"and {a['step_bytes'][1] / 2**20:.3f} "
+          f"({a['step_bytes'][2] / 2**20:.3f}) MiB{padded_text(a)}; the f32 "
+          f"Adam step "
           f"(auction, {a['auction_launches']} launch a rank; the matches the "
           f"one-process step's but for {ties[0]} of "
           f"{int((ref_matches[0] >= 0).sum())} target slots at ties, cost "
@@ -4839,8 +4953,8 @@ def check_s3(at, dev, smi, ref, ref_matches):
           f"{worst_name} at {worst:.2f} times the one-process f32 error "
           f"against f64 (bound {T4_NOISE_RATIO:.0f}; {n_flip} Adam sign "
           f"flips within 2 lr); bf16 steps: median {step_s * 1e3:.2f} ms = "
-          f"{CLTR_BATCH / step_s:.1f} img/s (two ranks share one card: not "
-          f"a scaling figure), peak {a['peak'] / 2**30:.2f} GiB a rank")
+          f"{CLTR_BATCH / step_s:.1f} img/s{scaling_note()}, peak "
+          f"{a['peak'] / 2**30:.2f} GiB a rank")
     return {"img_s": CLTR_BATCH / step_s, "eval_img_s": CLTR_BATCH / fwd_s,
             "loss_rel_err": loss_err, "worst_rel_err": worst,
             "eval_err": {f"{n}_{w}": e[0] for (n, w), e in errs.items()},
@@ -4849,15 +4963,381 @@ def check_s3(at, dev, smi, ref, ref_matches):
             "attention_backward": sum(r["bwd_launches"] for r in ranks),
             "auction_lsap": sum(r["auction_launches"] for r in ranks),
             "matches_at_ties": ties[0],
-            "strip_attention": {"shape": S3_ATTN_SHAPE, **attn},
+            "strip_attention": {"shape": s3_shape, **attn},
             "bytes_mib": {"forward": [v / 2**20 for v in a["eval_bytes"]],
                           "step": [v / 2**20 for v in a["step_bytes"]]},
             "peak_gib": a["peak"] / 2**30}
 
 
+# ---------------------------------------------------------------------------
+# V5: vis=True on a tensor and a spatial mesh, two gloo ranks on one card
+# ---------------------------------------------------------------------------
+
+V5_BATCH = 2
+# the gathered attention probabilities against one process's, absolute
+# (each is in [0, 1])
+VIS_ABS_TOL = 1e-5
+
+
+def vis_transunet(dev, vis):
+    """D2's TransUnet (seeded as every TransUnet phase), eval mode, with the
+    attention's `vis` set."""
+    from unet_torch_tpu_torch.core.rng import seed_everything
+    from unet_torch_tpu_torch.models.transunet.vit import Attention
+
+    model = seeded_transunet(seed_everything(SEED))
+    for m in model.modules():
+        if isinstance(m, Attention):
+            m.vis = vis
+    return model.to(dev).eval()
+
+
+def v5_rank(rank, out):
+    """V5 on a rank: the one-process vis=True f32 eval forward on this
+    rank's card, then the same model on a (1, 2) tensor mesh and on a
+    (1, 2) spatial mesh, with vis=True and with vis=False: every layer's
+    attn_weights (the tensor mesh's, whose heads the attention gathers;
+    the strip's rows, gathered here over the strips) against one
+    process's, the logits against vis=False's on the same mesh, the eval
+    attention kernel's launches."""
+    from unet_torch_tpu_torch.core.dist import all_gather_dim
+    from unet_torch_tpu_torch.core.mesh import make_mesh
+    from unet_torch_tpu_torch.kernels import attention as at
+    from unet_torch_tpu_torch.parallel import parallelize
+    from unet_torch_tpu_torch.parallel.spatial import (
+        gather_spatial,
+        shard_spatial,
+        spatialize,
+    )
+
+    dev = rank_device()
+    xs = eval_batch(np.random.RandomState(SEED))[:V5_BATCH]
+    with torch.inference_mode():
+        one = vis_transunet(dev, True)
+        one(torch.from_numpy(xs).to(dev))
+        ref = [w.clone() for w in one.attn_weights]
+    del one
+    result = {}
+    for role in ("tensor", "spatial"):
+        mesh = make_mesh(1, world(), role=role)
+        logits, launches = {}, {}
+        for vis in (True, False):
+            model = vis_transunet(dev, vis)
+            if role == "tensor":
+                parallelize(model, mesh)
+                x = torch.from_numpy(xs).to(dev)
+            else:
+                spatialize(model, mesh)
+                (x,) = shard_spatial(mesh, [xs], dev)
+            at.fused_attention.launches = 0
+            with torch.inference_mode():
+                y = model(x)
+                torch.cuda.synchronize()
+                launches[vis] = at.fused_attention.launches
+                logits[vis] = (y if role == "tensor"
+                               else gather_spatial(y, mesh)).cpu()
+                if vis:
+                    held = [tuple(w.shape) for w in model.attn_weights]
+                    weights = [w if role == "tensor" else
+                               all_gather_dim(w, mesh.model_group, 2)
+                               for w in model.attn_weights]
+                    w_err = max((w - r).abs().max().item()
+                                for w, r in zip(weights, ref, strict=True))
+            del model
+        peak = logits[False].abs().max().item()
+        result[role] = {
+            "weights_err": w_err, "held": held[0], "layers": len(held),
+            "whole": tuple(ref[0].shape),
+            "logits_err": (logits[True] - logits[False]).abs().max().item(),
+            "peak": peak, "launches": launches}
+    return result
+
+
+def check_v5(dev, smi):
+    """V5. Returns its numbers for the kernels line."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    ranks, out = parallel_spawn("v5")
+    shutil.rmtree(out)
+    n_tokens, heads = (SIZE // 16) ** 2, 12
+    # a tensor mesh's attention keeps every head (gathered), a strip its
+    # query rows
+    held = {"tensor": (V5_BATCH, heads, n_tokens, n_tokens),
+            "spatial": (V5_BATCH, heads, n_tokens // world(), n_tokens)}
+    for r in ranks:
+        for role, v in r.items():
+            bound = TRANSUNET_REL_TOL * v["peak"]
+            if (v["held"] != held[role] or v["layers"] != 12
+                    or v["whole"] != (V5_BATCH, heads, n_tokens, n_tokens)
+                    or not v["weights_err"] <= VIS_ABS_TOL
+                    or not v["logits_err"] <= bound
+                    or v["launches"] != {True: 0, False: 12}):
+                raise AssertionError(
+                    f"V5 vis on a {role} mesh: a rank holds {v['layers']} "
+                    f"layers of {v['held']} probabilities (expected 12 of "
+                    f"{held[role]}), gathered {v['weights_err']} from one "
+                    f"process's (bound {VIS_ABS_TOL}), the logits "
+                    f"{v['logits_err']} from vis=False's (bound {bound}), "
+                    f"eval attention launches {v['launches']} (expected 0 "
+                    "with vis, 12 without)")
+    worst = {role: (max(r[role]["weights_err"] for r in ranks),
+                    max(r[role]["logits_err"] for r in ranks))
+             for role in held}
+    phase("V5 vis on meshes",
+          f"TransUnet R50-ViT-B/16 {SIZE}x{SIZE}, vis=True, eval, f32, batch "
+          f"{V5_BATCH}, (D, M) = (1, {world()}) {ranks_where(smi)}: "
+          + "; ".join(
+              f"{role} mesh: a rank holds {held[role]} probabilities a layer"
+              f", gathered {worst[role][0]:.3e} from one process's (bound "
+              f"{VIS_ABS_TOL:.0e}), the logits {worst[role][1]:.3e} from "
+              f"vis=False's (bound {TRANSUNET_REL_TOL:.0e} of the peak), "
+              f"eval attention launches {ranks[0][role]['launches'][True]} "
+              f"with vis (the plain einsum) and "
+              f"{ranks[0][role]['launches'][False]} without"
+              for role in held))
+    return {role: {"weights_err": w, "logits_err": e,
+                   "fused_attention_without_vis":
+                   sum(r[role]["launches"][False] for r in ranks)}
+            for role, (w, e) in worst.items()}
+
+
+# ---------------------------------------------------------------------------
+# --cards N: D2's f32 step across cards, and the parallel phases on NCCL
+# ---------------------------------------------------------------------------
+
+# the (D, M) layouts of four cards whose f32 D2 step check_d2_cards holds
+CARDS_D2_MESHES = ((2, 2), (1, 4))
+
+
+def decoder_signs(model):
+    """Hooks on every Conv2dReLU's BatchNorm (its output is the ReLU's
+    input): returns the list each train forward appends one bool map a
+    conv to (pre-activation > 0), and the hooks' handles."""
+    from unet_torch_tpu_torch.models.transunet.vit import Conv2dReLU
+
+    signs = []
+
+    def keep(module, inputs, output):
+        signs.append(output.detach() > 0)
+
+    return signs, [m[1].register_forward_hook(keep) for m in model.modules()
+                   if isinstance(m, Conv2dReLU)]
+
+
+def train_forward_signs(model, x, dev):
+    """The decoder's pre-activation signs of one train-mode f32 forward
+    with autograd recording (the train attention kernels), its dropouts on
+    the train step's generator."""
+    from unet_torch_tpu_torch.nn.dropout import set_dropout_generator
+
+    signs, hooks = decoder_signs(model)
+    model.train()
+    set_dropout_generator(model, torch.Generator(device=dev).manual_seed(SEED))
+    model(x)
+    for h in hooks:
+        h.remove()
+    return signs
+
+
+@contextlib.contextmanager
+def forced_relu(masks):
+    """The TransUnet decoder's ReLUs (Conv2dReLU's train path, F.relu in
+    models/transunet/vit.py) multiply by `masks` in turn, one a conv, each
+    forward from the first: the one-process step on another run's side of
+    zero at every pre-activation, whose gradient is the ReLU's there."""
+    from unet_torch_tpu_torch.models.transunet import vit
+
+    class Functional:
+        calls = 0
+
+        def __getattr__(self, name):
+            return getattr(torch.nn.functional, name)
+
+        def relu(self, x):
+            mask = masks[Functional.calls % len(masks)]
+            Functional.calls += 1
+            return x * mask.to(x.device, x.dtype)
+
+    saved = vit.F
+    vit.F = Functional()
+    try:
+        yield
+    finally:
+        vit.F = saved
+
+
+def flips(ours, ref, rows):
+    """Pre-activations on the other side of zero from one process's (its
+    batch rows `rows`): (count, count of all)."""
+    return (sum(int((a != b[rows]).sum()) for a, b in zip(ours, ref,
+                                                          strict=True)),
+            sum(a.numel() for a in ours))
+
+
+def d2_cards_rank(rank, out):
+    """D2 at the (D, M) layout RANK_OPTS["mesh"]: the decoder
+    pre-activations of one train forward of the one-process model on this
+    rank's card; then D2's f32 SGD step (DDP over the data ranks), its
+    gathered gradients and its pre-activations' flips from those, with
+    cuDNN's default algorithms and again under cudnn.deterministic = True,
+    benchmark = False."""
+    from torch.nn.parallel import DistributedDataParallel
+
+    from unet_torch_tpu_torch.core.mesh import make_mesh
+    from unet_torch_tpu_torch.parallel import gather_state_tp, parallelize
+    from unet_torch_tpu_torch.train.optim import make_optimizer, poly_lr
+    from unet_torch_tpu_torch.train.steps import make_single_steps
+
+    dev = rank_device()
+    mesh = make_mesh(*RANK_OPTS["mesh"])
+    rows = mesh.rows(BATCH)
+    result = {}
+    model, x, _ = d2_model_batch(dev)
+    ref = train_forward_signs(model, x, dev)
+    del model, x
+    torch.cuda.empty_cache()
+    for deterministic in (False, True):
+        torch.backends.cudnn.deterministic = deterministic
+        torch.backends.cudnn.benchmark = False
+        model, x, y = d2_model_batch(dev)
+        parallelize(model, mesh)
+        net = model if mesh.data_group is None else DistributedDataParallel(
+            model, device_ids=[dev.index], process_group=mesh.data_group,
+            broadcast_buffers=False)
+        opt = make_optimizer("SGD", model.parameters(), D2_LR, 1e-4)
+        step, _ = make_single_steps("dice_bce_mc", "dice_bce_mc", N_CLASSES,
+                                    group=mesh.data_group)
+        signs, hooks = decoder_signs(model)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        loss = step(net, opt, x[rows], y[rows], poly_lr(D2_LR, 0, 1000),
+                    gen).item()
+        for h in hooks:
+            h.remove()
+        result[deterministic] = {
+            "loss": loss, "flips": flips(signs, ref, rows),
+            # the step's own side of zero, which check_d2_cards forces on
+            # the one-process step (the ranks of model index 0: each row
+            # once)
+            "masks": ([s.cpu() for s in signs]
+                      if mesh.m == 0 and not deterministic else None),
+            "state": host_state(gather_state_tp(model, mesh)),
+            "grads": host_state(gather_state_tp(model, mesh, {
+                n: p.grad for n, p in model.named_parameters()}))}
+        del net, model, opt, signs
+        torch.cuda.empty_cache()
+    torch.backends.cudnn.deterministic = False
+    return result
+
+
+def check_d2_cards(at, dev, smi):
+    """D2's f32 step at each layout of CARDS_D2_MESHES on the cards against
+    the one-process step on card 0: T4's ratio, the decoder pre-activations
+    on the other side of zero from one process's, and both again with cuDNN
+    deterministic; the ratio against the one-process steps forced onto the
+    ranks' side of zero. Prints every layout's numbers, then raises where
+    a step exceeds T4's bound or flips a pre-activation."""
+    import gc
+
+    refs = {}
+    for deterministic in (False, True):
+        torch.backends.cudnn.deterministic = deterministic
+        torch.backends.cudnn.benchmark = False
+        refs[deterministic] = d2_reference(at, dev)
+    torch.backends.cudnn.deterministic = False
+    gc.collect()
+    torch.cuda.empty_cache()
+    bad = []
+    for mesh in CARDS_D2_MESHES:
+        ranks, out = parallel_spawn("d2_cards", mesh=mesh)
+        shutil.rmtree(out)
+        a = ranks[0]
+        # the ranks of model index 0 hold each batch row once
+        rows = ranks[::mesh[1]]
+        row = {"of": sum(r[False]["flips"][1] for r in rows)}
+        for deterministic in (False, True):
+            got = a[deterministic]
+            ref = refs[deterministic]
+            ratio, name, _ = gradient_noise_ratio(
+                {k: v.double() for k, v in got["grads"].items()}, ref[2],
+                ref[4])
+            row[deterministic] = {
+                "ratio": ratio, "worst": name,
+                "loss_rel_err": abs(got["loss"] - ref[0]) / abs(ref[0]),
+                "flips": sum(r[deterministic]["flips"][0] for r in rows)}
+        # the one-process steps, f32 and f64, on the ranks' side of zero
+        masks = [torch.cat([r[False]["masks"][i] for r in rows])
+                 for i in range(len(a[False]["masks"]))]
+        with forced_relu(masks):
+            forced = d2_reference(at, dev)
+        ratio, name, _ = gradient_noise_ratio(
+            {k: v.double() for k, v in a[False]["grads"].items()}, forced[2],
+            forced[4])
+        row["forced"] = {"ratio": ratio, "worst": name}
+        del masks, forced
+        main = row[False]
+        phase("D2 on cards",
+              f"TransUnet R50-ViT-B/16 {SIZE}x{SIZE}, global batch {BATCH}, "
+              f"SGD, dropouts 0.1, f32, (D, M) = {mesh}, {ranks_where(smi)}:"
+              f" the worst gradient {main['worst']} at {main['ratio']:.2f} "
+              f"times the one-process f32 error against f64 (bound "
+              f"{T4_NOISE_RATIO:.0f}), loss rel err "
+              f"{main['loss_rel_err']:.2e}, {main['flips']} of {row['of']} "
+              f"decoder pre-activations on the other side of zero from one "
+              f"process's (the ranks' rows); against the one-process f32 "
+              f"and f64 steps with the decoder's ReLUs on the ranks' side of "
+              f"zero: {row['forced']['worst']} at "
+              f"{row['forced']['ratio']:.2f}; with cudnn.deterministic: "
+              f"{row[True]['worst']} at {row[True]['ratio']:.2f}, "
+              f"{row[True]['flips']} flipped")
+        if main["flips"] or not main["ratio"] <= T4_NOISE_RATIO:
+            bad.append(f"D2's f32 step at {mesh}: {main['flips']} flipped "
+                       f"pre-activations, the worst gradient {main['worst']}"
+                       f" at {main['ratio']:.2f} (bound "
+                       f"{T4_NOISE_RATIO:.0f})")
+    if bad:
+        raise AssertionError("; ".join(bad))
+
+
+def check_cards(at, fc, dev, smi):
+    """--cards: D2's f32 step on CARDS_D2_MESHES (with four cards), then D1,
+    S1, G1, S3, S2 and D2, over NCCL on world() cards. A phase that fails
+    does not stop the next: their failures are raised together at the
+    end."""
+    import gc
+
+    failed = []
+
+    def run(check, *args):
+        try:
+            return check(*args)
+        except AssertionError as e:
+            failed.append(str(e))
+            return None
+
+    if world() == 4:
+        run(check_d2_cards, at, dev, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    d1_ref = d1_reference(at, dev)
+    d3_ref, d3_matches = d3_reference(at, dev)
+    res = {"d1": run(check_d1, at, dev, smi, d1_ref),
+           "s1": run(check_s1, fc, dev, smi, d1_ref),
+           "g1": run(check_g1, at, dev, smi),
+           "s3": run(check_s3, at, dev, smi, d3_ref, d3_matches)}
+    del d1_ref, d3_ref, d3_matches
+    d2_ref = d2_reference(at, dev)
+    res["s2"] = run(check_s2, at, fc, dev, smi, d2_ref)
+    res["d2"] = run(check_d2, at, fc, dev, smi, d2_ref)
+    print(json.dumps({"cards": res}, default=str))
+    if failed:
+        raise AssertionError("on the cards: " + "; ".join(failed))
+
+
 def check_parallel(at, fc, dev, smi):
-    """D1-D3, S1 and G1, after the one-process phases, whose cached card
-    memory is freed first: the ranks are other processes."""
+    """D1-D3, S1, G1, S2, S3 and V5, after the one-process phases, whose
+    cached card memory is freed first: the ranks are other processes."""
     import gc
 
     gc.collect()
@@ -4871,12 +5351,13 @@ def check_parallel(at, fc, dev, smi):
             "s1": check_s1(fc, dev, smi, d1_ref),
             "g1": check_g1(at, dev, smi),
             "s2": check_s2(at, fc, dev, smi, d2_ref),
-            "s3": check_s3(at, dev, smi, d3_ref, d3_matches)}
+            "s3": check_s3(at, dev, smi, d3_ref, d3_matches),
+            "v5": check_v5(dev, smi)}
 
 
 def main(cltr_profile=False, cltr_two_batches_only=False,
          attention_ab_only=False, unet_profile=False, topo_only=False,
-         parallel_only=False):
+         parallel_only=False, cards=None):
     # 1. device
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -4936,6 +5417,18 @@ def main(cltr_profile=False, cltr_two_batches_only=False,
         return
     if parallel_only:
         check_parallel(at, fc, dev, smi)
+        return
+    if cards:
+        if torch.cuda.device_count() < cards:
+            raise SystemExit(f"chip_smoke: --cards {cards} needs {cards} "
+                             f"cards, this host has "
+                             f"{torch.cuda.device_count()}")
+        global CARDS
+        CARDS = cards
+        check_cards(at, fc, dev, smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}))
         return
     if topo_only:
         check_mask(at, build, dev)
@@ -5563,8 +6056,15 @@ if __name__ == "__main__":
              "(P1-P3)")
     parser.add_argument(
         "--parallel", action="store_true",
-        help="build, then only the parallel phases D1-D3, S1, G1, S2 and "
-             "S3 (two gloo ranks on the card)")
+        help="build, then only the parallel phases D1-D3, S1, G1, S2, S3 "
+             "and V5 (two gloo ranks on the card)")
+    parser.add_argument(
+        "--cards", type=int, default=None, metavar="N",
+        help="build, then only the parallel phases on N NCCL ranks, a card "
+             "each: with four cards D2's f32 step at (D, M) = (2, 2) and "
+             "(1, 4) against one process (T4's ratio, the decoder's flipped "
+             "ReLUs, both again with cuDNN deterministic), then D1, S1, G1, "
+             "S3, S2 and D2 (M = N)")
     cli = parser.parse_args()
     main(cli.cltr_profile, cli.cltr_two_batches, cli.attention_ab,
-         cli.unet_profile, cli.topo, cli.parallel)
+         cli.unet_profile, cli.topo, cli.parallel, cli.cards)

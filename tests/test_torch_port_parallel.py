@@ -163,12 +163,38 @@ def port_step(spec, dropout, mesh=None, dtype=torch.float32):
     return float(loss), model
 
 
+def vis_forwards(spec, mesh, shard, gather):
+    """The TransUnet of the spec's state with vis=True and with vis=False,
+    each placed on `mesh` by `shard(model)`, their eval forwards on the
+    rank's input `x`: {"weights": every layer's attn_weights as the rank
+    holds them, "gathered": each passed through `gather`, "logits":
+    {vis: the forward's logits}}."""
+    from unet_torch_tpu_torch.models.transunet.configs import CONFIGS
+    from unet_torch_tpu_torch.models.transunet.vit import VisionTransformer
+
+    out = {"logits": {}}
+    for vis in (True, False):
+        model = VisionTransformer(vit_config(CONFIGS), IMG_VIT, 3, vis=vis)
+        model.load_state_dict(spec["state"], strict=True)
+        shard(model).eval()
+        with torch.no_grad():
+            out["logits"][vis] = model(spec["x"])
+        if vis:
+            out["weights"] = model.attn_weights
+            out["gathered"] = [gather(w) for w in model.attn_weights]
+    return out
+
+
 def _rank_case(spec, out):
     """What a rank runs: the case's steps, each from the spec's weights."""
     from unet_torch_tpu_torch.core.mesh import make_mesh
     from unet_torch_tpu_torch.parallel import gather_state_tp, parallelize
 
     mesh = make_mesh(*spec["mesh"])
+    if spec["kind"] == "vis":
+        return vis_forwards({**spec, "x": torch.from_numpy(spec["x"])}, mesh,
+                            lambda model: parallelize(model, mesh),
+                            lambda w: w)
     result = {"rank": mesh.rank}
     if spec["kind"] == "transunet":
         model = build_model("transunet", 0.0)
@@ -645,6 +671,82 @@ def test_parallel_step_matches_one_process_step(kind, unet_run,
     run = {"unet": unet_run, "transunet": transunet_run,
            "cltr": cltr_run}[kind]
     _check_against_port(kind, run["spec"], run["results"], "plain")
+
+
+def jax_vis_weights(params, stats, x):
+    """The JAX TransUnet's sown attention probabilities, a numpy array a
+    layer, and its logits."""
+    import jax.numpy as jnp
+
+    from unet_torch_tpu.models.transunet import CONFIGS as JAX_CONFIGS
+    from unet_torch_tpu.models.transunet import VisionTransformer
+
+    config = vit_config(JAX_CONFIGS)
+    logits, inter = VisionTransformer(config, img_size=IMG_VIT, num_classes=3,
+                                      vis=True).apply(
+        {"params": params, "batch_stats": stats}, jnp.asarray(x),
+        train=False, mutable=["intermediates"])
+    enc = inter["intermediates"]["transformer"]["encoder"]
+    return [np.asarray(enc[f"encoderblock_{i}"]["attn"]["attn_weights"][0])
+            for i in range(config.transformer.num_layers)], np.asarray(logits)
+
+
+def one_process_vis(state, x):
+    """The port's one-process vis=True eval forward: (attn_weights, logits)."""
+    from unet_torch_tpu_torch.models.transunet.configs import CONFIGS
+    from unet_torch_tpu_torch.models.transunet.vit import VisionTransformer
+
+    model = VisionTransformer(vit_config(CONFIGS), IMG_VIT, 3, vis=True)
+    model.load_state_dict(state, strict=True)
+    with torch.no_grad():
+        logits = model.eval()(torch.from_numpy(x))
+    return model.attn_weights, logits
+
+
+def check_vis(gathered, logits, state, x, params, stats):
+    """A mesh's gathered attn_weights within 1e-5 of the one-process port's
+    and within the eval bound of JAX's sown ones; its vis=True logits those
+    of vis=False within 1e-4, as in one process, and JAX's."""
+    ref, _ = one_process_vis(state, x)
+    theirs, jax_logits = jax_vis_weights(params, stats, x)
+    assert len(gathered) == len(ref) == len(theirs) == 2
+    for ours, want, jax_w in zip(gathered, ref, theirs):
+        assert ours.shape == want.shape == jax_w.shape
+        np.testing.assert_allclose(ours.numpy(), want.numpy(), atol=1e-5,
+                                   rtol=0)
+        np.testing.assert_allclose(ours.numpy(), jax_w, atol=2e-4,
+                                   rtol=1e-3)
+    np.testing.assert_allclose(logits[True].numpy(), logits[False].numpy(),
+                               atol=1e-4)
+    np.testing.assert_allclose(logits[True].numpy(), jax_logits, atol=2e-4,
+                               rtol=1e-3)
+
+
+@pytest.fixture(scope="module")
+def vis_run(tmp_path_factory):
+    from unet_torch_tpu_torch.ckpt.bridge import (
+        transunet_state_dict_from_flax,
+    )
+
+    rng = np.random.RandomState(3)
+    _, x, _, params, stats = _jax_setup("transunet", 2, IMG_VIT, rng)
+    state = transunet_state_dict_from_flax(params, stats)
+    spec = {"kind": "vis", "mesh": (1, 2), "state": state, "x": x}
+    results = _launch(spec, str(tmp_path_factory.mktemp("vis_tp")))
+    return dict(results=results, state=state, x=x, params=params,
+                stats=stats)
+
+
+@pytest.mark.timeout(300)
+def test_vis_on_a_tensor_mesh_keeps_every_head(vis_run):
+    """(D, M) = (1, 2), two of the four heads a rank: every rank's
+    attn_weights gather all four heads, one process's (B, heads, N, N),
+    and its logits are whole."""
+    r = vis_run
+    for res in r["results"]:
+        assert all(w.shape == (2, 4, 16, 16) for w in res["weights"])
+        check_vis(res["gathered"], res["logits"], r["state"], r["x"],
+                  r["params"], r["stats"])
 
 
 @pytest.mark.parametrize("offsets", [(0, 0, 3), (2, 1, 3), (1, 2, 5)])

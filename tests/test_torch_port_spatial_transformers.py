@@ -30,6 +30,8 @@ M = 4 with one token row a rank; CLTR as `CLTR` there (16 queries, hidden
     the world group, the point count over the data group, the auction on
     the replicated outputs) against `make_cltr_fused_step`, with the same
     matches, and with dropout 0.1 against the port's one-process step;
+  * (1, 4): the same CLTR steps, the memory gathered over four strips of
+    one feature row (the all-gather and its reduce-scatter at M = 4);
   * on every mesh, by `torch.autograd.gradcheck` in f64 across the ranks:
     the uneven halo exchange, the differentiable gather, the exclusive
     prefix sum, the strip GroupNorm over uneven strips and the strip
@@ -287,17 +289,42 @@ def _cltr_step(spec, dropout, mesh):
             "match": matches[0]}
 
 
+def _vis(spec, mesh):
+    """vis=True and vis=False eval forwards on the strips: each layer's
+    strip rows of attn_weights, those gathered over the strips, and the
+    gathered logits."""
+    from unet_torch_tpu_torch.core.dist import all_gather_dim
+    from unet_torch_tpu_torch.parallel.spatial import (
+        gather_spatial,
+        shard_spatial,
+        spatialize,
+    )
+
+    from test_torch_port_parallel import vis_forwards
+
+    (x,) = shard_spatial(mesh, [spec["x"]], "cpu")
+    out = vis_forwards({"state": spec["vis"], "x": x}, mesh,
+                       lambda model: spatialize(model, mesh),
+                       lambda w: all_gather_dim(w, mesh.model_group, 2))
+    out["logits"] = {vis: gather_spatial(y, mesh)
+                     for vis, y in out["logits"].items()}
+    return out
+
+
 def _rank_case(spec):
     from unet_torch_tpu_torch.core.mesh import make_mesh
 
     mesh = make_mesh(*spec["mesh"], role="spatial")
     result = {"rank": mesh.rank, "gradcheck": _gradchecks(mesh),
               "eval": _eval(spec, mesh)}
+    if "vis" in spec:
+        result["vis"] = _vis(spec, mesh)
     if "transunet_step" in spec:
         s = spec["transunet_step"]
         result["transunet"] = {name: _transunet_step(s, p, mesh)
                                for name, p in (("plain", 0.0),
                                                ("dropout", s["dropout"]))}
+    if "cltr_step" in spec:
         s = spec["cltr_step"]
         result["cltr"] = {name: _cltr_step(s, p, mesh)
                           for name, p in (("plain", 0.0),
@@ -414,9 +441,10 @@ def runs(tmp_path_factory):
              "cltr": ("cltr", cltr_spec["state"])}
     base = {"x": x, "xc": cltr_spec["x"]}
     specs = {
-        (1, 2): {**base, "mesh": (1, 2), "eval": {
+        (1, 2): {**base, "mesh": (1, 2), "vis": state, "eval": {
             **evals, "multitask": ("multitask", multitask)}},
-        (1, 4): {**base, "mesh": (1, 4), "eval": evals},
+        (1, 4): {**base, "mesh": (1, 4), "eval": evals,
+                 "cltr_step": cltr_spec},
         (2, 2): {**base, "mesh": (2, 2),
                  "eval": {"transunet": ("single", state)},
                  "transunet_step": step, "cltr_step": cltr_spec},
@@ -497,6 +525,20 @@ def test_transunet_spatial_step_matches_one_process(runs, run):
 
 
 @pytest.mark.timeout(300)
+def test_vis_on_a_spatial_mesh_keeps_the_strip_s_rows(runs):
+    """(D, M) = (1, 2): a strip's attn_weights are its 8 query rows of the
+    16 tokens against every key, (B, heads, N / 2, N); gathered over the
+    strips, one process's and JAX's; the logits those of vis=False."""
+    from test_torch_port_parallel import check_vis
+
+    for r in runs["ranks"][(1, 2)]:
+        vis = r["vis"]
+        assert all(w.shape == (4, 4, 8, 16) for w in vis["weights"])
+        check_vis(vis["gathered"], vis["logits"], runs["step"]["state"],
+                  runs["x"], runs["params"], runs["stats"])
+
+
+@pytest.mark.timeout(300)
 @pytest.mark.parametrize("mesh", [(1, 2), (1, 4)])
 def test_cltr_forward_matches_jax_on_shard_spatial(runs, mesh):
     """The backbone and the encoder on the strips (at M = 4 one feature row
@@ -535,6 +577,35 @@ def test_cltr_spatial_step_matches_one_process(runs, run):
 
     _check_against_port("cltr", runs["cltr_spec"],
                         [r["cltr"] for r in runs["ranks"][(2, 2)]], run)
+
+
+@pytest.mark.timeout(300)
+def test_cltr_spatial_step_at_m4_matches_jax_fused_step(runs):
+    """(1, 4), one feature row a strip: every rank matches all four images,
+    the matches JAX's, and ends at JAX's state (the memory's all-gather
+    over four strips, its gradient reduce-scattered)."""
+    ranks = runs["ranks"][(1, 4)]
+    for r in ranks:
+        res = r["cltr"]["plain"]
+        np.testing.assert_array_equal(res["match"].numpy(),
+                                      runs["cltr_match"])
+        np.testing.assert_allclose(res["loss"], runs["cltr_loss"],
+                                   **TOL_STEP)
+    for r in ranks:
+        ours = r["cltr"]["plain"]["state"]
+        for name, ref in runs["cltr_after"].items():
+            np.testing.assert_allclose(ours[name].numpy(), ref.numpy(),
+                                       err_msg=name, **TOL_STEP)
+
+
+@pytest.mark.timeout(300)
+@pytest.mark.parametrize("run", ["plain", "dropout"])
+def test_cltr_spatial_step_at_m4_matches_one_process(runs, run):
+    """(1, 4) against the port's one-process step, as at (2, 2)."""
+    from test_torch_port_parallel import _check_against_port
+
+    _check_against_port("cltr", runs["cltr_spec"],
+                        [r["cltr"] for r in runs["ranks"][(1, 4)]], run)
 
 
 GRADCHECKS = ["exchange_rows_3_2", "exchange_rows_0_1", "all_gather_dim",

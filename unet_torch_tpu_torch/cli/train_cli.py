@@ -356,10 +356,16 @@ def _post_train_test(model, trainer, cfg: Config, test_image_list, out_dir):
 
 
 def _delete_non_best(out_dir):
-    """Prune the epoch checkpoints, keep best.pt and last_epoch.pt."""
+    """Prune the epoch checkpoints, keep best.pt and last_epoch.pt; one that
+    cannot be deleted is reported and kept, as in the JAX CLI, so that the
+    sweep goes on to its results.csv."""
     for path in globmod.glob(os.path.join(out_dir, "models", "*epoch*")):
-        if os.path.basename(path) != "last_epoch.pt":
+        if os.path.basename(path) == "last_epoch.pt":
+            continue
+        try:
             os.remove(path)
+        except OSError as e:
+            print(f"Error deleting {path}: {e}")
 
 
 def main(argv=None):

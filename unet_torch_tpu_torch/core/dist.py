@@ -7,9 +7,11 @@ A launch of several processes, one a rank,
 sets RANK, WORLD_SIZE, LOCAL_RANK, LOCAL_WORLD_SIZE, MASTER_ADDR and
 MASTER_PORT; `maybe_initialize` reads them and starts `torch.distributed`.
 The backend is NCCL where every rank has a card of its own and gloo on the
-CPU; gloo also runs `all_reduce` and `broadcast` on CUDA tensors, which is
-all that the port's data and tensor parallelism use, so several ranks may
-share one card over gloo (NCCL refuses two ranks on one device).
+CPU; gloo also runs `all_reduce`, `broadcast`, `all_gather_into_tensor` and
+`reduce_scatter_tensor` on CUDA tensors, which is all that the port's data
+and tensor parallelism and its strips' gathers use (the point-to-point ops
+below cross gloo through the host), so several ranks may share one card
+over gloo (NCCL refuses two ranks on one device).
 
 `is_main` guards the host-side artifacts (logs, checkpoints, CSVs, plots),
 as the JAX package's does. `all_reduce_sum` is the autograd-aware sum over a
@@ -21,12 +23,13 @@ identity.
 
 `all_gather_dim` concatenates the ranks' shares along a dim (the keys and
 values of every strip of an image's tokens); its backward hands each rank
-the sum over the ranks of the gradient of its share, which is a
-reduce-scatter. `exclusive_prefix_sum` adds the shares of the ranks before
-this one (the rows of the strips above, for a position embedding's
-cumulative count); its backward adds the gradients of the ranks after it.
-Both run on `all_reduce` of zero-padded tensors, which gloo runs on CUDA
-tensors.
+the sum over the ranks of the gradient of its share. They run on
+`all_gather_into_tensor` and `reduce_scatter_tensor`, the collectives
+JAX's GSPMD issues for the same layouts; gloo runs both on CUDA tensors.
+`exclusive_prefix_sum` adds the shares of the ranks before this one (the
+rows of the strips above, for a position embedding's cumulative count);
+its backward adds the gradients of the ranks after it; both from an
+all-gather of every rank's share.
 
 The point-to-point ops move tensors between neighbours of a group, in its
 rank order: `exchange_rows`, the halo of a strip of the image's height
@@ -175,43 +178,49 @@ def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
     return _AllReduceSum.apply(x, group)
 
 
+def _stacked(x: torch.Tensor, group) -> torch.Tensor:
+    """(size, *x.shape): every rank's `x` by its rank in `group`, gathered
+    on every rank."""
+    size = dist.get_world_size(group)
+    # flat, the layout every backend takes: the ranks' x one after another
+    full = x.new_empty(size * x.numel())
+    dist.all_gather_into_tensor(full, x.reshape(-1), group=group)
+    return full.view(size, *x.shape)
+
+
 class _AllGatherDim(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group, dim):
         ctx.group, ctx.dim = group, dim
-        n, index = x.shape[dim], dist.get_rank(group)
         shape = list(x.shape)
         shape[dim] *= dist.get_world_size(group)
-        full = x.new_zeros(shape)
-        full.narrow(dim, index * n, n).copy_(x)
-        return all_reduce_(full, group)
+        # (size, ..., n, ...) -> (..., size, n, ...) -> (..., size * n, ...)
+        return _stacked(x, group).movedim(0, dim).reshape(shape)
 
     @staticmethod
     def backward(ctx, g):
         group, dim = ctx.group, ctx.dim
-        n = g.shape[dim] // dist.get_world_size(group)
-        total = all_reduce_(g.clone(memory_format=torch.contiguous_format),
-                            group)
-        return (total.narrow(dim, dist.get_rank(group) * n, n).contiguous(),
-                None, None)
+        size = dist.get_world_size(group)
+        shape = list(g.shape)
+        n = shape[dim] // size
+        # every rank's share of g along dim 0, then each rank's share summed
+        chunks = (g.reshape(shape[:dim] + [size, n] + shape[dim + 1:])
+                  .movedim(dim, 0).contiguous())
+        out = g.new_empty(chunks.shape[1:])
+        dist.reduce_scatter_tensor(out.view(-1), chunks.view(-1),
+                                   group=group)
+        return out, None, None
 
 
 def all_gather_dim(x: torch.Tensor, group, dim: int) -> torch.Tensor:
-    """Every rank's `x` (all of one shape) concatenated along `dim` in the
-    group's rank order, on every rank. Differentiable: each rank
+    """Every rank's `x` (all of one shape) concatenated along `dim` (>= 0)
+    in the group's rank order, on every rank. Differentiable: each rank
     differentiates its own loss, so the gradient of a rank's share is the
     sum over the ranks of their gradients of it (a reduce-scatter). None:
     `x`."""
     if group is None:
         return x
     return _AllGatherDim.apply(x, group, dim)
-
-
-def _stacked(x: torch.Tensor, group) -> torch.Tensor:
-    """(size, *x.shape): every rank's `x` by its rank in `group`."""
-    full = x.new_zeros((dist.get_world_size(group), *x.shape))
-    full[dist.get_rank(group)] = x
-    return all_reduce_(full, group)
 
 
 class _ExclusivePrefixSum(torch.autograd.Function):
@@ -223,7 +232,7 @@ class _ExclusivePrefixSum(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         index = dist.get_rank(ctx.group)
-        return _stacked(g.contiguous(), ctx.group)[index + 1:].sum(0), None
+        return _stacked(g, ctx.group)[index + 1:].sum(0), None
 
 
 def exclusive_prefix_sum(x: torch.Tensor, group) -> torch.Tensor:

@@ -15,15 +15,25 @@ import torch
 
 
 def class_argmax(logits: torch.Tensor) -> torch.Tensor:
-    """Class map from (..., C) logits: argmax over the trailing class axis,
-    first maximum wins (torch.argmax's documented tie rule, as in the JAX
-    package's plane compares), returned as uint8.
+    """Class map from (..., C) logits, returned as uint8: the JAX package's
+    rule. Up to 8 classes, plane compares: class k replaces the best so far
+    where its logit is strictly greater, so the first maximum wins, a NaN
+    at class 0 keeps class 0 and a NaN past it is passed over. Past 8
+    classes, torch.argmax, as jnp.argmax there (a NaN is the maximum).
 
-    Same result as the reference's softmax->argmax chain, since softmax is
-    monotone."""
-    if logits.shape[-1] > 256:
-        raise ValueError(f"{logits.shape[-1]} classes do not fit uint8")
-    return torch.argmax(logits, dim=-1).to(torch.uint8)
+    Same result as the reference's softmax->argmax chain on finite logits,
+    since softmax is monotone."""
+    c = logits.shape[-1]
+    if c > 256:
+        raise ValueError(f"{c} classes do not fit uint8")
+    if c > 8:
+        return torch.argmax(logits, dim=-1).to(torch.uint8)
+    # the plane compares in one argmax: a NaN never wins (-inf, and a
+    # -inf at class 0 wins ties by coming first), then class 0 where its
+    # own logit is NaN
+    idx = torch.argmax(torch.where(logits.isnan(), -torch.inf, logits),
+                       dim=-1)
+    return torch.where(logits[..., 0].isnan(), 0, idx).to(torch.uint8)
 
 
 def connected_component_count(mask: np.ndarray, connectivity: int = 8) -> int:

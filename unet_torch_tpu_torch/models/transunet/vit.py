@@ -56,8 +56,8 @@ decoder reshapes a strip's tokens to (B, N / M / w, w, hidden), reads its
 neighbours' rows before every 3x3 conv (the fused conv on the haloed strip
 in eval, torch's conv in train, whose BN statistics spatialize sums over
 the world group) and upsamples from the global row positions
-(nn/strips.py::upsample_rows_2x). `vis` refuses a spatial mesh: the
-probabilities' rows are the ranks'.
+(nn/strips.py::upsample_rows_2x). With `vis` a strip keeps its query
+rows of the probabilities (Attention).
 
 The JAX package's W-folded decoder tail (FoldedDecoderTail, _FoldedHeadConv,
 _tail_fold_factor) is a TPU lane-padding workaround over the same parameters
@@ -136,7 +136,11 @@ class Attention(MeshBound, nn.Module):
     routes `vis` through its einsum attention: the f32 probabilities
     (`attention_probs`) are kept, detached, as `.weights`, then go through
     the dropout at `attention_dropout_rate` in train mode and multiply v.
-    No kernel can return them.
+    No kernel can return them. Under a tensor mesh `.weights` gathers
+    every head over the model group, so that it equals one process's;
+    under a spatial mesh it holds the strip's query rows against every
+    key, (B, heads, N / M, N), as the strip's logits are the strip's: the
+    whole array is `all_gather_dim(weights, strip_group, 2)`.
 
     With a mesh bound (nn/dropout.py::set_mesh) the rows and heads are a
     rank's share: its heads are the product's width over the head width,
@@ -185,16 +189,12 @@ class Attention(MeshBound, nn.Module):
         # every strip's keys and values, in one collective
         k, v = all_gather_dim(qkv[1:], strips, 3)
         scale = 1.0 / math.sqrt(d)
-        if self.vis and strips is not None:
-            raise NotImplementedError(
-                "vis=True keeps each layer's (B, heads, N, N) probabilities; "
-                "on a spatial mesh a rank computes its strip's rows of them "
-                "only, which the port does not gather: run vis in one "
-                "process")
         if self.vis:
             p = attention_probs(q, k, scale)
-            self.weights = p.detach()
-            p = self.dropout(p, model_dim=1).to(v.dtype)
+            # every head's, in the order `offsets` lays them out
+            self.weights = all_gather_dim(p.detach(),
+                                          mesh.model_group if tp else None, 1)
+            p = self.dropout(p, model_dim=1, spatial_dim=2).to(v.dtype)
             ctx = torch.einsum("bhqk,bhkd->bhqd", p.float(),
                                v.float()).to(q.dtype)
         elif self.training and torch.is_grad_enabled():
