@@ -17,7 +17,9 @@
     python3 chip_smoke.py --cards N   (build, then the parallel phases on
                                     N NCCL ranks, a card each: with four,
                                     D2's f32 step at (D, M) = (2, 2) and
-                                    (1, 4); then D1, S1, G1, S3, S2 and D2)
+                                    (1, 4); then D1, D3, S1, G1, S3, V5, S2
+                                    and D2; D2's and S3's f32 steps held on
+                                    the ranks' own branch)
 
 Builds the Hopper kernels from unet_torch_tpu_torch/csrc, then:
 
@@ -3546,6 +3548,41 @@ def d2_model_batch(dev):
 D2_LR = 0.01  # configs/transunet.yml's SGD
 
 
+def d2_f32_step(dev, mesh):
+    """D2's f32 SGD step on a rank of `mesh` (DDP over its data ranks, its
+    rows of the batch). Returns (the step's loss, gathered state and
+    gradients, with --cards the decoder's ReLU masks (recorded_choices)
+    where the rank's model index is 0; (the net, its model, the optimizer,
+    the step, the dropout generator, the rank's images and labels))."""
+    from torch.nn.parallel import DistributedDataParallel
+
+    from unet_torch_tpu_torch.parallel import gather_state_tp, parallelize
+    from unet_torch_tpu_torch.train.optim import make_optimizer, poly_lr
+    from unet_torch_tpu_torch.train.steps import make_single_steps
+
+    model, x, y = d2_model_batch(dev)
+    parallelize(model, mesh)
+    net = model if mesh.data_group is None else DistributedDataParallel(
+        model, device_ids=[dev.index], process_group=mesh.data_group,
+        broadcast_buffers=False)
+    rows = mesh.rows(BATCH)
+    x, y = x[rows], y[rows]
+    opt = make_optimizer("SGD", model.parameters(), D2_LR, 1e-4)
+    step, _ = make_single_steps("dice_bce_mc", "dice_bce_mc", N_CLASSES,
+                                group=mesh.data_group)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    choices, tap = recorded_choices()
+    with (branch_calls(branch_modules("transunet"), tap=tap) if CARDS
+          else contextlib.nullcontext()):
+        loss = step(net, opt, x, y, poly_lr(D2_LR, 0, 1000), gen).item()
+    result = {"loss": loss,
+              "state": host_state(gather_state_tp(model, mesh)),
+              "grads": host_state(gather_state_tp(model, mesh, {
+                  n: p.grad for n, p in model.named_parameters()})),
+              "choices": choices if mesh.m == 0 else None}
+    return result, (net, model, opt, step, gen, x, y)
+
+
 def d2_rank(rank, out):
     """D2 on a rank: TransUnet R50-ViT-B/16 split over M = 2 (6 heads and
     half of each MLP a rank), dropout 0.1 and attention dropout 0.1; the
@@ -3556,22 +3593,12 @@ def d2_rank(rank, out):
     from unet_torch_tpu_torch.core.mesh import make_mesh
     from unet_torch_tpu_torch.kernels import attention as at
     from unet_torch_tpu_torch.models.transunet.vit import Attention
-    from unet_torch_tpu_torch.parallel import gather_state_tp, parallelize
-    from unet_torch_tpu_torch.train.optim import make_optimizer, poly_lr
-    from unet_torch_tpu_torch.train.steps import make_single_steps
+    from unet_torch_tpu_torch.parallel import gather_state_tp
+    from unet_torch_tpu_torch.train.optim import poly_lr
 
     dev = rank_device()
     mesh = make_mesh(1, world())
-    model, x, y = d2_model_batch(dev)
-    parallelize(model, mesh)
-    opt = make_optimizer("SGD", model.parameters(), D2_LR, 1e-4)
-    step, _ = make_single_steps("dice_bce_mc", "dice_bce_mc", N_CLASSES)
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    loss = step(model, opt, x, y, poly_lr(D2_LR, 0, 1000), gen).item()
-    result = {"loss": loss,
-              "state": host_state(gather_state_tp(model, mesh)),
-              "grads": host_state(gather_state_tp(model, mesh, {
-                  n: p.grad for n, p in model.named_parameters()}))}
+    result, (net, model, opt, step, gen, x, y) = d2_f32_step(dev, mesh)
     xb = x.to(torch.bfloat16)
     # each rank's heads: its share of the q projection over the head width
     heads = {m.query.weight.shape[0] // m.head_dim
@@ -3579,7 +3606,7 @@ def d2_rank(rank, out):
     (width,) = {m.head_dim for m in model.modules()
                 if isinstance(m, Attention)}
     at.attention_train_forward.launches = at.attention_backward.launches = 0
-    times = timed_steps(lambda i: step(model, opt, xb, y,
+    times = timed_steps(lambda i: step(net, opt, xb, y,
                                        poly_lr(D2_LR, i + 1, 1000), gen),
                         PARALLEL_WARMUP + PARALLEL_STEPS)
     result.update(
@@ -3631,10 +3658,11 @@ def check_d2_attention(at, dev):
     return o_err, lse_err, g_rel
 
 
-def d2_reference(at, dev):
+def d2_reference(at, dev, forced=None, rounding=False):
     """The one-process f32 and f64 SGD step of D2's TransUnet on D2's batch
-    with its dropouts (one_process_reference's tuple), which D2 and S2 are
-    held against."""
+    with its dropouts, which D2 and S2 are held against, the decoder's
+    ReLUs on the `forced` choices where given: branch_reference's (tuple,
+    rounding)."""
     from unet_torch_tpu_torch.train.optim import make_optimizer, poly_lr
     from unet_torch_tpu_torch.train.steps import make_single_steps
 
@@ -3648,12 +3676,14 @@ def d2_reference(at, dev):
         return model, before, step(model, opt, x.to(dtype), y,
                                    poly_lr(D2_LR, 0, 1000), gen).item()
 
-    return one_process_reference(at, step_once)
+    return branch_reference(at, step_once, branch_modules("transunet"),
+                            forced, rounding)
 
 
-def check_d2(at, fc, dev, smi, ref):
-    """D2, against `ref` (d2_reference). Returns its numbers for the
-    kernels line."""
+def check_d2(at, fc, dev, smi, ref, rounding=None):
+    """D2, against `ref` (d2_reference's tuple); with `rounding` (its
+    rounding, under --cards) the f32 step held on the ranks' own branch
+    (on_branch). Returns its numbers for the kernels line."""
     from unet_torch_tpu_torch import ckpt
     from unet_torch_tpu_torch.core.rng import seed_everything
 
@@ -3664,9 +3694,23 @@ def check_d2(at, fc, dev, smi, ref):
     ranks, out = parallel_spawn("d2")
     try:
         a = ranks[0]
-        loss_err, worst, worst_name, _ = compare_step(
-            "D2 TransUnet tensor parallel", a["loss"], a["grads"],
-            a["state"], ref, D2_LR, adam=False)
+        tag = "D2 TransUnet tensor parallel"
+        if rounding is None:
+            loss_err, worst, worst_name, _ = compare_step(
+                tag, a["loss"], a["grads"], a["state"], ref, D2_LR,
+                adam=False)
+            held = (f"(rel err {loss_err:.2e}), the worst gradient "
+                    f"{worst_name} at {worst:.2f} times the one-process f32 "
+                    f"error against f64 (bound {T4_NOISE_RATIO:.0f})")
+        else:
+            # D = 1: every rank holds the whole batch
+            choices = joined_choices([unpacked(a["choices"])], rounding)
+            branch = on_branch(tag, a, ref, rounding, choices,
+                               d2_reference(at, dev, choices)[0], D2_LR,
+                               adam=False)
+            del choices
+            loss_err, worst, worst_name, _ = branch["forced"]
+            held = branch_text(branch)
         n_layers = 12
         want = n_layers * (PARALLEL_WARMUP + PARALLEL_STEPS)
         for i, r in enumerate(ranks):
@@ -3712,9 +3756,7 @@ def check_d2(at, fc, dev, smi, ref):
           f"with a rank's offsets against plain: o {att_err[0]:.2e}, lse "
           f"{att_err[1]:.2e}, gradients {att_err[2]:.2e} of their peaks; the "
           f"f32 step against one process: loss {a['loss']:.7f} vs "
-          f"{ref_loss:.7f} (rel err {loss_err:.2e}), the worst gradient "
-          f"{worst_name} at {worst:.2f} times the one-process f32 error "
-          f"against f64 (bound {T4_NOISE_RATIO:.0f}); bf16 steps: median "
+          f"{ref_loss:.7f} {held}; bf16 steps: median "
           f"{step_s * 1e3:.2f} ms = {BATCH / step_s:.1f} img/s"
           f"{scaling_note()}, peak "
           f"{a['peak'] / 2**30:.2f} GiB a rank, {a['fwd_launches']} + "
@@ -3752,7 +3794,7 @@ def d3_model_batch(dev):
 def d3_rank(rank, out):
     """D3 on a rank: configs/cltr.yml's model under DistributedDataParallel
     over D = 2, its 8 crops of the batch, dropout off, f32; the auction on
-    its own images."""
+    its own images (its matches recorded)."""
     from torch.nn.parallel import DistributedDataParallel
 
     from unet_torch_tpu_torch.core.mesh import make_mesh
@@ -3773,9 +3815,10 @@ def d3_rank(rank, out):
     rows = mesh.rows(CLTR_BATCH)
     au.auction_lsap.launches = 0
     at.attention_train_forward.launches = at.attention_backward.launches = 0
-    loss, _ = train_step(net, criterion, opt, *(t[rows] for t in batch),
-                         D3_LR, None, None, "auction", mesh.data_group)
-    return {"loss": loss.item(),
+    with recorded_matches() as matches:
+        loss, _ = train_step(net, criterion, opt, *(t[rows] for t in batch),
+                             D3_LR, None, None, "auction", mesh.data_group)
+    return {"loss": loss.item(), "match": matches[0].cpu(),
             "state": host_state(gather_state_tp(model, mesh)),
             "grads": {n: p.grad.detach().cpu()
                       for n, p in model.named_parameters()},
@@ -3785,12 +3828,14 @@ def d3_rank(rank, out):
 
 
 @contextlib.contextmanager
-def recorded_matches(costs=None):
+def recorded_matches(costs=None, forced=None):
     """A list that collects the matches of every CLTR train step run
     inside the block (train/cltr_steps.py's match_targets, wrapped), on
     the valid target slots: -1 on a padded slot, whose query no loss reads
     and which the auction fills from whatever prices its bids left. A list
-    `costs` collects each step's cost matrices (L, B, Q, T) on the host."""
+    `costs` collects each step's cost matrices (L, B, Q, T) on the host.
+    With `forced` (this form, from another run), every step takes its
+    matches on the valid slots."""
     from unet_torch_tpu_torch.train import cltr_steps
 
     matches, match_targets = [], cltr_steps.match_targets
@@ -3799,6 +3844,8 @@ def recorded_matches(costs=None):
                  *args, **kw):
         match = match_targets(criterion, outputs, tgt_labels, tgt_points,
                               tgt_valid, *args, **kw)
+        if forced is not None:
+            match = torch.where(tgt_valid, forced.to(match.device), match)
         matches.append(torch.where(tgt_valid, match, -1))
         if costs is not None:
             with torch.no_grad():
@@ -3813,10 +3860,12 @@ def recorded_matches(costs=None):
         cltr_steps.match_targets = match_targets
 
 
-def d3_reference(at, dev):
-    """The one-process f32 and f64 Adam step of D3's CLTR on D3's batch
-    (one_process_reference's tuple), which D3 and S3 are held against, and
-    the f32 step's matches and costs on the host."""
+def d3_reference(at, dev, forced=None, matches=None, rounding=False):
+    """The one-process f32 and f64 Adam step of D3's CLTR on D3's batch,
+    which D3 and S3 are held against, on the `forced` choices of its ReLUs
+    and max pool (branch_calls) and the `matches` (recorded_matches' form)
+    where given. Returns (its one_process_reference tuple, the f32 step's
+    matches and costs on the host, branch_reference's rounding)."""
     from unet_torch_tpu_torch.train.cltr_steps import train_step
     from unet_torch_tpu_torch.train.optim import make_optimizer
 
@@ -3833,21 +3882,26 @@ def d3_reference(at, dev):
         return model, before, loss.item()
 
     costs = []
-    with recorded_matches(costs) as matches:
-        ref = one_process_reference(at, step_once)
-    return ref, (matches[0].cpu(), costs[0])
+    with recorded_matches(costs, matches) as got:
+        ref, branch = branch_reference(at, step_once, branch_modules("cltr"),
+                                       forced, rounding)
+    return ref, (got[0].cpu(), costs[0]), branch
 
 
-def check_d3(at, dev, smi, ref):
-    """D3, against `ref` (d3_reference's first). Returns its numbers for
+def check_d3(at, dev, smi, ref, ref_matches):
+    """D3, against `ref` and `ref_matches` (d3_reference's tuple, matches
+    and costs): the ranks' matches, each of its own images, equal up to
+    ties; T4's bound against the one-process step. Returns its numbers for
     the kernels line."""
     ref_loss = ref[0]
     ranks, out = parallel_spawn("d3")
     shutil.rmtree(out)
     a = ranks[0]
+    tag = "D3 CLTR data parallel"
+    match = torch.cat([r["match"] for r in ranks], 1)
+    ties = same_matches(tag, match, *ref_matches)
     loss_err, worst, worst_name, n_flip = compare_step(
-        "D3 CLTR data parallel", a["loss"], a["grads"], a["state"], ref,
-        D3_LR, adam=True)
+        tag, a["loss"], a["grads"], a["state"], ref, D3_LR, adam=True)
     if [r["auction_launches"] for r in ranks] != [1] * world():
         raise AssertionError(f"D3: auction launches by rank "
                              f"{[r['auction_launches'] for r in ranks]}, "
@@ -3860,7 +3914,9 @@ def check_d3(at, dev, smi, ref):
           f"loss {a['loss']:.7f} vs {ref_loss:.7f} (rel err "
           f"{loss_err:.2e}), the worst gradient {worst_name} at {worst:.2f} "
           f"times the one-process f32 error against f64 (bound "
-          f"{T4_NOISE_RATIO:.0f}; {n_flip} Adam sign flips within 2 lr); "
+          f"{T4_NOISE_RATIO:.0f}; {n_flip} Adam sign flips within 2 lr); the "
+          f"matches the one-process step's but for {ties[0]} of "
+          f"{int((ref_matches[0] >= 0).sum())} target slots at ties; "
           f"auction launches by "
           f"rank {[r['auction_launches'] for r in ranks]}, attention "
           f"{[r['attention_train_forward'] for r in ranks]} + "
@@ -4771,7 +4827,8 @@ def s3_rank(rank, out):
     """S3 on a rank: configs/cltr.yml's model spatialized over (D, M) =
     (1, 2), 128 rows of each crop a rank; infer_step in f32 and bf16 (its
     attention launches), D3's f32 Adam step on the strips (the auction on
-    the replicated outputs), then 1 + 3 bf16 steps timed."""
+    the replicated outputs; with --cards its ReLU masks and max-pool choices
+    recorded), then 1 + 3 bf16 steps timed."""
     from torch.nn.parallel import DistributedDataParallel
 
     from unet_torch_tpu_torch.core.mesh import make_mesh
@@ -4820,11 +4877,14 @@ def s3_rank(rank, out):
     x = x[:, strip].contiguous()
     au.auction_lsap.launches = 0
     at.attention_train_forward.launches = at.attention_backward.launches = 0
-    with recorded_matches() as matches:
+    choices, tap = recorded_choices(strip=mesh)
+    with recorded_matches() as matches, (
+            branch_calls(branch_modules("cltr"), tap=tap) if CARDS
+            else contextlib.nullcontext()):
         loss, _ = train_step(net, criterion, opt, x, *targets, D3_LR, None,
                              None, "auction", mesh.data_group)
     result.update(
-        loss=loss.item(), match=matches[0].cpu(),
+        loss=loss.item(), match=matches[0].cpu(), choices=choices,
         state=host_state(model.state_dict()),
         grads={n: p.grad.detach().cpu() for n, p in model.named_parameters()},
         auction_launches=au.auction_lsap.launches,
@@ -4871,9 +4931,15 @@ def same_matches(tag, match, ref_match, costs):
     return int((match != ref_match).sum()), worst
 
 
-def check_s3(at, dev, smi, ref, ref_matches):
-    """S3, its step against `ref` and `ref_matches` (d3_reference's matches
-    and costs). Returns its numbers for the kernels line."""
+def check_s3(at, dev, smi, ref, ref_matches, rounding=None):
+    """S3, its step against `ref` and `ref_matches` (d3_reference's tuple,
+    matches and costs); with `rounding` (its rounding, under --cards) the
+    f32 step held on the ranks' own branch (on_branch: matches equal up to
+    ties, its ReLU and max-pool choices within the band, T4's bound against
+    the one-process steps forced onto them and the matches), after T4's
+    ratio against the one-process steps forced onto the ranks' matches,
+    ReLU masks and max-pool choices, each alone (shown, not held). Returns
+    its numbers for the kernels line."""
     from unet_torch_tpu_torch.core.rng import seed_everything
     from unet_torch_tpu_torch.train.cltr_steps import infer_step
 
@@ -4918,9 +4984,40 @@ def check_s3(at, dev, smi, ref, ref_matches):
                 f"{r['auction_launches']} auction and {r['fwd_launches']} + "
                 f"{r['bwd_launches']} train attention; expected 18, 1, "
                 "18 + 18")
-    loss_err, worst, worst_name, n_flip = compare_step(
-        "S3 CLTR spatial", a["loss"], a["grads"], a["state"], ref, D3_LR,
-        adam=True)
+    tag = "S3 CLTR spatial"
+    if rounding is None:
+        loss_err, worst, worst_name, n_flip = compare_step(
+            tag, a["loss"], a["grads"], a["state"], ref, D3_LR, adam=True)
+        held = (f"(rel err {loss_err:.2e}), the worst gradient {worst_name} "
+                f"at {worst:.2f} times the one-process f32 error against f64 "
+                f"(bound {T4_NOISE_RATIO:.0f}; {n_flip} Adam sign flips "
+                "within 2 lr)")
+    else:
+        choices = joined_choices([unpacked(r["choices"]) for r in ranks],
+                                 rounding)
+        grads = {k: v.double() for k, v in a["grads"].items()}
+        alone = []
+        for what, forcing in (
+                ("matches", {"matches": a["match"]}),
+                ("ReLU masks", {"forced": {"relu": choices["relu"]}}),
+                ("max-pool choices",
+                 {"forced": {"max_pool2d": choices["max_pool2d"]}})):
+            one = d3_reference(at, dev, **forcing)[0]
+            worst, name, _ = gradient_noise_ratio(grads, one[2], one[4])
+            alone.append(f"{what} {name} at {worst:.2f}")
+            del one
+        alone = ("T4's ratio against the one-process steps forced onto the "
+                 "ranks' " + ", ".join(alone) + " alone (shown, not held)")
+        try:
+            branch = on_branch(tag, a, ref, rounding, choices,
+                               d3_reference(at, dev, choices, a["match"])[0],
+                               D3_LR, adam=True)
+        except AssertionError as e:
+            raise AssertionError(f"{e}; {alone}") from None
+        del choices
+        loss_err, worst, worst_name, n_flip = branch["forced"]
+        held = (branch_text(branch) + f"; {n_flip} Adam sign flips within 2 "
+                f"lr; {alone}")
     step_s = max(r["step_s"] for r in ranks)
     fwd_s = max(r["fwd_s"] for r in ranks)
     phase("S3 spatial",
@@ -4949,10 +5046,8 @@ def check_s3(at, dev, smi, ref, ref_matches):
           f"{int((ref_matches[0] >= 0).sum())} target slots at ties, cost "
           f"within {ties[1]:.1e} of its "
           f"assignment's) against one process: loss {a['loss']:.7f} "
-          f"vs {ref[0]:.7f} (rel err {loss_err:.2e}), the worst gradient "
-          f"{worst_name} at {worst:.2f} times the one-process f32 error "
-          f"against f64 (bound {T4_NOISE_RATIO:.0f}; {n_flip} Adam sign "
-          f"flips within 2 lr); bf16 steps: median {step_s * 1e3:.2f} ms = "
+          f"vs {ref[0]:.7f} {held}; bf16 steps: median "
+          f"{step_s * 1e3:.2f} ms = "
           f"{CLTR_BATCH / step_s:.1f} img/s{scaling_note()}, peak "
           f"{a['peak'] / 2**30:.2f} GiB a rank")
     return {"img_s": CLTR_BATCH / step_s, "eval_img_s": CLTR_BATCH / fwd_s,
@@ -5104,205 +5199,323 @@ def check_v5(dev, smi):
 
 
 # ---------------------------------------------------------------------------
-# --cards N: D2's f32 step across cards, and the parallel phases on NCCL
+# --cards N: the f32 steps across cards held on the ranks' own branch, and
+# the parallel phases on NCCL
 # ---------------------------------------------------------------------------
 
 # the (D, M) layouts of four cards whose f32 D2 step check_d2_cards holds
 CARDS_D2_MESHES = ((2, 2), (1, 4))
 
 
-def decoder_signs(model):
-    """Hooks on every Conv2dReLU's BatchNorm (its output is the ReLU's
-    input): returns the list each train forward appends one bool map a
-    conv to (pre-activation > 0), and the hooks' handles."""
-    from unet_torch_tpu_torch.models.transunet.vit import Conv2dReLU
-
-    signs = []
-
-    def keep(module, inputs, output):
-        signs.append(output.detach() > 0)
-
-    return signs, [m[1].register_forward_hook(keep) for m in model.modules()
-                   if isinstance(m, Conv2dReLU)]
-
-
-def train_forward_signs(model, x, dev):
-    """The decoder's pre-activation signs of one train-mode f32 forward
-    with autograd recording (the train attention kernels), its dropouts on
-    the train step's generator."""
-    from unet_torch_tpu_torch.nn.dropout import set_dropout_generator
-
-    signs, hooks = decoder_signs(model)
-    model.train()
-    set_dropout_generator(model, torch.Generator(device=dev).manual_seed(SEED))
-    model(x)
-    for h in hooks:
-        h.remove()
-    return signs
-
-
 @contextlib.contextmanager
-def forced_relu(masks):
-    """The TransUnet decoder's ReLUs (Conv2dReLU's train path, F.relu in
-    models/transunet/vit.py) multiply by `masks` in turn, one a conv, each
-    forward from the first: the one-process step on another run's side of
-    zero at every pre-activation, whose gradient is the ReLU's there."""
-    from unet_torch_tpu_torch.models.transunet import vit
+def branch_calls(modules, tap=None, forced=None):
+    """Every F.relu and F.max_pool2d of the model modules `modules` (each
+    imports torch.nn.functional as F) inside the block, each kind counted
+    from 0 in call order, with each call's choice: a ReLU's side of zero
+    (x > 0), a max pool's argmax (a flat index into its input's plane).
+    tap(kind, i, x, choice, caller) sees each call's input, detached, its
+    choice and the module that made the call. With `forced` ({kind: a list
+    of choices from another run, one a call of a forward}), call i of a
+    kind takes choice i modulo the list's length: the ReLU returns
+    x * mask, whose gradient is the mask, the max pool its input's
+    elements at the given indices (0 where an index lies outside the
+    input: a strip's zero halo row). That is the step on another run's
+    branch at each of these choices."""
+    forced = forced or {}
+    calls = {"relu": 0, "max_pool2d": 0}
+
+    def take(kind, shape):
+        i = calls[kind]
+        calls[kind] += 1
+        given = forced.get(kind)
+        if not given:
+            return i, None
+        choice = given[i % len(given)]
+        if tuple(choice.shape) != tuple(shape):
+            raise AssertionError(f"{kind} call {i}: a forced choice of "
+                                 f"{tuple(choice.shape)} for {tuple(shape)}")
+        return i, choice
 
     class Functional:
-        calls = 0
-
         def __getattr__(self, name):
             return getattr(torch.nn.functional, name)
 
         def relu(self, x):
-            mask = masks[Functional.calls % len(masks)]
-            Functional.calls += 1
+            i, mask = take("relu", x.shape)
+            if tap is not None:
+                tap("relu", i, x.detach(), x.detach() > 0,
+                    sys._getframe(1).f_locals.get("self"))
+            if mask is None:
+                return torch.nn.functional.relu(x)
             return x * mask.to(x.device, x.dtype)
 
-    saved = vit.F
-    vit.F = Functional()
+        def max_pool2d(self, x, *args, **kwargs):
+            y, index = torch.nn.functional.max_pool2d(
+                x, *args, return_indices=True, **kwargs)
+            i, given = take("max_pool2d", y.shape)
+            if tap is not None:
+                tap("max_pool2d", i, x.detach(), index,
+                    sys._getframe(1).f_locals.get("self"))
+            if given is None:
+                return y
+            plane = x.shape[2] * x.shape[3]
+            given = given.to(x.device)
+            inside = (given >= 0) & (given < plane)
+            taken = x.flatten(2).gather(
+                2, given.clamp(0, plane - 1).flatten(2)).view_as(y)
+            return torch.where(inside, taken, torch.zeros_like(taken))
+
+    proxy, saved = Functional(), [m.F for m in modules]
+    for m in modules:
+        m.F = proxy
     try:
         yield
     finally:
-        vit.F = saved
+        for m, f in zip(modules, saved):
+            m.F = f
 
 
-def flips(ours, ref, rows):
-    """Pre-activations on the other side of zero from one process's (its
-    batch rows `rows`): (count, count of all)."""
-    return (sum(int((a != b[rows]).sum()) for a, b in zip(ours, ref,
-                                                          strict=True)),
-            sum(a.numel() for a in ours))
+def recorded_choices(strip=None):
+    """({kind: a list}, a branch_calls tap that appends each call's choice
+    to its kind's list: a ReLU's mask as packed bits for the trip to the
+    parent, a max pool's argmax as an index into the whole image's plane;
+    `strip`, a spatial mesh, maps a strip's pool input, its zero or
+    neighbour halo row on each side included, to the whole image's
+    rows)."""
+    choices = {"relu": [], "max_pool2d": []}
+
+    def tap(kind, i, x, choice, caller):
+        if kind == "relu":
+            choice = (tuple(choice.shape),
+                      np.packbits(choice.cpu().numpy()))
+        elif strip is not None:
+            rows, width = x.shape[2] - 2, x.shape[3]
+            choice = choice + (strip.m * rows - 1) * width
+        choices[kind].append(choice if kind == "relu" else choice.cpu())
+
+    return choices, tap
+
+
+def unpacked(choices):
+    """recorded_choices' dict with its masks as bool tensors, on the
+    host."""
+    return {"relu": [torch.from_numpy(
+                np.unpackbits(bits, count=int(np.prod(shape)))
+                .reshape(shape)).bool() for shape, bits in choices["relu"]],
+            "max_pool2d": choices["max_pool2d"]}
+
+
+def branch_modules(kind):
+    """The model modules whose choices branch_calls follows: the TransUnet
+    decoder's Conv2dReLUs (models/transunet/vit.py); CLTR's backbone (its
+    ReLUs and stem max pool), encoder and decoder FFNs and MLPs
+    (models/cltr/backbone.py, transformer.py)."""
+    if kind == "transunet":
+        from unet_torch_tpu_torch.models.transunet import vit
+
+        return [vit]
+    from unet_torch_tpu_torch.models.cltr import backbone, transformer
+
+    return [backbone, transformer]
+
+
+def branch_reference(at, step_fn, modules, forced=None, rounding=False):
+    """one_process_reference(at, step_fn), its choices `forced` where
+    given (branch_calls). Returns (its tuple, their rounding or None):
+    with `rounding`, {kind: (each call's f32 input x32 on the host, e =
+    the largest |x32 - x64| against the f64 forward's input there, the
+    name of the module that made the call, the f32 forward's choice)}."""
+    if not rounding:
+        with branch_calls(modules, forced=forced):
+            return one_process_reference(at, step_fn), None
+    got = {k: ([], [], [], []) for k in ("relu", "max_pool2d")}
+    stepping = []
+
+    def tap(kind, i, x, choice, caller):
+        x32, e, callers, choices = got[kind]
+        if stepping[-1] == torch.float32:
+            x32.append(x.cpu())
+            callers.append(caller)
+            choices.append(choice.cpu() if kind == "max_pool2d" else None)
+        else:
+            z = x32[len(e)]
+            e.append((x.double() - z.to(x.device, torch.float64)).abs().max()
+                     .item())
+
+    def step(dtype):
+        stepping.append(dtype)
+        model, before, loss = step_fn(dtype)
+        if dtype == torch.float32:
+            names = {id(m): n for n, m in model.named_modules()}
+            for _, _, callers, _ in got.values():
+                callers[:] = [names.get(id(c), type(c).__name__)
+                              for c in callers]
+        return model, before, loss
+
+    with branch_calls(modules, tap=tap, forced=forced):
+        ref = one_process_reference(at, step)
+    for kind, (x32, e, _, _) in got.items():
+        if len(e) != len(x32):
+            raise AssertionError(f"the f32 forward made {len(x32)} {kind} "
+                                 f"calls, the f64 forward {len(e)}")
+    return ref, got
+
+
+def choice_shapes(rounding):
+    """{kind: the shape of each call's choice} of the one-process forward
+    (branch_reference's rounding)."""
+    return {kind: [tuple(x.shape) if c is None else tuple(c.shape)
+                   for x, c in zip(x32, choices)]
+            for kind, (x32, _, _, choices) in rounding.items()}
+
+
+def joined_choices(holders, rounding):
+    """The ranks' choices (unpacked), one dict a rank in rank order of the
+    ranks that hold distinct rows or strips, as the whole batch's at each
+    call of the one-process forward (`rounding`): joined along the one dim
+    where a rank holds a share, the first rank's where every rank holds
+    the whole (the replicated layers)."""
+    out = {}
+    for kind, shapes in choice_shapes(rounding).items():
+        lists = [h[kind] for h in holders]
+        if {len(c) for c in lists} != {len(shapes)}:
+            raise AssertionError(f"the ranks made {[len(c) for c in lists]}"
+                                 f" {kind} calls, one process {len(shapes)}")
+        out[kind] = []
+        for i, shape in enumerate(shapes):
+            parts = [c[i] for c in lists]
+            if tuple(parts[0].shape) != shape:
+                dims = [d for d, (a, b) in enumerate(zip(parts[0].shape,
+                                                         shape)) if a != b]
+                if len(dims) != 1:
+                    raise AssertionError(f"{kind} call {i}: a rank's "
+                                         f"{tuple(parts[0].shape)} is no "
+                                         f"share of {shape}")
+                parts = [torch.cat(parts, dims[0])]
+            if tuple(parts[0].shape) != shape:
+                raise AssertionError(f"{kind} call {i}: the ranks' choices "
+                                     f"join to {tuple(parts[0].shape)}, not "
+                                     f"{shape}")
+            out[kind].append(parts[0])
+    return out
+
+
+def choice_band(tag, rounding, choices):
+    """The ranks' `choices` that differ from the one-process f32 forward's
+    (`rounding`, from branch_reference): each must be one that rounding
+    makes, within T4_NOISE_RATIO times its call's e. A ReLU: |x32| of the
+    pre-activation on the other side of zero; a max pool: |x32[a] -
+    x32[b]| of the ranks' element a and one process's b (0 outside the
+    input). Raises on a choice outside the band, naming its module and its
+    gap / e. Returns {kind: (choices that differ, choices, the largest
+    gap / e admitted)}."""
+    out = {}
+    for kind, (x32, e, names, own) in rounding.items():
+        n_diff = n_all = 0
+        worst = 0.0
+        for i, (x, err, name, mine, theirs) in enumerate(zip(
+                x32, e, names, own, choices[kind], strict=True)):
+            if kind == "relu":
+                n_all += x.numel()
+                differ = theirs != (x > 0)
+                gap = x[differ].abs()
+            else:
+                n_all += mine.numel()
+                differ = theirs != mine
+                flat = x.flatten(2)
+                plane = flat.shape[2]
+                at_theirs = torch.where(
+                    (theirs >= 0) & (theirs < plane),
+                    flat.gather(2, theirs.clamp(0, plane - 1).flatten(2))
+                    .view_as(theirs), torch.zeros((), dtype=x.dtype))
+                at_mine = flat.gather(2, mine.flatten(2)).view_as(mine)
+                gap = (at_theirs - at_mine)[differ].abs()
+            if not differ.any():
+                continue
+            n_diff += int(differ.sum())
+            far = gap.max().item()
+            ratio = far / err if err > 0 else (0.0 if far == 0
+                                               else float("inf"))
+            if not ratio <= T4_NOISE_RATIO:
+                raise AssertionError(
+                    f"{tag}: {kind} call {i} ({name}) chose another branch "
+                    f"at a gap of {far:.3e}, {ratio:.2f} times its rounding "
+                    f"e = {err:.3e} (band {T4_NOISE_RATIO:.0f} e)")
+            worst = max(worst, ratio)
+        out[kind] = (n_diff, n_all, worst)
+    return out
+
+
+def on_branch(tag, a, plain, rounding, choices, forced, lr, adam):
+    """A multi-rank f32 step `a` (its loss, gradients, state) held on the
+    ranks' own branch: its `choices` that differ from the one-process
+    forward's within the rounding band (choice_band), then compare_step
+    against `forced`, the one-process f32 and f64 steps forced onto them
+    (T4's bound). Returns {"plain": T4's ratio and tensor against the
+    plain one-process step `plain` (shown, not held), "band": choice_band's
+    dict, "forced": compare_step's tuple}."""
+    band = choice_band(tag, rounding, choices)
+    ratio, name, _ = gradient_noise_ratio(
+        {k: v.double() for k, v in a["grads"].items()}, plain[2], plain[4])
+    return {"plain": (ratio, name), "band": band,
+            "forced": compare_step(tag, a["loss"], a["grads"], a["state"],
+                                   forced, lr, adam)}
+
+
+def band_text(band):
+    """choice_band's dict for a phase line."""
+    what = {"relu": "ReLU pre-activations on the other side of zero",
+            "max_pool2d": "max-pool outputs from another element"}
+    return ", ".join(f"{n} of {of} {what[kind]} (the farthest at {w:.2f} e)"
+                     for kind, (n, of, w) in band.items() if of)
+
+
+def branch_text(b):
+    """on_branch's numbers for a phase line."""
+    return (f"against the plain one-process step {b['plain'][1]} at "
+            f"{b['plain'][0]:.2f} times the one-process f32 error (shown, "
+            f"not held); from one process's: {band_text(b['band'])} (band "
+            f"{T4_NOISE_RATIO:.0f} e); against the one-process f32 and f64 "
+            f"steps on the ranks' branch: loss rel err "
+            f"{b['forced'][0]:.2e}, the worst gradient {b['forced'][2]} at "
+            f"{b['forced'][1]:.2f} (bound {T4_NOISE_RATIO:.0f})")
 
 
 def d2_cards_rank(rank, out):
-    """D2 at the (D, M) layout RANK_OPTS["mesh"]: the decoder
-    pre-activations of one train forward of the one-process model on this
-    rank's card; then D2's f32 SGD step (DDP over the data ranks), its
-    gathered gradients and its pre-activations' flips from those, with
-    cuDNN's default algorithms and again under cudnn.deterministic = True,
-    benchmark = False."""
-    from torch.nn.parallel import DistributedDataParallel
-
+    """D2's f32 step at the (D, M) layout RANK_OPTS["mesh"]: its gathered
+    gradients and state, and its decoder's ReLU masks."""
     from unet_torch_tpu_torch.core.mesh import make_mesh
-    from unet_torch_tpu_torch.parallel import gather_state_tp, parallelize
-    from unet_torch_tpu_torch.train.optim import make_optimizer, poly_lr
-    from unet_torch_tpu_torch.train.steps import make_single_steps
 
-    dev = rank_device()
-    mesh = make_mesh(*RANK_OPTS["mesh"])
-    rows = mesh.rows(BATCH)
-    result = {}
-    model, x, _ = d2_model_batch(dev)
-    ref = train_forward_signs(model, x, dev)
-    del model, x
-    torch.cuda.empty_cache()
-    for deterministic in (False, True):
-        torch.backends.cudnn.deterministic = deterministic
-        torch.backends.cudnn.benchmark = False
-        model, x, y = d2_model_batch(dev)
-        parallelize(model, mesh)
-        net = model if mesh.data_group is None else DistributedDataParallel(
-            model, device_ids=[dev.index], process_group=mesh.data_group,
-            broadcast_buffers=False)
-        opt = make_optimizer("SGD", model.parameters(), D2_LR, 1e-4)
-        step, _ = make_single_steps("dice_bce_mc", "dice_bce_mc", N_CLASSES,
-                                    group=mesh.data_group)
-        signs, hooks = decoder_signs(model)
-        gen = torch.Generator(device=dev).manual_seed(SEED)
-        loss = step(net, opt, x[rows], y[rows], poly_lr(D2_LR, 0, 1000),
-                    gen).item()
-        for h in hooks:
-            h.remove()
-        result[deterministic] = {
-            "loss": loss, "flips": flips(signs, ref, rows),
-            # the step's own side of zero, which check_d2_cards forces on
-            # the one-process step (the ranks of model index 0: each row
-            # once)
-            "masks": ([s.cpu() for s in signs]
-                      if mesh.m == 0 and not deterministic else None),
-            "state": host_state(gather_state_tp(model, mesh)),
-            "grads": host_state(gather_state_tp(model, mesh, {
-                n: p.grad for n, p in model.named_parameters()}))}
-        del net, model, opt, signs
-        torch.cuda.empty_cache()
-    torch.backends.cudnn.deterministic = False
-    return result
+    return d2_f32_step(rank_device(), make_mesh(*RANK_OPTS["mesh"]))[0]
 
 
-def check_d2_cards(at, dev, smi):
-    """D2's f32 step at each layout of CARDS_D2_MESHES on the cards against
-    the one-process step on card 0: T4's ratio, the decoder pre-activations
-    on the other side of zero from one process's, and both again with cuDNN
-    deterministic; the ratio against the one-process steps forced onto the
-    ranks' side of zero. Prints every layout's numbers, then raises where
-    a step exceeds T4's bound or flips a pre-activation."""
+def check_d2_cards(at, dev, smi, ref, rounding):
+    """D2's f32 step at each layout of CARDS_D2_MESHES on the cards, held on
+    the ranks' own branch (on_branch) against `ref` and `rounding`
+    (d2_reference's, on card 0)."""
     import gc
 
-    refs = {}
-    for deterministic in (False, True):
-        torch.backends.cudnn.deterministic = deterministic
-        torch.backends.cudnn.benchmark = False
-        refs[deterministic] = d2_reference(at, dev)
-    torch.backends.cudnn.deterministic = False
-    gc.collect()
-    torch.cuda.empty_cache()
-    bad = []
     for mesh in CARDS_D2_MESHES:
         ranks, out = parallel_spawn("d2_cards", mesh=mesh)
         shutil.rmtree(out)
-        a = ranks[0]
         # the ranks of model index 0 hold each batch row once
-        rows = ranks[::mesh[1]]
-        row = {"of": sum(r[False]["flips"][1] for r in rows)}
-        for deterministic in (False, True):
-            got = a[deterministic]
-            ref = refs[deterministic]
-            ratio, name, _ = gradient_noise_ratio(
-                {k: v.double() for k, v in got["grads"].items()}, ref[2],
-                ref[4])
-            row[deterministic] = {
-                "ratio": ratio, "worst": name,
-                "loss_rel_err": abs(got["loss"] - ref[0]) / abs(ref[0]),
-                "flips": sum(r[deterministic]["flips"][0] for r in rows)}
-        # the one-process steps, f32 and f64, on the ranks' side of zero
-        masks = [torch.cat([r[False]["masks"][i] for r in rows])
-                 for i in range(len(a[False]["masks"]))]
-        with forced_relu(masks):
-            forced = d2_reference(at, dev)
-        ratio, name, _ = gradient_noise_ratio(
-            {k: v.double() for k, v in a[False]["grads"].items()}, forced[2],
-            forced[4])
-        row["forced"] = {"ratio": ratio, "worst": name}
-        del masks, forced
-        main = row[False]
+        choices = joined_choices([unpacked(r["choices"])
+                                  for r in ranks[::mesh[1]]], rounding)
+        branch = on_branch(f"D2 on cards at {mesh}", ranks[0], ref, rounding,
+                           choices, d2_reference(at, dev, choices)[0], D2_LR,
+                           adam=False)
+        del ranks, choices
+        gc.collect()
         phase("D2 on cards",
               f"TransUnet R50-ViT-B/16 {SIZE}x{SIZE}, global batch {BATCH}, "
               f"SGD, dropouts 0.1, f32, (D, M) = {mesh}, {ranks_where(smi)}:"
-              f" the worst gradient {main['worst']} at {main['ratio']:.2f} "
-              f"times the one-process f32 error against f64 (bound "
-              f"{T4_NOISE_RATIO:.0f}), loss rel err "
-              f"{main['loss_rel_err']:.2e}, {main['flips']} of {row['of']} "
-              f"decoder pre-activations on the other side of zero from one "
-              f"process's (the ranks' rows); against the one-process f32 "
-              f"and f64 steps with the decoder's ReLUs on the ranks' side of "
-              f"zero: {row['forced']['worst']} at "
-              f"{row['forced']['ratio']:.2f}; with cudnn.deterministic: "
-              f"{row[True]['worst']} at {row[True]['ratio']:.2f}, "
-              f"{row[True]['flips']} flipped")
-        if main["flips"] or not main["ratio"] <= T4_NOISE_RATIO:
-            bad.append(f"D2's f32 step at {mesh}: {main['flips']} flipped "
-                       f"pre-activations, the worst gradient {main['worst']}"
-                       f" at {main['ratio']:.2f} (bound "
-                       f"{T4_NOISE_RATIO:.0f})")
-    if bad:
-        raise AssertionError("; ".join(bad))
+              f" {branch_text(branch)}")
 
 
 def check_cards(at, fc, dev, smi):
     """--cards: D2's f32 step on CARDS_D2_MESHES (with four cards), then D1,
-    S1, G1, S3, S2 and D2, over NCCL on world() cards. A phase that fails
+    D3, S1, G1, S3, V5, S2 and D2, over NCCL on world() cards; the f32
+    steps of D2 and S3 held on the ranks' own branch. A phase that fails
     does not stop the next: their failures are raised together at the
     end."""
     import gc
@@ -5316,20 +5529,23 @@ def check_cards(at, fc, dev, smi):
             failed.append(str(e))
             return None
 
+    d2_ref, d2_rounding = d2_reference(at, dev, rounding=True)
     if world() == 4:
-        run(check_d2_cards, at, dev, smi)
+        run(check_d2_cards, at, dev, smi, d2_ref, d2_rounding)
     gc.collect()
     torch.cuda.empty_cache()
     d1_ref = d1_reference(at, dev)
-    d3_ref, d3_matches = d3_reference(at, dev)
+    d3_ref, d3_matches, d3_rounding = d3_reference(at, dev, rounding=True)
     res = {"d1": run(check_d1, at, dev, smi, d1_ref),
+           "d3": run(check_d3, at, dev, smi, d3_ref, d3_matches),
            "s1": run(check_s1, fc, dev, smi, d1_ref),
            "g1": run(check_g1, at, dev, smi),
-           "s3": run(check_s3, at, dev, smi, d3_ref, d3_matches)}
-    del d1_ref, d3_ref, d3_matches
-    d2_ref = d2_reference(at, dev)
+           "s3": run(check_s3, at, dev, smi, d3_ref, d3_matches,
+                     d3_rounding),
+           "v5": run(check_v5, dev, smi)}
+    del d1_ref, d3_ref, d3_matches, d3_rounding
     res["s2"] = run(check_s2, at, fc, dev, smi, d2_ref)
-    res["d2"] = run(check_d2, at, fc, dev, smi, d2_ref)
+    res["d2"] = run(check_d2, at, fc, dev, smi, d2_ref, d2_rounding)
     print(json.dumps({"cards": res}, default=str))
     if failed:
         raise AssertionError("on the cards: " + "; ".join(failed))
@@ -5343,11 +5559,11 @@ def check_parallel(at, fc, dev, smi):
     gc.collect()
     torch.cuda.empty_cache()
     d1_ref = d1_reference(at, dev)
-    d2_ref = d2_reference(at, dev)
-    d3_ref, d3_matches = d3_reference(at, dev)
+    d2_ref, _ = d2_reference(at, dev)
+    d3_ref, d3_matches, _ = d3_reference(at, dev)
     return {"d1": check_d1(at, dev, smi, d1_ref),
             "d2": check_d2(at, fc, dev, smi, d2_ref),
-            "d3": check_d3(at, dev, smi, d3_ref),
+            "d3": check_d3(at, dev, smi, d3_ref, d3_matches),
             "s1": check_s1(fc, dev, smi, d1_ref),
             "g1": check_g1(at, dev, smi),
             "s2": check_s2(at, fc, dev, smi, d2_ref),

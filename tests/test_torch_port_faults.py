@@ -28,7 +28,7 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_port_spatial import launch
+from test_torch_port_spatial import launch, run_rank
 
 DIMS = [0, 1, 2, 3]
 WORLDS = [2, 4]
@@ -176,28 +176,31 @@ def _rank_case(spec):
     return out
 
 
-def _rank_main(rank, world, port, out):
-    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
-                      LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world),
-                      MASTER_ADDR="localhost", MASTER_PORT=str(port))
-    torch.set_num_threads(1)
-    from unet_torch_tpu_torch.core.dist import maybe_initialize
-
-    maybe_initialize(force=True, backend="gloo")
-    spec = torch.load(os.path.join(out, "spec.pt"), weights_only=False)
-    torch.save(_rank_case(spec), os.path.join(out, f"rank{rank}.pt"))
-
-
 # --------------------------------------------------------------------------
 # the pytest side
 # --------------------------------------------------------------------------
 
+def _gather_ranks(tmp_path_factory, world):
+    return launch(os.path.abspath(__file__),
+                  {"mesh": (1, world), "world": world},
+                  str(tmp_path_factory.mktemp(f"gather{world}")))
+
+
+# one launch a world, so that a rank's fault errors its own world's cases
 @pytest.fixture(scope="module")
-def gathers(tmp_path_factory):
-    path = os.path.abspath(__file__)
-    return {world: launch(path, {"mesh": (1, world), "world": world},
-                          str(tmp_path_factory.mktemp(f"gather{world}")))
-            for world in WORLDS}
+def gathers_2(tmp_path_factory):
+    return _gather_ranks(tmp_path_factory, 2)
+
+
+@pytest.fixture(scope="module")
+def gathers_4(tmp_path_factory):
+    return _gather_ranks(tmp_path_factory, 4)
+
+
+@pytest.fixture
+def gathers(request, world):
+    """{world: the ranks' results} of the case's world."""
+    return {world: request.getfixturevalue(f"gathers_{world}")}
 
 
 @pytest.mark.timeout(300)
@@ -353,5 +356,5 @@ def test_a_checkpoint_that_cannot_be_deleted_leaves_the_sweep_going(
 
 
 if __name__ == "__main__":
-    _rank_main(int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3]),
-               sys.argv[4])
+    run_rank(int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3]),
+             sys.argv[4], _rank_case)

@@ -46,16 +46,16 @@ JAX's by about 1e-4 at this size, the rounding of flax's form, which the
 parameters' bound covers.
 """
 
+import functools
 import os
-import socket
-import subprocess
 import sys
 
 import numpy as np
 import pytest
 import torch
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+from test_torch_port_spatial import launch, run_rank
+
 IMG_UNET, IMG_VIT, IMG_CLTR = 32, 64, 64
 TOL_JAX = dict(atol=1e-4, rtol=1e-3)
 TOL_SELF = dict(atol=1e-5, rtol=1e-4)
@@ -220,45 +220,13 @@ def _rank_case(spec, out):
     return result
 
 
-def _rank_main(rank, world, port, out):
-    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
-                      LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world),
-                      MASTER_ADDR="localhost", MASTER_PORT=str(port))
-    torch.set_num_threads(1)
-    from unet_torch_tpu_torch.core.dist import maybe_initialize
-
-    maybe_initialize(force=True, backend="gloo")
-    spec = torch.load(os.path.join(out, "spec.pt"), weights_only=False)
-    torch.save(_rank_case(spec, out), os.path.join(out, f"rank{rank}.pt"))
-
-
 # --------------------------------------------------------------------------
 # the pytest side
 # --------------------------------------------------------------------------
 
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
 def _launch(spec, out):
     """Run the spec's ranks; returns their results in rank order."""
-    world = spec["mesh"][0] * spec["mesh"][1]
-    torch.save(spec, os.path.join(out, "spec.pt"))
-    env = dict(os.environ)
-    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
-    port = _free_port()
-    procs = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), str(r), str(world),
-         str(port), str(out)], cwd=out, env=env,
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
-        for r in range(world)]
-    logs = [p.communicate(timeout=240)[0].decode() for p in procs]
-    for p, log in zip(procs, logs):
-        assert p.returncode == 0, f"a rank failed:\n{log[-4000:]}"
-    return [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
-            for r in range(world)]
+    return launch(os.path.abspath(__file__), spec, out)
 
 
 def _peak_close(ours, ref, tol, name):
@@ -774,6 +742,244 @@ def test_keep_mask_with_offsets_is_the_slice_of_the_whole_mask(offsets):
     assert torch.equal(o, o_all[sl])
 
 
+# --------------------------------------------------------------------------
+# chip_smoke.py's check of a multi-rank f32 step on the ranks' own branch
+# --------------------------------------------------------------------------
+
+@functools.cache
+def _chip_smoke():
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _branch_spec(kind):
+    """A seeded small model's state and batch for port_step."""
+    torch.manual_seed(7)
+    rng = np.random.RandomState(7)
+    img = IMG_VIT if kind == "transunet" else IMG_CLTR
+    spec = {"kind": kind, "state": build_model(kind, 0.0).state_dict(),
+            "x": rng.randn(2, img, img, 3).astype(np.float32)}
+    if kind == "transunet":
+        spec["y"] = rng.randint(0, 3, (2, img, img)).astype(np.float32)
+        spec["batch"] = ("x", "y")
+        return spec
+    from unet_torch_tpu_torch.models import cltr as pc
+
+    targets = []
+    for n in (3, 5):
+        pts = rng.rand(n, 3).astype(np.float32)
+        targets.append({"labels": np.ones(n, np.int64), "points": pts,
+                        "points_macher": pts})
+    labels, points, _, valid = pc.pad_targets(targets, 8, 3)
+    spec.update(labels=labels, points=points, valid=valid,
+                batch=("x", "labels", "points", "valid"))
+    return spec
+
+
+@pytest.fixture(scope="module", params=["transunet", "cltr"])
+def branch_steps(request):
+    """A small model's one-process SGD step in f32 and f64 as
+    chip_smoke.py's branch_reference runs it, with its ReLUs' and max
+    pools' rounding; and the same steps forced onto their own choices."""
+    from unet_torch_tpu_torch.kernels import attention as at
+
+    cs = _chip_smoke()
+    torch.set_num_threads(2)
+    spec = _branch_spec(request.param)
+
+    def step_fn(dtype):
+        loss, model = port_step(spec, 0.0, None, dtype)
+        return model, spec["state"], loss
+
+    modules = cs.branch_modules(request.param)
+
+    def reference(forced=None, rounding=False):
+        return cs.branch_reference(at, step_fn, modules, forced, rounding)
+
+    plain, rounding = reference(rounding=True)
+    own = {"relu": [x > 0 for x in rounding["relu"][0]],
+           "max_pool2d": rounding["max_pool2d"][3]}
+    return dict(cs=cs, kind=request.param, reference=reference, plain=plain,
+                rounding=rounding, own=own, forced=reference(own)[0])
+
+
+def _grads_equal(a, b):
+    return a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+
+
+def _contiguous(choices):
+    return {k: [c.clone(memory_format=torch.contiguous_format) for c in v]
+            for k, v in choices.items()}
+
+
+def test_a_step_forced_onto_its_own_choices_is_the_plain_step(branch_steps):
+    """x * (x > 0) is the ReLU and the input at the max pool's own argmax
+    is its output, forward and backward: the f32 step forced onto its own
+    choices is the plain one, bit for bit (the forced f64 step takes the
+    f32 forward's choices, which is the point of it); every call is named
+    by its module (the TransUnet's decoder Conv2dReLUs; CLTR's backbone,
+    with one max pool, and transformer), and every choice agrees with its
+    own."""
+    b = branch_steps
+    relu, pool = b["rounding"]["relu"], b["rounding"]["max_pool2d"]
+    assert relu[2] and len(relu[0]) == len(relu[1]) == len(relu[2])
+    if b["kind"] == "transunet":
+        assert all("decoder" in n for n in relu[2]) and not pool[0]
+    else:
+        assert pool[2] == ["backbone"] and pool[3][0].dtype == torch.int64
+        assert any(n.startswith("transformer") for n in relu[2])
+    # (a CLTR MLP takes f32 positions in the f64 step too: e = 0 there)
+    assert all(0 <= err < 1e-3 for err in relu[1] + pool[1])
+    assert sum(err > 0 for err in relu[1]) > len(relu[1]) // 2
+    plain, forced = b["plain"], b["forced"]
+    assert plain[0] == forced[0]
+    for i in (1, 2):
+        assert _grads_equal(plain[i], forced[i]), i
+    band = b["cs"].choice_band("own", b["rounding"], b["own"])
+    assert band["relu"][0] == band["max_pool2d"][0] == 0
+
+
+def test_one_flipped_relu_follows_that_branch_s_f64_gradient(branch_steps):
+    """One pre-activation of the first ReLU call put on the other side of
+    zero: the forced f32 step is as near the forced f64 step as the plain
+    f32 step is to the plain f64 one (T4's ratio under 10), and T4's ratio
+    against the plain steps fails."""
+    b = branch_steps
+    cs = b["cs"]
+    choices = _contiguous(b["own"])
+    flat = b["rounding"]["relu"][0][0].abs().argmax()
+    mask = choices["relu"][0].view(-1)
+    mask[flat] = ~mask[flat]
+    _, _, g32, _, g64 = b["reference"](choices)[0]
+    plain = b["plain"]
+    on_branch = cs.gradient_noise_ratio(g32, plain[2], g64)[0]
+    against_plain = cs.gradient_noise_ratio(g32, plain[2], plain[4])[0]
+    assert on_branch <= cs.T4_NOISE_RATIO < against_plain, (
+        on_branch, against_plain)
+
+
+def test_the_choice_band_admits_rounding_flips_and_raises_past_them(
+        branch_steps):
+    """A planted ReLU flip at |z| <= 10 e of its call is admitted (its
+    |z| / e returned); one past 10 e raises, naming the module. So does a
+    max pool's choice of another element, by the gap between the two."""
+    b = branch_steps
+    cs = b["cs"]
+    kinds = ["relu"] + (["max_pool2d"] if b["kind"] == "cltr" else [])
+    for kind in kinds:
+        x32, e, names, own = b["rounding"][kind]
+        for scale, admitted in ((9.5, True), (10.5, False)):
+            x = [t.clone(memory_format=torch.contiguous_format) for t in x32]
+            choices = _contiguous(b["own"])
+            if kind == "relu":
+                x[0].view(-1)[3] = scale * e[0]
+                choices["relu"][0].view(-1)[3] = False
+            else:
+                # output (0, 0, 1, 1) reads rows 1-3, columns 1-3: its own
+                # element gets a rival at scale * e below it
+                taken = int(own[0][0, 0, 1, 1])
+                width = x[0].shape[3]
+                rival = next(r * width + c for r in (1, 2, 3)
+                             for c in (1, 2, 3) if r * width + c != taken)
+                plane = x[0][0, 0].view(-1)
+                plane[rival] = plane[taken] - scale * e[0]
+                choices["max_pool2d"][0][0, 0, 1, 1] = rival
+            rounding = {**b["rounding"], kind: (x, e, names, own)}
+            if admitted:
+                band = cs.choice_band("planted", rounding, choices)
+                assert band[kind][0] == 1
+                assert band[kind][2] == pytest.approx(scale, rel=1e-2)
+            else:
+                with pytest.raises(AssertionError,
+                                   match=rf"{kind} call 0 \({names[0]}\)"):
+                    cs.choice_band("planted", rounding, choices)
+
+
+def test_a_forced_ratio_over_ten_raises(branch_steps):
+    """on_branch holds the ranks' gradients within T4's 10 of the forced
+    steps: a gradient 11 times the one-process f32 error away raises, 9
+    times passes."""
+    b = branch_steps
+    cs = b["cs"]
+    loss, state, g32, before, g64 = b["forced"]
+    name = max(g64, key=lambda k: g64[k].abs().max().item())
+    err = max((g32[name] - g64[name]).abs().max().item(),
+              1e-6 * g64[name].abs().max().item())
+    for times, passes in ((9.0, True), (11.0, False)):
+        grads = {k: v.float() for k, v in g64.items()}
+        grads[name] = (g64[name] + times * err).float()
+        ranks = {"loss": loss, "grads": grads, "state": state}
+        args = ("planted", ranks, b["plain"], b["rounding"], b["own"],
+                b["forced"], LR)
+        if passes:
+            got = cs.on_branch(*args, adam=False)
+            assert got["forced"][1] <= cs.T4_NOISE_RATIO
+        else:
+            with pytest.raises(AssertionError, match="times the one-process"):
+                cs.on_branch(*args, adam=False)
+
+
+def test_strip_choices_map_to_the_whole_image_and_join():
+    """A strip's max-pool argmax (its input with a halo row each side, as
+    exchange_rows gives it) maps to the whole image's plane; forced onto
+    those indices the pool gives the whole image's output, 0 at an index
+    outside it. joined_choices puts the ranks' shares together along the
+    dim a rank holds a share of, takes the first rank's replicated ones,
+    and raises on a count of calls that differs from one process's."""
+    import types
+
+    cs = _chip_smoke()
+    gen = torch.Generator().manual_seed(0)
+    x = torch.rand(1, 2, 8, 4, generator=gen)
+    mod = types.SimpleNamespace(F=torch.nn.functional)
+    whole, whole_index = torch.nn.functional.max_pool2d(
+        x, 3, stride=2, padding=1, return_indices=True)
+    ranks = []
+    for m in range(2):
+        halo = torch.zeros(1, 2, 6, 4)
+        lo, hi = 4 * m - 1, 4 * m + 5
+        halo[:, :, max(0, -lo):6 - max(0, hi - 8)] = x[:, :, max(lo, 0):
+                                                        min(hi, 8)]
+        choices, tap = cs.recorded_choices(
+            strip=types.SimpleNamespace(m=m))
+        with cs.branch_calls([mod], tap=tap):
+            mod.F.relu(x[:, :, 4 * m:4 * (m + 1)] - 0.5)
+            mod.F.max_pool2d(halo, 3, stride=2, padding=(0, 1))
+        ranks.append(cs.unpacked(choices))
+    rounding = {"relu": ([x - 0.5], [0.0], ["x"], [None]),
+                "max_pool2d": ([x], [0.0], ["x"], [whole_index])}
+    joined = cs.joined_choices(ranks, rounding)
+    assert torch.equal(joined["relu"][0], x > 0.5)
+    assert torch.equal(joined["max_pool2d"][0], whole_index)
+    forced = joined["max_pool2d"][0].clone()
+    forced[0, 0, 0, 0] = -3
+    with cs.branch_calls([mod], forced={"max_pool2d": [forced]}):
+        y = mod.F.max_pool2d(x, 3, stride=2, padding=1)
+    assert y[0, 0, 0, 0] == 0
+    y[0, 0, 0, 0] = whole[0, 0, 0, 0]
+    assert torch.equal(y, whole)
+    with pytest.raises(AssertionError, match="relu calls"):
+        cs.joined_choices(ranks[:1] + [{**ranks[1], "relu": []}], rounding)
+
+
+def test_matches_past_ties_raise():
+    """same_matches admits another assignment of equal cost and raises on
+    a dearer one."""
+    cs = _chip_smoke()
+    # (level, image, query, target) costs; two targets, queries 0-2
+    costs = torch.tensor([[[[1.0, 2.0], [1.0, 2.0], [3.0, 0.5]]]])
+    ref = torch.tensor([[[0, 2]]])
+    assert cs.same_matches("tie", torch.tensor([[[1, 2]]]), ref,
+                           costs)[0] == 1
+    with pytest.raises(AssertionError, match="matched other queries"):
+        cs.same_matches("dear", torch.tensor([[[2, 0]]]), ref, costs)
+
 if __name__ == "__main__":
-    _rank_main(int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3]),
-               sys.argv[4])
+    run_rank(int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3]),
+             sys.argv[4], lambda spec: _rank_case(spec, sys.argv[4]))

@@ -166,18 +166,6 @@ def _rank_case(spec):
     return result
 
 
-def _rank_main(rank, world, port, out):
-    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
-                      LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world),
-                      MASTER_ADDR="localhost", MASTER_PORT=str(port))
-    torch.set_num_threads(1)
-    from unet_torch_tpu_torch.core.dist import maybe_initialize
-
-    maybe_initialize(force=True, backend="gloo")
-    spec = torch.load(os.path.join(out, "spec.pt"), weights_only=False)
-    torch.save(_rank_case(spec), os.path.join(out, f"rank{rank}.pt"))
-
-
 # --------------------------------------------------------------------------
 # the pytest side
 # --------------------------------------------------------------------------
@@ -519,5 +507,7 @@ def test_one_stage_pipeline_is_the_sequential_chain_and_keeps_modes():
 
 
 if __name__ == "__main__":
-    _rank_main(int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3]),
-               sys.argv[4])
+    from test_torch_port_spatial import run_rank
+
+    run_rank(int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3]),
+             sys.argv[4], _rank_case)

@@ -134,7 +134,14 @@ def _rank_case(spec):
     return result
 
 
-def _rank_main(rank, world, port, out):
+def run_rank(rank, world, port, out, case):
+    """One rank of `launch`, in its own process: torch.distributed over
+    gloo, `case(spec)`'s result to `<out>/rank<rank>.pt`, then a barrier
+    and the process group's end, so that no rank leaves while another
+    still talks to it (a gloo rank that exits with its group alive may
+    abort in its threads' teardown, after its work is done)."""
+    import torch.distributed as dist
+
     os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
                       LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world),
                       MASTER_ADDR="localhost", MASTER_PORT=str(port))
@@ -143,7 +150,9 @@ def _rank_main(rank, world, port, out):
 
     maybe_initialize(force=True, backend="gloo")
     spec = torch.load(os.path.join(out, "spec.pt"), weights_only=False)
-    torch.save(_rank_case(spec), os.path.join(out, f"rank{rank}.pt"))
+    torch.save(case(spec), os.path.join(out, f"rank{rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
 
 
 # --------------------------------------------------------------------------
@@ -383,5 +392,5 @@ def test_spatialize_refuses_transformers_and_other_roles():
 
 
 if __name__ == "__main__":
-    _rank_main(int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3]),
-               sys.argv[4])
+    run_rank(int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3]),
+             sys.argv[4], _rank_case)

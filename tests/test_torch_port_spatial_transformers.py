@@ -51,7 +51,7 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_port_spatial import launch
+from test_torch_port_spatial import launch, run_rank
 
 IMG_VIT, IMG_CLTR = 64, 128
 LR, WD = 0.1, 1e-4
@@ -330,18 +330,6 @@ def _rank_case(spec):
                           for name, p in (("plain", 0.0),
                                           ("dropout", s["dropout"]))}
     return result
-
-
-def _rank_main(rank, world, port, out):
-    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
-                      LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world),
-                      MASTER_ADDR="localhost", MASTER_PORT=str(port))
-    torch.set_num_threads(1)
-    from unet_torch_tpu_torch.core.dist import maybe_initialize
-
-    maybe_initialize(force=True, backend="gloo")
-    spec = torch.load(os.path.join(out, "spec.pt"), weights_only=False)
-    torch.save(_rank_case(spec), os.path.join(out, f"rank{rank}.pt"))
 
 
 # --------------------------------------------------------------------------
@@ -736,5 +724,5 @@ def test_a_strip_height_the_family_cannot_split_raises(family, height,
 
 
 if __name__ == "__main__":
-    _rank_main(int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3]),
-               sys.argv[4])
+    run_rank(int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3]),
+             sys.argv[4], _rank_case)
