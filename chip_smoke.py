@@ -19,7 +19,8 @@
                                     D2's f32 step at (D, M) = (2, 2) and
                                     (1, 4); then D1, D3, S1, G1, S3, V5, S2
                                     and D2; D2's and S3's f32 steps held on
-                                    the ranks' own branch)
+                                    the ranks' own branch; then E6)
+    python3 chip_smoke.py --cli   (build, then only the CLI phases E1-E5)
 
 Builds the Hopper kernels from unet_torch_tpu_torch/csrc, then:
 
@@ -281,6 +282,42 @@ Builds the Hopper kernels from unet_torch_tpu_torch/csrc, then:
                 within 1e-4 of the peak of vis=False's on the same mesh; 0
                 eval attention launches with vis (the plain einsum, as in
                 JAX), 12 without
+E1. train_cli  configs/segmentation_mc.yml, unedited but for DERIVED_KEYS
+     and       (dataset paths, save_dir, epochs 200 -> 2), on an on-disk
+     test_cli  dataset in the loaders' conventions written from
+               data/synthetic.py::make_blob_sample (40 cells an image, one
+               train batch, 2 val and 8 test images): train_cli.main on the
+               card, its three seeds, the post-train test_single_mc, the
+               pruned checkpoints and the cross-seed results.csv; best.pt
+               strictly into a fresh model; test_cli.main on it equal to
+               the post-train test (results and CSVs); each kernel's
+               launches as the path dictates (18 fused convs an eval
+               forward); a resume from last_epoch.pt at epoch 3; test_cli
+               at f32 on the card and with --device cpu: logits within
+               phase 5's bound, classes differing only at near ties. Each
+               epoch's wall time, synced steps and checkpoint writes,
+               test_cli's img/s end to end (decode and reports included)
+E2. train_cli  configs/transunet.yml as E1 (epochs 150 -> 2; no .npz: fresh
+               weights): 12 + 12 attention launches a step, 12 attention
+               and 9 fused convs an eval forward
+E3. train_cli  configs/multitask_reg.yml as E1 (epochs 200 -> 2, seeds 3 ->
+               1; the TSV dots as dot_annotation_path): test_multiple_reg,
+               26 fused convs an eval forward
+E4. train_cli  configs/topo_wup.yml as E1 (epochs 100 -> 11: 5 warm-up, 6
+               TopoLoss, best.pt from epoch 11): test_single, test_cli
+               --mode single
+E5. train_cli  configs/cltr.yml as E1 (epochs 1500 -> 2; 768x768 images and
+               their TSV points): 18 + 18 attention and one auction launch a
+               step, 18 attention launches a val image; no test set: no
+               post-train eval, no pruning, as in the JAX CLI; the loader's
+               dot maps on the written cells' centres
+E6. torchrun   (--cards 4) the train CLI as users launch it, torchrun
+               --nproc_per_node 4: E1's derived config at mesh {data: 4},
+               E2's at {data: 2, model: 2} (the post-train test on the
+               gathered, whole model); rank 0's checkpoints, CSVs and
+               results.csv, best.pt strictly into a one-process model, a
+               one-process test_cli on it equal to rank 0's post-train test;
+               a nonzero exit, or a launch past E6_TIMEOUT, fails
   L. library    one PyTorch library call beside each kernel that has one, for
                 the time only (nothing in the port calls them): cuDNN
                 conv2d with the scale folded into its weights, a bias and a
@@ -5512,12 +5549,813 @@ def check_d2_cards(at, dev, smi, ref, rounding):
               f" {branch_text(branch)}")
 
 
+# ------------------------------------------------------------------ E1-E6
+# The port's own entry points end to end: a shipped config, derived into a
+# temporary directory, through train_cli.main and test_cli.main on an
+# on-disk dataset in the loaders' conventions.
+
+CONFIGS_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "configs")
+# the keys a CLI phase changes in a shipped config; every other key, each
+# model_config width among them, stays as shipped
+DERIVED_KEYS = {
+    "dataset_config": ("train_path", "val_path", "test_path",
+                       "dot_annotation_path", "save_dir"),
+    "train_config": ("epochs", "seed"),
+    "resume": ("flag", "path", "epoch"),
+}
+CLI_CELLS = 40  # cells an image, as eval_batch draws them
+CLI_VAL = 2
+CLI_TEST = 8  # one chunk of eval/reports.py::_batched_eval
+# E1's f32 eval, card against CPU: a class may differ only where the CPU's
+# top two logits lie within twice the logits' bound (MODEL_REL_TOL of
+# their peak, phase 5's): each of the two moves by at most the bound
+TIE_BOUND = 2 * MODEL_REL_TOL
+# a torchrun launch of E6 that has not ended by then has hung
+E6_TIMEOUT = 480
+
+
+def derive_config(raw, data_dir, save_dir, epochs, seeds=None, resume=None):
+    """A copy of the shipped config `raw` that trains on `data_dir`
+    (write_cli_dataset's) into `save_dir` for `epochs` epochs, with the
+    seed list `seeds` where given and, with `resume` = (path, epoch), from
+    that checkpoint: only the DERIVED_KEYS change. An empty test_path stays
+    empty."""
+    cfg = copy.deepcopy(raw)
+    d = cfg["dataset_config"]
+    d["train_path"] = [os.path.join(data_dir, "train")]
+    d["val_path"] = [os.path.join(data_dir, "val")]
+    if d.get("test_path"):
+        d["test_path"] = [os.path.join(data_dir, "test")]
+    if "dot_annotation_path" in d:
+        d["dot_annotation_path"] = os.path.join(data_dir, "tsv")
+    d["save_dir"] = save_dir
+    t = cfg["train_config"]
+    t["epochs"] = epochs
+    if seeds is not None:
+        t["seed"] = list(seeds)
+    if resume is not None:
+        cfg["resume"] = {"flag": True, "path": resume[0], "epoch": resume[1]}
+    return cfg
+
+
+def yaml_load(path):
+    import yaml
+
+    with open(path) as f:
+        return yaml.safe_load(f)
+
+
+def write_config(cfg, path):
+    import yaml
+
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    return path
+
+
+def write_cli_dataset(root, n_train, size, n_classes, seed,
+                      points_only=False, test=True):
+    """The loaders' on-disk dataset: n_train, CLI_VAL and (with `test`)
+    CLI_TEST images under root/{train,val,test}, each `<stem>.png` (BGR)
+    with `_label_mc.png` (its classes), `_label.png` (cell or not),
+    `_gt_dot.png` (each cell's centre, coded by its class), `_label_reg.npy`
+    and `_label_{immune,other}_reg.npy` (density maps: all cells, class 2,
+    class 1), and root/tsv/<stem>.tsv (the centres, x and y doubled and
+    1-based as the loaders read them; class "Immune cells" for class 2, else
+    "Tumor"). Drawn by data/synthetic.py::make_blob_sample, CLI_CELLS cells
+    an image, each image from its own seeded generator, on a thread each.
+    `points_only`: the images and the TSVs alone, as CLTR's loader lists
+    every other PNG as an image."""
+    import cv2
+    from concurrent.futures import ThreadPoolExecutor
+
+    from unet_torch_tpu_torch.data.synthetic import make_blob_sample
+
+    splits = [("train", n_train), ("val", CLI_VAL)] + (
+        [("test", CLI_TEST)] if test else [])
+    stems = [(split, f"{split}{i}") for split, n in splits for i in range(n)]
+    for split, _ in splits:
+        os.makedirs(os.path.join(root, split), exist_ok=True)
+    os.makedirs(os.path.join(root, "tsv"), exist_ok=True)
+
+    def write(k):
+        split, stem = stems[k]
+        img, mask, dots, density = make_blob_sample(
+            np.random.RandomState([seed, k]), size, CLI_CELLS, n_classes)
+        dots = dots * mask  # a centre's class (a later cell may cover it)
+        base = os.path.join(root, split, stem)
+        cv2.imwrite(base + ".png", cv2.cvtColor(img, cv2.COLOR_RGB2BGR))
+        ys, xs = np.nonzero(dots)
+        with open(os.path.join(root, "tsv", stem + ".tsv"), "w") as f:
+            f.write("x\ty\tclass\n")
+            for y, x in zip(ys, xs):
+                kind = "Immune cells" if dots[y, x] == 2 else "Tumor"
+                f.write(f"{2 * (x + 1)}\t{2 * (y + 1)}\t{kind}\n")
+        if points_only:
+            return
+        cv2.imwrite(base + "_label_mc.png", mask)
+        cv2.imwrite(base + "_label.png", (mask > 0).astype(np.uint8))
+        cv2.imwrite(base + "_gt_dot.png", dots)
+        np.save(base + "_label_reg.npy", density)
+        np.save(base + "_label_immune_reg.npy", density * (mask == 2))
+        np.save(base + "_label_other_reg.npy", density * (mask == 1))
+
+    with ThreadPoolExecutor(min(8, os.cpu_count())) as pool:
+        list(pool.map(write, range(len(stems))))
+    return root
+
+
+def class_flips(classes_a, classes_b, logits_ref, tol):
+    """(pixels whose classes differ, pixels whose top two reference logits
+    lie within `tol` of each other, pixels that differ outside those)."""
+    top2 = np.sort(logits_ref, axis=-1)[..., -2:]
+    ties = (top2[..., 1] - top2[..., 0]) <= tol
+    differ = classes_a != classes_b
+    return int(differ.sum()), int(ties.sum()), int((differ & ~ties).sum())
+
+
+def sync():
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+@contextlib.contextmanager
+def epoch_clock():
+    """While the train CLI runs, each epoch of its Trainer's loops: the
+    wall time from its "Epoch N/M" log line to the next one (the last to the
+    loop's end), the train steps inside it (each between two syncs) and the
+    checkpoint writes. Yields the list of epochs, {"run", "wall", "step",
+    "steps", "ckpt"} with seconds."""
+    from unet_torch_tpu_torch.train import cltr_loop
+    from unet_torch_tpu_torch.train import trainer as tm
+
+    epochs = []
+    factories = {n: getattr(tm, n) for n in (
+        "make_single_steps", "make_multitask_steps", "make_topo_steps")}
+    cltr_step = cltr_loop.train_step
+    log, train, save = (tm.Trainer._log, tm.Trainer.train,
+                        tm.Trainer.save_checkpoint)
+
+    def close():
+        if epochs and "wall" not in epochs[-1]:
+            sync()
+            epochs[-1]["wall"] = time.perf_counter() - epochs[-1].pop("start")
+
+    def timed(fn, key="step", count=True):
+        def run(*args, **kw):
+            sync()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            sync()
+            epochs[-1][key] += time.perf_counter() - t0
+            epochs[-1]["steps"] += count
+            return out
+        return run
+
+    def logging(self, *lines):
+        if any(str(ln).startswith("Epoch ") for ln in lines):
+            close()
+            epochs.append({"run": os.path.basename(self.output_save_dir),
+                           "start": time.perf_counter(), "step": 0.0,
+                           "steps": 0, "ckpt": 0.0})
+        return log(self, *lines)
+
+    def training(self):
+        try:
+            return train(self)
+        finally:
+            close()
+
+    def single(*args, **kw):
+        step, eval_step = factories["make_single_steps"](*args, **kw)
+        return timed(step), eval_step
+
+    def multitask(*args, **kw):
+        step, eval_step = factories["make_multitask_steps"](*args, **kw)
+        return timed(step), eval_step
+
+    def topo(*args, **kw):
+        (warm, warm_eval), topo_steps, Pipeline = \
+            factories["make_topo_steps"](*args, **kw)
+
+        class Timed(Pipeline):
+            step = timed(Pipeline.step)
+            flush = timed(Pipeline.flush, count=False)
+
+        return (timed(warm), warm_eval), topo_steps, Timed
+
+    tm.make_single_steps, tm.make_multitask_steps = single, multitask
+    tm.make_topo_steps, cltr_loop.train_step = topo, timed(cltr_step)
+    tm.Trainer._log, tm.Trainer.train = logging, training
+    tm.Trainer.save_checkpoint = lambda self, *names: timed(
+        save, "ckpt", count=False)(self, *names)
+    try:
+        yield epochs
+    finally:
+        for name, fn in factories.items():
+            setattr(tm, name, fn)
+        cltr_loop.train_step = cltr_step
+        tm.Trainer._log, tm.Trainer.train = log, train
+        tm.Trainer.save_checkpoint = save
+
+
+def epochs_text(epochs):
+    """Each run's epochs as wall / synced steps / checkpoints / rest (the
+    loader's waits, validation, logs) in seconds."""
+    runs = {}
+    for e in epochs:
+        runs.setdefault(e["run"], []).append(
+            f"{e['wall']:.3f}/{e['step']:.3f}/{e['ckpt']:.3f}/"
+            f"{e['wall'] - e['step'] - e['ckpt']:.3f}")
+    return "; ".join(f"{run}: {', '.join(v)}" for run, v in runs.items())
+
+
+@contextlib.contextmanager
+def recorded_warnings(seen):
+    """Warnings recorded into `seen` (their texts, once each), never raised
+    as errors whatever the process's filters say."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        try:
+            yield
+        finally:
+            for w in caught:
+                text = f"{w.category.__name__}: {str(w.message)[:80]}"
+                if text not in seen:
+                    seen.append(text)
+
+
+@contextlib.contextmanager
+def recorded_logits(store):
+    """test_single_mc's predict with each chunk's logits and class maps
+    kept on the host in `store`, for a comparison only."""
+    from unet_torch_tpu_torch.eval import reports
+    from unet_torch_tpu_torch.eval.metrics import class_argmax
+
+    make = reports.make_predict_fn
+
+    def recording(model, device, dtype, classes=False, binary=False):
+        if binary or not classes:
+            raise AssertionError("recorded_logits serves test_single_mc")
+        logits_fn = make(model, device, dtype)
+
+        @torch.inference_mode()
+        def predict(xs):
+            logits = logits_fn(xs)
+            out = class_argmax(logits)
+            store.append((logits.float().cpu().numpy(), out.cpu().numpy()))
+            return out
+
+        return predict
+
+    reports.make_predict_fn = recording
+    try:
+        yield store
+    finally:
+        reports.make_predict_fn = make
+
+
+def csv_texts(directory):
+    return {f: open(os.path.join(directory, f)).read()
+            for f in sorted(os.listdir(directory)) if f.endswith(".csv")}
+
+
+def same_results(a, b):
+    """Two results dicts equal, NaN equal to NaN."""
+    def same(x, y):
+        x, y = np.asarray(x, np.float64), np.asarray(y, np.float64)
+        return x.shape == y.shape and bool(np.all((x == y) | (
+            np.isnan(x) & np.isnan(y))))
+
+    return sorted(a) == sorted(b) and all(same(a[k], b[k]) for k in a)
+
+
+def run_train_cli(cfg_path, dev, at, fc):
+    """train_cli.main on `cfg_path`: (trainers, results, the kernels'
+    launches in the run, its epochs (epoch_clock's), its warnings, seconds
+    end to end)."""
+    from unet_torch_tpu_torch.cli import train_cli
+
+    seen = []
+    with recorded_warnings(seen), epoch_clock() as epochs:
+        reset_counts(at, fc)
+        start = time.perf_counter()
+        trainers, results = train_cli.main([cfg_path, "--device", str(dev)])
+        sync()
+        seconds = time.perf_counter() - start
+        launches = counts(at, fc)
+    return trainers, results, launches, epochs, seen, seconds
+
+
+def run_test_cli(cfg_path, checkpoint, out_dir, dev, at, fc, mode=None):
+    """test_cli.main end to end (model build, checkpoint, decode, forward,
+    reports): (results, launches, seconds, the seconds split into the
+    checkpoint's load, the batched eval loop (decode, preprocess, forward,
+    copy back) and the rest (model build, reports, CSVs))."""
+    from unet_torch_tpu_torch.cli import test_cli
+    from unet_torch_tpu_torch.eval import reports
+
+    split = {"load": 0.0, "loop": 0.0}
+    load, batched = test_cli.load_weights, reports._batched_eval
+
+    def timed_load(*args):
+        t0 = time.perf_counter()
+        out = load(*args)
+        split["load"] += time.perf_counter() - t0
+        return out
+
+    def timed_batched(*args, **kw):
+        chunks = batched(*args, **kw)
+        while True:
+            t0 = time.perf_counter()
+            item = next(chunks, None)
+            split["loop"] += time.perf_counter() - t0
+            if item is None:
+                return
+            yield item
+
+    argv = [cfg_path, "--checkpoint", checkpoint, "--out-dir", out_dir,
+            "--device", str(dev)]
+    test_cli.load_weights, reports._batched_eval = timed_load, timed_batched
+    try:
+        with recorded_warnings([]):
+            reset_counts(at, fc)
+            start = time.perf_counter()
+            results = test_cli.main(argv + (["--mode", mode] if mode
+                                            else []))
+            sync()
+            seconds = time.perf_counter() - start
+            launches = counts(at, fc)
+    finally:
+        test_cli.load_weights, reports._batched_eval = load, batched
+    split["rest"] = seconds - split["load"] - split["loop"]
+    return results, launches, seconds, split
+
+
+def expect_launches(tag, got, want):
+    """The kernels' launches in a run against what its path dictates;
+    kernels not named in `want` must not launch."""
+    wrong = {k: (v, want.get(k, 0)) for k, v in got.items()
+             if v != want.get(k, 0)}
+    if wrong:
+        raise AssertionError(f"{tag}: launches (got, expected) {wrong}")
+
+
+def check_run_dir(tag, save_dir, seeds, csvs, best=True, pruned=True):
+    """A train CLI run's files: each seed's logs.txt, last_epoch.pt and
+    (with `best`) best.pt, its epoch checkpoints pruned where `pruned`, the
+    post-train CSVs `csvs` and, with them, the cross-seed results.csv of
+    one row a seed."""
+    base = os.path.basename(save_dir)
+    for seed in seeds:
+        out = os.path.join(save_dir, f"{base}_seed{seed}")
+        models = sorted(os.listdir(os.path.join(out, "models")))
+        want = ["last_epoch.pt"] + (["best.pt"] if best else [])
+        missing = [n for n in ["logs.txt"] + csvs
+                   if not os.path.exists(os.path.join(out, n))]
+        missing += [n for n in want if n not in models]
+        extra = [n for n in models if n not in want]
+        if missing or (pruned and extra) or (not pruned and not extra):
+            raise AssertionError(f"{tag}: seed {seed} lacks {missing}, "
+                                 f"models {models}")
+    if csvs:
+        import pandas as pd
+
+        table = pd.read_csv(os.path.join(save_dir, "results.csv"),
+                            index_col=0, float_precision="round_trip")
+        if sorted(table.index) != sorted(seeds):
+            raise AssertionError(f"{tag}: results.csv rows {table.index}")
+        return table
+    if os.path.exists(os.path.join(save_dir, "results.csv")):
+        raise AssertionError(f"{tag}: a results.csv without a test set")
+    return None
+
+
+def strict_model(cfg_path, checkpoint):
+    """A fresh model of the config, built in one process on the CPU as the
+    train CLI builds it, with `checkpoint` loaded strictly."""
+    from unet_torch_tpu_torch.ckpt import load_weights
+    from unet_torch_tpu_torch.cli import train_cli
+    from unet_torch_tpu_torch.cli.config import Config
+
+    with recorded_warnings([]):
+        model = train_cli.build_datasets_and_model(
+            Config.load(cfg_path), 0, torch.Generator().manual_seed(0))[2]
+    return load_weights(checkpoint, model)
+
+
+def finite_losses(tag, trainers, epochs):
+    for seed, tr in trainers.items():
+        values = tr.train_loss_list + tr.val_loss_list
+        if len(tr.train_loss_list) != epochs or not np.isfinite(values).all():
+            raise AssertionError(f"{tag}: seed {seed} losses "
+                                 f"{tr.train_loss_list}, {tr.val_loss_list}")
+
+
+def same_as_post_train(tag, results, seed_dir, ours, eval_dir):
+    """test_cli's results dict and CSVs equal the post-train test's."""
+    if not same_results(results, ours):
+        raise AssertionError(f"{tag}: test_cli {ours} against the "
+                             f"post-train test {results}")
+    a, b = csv_texts(seed_dir), csv_texts(eval_dir)
+    if not b or any(a.get(f) != text for f, text in b.items()):
+        raise AssertionError(f"{tag}: test_cli's CSVs {sorted(b)} differ "
+                             f"from the post-train test's {sorted(a)}")
+
+
+def cli_phase(tag, name, dev, at, fc, smi, epochs, n_classes, eval_convs,
+              eval_attention=0, train_attention=0, mode=None, seeds=None,
+              points_only=False, val_evals=None):
+    """One shipped config through the train CLI and, where it names a test
+    set, test_cli on the first seed's best.pt: losses finite, the run's
+    files, the post-train CSVs and results.csv, best.pt strictly into a
+    fresh model, test_cli's results and CSVs equal to the post-train
+    test's, each kernel's launches as the path dictates (`eval_convs` fused
+    convs and `eval_attention` attentions an eval forward,
+    `train_attention` train forwards and as many backwards a step; CLTR an
+    auction a step; `val_evals` eval forwards of validation a seed, else
+    epochs x CLI_VAL). Returns what the caller checks further and prints."""
+    start = time.perf_counter()
+    raw = yaml_load(os.path.join(CONFIGS_DIR, name))
+    size = raw["model_config"]["input_size"][0]
+    batch = raw["train_config"]["batch_size"][0]
+    has_test = bool(raw["dataset_config"]["test_path"])
+    tmp = tempfile.mkdtemp(prefix=f"{tag}_")
+    data = write_cli_dataset(os.path.join(tmp, "data"), batch, size,
+                             n_classes, SEED, points_only, has_test)
+    data_s = time.perf_counter() - start
+    save_dir = os.path.join(tmp, "run")
+    cfg_path = write_config(derive_config(raw, data, save_dir, epochs, seeds),
+                            os.path.join(tmp, "cfg.yml"))
+    seeds = list(seeds or raw["train_config"]["seed"])
+    trainers, results, launches, clock, seen, train_s = run_train_cli(
+        cfg_path, dev, at, fc)
+    finite_losses(tag, trainers, epochs)
+    chunks = 1 if has_test else 0
+    forwards = len(seeds) * ((val_evals if val_evals is not None
+                              else epochs * CLI_VAL) + chunks)
+    steps = len(seeds) * epochs  # one full batch an epoch
+    want = {"fused_conv3x3_bn_relu": eval_convs * forwards,
+            "fused_attention": eval_attention * forwards,
+            "attention_train_forward": train_attention * steps,
+            "attention_backward": train_attention * steps,
+            "auction_lsap": steps if raw["model_config"]["model_type"]
+            == "CLTR" else 0}
+    expect_launches(f"{tag} train CLI", launches, want)
+    csvs = sorted(csv_texts(os.path.join(
+        save_dir, f"run_seed{seeds[0]}"))) if has_test else []
+    table = check_run_dir(tag, save_dir, seeds, csvs, pruned=has_test)
+    if has_test and ("resultsData.csv" not in csvs or set(results) != set(
+            seeds)):
+        raise AssertionError(f"{tag}: post-train CSVs {csvs}, results for "
+                             f"{sorted(results)}")
+    seed_dir = os.path.join(save_dir, f"run_seed{seeds[0]}")
+    best = os.path.join(seed_dir, "models", "best.pt")
+    strict_model(cfg_path, best)
+    out = {"tmp": tmp, "data": data, "cfg": cfg_path, "raw": raw,
+           "trainers": trainers, "results": results, "table": table,
+           "train_launches": launches, "seeds": seeds, "best": best,
+           "seed_dir": seed_dir, "train_s": train_s, "warnings": seen,
+           "epochs": clock, "data_s": data_s}
+    if has_test:
+        eval_dir = os.path.join(tmp, "eval")
+        ours, eval_launches, eval_s, eval_split = run_test_cli(
+            cfg_path, best, eval_dir, dev, at, fc, mode)
+        expect_launches(f"{tag} test_cli", eval_launches,
+                        {"fused_conv3x3_bn_relu": eval_convs,
+                         "fused_attention": eval_attention})
+        same_as_post_train(tag, results[seeds[0]], seed_dir, ours, eval_dir)
+        out.update(eval_launches=eval_launches, eval_s=eval_s,
+                   eval_split=eval_split, eval_dir=eval_dir)
+    out["seconds"] = time.perf_counter() - start
+    return out
+
+
+def run_text(raw):
+    """A config's precision, batch and input size."""
+    h, w = raw["model_config"]["input_size"]
+    return (f"{raw['train_config']['precision']} "
+            f"B={raw['train_config']['batch_size'][0]} {h}x{w}")
+
+
+def cli_text(res, smi):
+    """A CLI phase's readings: epochs, test_cli's img/s end to end, warnings,
+    seconds, the card."""
+    text = (f"train CLI {res['train_s']:.3f} s ({smi}); epochs "
+            f"(wall/steps/checkpoints/rest s) {epochs_text(res['epochs'])}")
+    if "eval_s" in res:
+        split = res["eval_split"]
+        text += (f"; test_cli {CLI_TEST} images in {res['eval_s']:.3f} s = "
+                 f"{CLI_TEST / res['eval_s']:.2f} img/s end to end "
+                 f"(checkpoint load {split['load']:.3f} s, decode + forward "
+                 f"{split['loop']:.3f} s, model build + reports "
+                 f"{split['rest']:.3f} s), {res['eval_launches']}, results "
+                 "and CSVs equal to the post-train test's")
+    return (f"{text}; warnings {res['warnings']}; dataset written in "
+            f"{res['data_s']:.1f} s; phase {res['seconds']:.1f} s")
+
+
+def check_e1(at, fc, dev, smi):
+    """E1: configs/segmentation_mc.yml (UNet-64, 3 classes, batch 16, Adam,
+    dice_bce_mc, bf16, three seeds), 2 epochs; then a resume from seed 35's
+    last_epoch.pt at epoch 3, and test_cli at f32 on the card and on the CPU
+    (`--device cpu`) on the same best.pt."""
+    from unet_torch_tpu_torch.ckpt import load_weights
+    from unet_torch_tpu_torch.cli import train_cli
+
+    res = cli_phase("E1", "segmentation_mc.yml", dev, at, fc, smi, 2, 3,
+                    eval_convs=len(conv_shapes(BASE, SIZE)))
+    tmp, seeds = res["tmp"], res["seeds"]
+    phase("E1 train_cli", f"configs/segmentation_mc.yml UNet "
+          f"{run_text(res['raw'])}, seeds {seeds}, 2 epochs: train loss "
+          f"{ {s: [round(v, 4) for v in t.train_loss_list] for s, t in res['trainers'].items()} }, "
+          f"results.csv {res['table'].shape[0]} rows; "
+          f"{cli_text(res, smi)}")
+
+    # the resume: seed 35's last_epoch.pt, strictly, from epoch 3 of 3
+    last = os.path.join(res["seed_dir"], "models", "last_epoch.pt")
+    loaded = []
+
+    def recording(path, model):
+        out = load_weights(path, model)
+        saved = torch.load(path, map_location="cpu", weights_only=True)
+        loaded.append((path, all(torch.equal(v.cpu(), saved[k])
+                                 for k, v in model.state_dict().items())))
+        return out
+
+    resume_dir = os.path.join(tmp, "resume")
+    cfg_path = write_config(
+        derive_config(res["raw"], res["data"], resume_dir, 3, [seeds[0]],
+                      resume=(last, 3)), os.path.join(tmp, "resume.yml"))
+    train_cli.load_weights = recording
+    try:
+        trainers, _, launches, clock, _, resume_s = run_train_cli(
+            cfg_path, dev, at, fc)
+    finally:
+        train_cli.load_weights = load_weights
+    log = open(os.path.join(resume_dir, f"resume_seed{seeds[0]}",
+                            "logs.txt")).read()
+    epoch_lines = [ln for ln in log.splitlines() if ln.startswith("Epoch ")]
+    finite_losses("E1 resume", trainers, 1)
+    if loaded != [(last, True)] or epoch_lines != ["Epoch 3/3"]:
+        raise AssertionError(f"E1 resume: loaded {loaded}, epochs "
+                             f"{epoch_lines}")
+    expect_launches("E1 resume", launches, {
+        "fused_conv3x3_bn_relu": len(conv_shapes(BASE, SIZE)) * (CLI_VAL + 1)})
+
+    # f32, card against CPU, on seed 35's best.pt
+    raw32 = yaml_load(res["cfg"])
+    raw32["train_config"]["precision"] = "f32"
+    cfg32 = write_config(raw32, os.path.join(tmp, "f32.yml"))
+    sides = {}
+    for side in (str(dev), "cpu"):
+        store = []
+        with recorded_logits(store):
+            out = run_test_cli(cfg32, res["best"],
+                               os.path.join(tmp, f"eval_f32_{side}"), side,
+                               at, fc)[:3]
+        (logits, classes), = store
+        sides[side] = (out[0], logits, classes, out[2])
+    (r_card, l_card, c_card, card_s), (r_cpu, l_cpu, c_cpu, cpu_s) = \
+        sides[str(dev)], sides["cpu"]
+    peak = float(np.abs(l_cpu).max())
+    err = float(np.abs(l_card - l_cpu).max())
+    differ, ties, outside = class_flips(c_card, c_cpu, l_cpu,
+                                        TIE_BOUND * peak)
+    if err > MODEL_REL_TOL * peak or outside or (
+            not differ and not same_results(r_card, r_cpu)):
+        raise AssertionError(
+            f"E1 f32 card vs CPU: logits {err:.3e} apart (bound "
+            f"{MODEL_REL_TOL * peak:.3e}), {differ} pixels differ, {outside} "
+            f"outside the {ties} near ties; results {r_card} / {r_cpu}")
+    phase("E1 train_cli",
+          f"resume from {os.path.basename(last)} (weights and BN buffers "
+          f"loaded strictly; the checkpoint holds no optimizer state, as "
+          f"in the JAX CLI): {epoch_lines}, train loss "
+          f"{trainers[seeds[0]].train_loss_list}, {resume_s:.3f} s, epochs "
+          f"{epochs_text(clock)}; test_cli f32 card ({card_s:.3f} s) vs "
+          f"--device cpu ({cpu_s:.3f} s) on best.pt: logits {err:.3e} "
+          f"apart (bound {MODEL_REL_TOL * peak:.3e}), {ties} near-tie pixels"
+          f" (top two within {TIE_BOUND * peak:.3e}), {differ} class "
+          f"pixels differ, all near ties; results "
+          f"{'equal' if same_results(r_card, r_cpu) else 'differ'} ({smi})")
+    shutil.rmtree(tmp)
+    return {"train_cli": res["train_launches"],
+            "test_cli": res["eval_launches"],
+            "img_s": CLI_TEST / res["eval_s"], "seconds": res["seconds"],
+            "near_ties": ties, "class_pixels_differ": differ}
+
+
+def check_e2(at, fc, dev, smi):
+    """E2: configs/transunet.yml (R50-ViT-B/16, batch 8, SGD, bf16; no .npz:
+    fresh weights), 2 epochs; post-train test_single_mc and test_cli."""
+    res = cli_phase("E2", "transunet.yml", dev, at, fc, smi, 2, 3,
+                    eval_convs=len(transunet_conv_shapes(SIZE)),
+                    eval_attention=12, train_attention=12)
+    phase("E2 train_cli", f"configs/transunet.yml R50-ViT-B/16 "
+          f"{run_text(res['raw'])}, 2 epochs: train loss "
+          f"{res['trainers'][res['seeds'][0]].train_loss_list}, "
+          f"{res['train_launches']}; {cli_text(res, smi)}")
+    shutil.rmtree(res["tmp"])
+    return {"train_cli": res["train_launches"],
+            "test_cli": res["eval_launches"],
+            "img_s": CLI_TEST / res["eval_s"], "seconds": res["seconds"]}
+
+
+def check_e3(at, fc, dev, smi):
+    """E3: configs/multitask_reg.yml (UNetMultitask, uncertainty combine),
+    2 epochs, its first seed (E1 runs a sweep of three); post-train
+    test_multiple_reg with the TSV dots."""
+    res = cli_phase("E3", "multitask_reg.yml", dev, at, fc, smi, 2, 3,
+                    eval_convs=len(multitask_conv_shapes(BASE, SIZE)),
+                    seeds=[35])
+    sigmas = {s: t.model.log_vars.detach().float().cpu().tolist()
+              for s, t in res["trainers"].items()}
+    phase("E3 train_cli", f"configs/multitask_reg.yml UNetMultitask "
+          f"{run_text(res['raw'])}, seeds {res['seeds']}, 2 epochs: log_vars "
+          f"{sigmas}; {cli_text(res, smi)}")
+    shutil.rmtree(res["tmp"])
+    return {"train_cli": res["train_launches"],
+            "test_cli": res["eval_launches"],
+            "img_s": CLI_TEST / res["eval_s"], "seconds": res["seconds"]}
+
+
+def check_e4(at, fc, dev, smi):
+    """E4: configs/topo_wup.yml (binary UNet-64: 5 dice_bce epochs, then
+    TopoLoss through TopoPipeline), 11 epochs: best.pt from epoch 11, as the
+    loop saves one only after epoch 10; post-train test_single, test_cli
+    --mode single. The topo epochs validate in train mode: no fused conv."""
+    res = cli_phase("E4", "topo_wup.yml", dev, at, fc, smi, 11, 2,
+                    eval_convs=len(conv_shapes(BASE, SIZE)), mode="single",
+                    val_evals=5 * CLI_VAL)
+    tr = res["trainers"][res["seeds"][0]]
+    phase("E4 train_cli", f"configs/topo_wup.yml binary UNet "
+          f"{run_text(res['raw'])}, 11 epochs (5 warm-up, 6 TopoLoss): train "
+          f"loss {[round(v, 4) for v in tr.train_loss_list]}, val MRA "
+          f"{[round(v, 4) for v in tr.val_score_list]}; "
+          f"{cli_text(res, smi)}")
+    shutil.rmtree(res["tmp"])
+    return {"train_cli": res["train_launches"],
+            "test_cli": res["eval_launches"],
+            "img_s": CLI_TEST / res["eval_s"], "seconds": res["seconds"]}
+
+
+def check_e5(at, fc, dev, smi):
+    """E5: configs/cltr.yml (CLTR, 768x768 images, 256 crops, batch 16,
+    Adam, the auction), 2 epochs; no test set, so no post-train eval and
+    no pruning, as in the JAX CLI. The loader's dot maps land on the
+    written cells' centres."""
+    import cv2
+
+    from unet_torch_tpu_torch.cli import train_cli
+    from unet_torch_tpu_torch.data.datasets import DataPointReg
+
+    res = cli_phase("E5", "cltr.yml", dev, at, fc, smi, 2, 3,
+                    eval_convs=0, eval_attention=18, train_attention=18,
+                    points_only=True)
+    raw, data = res["raw"], res["data"]
+    tsv = train_cli.get_points_from_tsv(os.path.join(data, "tsv"))
+    val = DataPointReg([os.path.join(data, "val")], tsv, ch=3, train=False,
+                       dot_shape=tuple(raw["cltr_config"]["dot_shape"]))
+    for path in val.image_list:
+        stem = os.path.basename(path)[:-len(".png")]
+        dots = val.create_label_coordinates(tsv[stem]) > 0
+        with open(tsv[stem]) as f:
+            written = {tuple(ln.split("\t")[:2]) for ln in f.readlines()[1:]}
+        # the background is (230, 230, 230), no cell's colour
+        on_background = (cv2.imread(path)[dots] == 230).all(axis=-1).sum()
+        if dots.sum() != len(written) or on_background:
+            raise AssertionError(f"E5: {stem}: {dots.sum()} dots of "
+                                 f"{len(written)} written, {on_background} "
+                                 "on the background")
+    tr = res["trainers"][res["seeds"][0]]
+    phase("E5 train_cli", f"configs/cltr.yml CLTR {run_text(raw)} (crops of "
+          f"{raw['cltr_config']['crop_size']} from images of that size), 2 "
+          f"epochs: train loss {tr.train_loss_list}, "
+          f"{res['train_launches']}; the val images' dot maps on their "
+          f"cells' centres; {cli_text(res, smi)}")
+    shutil.rmtree(res["tmp"])
+    return {"train_cli": res["train_launches"], "seconds": res["seconds"]}
+
+
+def check_cli(at, fc, dev, smi):
+    """E1-E5, each shipped config through the train CLI and test_cli."""
+    start = time.perf_counter()
+    out = {"e1": check_e1(at, fc, dev, smi), "e2": check_e2(at, fc, dev, smi),
+           "e3": check_e3(at, fc, dev, smi), "e4": check_e4(at, fc, dev, smi),
+           "e5": check_e5(at, fc, dev, smi)}
+    phase("E train_cli", f"E1-E5 took {time.perf_counter() - start:.1f} s")
+    return out
+
+
+def torchrun(cfg_path, log_path, launch_args):
+    """`torchrun --nproc_per_node 4 -m unet_torch_tpu_torch.cli.train_cli
+    cfg_path` (torchrun's module, torch.distributed.run) in its own process
+    group; its output into `log_path`. Raises with the output's end on a
+    nonzero exit, and where it has not ended in E6_TIMEOUT seconds, after
+    killing every process of the group."""
+    import signal
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (root, os.environ.get("PYTHONPATH")) if p))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node",
+           "4", "--master_addr", "localhost", "--master_port",
+           str(free_port()), "-m", "unet_torch_tpu_torch.cli.train_cli",
+           cfg_path, *launch_args]
+    start = time.perf_counter()
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT,
+                                cwd=root, env=env, start_new_session=True)
+        try:
+            rc = proc.wait(timeout=E6_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            rc = None
+        finally:
+            if proc.poll() is None:  # its ranks are in its process group
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+    seconds = time.perf_counter() - start
+    if rc != 0:
+        tail = open(log_path).read()[-4000:]
+        raise AssertionError(
+            f"E6: {' '.join(cmd[1:])} "
+            + (f"hung past {E6_TIMEOUT} s" if rc is None else f"exited {rc}")
+            + f"; its output ends:\n{tail}")
+    return seconds
+
+
+def check_e6(dev, smi, launch_args=None):
+    """E6: the train CLI under torchrun on four ranks: (a) E1's derived
+    config at mesh {data: 4}, (b) E2's at {data: 2, model: 2}; rank 0's
+    checkpoints, post-train CSVs and results.csv; best.pt strictly into a
+    one-process model; a one-process test_cli on it equal to the post-train
+    test (its CSVs, and its results to results.csv's row). NCCL, a card a
+    rank, with four cards; else four gloo ranks on cuda:0. The first
+    failure ends the phase."""
+    from unet_torch_tpu_torch.kernels import attention as at
+    from unet_torch_tpu_torch.kernels import fused_conv as fc
+
+    if launch_args is None:
+        launch_args = [] if world() >= 4 else ["--backend", "gloo",
+                                               "--device", "cuda:0"]
+    where = ("NCCL ranks, a card each" if not launch_args
+             else " ".join(launch_args))
+    out = {}
+    for tag, name, mesh in (("E6a", "segmentation_mc.yml", {"data": 4}),
+                            ("E6b", "transunet.yml", {"data": 2, "model": 2})):
+        start = time.perf_counter()
+        raw = yaml_load(os.path.join(CONFIGS_DIR, name))
+        size = raw["model_config"]["input_size"][0]
+        batch = raw["train_config"]["batch_size"][0]
+        tmp = tempfile.mkdtemp(prefix=f"{tag}_")
+        data = write_cli_dataset(os.path.join(tmp, "data"), batch, size, 3,
+                                 SEED)
+        save_dir = os.path.join(tmp, "run")
+        cfg = derive_config(raw, data, save_dir, 2)
+        cfg["train_config"]["mesh"] = mesh
+        cfg_path = write_config(cfg, os.path.join(tmp, "cfg.yml"))
+        seconds = torchrun(cfg_path, os.path.join(tmp, "ranks.log"),
+                           launch_args)
+        seeds = list(raw["train_config"]["seed"])
+        seed_dir = os.path.join(save_dir, f"run_seed{seeds[0]}")
+        csvs = sorted(csv_texts(seed_dir))
+        table = check_run_dir(tag, save_dir, seeds, csvs)
+        best = os.path.join(seed_dir, "models", "best.pt")
+        strict_model(cfg_path, best)
+        eval_dir = os.path.join(tmp, "eval")
+        ours, launches, eval_s, _ = run_test_cli(cfg_path, best, eval_dir,
+                                                 dev, at, fc)
+        row = {k: table.loc[seeds[0], k] for k in table.columns}
+        written, rank0 = csv_texts(eval_dir), csv_texts(seed_dir)
+        if not same_results(ours, row) or not written or any(
+                rank0.get(f) != text for f, text in written.items()):
+            raise AssertionError(f"{tag}: one-process test_cli {ours} "
+                                 f"against rank 0's post-train test {row}")
+        shutil.rmtree(tmp)
+        out[tag] = {"seconds": seconds, "test_cli": launches,
+                    "img_s": CLI_TEST / eval_s}
+        phase(f"{tag} torchrun",
+              f"configs/{name} at mesh {mesh}, seeds {seeds}, 2 epochs, "
+              f"torchrun --nproc_per_node 4 ({where}; {smi}): exit 0 in "
+              f"{seconds:.1f} s; rank 0's best.pt and last_epoch.pt, "
+              f"post-train CSVs {csvs}, results.csv {table.shape[0]} rows; "
+              f"best.pt loaded strictly into a one-process model; one-process"
+              f" test_cli on it {launches} = {CLI_TEST / eval_s:.2f} img/s, "
+              f"results and CSVs equal to rank 0's post-train test; phase "
+              f"{time.perf_counter() - start:.1f} s")
+    return out
+
+
 def check_cards(at, fc, dev, smi):
     """--cards: D2's f32 step on CARDS_D2_MESHES (with four cards), then D1,
     D3, S1, G1, S3, V5, S2 and D2, over NCCL on world() cards; the f32
-    steps of D2 and S3 held on the ranks' own branch. A phase that fails
-    does not stop the next: their failures are raised together at the
-    end."""
+    steps of D2 and S3 held on the ranks' own branch; then E6, the train
+    CLI under torchrun on four ranks. A phase that fails does not stop the
+    next: their failures are raised together at the end."""
     import gc
 
     failed = []
@@ -5546,6 +6384,10 @@ def check_cards(at, fc, dev, smi):
     del d1_ref, d3_ref, d3_matches, d3_rounding
     res["s2"] = run(check_s2, at, fc, dev, smi, d2_ref)
     res["d2"] = run(check_d2, at, fc, dev, smi, d2_ref, d2_rounding)
+    del d2_ref, d2_rounding
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["e6"] = run(check_e6, dev, smi)
     print(json.dumps({"cards": res}, default=str))
     if failed:
         raise AssertionError("on the cards: " + "; ".join(failed))
@@ -5573,7 +6415,7 @@ def check_parallel(at, fc, dev, smi):
 
 def main(cltr_profile=False, cltr_two_batches_only=False,
          attention_ab_only=False, unet_profile=False, topo_only=False,
-         parallel_only=False, cards=None):
+         parallel_only=False, cards=None, cli_only=False):
     # 1. device
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -5633,6 +6475,9 @@ def main(cltr_profile=False, cltr_two_batches_only=False,
         return
     if parallel_only:
         check_parallel(at, fc, dev, smi)
+        return
+    if cli_only:
+        check_cli(at, fc, dev, smi)
         return
     if cards:
         if torch.cuda.device_count() < cards:
@@ -5826,6 +6671,9 @@ def main(cltr_profile=False, cltr_two_batches_only=False,
     # D1-D3: data- and tensor-parallel training, two gloo ranks on the card
     pres = check_parallel(at, fc, dev, smi)
 
+    # E1-E5: the shipped configs through the train CLI and test_cli
+    eres = check_cli(at, fc, dev, smi)
+
     # L. the library calls beside the kernels, for their times only
     lib_conv = library_conv_ms(shapes + tu_shapes, dev)
     lib_attn = library_attention_ms(dev)
@@ -5913,7 +6761,12 @@ def main(cltr_profile=False, cltr_two_batches_only=False,
             # S1: both ranks' bf16 eval forward of their 256-row strips
             "s1_spatial_eval": pres["s1"]["conv_launches"],
             # S2: both ranks' TransUnet bf16 eval forward on their strips
-            "s2_spatial_eval": pres["s2"]["conv_launches"]},
+            "s2_spatial_eval": pres["s2"]["conv_launches"],
+            # E1-E4: the train CLI's runs (validation and the post-train
+            # test) and test_cli's eval of one chunk
+            **{f"{e}_{side}": eres[e][side]["fused_conv3x3_bn_relu"]
+               for e in ("e1", "e2", "e3", "e4")
+               for side in ("train_cli", "test_cli")}},
         # S2's nine haloed strip shapes (rows, W, Cin, Cout): error, ms,
         # back-to-back ms, plain ms, bound ms, cuDNN ms
         "s2_strip_shapes": pres["s2"]["strip_conv"],
@@ -5991,7 +6844,12 @@ def main(cltr_profile=False, cltr_two_batches_only=False,
             "g1_pipeline_eval": pres["g1"]["fused_attention"],
             # S2, S3: both ranks' eval forward on their strips
             "s2_spatial_eval": pres["s2"]["fused_attention"],
-            "s3_spatial_eval": pres["s3"]["fused_attention"]},
+            "s3_spatial_eval": pres["s3"]["fused_attention"],
+            # E2's and E5's train CLI runs (validation, post-train test)
+            # and E2's test_cli
+            "e2_train_cli": eres["e2"]["train_cli"]["fused_attention"],
+            "e2_test_cli": eres["e2"]["test_cli"]["fused_attention"],
+            "e5_train_cli": eres["e5"]["train_cli"]["fused_attention"]},
         # a strip's shape of S2 and S3: error, ms, back-to-back ms, plain,
         # bound, bound by, library ms
         "strip_shapes": {"s2": pres["s2"]["strip_attention"]["eval"],
@@ -6037,7 +6895,11 @@ def main(cltr_profile=False, cltr_two_batches_only=False,
             "g1_pipeline_train": pres["g1"]["attention_train_forward"],
             # S2: both ranks' 13 bf16 steps; S3: both ranks' f32 step
             "s2_spatial_train": pres["s2"]["attention_train_forward"],
-            "s3_spatial_train": pres["s3"]["attention_train_forward"]},
+            "s3_spatial_train": pres["s3"]["attention_train_forward"],
+            # E2's and E5's train CLI runs, 2 steps each
+            "e2_train_cli": eres["e2"]["train_cli"]["attention_train_forward"],
+            "e5_train_cli":
+                eres["e5"]["train_cli"]["attention_train_forward"]},
         # at a strip's shape with its query-row offset, rate 0.1
         "strip_shapes": {"s2": pres["s2"]["strip_attention"]["train_fwd"],
                          "s3": pres["s3"]["strip_attention"]["train_fwd"]},
@@ -6075,7 +6937,9 @@ def main(cltr_profile=False, cltr_two_batches_only=False,
             "d3_cltr_data_parallel": pres["d3"]["attention_backward"],
             "g1_pipeline_train": pres["g1"]["attention_backward"],
             "s2_spatial_train": pres["s2"]["attention_backward"],
-            "s3_spatial_train": pres["s3"]["attention_backward"]},
+            "s3_spatial_train": pres["s3"]["attention_backward"],
+            "e2_train_cli": eres["e2"]["train_cli"]["attention_backward"],
+            "e5_train_cli": eres["e5"]["train_cli"]["attention_backward"]},
         "strip_shapes": {"s2": pres["s2"]["strip_attention"]["bwd"],
                          "s3": pres["s3"]["strip_attention"]["bwd"]},
         "cltr": cltr_attention_numbers(cltr_train_bf16, (3, 4, 5, 7, 9),
@@ -6145,7 +7009,10 @@ def main(cltr_profile=False, cltr_two_batches_only=False,
                              # both ranks' step, each on the replicated
                              # outputs of the whole batch
                              "s3_spatial_train":
-                                 pres["s3"]["auction_lsap"]},
+                                 pres["s3"]["auction_lsap"],
+                             # E5's train CLI run, 2 steps
+                             "e5_train_cli":
+                                 eres["e5"]["train_cli"]["auction_lsap"]},
         # matches, round counts and bid counts that differ from the plain
         # version, over all C1 cases and the step's own launch
         "max_abs_err": max(r["bad"] for r in aures + [step_auction]),
@@ -6233,6 +7100,9 @@ def main(cltr_profile=False, cltr_two_batches_only=False,
         "topo_trainer_pipelined_img_s": p3_img_s,
         # D1-D3: two gloo ranks share the card, so no scaling figure
         "parallel": pres,
+        # E1-E5: the launches, test_cli's img/s end to end and the seconds
+        # of each CLI phase
+        "cli": eres,
         "native_pairing_ms": pairing_ms},
         "peaks": {"card": "NVIDIA H100 SXM data sheet",
                   "bf16_flops": PEAK_BF16, "f32_flops": PEAK_F32,
@@ -6275,12 +7145,17 @@ if __name__ == "__main__":
         help="build, then only the parallel phases D1-D3, S1, G1, S2, S3 "
              "and V5 (two gloo ranks on the card)")
     parser.add_argument(
+        "--cli", action="store_true",
+        help="build, then only the CLI phases E1-E5: the five shipped "
+             "configs through the train CLI and test_cli")
+    parser.add_argument(
         "--cards", type=int, default=None, metavar="N",
         help="build, then only the parallel phases on N NCCL ranks, a card "
              "each: with four cards D2's f32 step at (D, M) = (2, 2) and "
              "(1, 4) against one process (T4's ratio, the decoder's flipped "
              "ReLUs, both again with cuDNN deterministic), then D1, S1, G1, "
-             "S3, S2 and D2 (M = N)")
+             "S3, S2 and D2 (M = N); then E6, the train CLI under torchrun "
+             "on four ranks (NCCL with four cards, else gloo on cuda:0)")
     cli = parser.parse_args()
     main(cli.cltr_profile, cli.cltr_two_batches, cli.attention_ab,
-         cli.unet_profile, cli.topo, cli.parallel, cli.cards)
+         cli.unet_profile, cli.topo, cli.parallel, cli.cards, cli.cli)

@@ -174,22 +174,34 @@ def test_train_cli_main_and_resume(dataset_root, tmp_path):
                            "logs.txt").read_text()
 
 
-def test_train_cli_without_matplotlib(dataset_root, tmp_path, monkeypatch):
+def test_train_cli_without_matplotlib(dataset_root, tmp_path, monkeypatch,
+                                     capsys):
     """Where matplotlib cannot be imported (the card's machine has none),
-    a run whose config names a test set trains and keeps its checkpoints,
-    draws no curves and skips the post-train test with a warning."""
+    a run whose config names a test set trains, keeps its checkpoints, runs
+    the post-train test and writes its CSVs and the cross-seed results.csv;
+    it draws no PNG, and says which plots it skipped."""
     monkeypatch.setitem(sys.modules, "matplotlib", None)
     raw = _cfg(dataset_root, tmp_path / "run", epochs=1)
-    with pytest.warns(UserWarning, match="post-train test is skipped"):
-        trainers, results = train_cli.run_training(Config.from_dict(raw),
-                                                   device="cpu")
+    trainers, results = train_cli.run_training(Config.from_dict(raw),
+                                               device="cpu")
     seed_dir = tmp_path / "run" / "run_seed7"
-    assert results == {} and len(trainers[7].train_loss_list) == 1
+    assert len(trainers[7].train_loss_list) == 1
     assert sorted(os.listdir(seed_dir / "models")) == ["best.pt",
                                                        "last_epoch.pt"]
-    assert not (seed_dir / "total.png").exists()
-    assert not (seed_dir / "resultsData.csv").exists()
-    assert not (tmp_path / "run" / "results.csv").exists()
+    assert 7 in results and "Cell MAE" in results[7]
+    for csv in ("resultsData.csv", "resultsMatching.csv",
+                "resultsGridCount.csv", "results.csv", "resultsC.csv"):
+        assert (seed_dir / csv).exists(), csv
+    assert (tmp_path / "run" / "results.csv").exists()
+    pngs = [p for p in (tmp_path / "run").rglob("*.png")]
+    assert not pngs, pngs
+    out = capsys.readouterr().out
+    assert "the curves (total.png) are not drawn" in out
+    # one line for the suite: the three test images' panels and the four
+    # scatters
+    note = [ln for ln in out.splitlines() if "plots not drawn" in ln]
+    assert len(note) == 1 and "7 plots not drawn" in note[0], note
+    assert "img0.png" in note[0] and "resultsData_immune.png" in note[0]
 
 
 def test_train_cli_names_what_is_not_ported(dataset_root, tmp_path,

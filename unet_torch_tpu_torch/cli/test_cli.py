@@ -6,8 +6,13 @@
         [--crop-size N] [--out-dir DIR] [--device cuda]
 
 Builds the config's model, loads the torch state_dict checkpoint (strict)
-and runs the matching eval suite into <save_dir>/eval/. The device defaults
-to cuda and raises where there is no GPU.
+and runs the matching eval suite into <save_dir>/eval/ (`main` returns its
+results dict). The device defaults to cuda and raises where there is no
+GPU. The suites write their CSVs everywhere and draw their PNGs where
+matplotlib can be imported (eval/results.py::_plt). A binary config
+(`num_class` 1, as configs/topo_wup.yml) needs `--mode single`: the auto
+mode of its model type is `single_mc`, which takes 3 or 4 classes, as in
+the JAX CLI.
 
 `model_type` `TransUnet`, `regression_t` or `multi_task_regTU` builds
 R50-ViT-B_16 (one head, or two) at img_size = input_size[0], as the JAX CLI
@@ -105,8 +110,8 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     cfg = Config.load(args.config)
-    run_eval(cfg, args.checkpoint, args.test_path, args.mode, args.out_dir,
-             args.device, args.crop_size)
+    return run_eval(cfg, args.checkpoint, args.test_path, args.mode,
+                    args.out_dir, args.device, args.crop_size)
 
 
 if __name__ == "__main__":

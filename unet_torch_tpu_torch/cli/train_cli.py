@@ -38,10 +38,10 @@ before a resume checkpoint is loaded);
 Its train loader flattens the per-image crops (`cltr_collate`), its val
 loader yields one image's tiled patches at a time.
 
-The curves (`total.png`) and the post-train test's reports are drawn with
-matplotlib. Where it cannot be imported, the run trains and saves its
-checkpoints all the same, draws no curves and skips the post-train test with
-a warning naming the eval CLI command that runs it later.
+The curves (`total.png`) and the post-train test's plots are drawn with
+matplotlib. Where it cannot be imported, the run draws none of them and
+writes everything else all the same: checkpoints, logs, the post-train
+test's CSVs and `results.csv` (eval/results.py::_plt).
 
 Under a topological loss (`TOPO_LOSS_NAMES`) the single-head types read
 their dot maps too (`DataBinary(return_gt_dot=True)`) and train in the
@@ -74,7 +74,6 @@ import argparse
 import glob as globmod
 import importlib.util
 import os
-import warnings
 
 import numpy as np
 import torch
@@ -222,11 +221,15 @@ def build_datasets_and_model(cfg: Config, seed: int, generator=None):
 
 def rank_device(device: str = "cuda") -> torch.device:
     """The rank's device: a launch of several ranks runs each on
-    cuda:LOCAL_RANK where `device` is "cuda"; "cuda:N" and "cpu" stand."""
+    cuda:LOCAL_RANK where `device` is "cuda", one process on the current
+    card; "cuda:N" and "cpu" stand. A card is named by its index, which
+    torch.cuda.set_device needs."""
     if device == "cuda" and process_count() > 1:
         device = f"cuda:{local_rank()}"
     dev = resolve_device(device)
     if dev.type == "cuda":
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
         torch.cuda.set_device(dev)
     return dev
 
@@ -238,6 +241,9 @@ def run_training(cfg: Config, device="cuda", backend=None):
         mesh = None  # one process: the single-device path
     dev = rank_device(device)
     plot = importlib.util.find_spec("matplotlib") is not None
+    if not plot and is_main():
+        print("matplotlib cannot be imported: the curves (total.png) are "
+              "not drawn")
     dtype = resolve_precision(cfg.train.precision)
     losses.set_class_number(cfg.model.num_class)
     save_dir = cfg.dataset.save_dir
@@ -301,19 +307,11 @@ def run_training(cfg: Config, device="cuda", backend=None):
         state = (trainer.full_state()
                  if mesh is not None and mesh.model > 1 else None)
         if is_main():
-            if plot:
-                print("Testing best model:")
-                model = (trainer.model if state is None
-                         else _whole_model(cfg, seed, state, dev))
-                results[seed] = _post_train_test(model, trainer, cfg,
-                                                 test_image_list, out_dir)
-            else:
-                best = os.path.join(out_dir, "models", "best.pt")
-                warnings.warn(
-                    "matplotlib cannot be imported, so the post-train test "
-                    "is skipped; run it where matplotlib is installed: "
-                    "python -m unet_torch_tpu_torch.cli.test_cli <config.yml>"
-                    f" --checkpoint {best} --out-dir {out_dir}")
+            print("Testing best model:")
+            model = (trainer.model if state is None
+                     else _whole_model(cfg, seed, state, dev))
+            results[seed] = _post_train_test(model, trainer, cfg,
+                                             test_image_list, out_dir)
             _delete_non_best(out_dir)
 
     if results and is_main():
@@ -377,8 +375,8 @@ def main(argv=None):
                          "card a rank, the default with a card) or gloo")
     args = ap.parse_args(argv)
     try:
-        run_training(Config.load(args.config), device=args.device,
-                     backend=args.backend)
+        return run_training(Config.load(args.config), device=args.device,
+                            backend=args.backend)
     finally:
         shutdown()
 

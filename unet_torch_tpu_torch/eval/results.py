@@ -14,11 +14,14 @@ side is eval/reports.py of the port).
   TwoChannelRegResults  the two-channel density-regression suite
 
 matplotlib is imported only where a plot is drawn (`_plt`), so the module
-loads where it is not installed.
+loads where it is not installed. Where it cannot be imported, `_plt` gives
+None: each accumulator still writes every CSV and returns the same results,
+draws no PNG, and its `save` prints one line naming the plots it skipped.
 """
 
 from __future__ import annotations
 
+import importlib.util
 import os
 
 import numpy as np
@@ -37,12 +40,24 @@ from unet_torch_tpu_torch.eval.matching import (
 
 
 def _plt():
+    """matplotlib.pyplot on the Agg backend; None where matplotlib cannot be
+    imported."""
+    if importlib.util.find_spec("matplotlib") is None:
+        return None
     import matplotlib
 
     matplotlib.use("Agg")
     import matplotlib.pyplot as plt
 
     return plt
+
+
+def _note_skipped(save_dir, skipped):
+    """One line naming the plots that were not drawn for want of
+    matplotlib."""
+    if skipped:
+        print(f"matplotlib cannot be imported: {len(skipped)} plots not drawn "
+              f"in {save_dir}: {', '.join(skipped)}")
 
 
 def noise_filtering(img: np.ndarray, thresh: int = 150) -> np.ndarray:
@@ -97,6 +112,7 @@ class Results2Class:
         self.arr_f1_other = np.zeros((S, T))
         self.save_image = save_image
         self.performace_results = {}
+        self.skipped_plots = []
 
     def _find_objects(self, img):
         import cv2
@@ -126,6 +142,9 @@ class Results2Class:
     def _save_visuals(self, img_org, mask_img, prediction, counts_gt,
                       counts_pred):
         plt = _plt()
+        if plt is None:
+            self.skipped_plots.append(self.imageNames[-1])
+            return
         fig, axs = plt.subplots(1, 3)
         fig.set_figheight(12)
         fig.set_figwidth(30)
@@ -289,6 +308,9 @@ class Results2Class:
                  "resultsData_immune_50.png", 50),
                 (self.cellCounts["GT"], self.cellCounts["Pred"],
                  "resultsData_other.png", None)):
+            if plt is None:
+                self.skipped_plots.append(name)
+                continue
             plt.scatter(gt_list, pred_list, c="black")
             plt.xlabel("golds")
             plt.ylabel("predictions")
@@ -300,7 +322,8 @@ class Results2Class:
             plt.plot(range(max_limit))
             plt.savefig(os.path.join(self.save_dir, name))
             plt.cla()
-        plt.close("all")
+        if plt is not None:
+            plt.close("all")
 
         def _pearson(a, b):
             if len(a) < 2 or np.std(a) == 0 or np.std(b) == 0:
@@ -347,6 +370,7 @@ class Results2Class:
             os.path.join(self.save_dir, "results.csv"), index=False)
         pd.DataFrame(self.performace_results, index=[0]).to_csv(
             os.path.join(self.save_dir, "resultsC.csv"), index=False)
+        _note_skipped(self.save_dir, self.skipped_plots)
 
     def get_results(self):
         return self.performace_results
@@ -381,6 +405,7 @@ class Results3Class:
         self.save_dir = save_dir
         self.save_image = save_image
         self.performace_results = {}
+        self.skipped_plots = []
 
     def _find_objects(self, img):
         import cv2
@@ -503,9 +528,12 @@ class Results3Class:
         meanED = np.mean(self.edList) if self.edList else 0.0
 
         plt = _plt()
-        plt.hist(self.edList, bins=20)
-        plt.savefig(os.path.join(self.save_dir, "EDhist.png"))
-        plt.close("all")
+        if plt is None:
+            self.skipped_plots.append("EDhist.png")
+        else:
+            plt.hist(self.edList, bins=20)
+            plt.savefig(os.path.join(self.save_dir, "EDhist.png"))
+            plt.close("all")
 
         filt = {k: [min(x, 5) for x in v["Accuracy"]] for k, v in
                 (("cell", self.cellCounts), ("immune", self.immuneCounts),
@@ -554,6 +582,7 @@ class Results3Class:
         }
         pd.DataFrame(self.performace_results, index=[0]).to_csv(
             os.path.join(self.save_dir, "results.csv"), index=False)
+        _note_skipped(self.save_dir, self.skipped_plots)
 
     def get_results(self):
         return self.performace_results
@@ -580,6 +609,7 @@ class RegressionResults:
         self.Gmetrics = {h: {1: [], 2: [], 3: []} for h in heads}
         self.imageNames = []
         self.performace_results = {}
+        self.skipped_plots = []
 
     def add(self, head, density_pred, gt_dot):
         count_pred = float(np.sum(density_pred))
@@ -644,6 +674,9 @@ class RegressionResults:
                 f"{h} RPD": mean(d["AccuracyRelativePD"]),
                 f"{h} Pearson r": r,
             })
+            if plt is None:
+                self.skipped_plots.append(f"resultsData_{h}.png")
+                continue
             plt.scatter(d["GT"], d["Pred"], c="black")
             plt.xlabel("golds")
             plt.ylabel("predictions")
@@ -654,10 +687,12 @@ class RegressionResults:
             plt.plot(range(lim))
             plt.savefig(os.path.join(self.save_dir, f"resultsData_{h}.png"))
             plt.cla()
-        plt.close("all")
+        if plt is not None:
+            plt.close("all")
         self.performace_results = res
         pd.DataFrame(res, index=[0]).to_csv(
             os.path.join(self.save_dir, "results.csv"), index=False)
+        _note_skipped(self.save_dir, self.skipped_plots)
 
     def get_results(self):
         return self.performace_results
@@ -683,6 +718,7 @@ class ResultsCC:
         self.arr_recall = np.zeros((S, T))
         self.arr_f1 = np.zeros((S, T))
         self.performace_results = {}
+        self.skipped_plots = []
 
     def _find_objects(self, img):
         from unet_torch_tpu_torch.eval.matching import (
@@ -730,25 +766,30 @@ class ResultsCC:
         self.f1.append(f1)
 
         if self.save_image:
-            plt = _plt()
-            fig, axs = plt.subplots(1, 3)
-            fig.set_figheight(12)
-            fig.set_figwidth(30)
-            if img_org.ndim == 3:
-                axs[0].imshow(img_org[..., ::-1])
-            else:
-                axs[0].imshow(img_org, cmap="gray")
-            axs[0].title.set_text("image")
-            axs[1].imshow(gt_img)
-            axs[1].title.set_text("label")
-            fig.text(.51, .17, f"cell: {cellCountGt}", ha="center",
-                     color="red")
-            axs[2].imshow(pred_img)
-            axs[2].title.set_text("prediction")
-            fig.text(.79, .17, f"cell: {cellCountPred}", ha="center",
-                     color="red")
-            fig.savefig(os.path.join(self.save_dir, self.imageNames[-1]))
-            plt.close(fig)
+            self._save_visuals(img_org, gt_img, pred_img, cellCountGt,
+                               cellCountPred)
+
+    def _save_visuals(self, img_org, gt_img, pred_img, count_gt, count_pred):
+        plt = _plt()
+        if plt is None:
+            self.skipped_plots.append(self.imageNames[-1])
+            return
+        fig, axs = plt.subplots(1, 3)
+        fig.set_figheight(12)
+        fig.set_figwidth(30)
+        if img_org.ndim == 3:
+            axs[0].imshow(img_org[..., ::-1])
+        else:
+            axs[0].imshow(img_org, cmap="gray")
+        axs[0].title.set_text("image")
+        axs[1].imshow(gt_img)
+        axs[1].title.set_text("label")
+        fig.text(.51, .17, f"cell: {count_gt}", ha="center", color="red")
+        axs[2].imshow(pred_img)
+        axs[2].title.set_text("prediction")
+        fig.text(.79, .17, f"cell: {count_pred}", ha="center", color="red")
+        fig.savefig(os.path.join(self.save_dir, self.imageNames[-1]))
+        plt.close(fig)
 
     compareImages = compare_images
 
@@ -822,16 +863,20 @@ class ResultsCC:
             os.path.join(self.save_dir, "resultsCount.csv"), index=True)
 
         plt = _plt()
-        plt.scatter(self.GT, self.Pred, c="black")
-        plt.xlabel("golds")
-        plt.ylabel("predictions")
-        lim = int(max(max(self.GT, default=0),
-                      max(self.Pred, default=0))) + 100
-        plt.xlim(0, lim)
-        plt.ylim(0, lim)
-        plt.plot(range(lim))
-        plt.savefig(os.path.join(self.save_dir, "resultsData.png"))
-        plt.close("all")
+        if plt is None:
+            self.skipped_plots.append("resultsData.png")
+        else:
+            plt.scatter(self.GT, self.Pred, c="black")
+            plt.xlabel("golds")
+            plt.ylabel("predictions")
+            lim = int(max(max(self.GT, default=0),
+                          max(self.Pred, default=0))) + 100
+            plt.xlim(0, lim)
+            plt.ylim(0, lim)
+            plt.plot(range(lim))
+            plt.savefig(os.path.join(self.save_dir, "resultsData.png"))
+            plt.close("all")
+        _note_skipped(self.save_dir, self.skipped_plots)
 
     def get_results(self):
         return self.performace_results
@@ -895,6 +940,7 @@ class TwoChannelRegResults:
         self.arr = {h: [np.zeros((S, T)) for _ in range(3)]
                     for h in ("other", "immune")}
         self.performace_results = {}
+        self.skipped_plots = []
 
     def add(self, pred_other, pred_immune, gt_dot_other, gt_dot_immune):
         counts = {}
@@ -949,6 +995,9 @@ class TwoChannelRegResults:
                                  ("immune", "resultsData_immune_200.png", 200),
                                  ("immune", "resultsData_immune_50.png", 50),
                                  ("other", "resultsData_other.png", None)):
+            if plt is None:
+                self.skipped_plots.append(name)
+                continue
             gt, pr = self.data[head]["GT"], self.data[head]["Pred"]
             plt.scatter(gt, pr, c="black")
             plt.xlabel("golds")
@@ -960,7 +1009,8 @@ class TwoChannelRegResults:
             plt.plot(range(max_limit))
             plt.savefig(os.path.join(self.save_dir, name))
             plt.cla()
-        plt.close("all")
+        if plt is not None:
+            plt.close("all")
 
         o, i, r = self.data["other"], self.data["immune"], self.data["ratio"]
         pd.DataFrame({
@@ -1085,6 +1135,7 @@ class TwoChannelRegResults:
             "Ratio Accuracy RPD": [mean(sel(r["AccuracyRelativePD"]))],
         }).to_csv(os.path.join(self.save_dir, "resultsDataMeanFiltered.csv"),
                   index=False)
+        _note_skipped(self.save_dir, self.skipped_plots)
 
     def get_results(self):
         return self.performace_results
