@@ -1,0 +1,16 @@
+"""idle_pct.train (layer: device): the share of a step's time in which no
+device operation runs, in %: the device profile's busy time (the union of
+the kernels', copies' and memsets' intervals) a step, over the time a
+step took in the run's measured window (host clock). The profiler's own
+cost on the host, which lengthens the profiled steps, is thus left out.
+"""
+
+from perfbench.core import stats
+
+
+def read(ctx):
+    if ctx.trace is None or ctx.kind != "train" or not ctx.counts["steps"]:
+        return None
+    return stats.idle_share_pct(
+        ctx.trace.busy_s / ctx.trace.units,
+        ctx.counts["seconds"] / ctx.counts["steps"])
