@@ -1,0 +1,10 @@
+"""train_optimizer_ms (layer: trainer and train step): host ms a step in
+gradient clipping and `opt.step()`: the port's span `step.optimizer` in
+train/steps.py::make_single_steps, its calls in the traced run's measured
+window summed over its steps. A part of train_dispatch_ms."""
+
+from perfbench.metrics import _spans
+
+
+def read(ctx):
+    return _spans.window_ms(ctx, "step.optimizer", "train")

@@ -34,6 +34,7 @@ import torch
 import torch.distributed as dist
 
 from unet_torch_tpu_torch.core.dist import process_count, process_index
+from unet_torch_tpu_torch.utils.debug import span
 
 
 ROLES = ("tensor", "spatial", "pipeline")
@@ -131,11 +132,13 @@ def mesh_from_config(mesh_cfg: dict | None) -> Mesh:
 
 def shard_batch(arrays, device, dtype=None):
     """numpy arrays of the rank's share -> tensors on `device`, the first in
-    `dtype` when given; from pinned memory, not waited for, on a card."""
+    `dtype` when given; from pinned memory, not waited for, on a card (the
+    pinning inside the span `batch.pin`)."""
     device = torch.device(device)
     tensors = [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
     if device.type == "cuda":
-        tensors = [t.pin_memory() for t in tensors]
+        with span("batch.pin"):
+            tensors = [t.pin_memory() for t in tensors]
     tensors = [t.to(device, non_blocking=True) for t in tensors]
     if dtype is not None:
         tensors[0] = tensors[0].to(dtype)

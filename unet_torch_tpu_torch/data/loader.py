@@ -8,6 +8,10 @@ step N, the host assembles batch N+1.
 
 Batches are stacked numpy arrays (pytrees of them); the device transfer happens
 in the trainer, one host->device crossing per step.
+
+Spans (utils/debug.py): `loader.fetch` around building each batch (in the
+producer thread), `loader.get` around the consumer's wait on the queue (one a
+batch, one more for each epoch's end).
 """
 
 from __future__ import annotations
@@ -17,6 +21,8 @@ import threading
 from typing import Iterator, Sequence
 
 import numpy as np
+
+from unet_torch_tpu_torch.utils.debug import span
 
 
 def _stack(samples: Sequence):
@@ -56,12 +62,13 @@ class NumpyLoader:
         self._rng = np.random.RandomState(seed)
 
     def _fetch(self, chunk, executor=None):
-        if executor is not None:
-            samples = list(executor.map(self.dataset.__getitem__,
-                                        [int(j) for j in chunk]))
-        else:
-            samples = [self.dataset[int(j)] for j in chunk]
-        return self.collate_fn(samples)
+        with span("loader.fetch"):
+            if executor is not None:
+                samples = list(executor.map(self.dataset.__getitem__,
+                                            [int(j) for j in chunk]))
+            else:
+                samples = [self.dataset[int(j)] for j in chunk]
+            return self.collate_fn(samples)
 
     def __len__(self):
         n = len(self.dataset) // self.num_shards if self.num_shards > 1 \
@@ -117,7 +124,8 @@ class NumpyLoader:
             t = threading.Thread(target=producer, daemon=True)
             t.start()
             while True:
-                item = q.get()
+                with span("loader.get"):
+                    item = q.get()
                 if item is sentinel:
                     break
                 yield item

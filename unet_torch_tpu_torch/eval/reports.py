@@ -28,6 +28,7 @@ from unet_torch_tpu_torch.eval.results import (
     _load_eval_image,
     preprocess_eval,
 )
+from unet_torch_tpu_torch.utils.debug import span
 
 
 def sigmoid_mask(logits):
@@ -45,17 +46,22 @@ def make_predict_fn(model, device, dtype, classes: bool = False,
     with binary=True.
 
     Returns as soon as the work is queued on the device; reading the result
-    on the host is the sync point."""
+    on the host is the sync point. Spans (utils/debug.py): `predict.h2d`,
+    the input's copy, which holds the host while it copies a pageable
+    batch; `predict.forward`, the forward's and the postprocess's
+    dispatch."""
     model = model.to(device).eval()
 
     @torch.inference_mode()
     def predict(xs: np.ndarray) -> torch.Tensor:
-        x = torch.from_numpy(xs).to(device=device, dtype=dtype,
-                                    non_blocking=True)
-        out = model(x)
-        if classes:
-            return class_argmax(out)
-        return sigmoid_mask(out) if binary else out
+        with span("predict.h2d"):
+            x = torch.from_numpy(xs).to(device=device, dtype=dtype,
+                                        non_blocking=True)
+        with span("predict.forward"):
+            out = model(x)
+            if classes:
+                return class_argmax(out)
+            return sigmoid_mask(out) if binary else out
 
     return predict
 
@@ -91,8 +97,10 @@ def _batched_eval(image_list, ch, input_size, predict, chunk: int = 8):
 
 
 def _to_host(t: torch.Tensor) -> np.ndarray:
-    """The sync point: a device result as numpy, floats as f32."""
-    return (t.float() if t.is_floating_point() else t).cpu().numpy()
+    """The sync point: a device result as numpy, floats as f32 (the span
+    `predict.to_host`: the wait for the device and the copy back)."""
+    with span("predict.to_host"):
+        return (t.float() if t.is_floating_point() else t).cpu().numpy()
 
 
 def test_single_mc(model, device, dtype, input_size, ch, num_class,

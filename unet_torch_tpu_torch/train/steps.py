@@ -11,6 +11,10 @@ group, binds `generator` to the model's dropouts, runs forward, loss,
 backward and the optimizer step, and returns the loss as a 0-d device tensor
 without syncing to the host. `eval_step(model, x, y)` returns (loss, score,
 logits) under `no_grad`. x is NHWC in the compute dtype; the loss is f32.
+The single-head train step's host work lies in three spans (utils/debug.py):
+`step.forward` (its set-up, the forward and the loss), `step.backward` (with
+the replicated gradients' average) and `step.optimizer` (clipping and the
+update).
 
 The two-head steps take (y1, y2) and a `use_ratio` flag, a 0-d bool tensor on
 the device, and return the combined loss and both head losses, all on the
@@ -63,6 +67,7 @@ from unet_torch_tpu_torch.losses.topo import (
 from unet_torch_tpu_torch.nn.dropout import set_dropout_generator
 from unet_torch_tpu_torch.parallel import average_replicated_grads
 from unet_torch_tpu_torch.train.optim import clip_gradients
+from unet_torch_tpu_torch.utils.debug import span
 
 
 def _warn_fused_head(fused_head: bool) -> None:
@@ -92,16 +97,19 @@ def make_single_steps(loss_type: str, accuracy_metric: str, num_classes: int,
         return F.relu(out) if relu_output else out
 
     def train_step(model, opt, x, y, lr, generator):
-        model.train()
-        set_dropout_generator(model, generator)
-        for param_group in opt.param_groups:
-            param_group["lr"] = lr
-        opt.zero_grad(set_to_none=True)
-        loss = train_loss_fn(head(model(x)), y)
-        loss.backward()
-        average_replicated_grads(model)
-        clip_gradients(opt)
-        opt.step()
+        with span("step.forward"):
+            model.train()
+            set_dropout_generator(model, generator)
+            for param_group in opt.param_groups:
+                param_group["lr"] = lr
+            opt.zero_grad(set_to_none=True)
+            loss = train_loss_fn(head(model(x)), y)
+        with span("step.backward"):
+            loss.backward()
+            average_replicated_grads(model)
+        with span("step.optimizer"):
+            clip_gradients(opt)
+            opt.step()
         return group_mean(loss.detach(), group)
 
     def eval_step(model, x, y):
