@@ -45,10 +45,13 @@ Builds the Hopper kernels from unet_torch_tpu_torch/csrc, then:
                 timed in turns with it
   4. main       UNet-64 eval forward through make_predict_fn(classes=True),
                 bf16, batch 8 at 512x512, as configs/segmentation_mc.yml
-                serves it; counts the kernel's launches by route (17 wgmma,
-                1 narrow), times the forward, also with its wgmma convs on
-                the mma.sync kernel, and in turns with its first conv on the
-                narrow route and on reg
+                serves it; counts the kernel's launches by route over the
+                first call's warm-up forwards and CUDA graph capture (17
+                wgmma, 1 narrow a forward), checks that the second call
+                replays the graph, times the forward, also with its wgmma
+                convs on the mma.sync kernel, and in turns with its first
+                conv on the narrow route and on reg, each in a graph of its
+                own
   5. model      one 512x512 image through the same model in f32 on the card
                 (kernel) and on the CPU (plain version); logits and class maps
                 must agree
@@ -64,7 +67,8 @@ Builds the Hopper kernels from unet_torch_tpu_torch/csrc, then:
   8. main       TransUnet R50-ViT-B/16 eval forward through
                 make_predict_fn(classes=True), bf16, batch 8 at 512x512, as
                 configs/transunet.yml serves it; counts both kernels'
-                launches (12 attention; 9 fused conv: 8 wgmma, 1 narrow),
+                launches over the capture as in phase 4 (12 attention; 9
+                fused conv: 8 wgmma, 1 narrow a forward), checks the replay,
                 times the forward, also with its wgmma convs on mma.sync
   9. model      one 512x512 image through the TransUnet in f32, card against
                 CPU, as in phase 5; the CPU reference runs at the full
@@ -1260,6 +1264,82 @@ def counts(at, fc):
     return {name: fn.launches for name, fn in _wrappers(at, fc).items()}
 
 
+def same_outputs(a, b):
+    if isinstance(a, tuple):
+        return len(a) == len(b) and all(map(same_outputs, a, b))
+    return torch.equal(a, b)
+
+
+def served(model, dev):
+    """A new bf16 class-map predict of `model`: its first call captures the
+    forward on the routes and kernels in force."""
+    from unet_torch_tpu_torch.eval.reports import make_predict_fn
+
+    return make_predict_fn(model, dev, torch.bfloat16, classes=True)
+
+
+def eager_forward(model, dev, xs, classes=False, binary=False):
+    """make_predict_fn's forward and postprocess run eagerly, as it ran
+    them before its graphs."""
+    from unet_torch_tpu_torch.eval.metrics import class_argmax
+    from unet_torch_tpu_torch.eval.reports import sigmoid_mask
+
+    with torch.inference_mode():
+        out = model(torch.from_numpy(xs).to(device=dev,
+                                            dtype=torch.bfloat16))
+        if classes:
+            return class_argmax(out)
+        return sigmoid_mask(out) if binary else out
+
+
+def served_once(at, fc, model, dev, xs, **flags):
+    """A new bf16 make_predict_fn(model, dev, **flags) and its first two
+    calls. The first, on `xs`, captures the forward as a CUDA graph after
+    GRAPH_WARMUP eager forwards (eval/reports.py), each of the
+    GRAPH_WARMUP + 1 forwards launching every kernel through its wrapper.
+    The second, on another batch (`xs` upside down), must replay it: one
+    more `predict.replay` span, no launch through a wrapper, and the eager
+    forward's output on that batch bit for bit, which is not the first
+    call's. Returns (the predict, the first call's output, the kernels'
+    launches of one forward, the fused conv's launches of one forward by
+    route)."""
+    from unet_torch_tpu_torch.eval.reports import (
+        GRAPH_WARMUP,
+        make_predict_fn,
+    )
+    from unet_torch_tpu_torch.utils import debug
+
+    def replays():
+        return len(debug.tally().get("predict.replay", ()))
+
+    predict = make_predict_fn(model, dev, torch.bfloat16, **flags)
+    forwards = GRAPH_WARMUP + 1
+    reset_counts(at, fc)
+    before = replays()
+    out = predict(xs)
+    torch.cuda.synchronize()
+    launches = counts(at, fc)
+    routes = dict(fc.fused_conv3x3_bn_relu.launches_by_route)
+    if any(n % forwards for n in [*launches.values(), *routes.values()]):
+        raise AssertionError(f"the capturing call launched {launches} "
+                             f"{routes}: not {forwards} equal forwards")
+    other = np.ascontiguousarray(xs[:, ::-1])
+    again = predict(other)
+    torch.cuda.synchronize()
+    replayed = (counts(at, fc), replays() - before)
+    want = eager_forward(model, dev, other, **flags)
+    if (replayed != (launches, 1) or not same_outputs(again, want)
+            or same_outputs(again, out)):
+        raise AssertionError(f"the second call, on another batch, did not "
+                             f"replay the capture: launches {replayed[0]} "
+                             f"(capture {launches}), replays {replayed[1]}, "
+                             f"the eager forward's output "
+                             f"{same_outputs(again, want)}, the first "
+                             f"batch's {same_outputs(again, out)}")
+    return (predict, out, {k: n // forwards for k, n in launches.items()},
+            {k: n // forwards for k, n in routes.items()})
+
+
 def train_steps(train_step, model, opt, x, y, gen, n, it0=0, lr=0.01):
     """n steps on one batch; (host seconds per step, ending in a sync;
     losses)."""
@@ -1396,7 +1476,6 @@ def check_trainer(at, fc, dev, xs):
     served by the eval kernels. Returns the eval forward's launches."""
     from unet_torch_tpu_torch.ckpt import load_weights
     from unet_torch_tpu_torch.core.rng import seed_everything
-    from unet_torch_tpu_torch.eval.reports import make_predict_fn
     from unet_torch_tpu_torch.models.transunet.vit import build_transunet
     from unet_torch_tpu_torch.train.trainer import Trainer
 
@@ -1427,11 +1506,8 @@ def check_trainer(at, fc, dev, xs):
         served = build_transunet("TransUnet", img_size=SIZE,
                                  num_classes=N_CLASSES)
         load_weights(os.path.join(run, "models", "best.pt"), served)
-    predict = make_predict_fn(served, dev, torch.bfloat16, classes=True)
-    reset_counts(at, fc)
-    classes = predict(xs)
-    torch.cuda.synchronize()
-    launches = counts(at, fc)
+    _, classes, launches, _ = served_once(
+        at, fc, served, dev, xs, classes=True)
     n_layers = len(served.transformer.encoder.layer)
     if (launches["fused_attention"], launches["fused_conv3x3_bn_relu"]) != (
             n_layers, len(transunet_conv_shapes(SIZE))):
@@ -1594,7 +1670,6 @@ def check_binary_unet(at, fc, mp, dev, xs):
     kernel, with the plain min-plus, under dice_bce, eval launches, the eval
     forward's fused-conv launches by route)."""
     from unet_torch_tpu_torch.core.rng import seed_everything
-    from unet_torch_tpu_torch.eval.reports import make_predict_fn
     from unet_torch_tpu_torch.losses import functional as lf
     from unet_torch_tpu_torch.models.unet import build_model
     from unet_torch_tpu_torch.train.optim import make_optimizer
@@ -1679,12 +1754,8 @@ def check_binary_unet(at, fc, mp, dev, xs):
           f"{remat['step_s'] * 1e3:.2f} ms = {BATCH / remat['step_s']:.1f} "
           f"img/s, peak {remat['peak'] / 2**30:.2f} GiB")
     # served as test_single serves it: sigmoid and threshold on the device
-    predict = make_predict_fn(trained, dev, torch.bfloat16, binary=True)
-    reset_counts(at, fc)
-    mask = predict(xs)
-    torch.cuda.synchronize()
-    eval_launches = counts(at, fc)
-    eval_routes = dict(fc.fused_conv3x3_bn_relu.launches_by_route)
+    predict, mask, eval_launches, eval_routes = served_once(
+        at, fc, trained, dev, xs, binary=True)
     want = dict.fromkeys(eval_launches, 0)
     want["fused_conv3x3_bn_relu"] = len(conv_shapes(BASE, SIZE))
     mask = mask.cpu().numpy()
@@ -1717,7 +1788,6 @@ def check_multitask(at, fc, dev, xs):
     """M4. Returns (step seconds, eval launches of the two-head model, of
     the attention UNet, then the fused conv's launches by route of each)."""
     from unet_torch_tpu_torch.core.rng import seed_everything
-    from unet_torch_tpu_torch.eval.reports import make_predict_fn
     from unet_torch_tpu_torch.models.unet import build_model
     from unet_torch_tpu_torch.train.optim import make_optimizer, poly_lr
     from unet_torch_tpu_torch.train.steps import make_multitask_steps
@@ -1766,12 +1836,8 @@ def check_multitask(at, fc, dev, xs):
           f"median {step_s * 1e3:.2f} ms = {BATCH / step_s:.1f} img/s; peak "
           f"device memory {peak / 2**30:.2f} GiB")
 
-    predict = make_predict_fn(model, dev, torch.bfloat16)
-    reset_counts(at, fc)
-    o1, o2 = predict(xs)
-    torch.cuda.synchronize()
-    mt_launches = counts(at, fc)
-    mt_routes = dict(fc.fused_conv3x3_bn_relu.launches_by_route)
+    predict, (o1, o2), mt_launches, mt_routes = served_once(
+        at, fc, model, dev, xs)
     want = dict.fromkeys(mt_launches, 0)
     want["fused_conv3x3_bn_relu"] = len(multitask_conv_shapes(BASE, SIZE))
     if (mt_routes != route_counts(fc, multitask_conv_shapes(BASE, SIZE))
@@ -1795,12 +1861,8 @@ def check_multitask(at, fc, dev, xs):
                                     n_classes=N_CLASSES, base=BASE,
                                     generator=gen_cpu), gen_cpu)
     cpu_att = copy.deepcopy(att).eval()
-    predict = make_predict_fn(att, dev, torch.bfloat16, classes=True)
-    reset_counts(at, fc)
-    classes = predict(xs)
-    torch.cuda.synchronize()
-    att_launches = counts(at, fc)
-    att_routes = dict(fc.fused_conv3x3_bn_relu.launches_by_route)
+    predict, classes, att_launches, att_routes = served_once(
+        at, fc, att, dev, xs, classes=True)
     want["fused_conv3x3_bn_relu"] = len(conv_shapes(BASE, SIZE))
     if (att_launches != want
             or att_routes != route_counts(fc, conv_shapes(BASE, SIZE))
@@ -1825,7 +1887,6 @@ def check_multitask_trainer(at, fc, dev, xs):
     best.pt, which holds log_vars, served. Returns the eval launches."""
     from unet_torch_tpu_torch.ckpt import load_weights
     from unet_torch_tpu_torch.core.rng import seed_everything
-    from unet_torch_tpu_torch.eval.reports import make_predict_fn
     from unet_torch_tpu_torch.models.unet import build_model
     from unet_torch_tpu_torch.train.trainer import Trainer
 
@@ -1866,11 +1927,7 @@ def check_multitask_trainer(at, fc, dev, xs):
                               build_model("multi_task_reg", **kw))
     if not served.log_vars.detach().abs().max() > 0:
         raise AssertionError("best.pt came back without trained log_vars")
-    predict = make_predict_fn(served, dev, torch.bfloat16)
-    reset_counts(at, fc)
-    o1, o2 = predict(xs)
-    torch.cuda.synchronize()
-    launches = counts(at, fc)
+    _, (o1, o2), launches, _ = served_once(at, fc, served, dev, xs)
     if (launches["fused_conv3x3_bn_relu"] != len(multitask_conv_shapes(
             BASE, SIZE)) or not torch.isfinite(o1).all()
             or not torch.isfinite(o2).all()):
@@ -1887,19 +1944,16 @@ def check_multitask_trainer(at, fc, dev, xs):
     return launches
 
 
-def transunet_eval(at, fc, model, predict, xs, tag):
-    """V1-V4: one bf16 eval forward (`predict`) of a TransUnet `model`: an
-    attention launch a ViT layer and, each decoder, the nine fused convs by
-    route (conv_route: 8 wgmma, the 16-channel tail on narrow). Returns
-    (launches, launches by route, the forward's seconds)."""
+def transunet_eval(at, fc, model, dev, xs, tag):
+    """V1-V4: a new bf16 logits predict of a TransUnet `model`, its capture
+    and a replay (served_once): an attention launch a ViT layer and, each
+    decoder, the nine fused convs by route (conv_route: 8 wgmma, the
+    16-channel tail on narrow), a forward. Returns (launches, launches by
+    route, the replayed forward's seconds)."""
     n_decoders = sum(name.startswith("decoder")
                      for name, _ in model.named_children())
     shapes = n_decoders * transunet_conv_shapes(SIZE)
-    reset_counts(at, fc)
-    outs = predict(xs)
-    torch.cuda.synchronize()
-    launches = counts(at, fc)
-    routes = dict(fc.fused_conv3x3_bn_relu.launches_by_route)
+    predict, outs, launches, routes = served_once(at, fc, model, dev, xs)
     want = dict.fromkeys(launches, 0)
     want.update(fused_attention=len(model.transformer.encoder.layer),
                 fused_conv3x3_bn_relu=len(shapes))
@@ -1949,7 +2003,6 @@ def check_regression_t(at, fc, dev, xs):
     """V1. Returns (a train step's launches, step seconds, peak bytes, eval
     launches, their routes, eval seconds)."""
     from unet_torch_tpu_torch.core.rng import seed_everything
-    from unet_torch_tpu_torch.eval.reports import make_predict_fn
     from unet_torch_tpu_torch.train.optim import make_optimizer, poly_lr
     from unet_torch_tpu_torch.train.steps import make_single_steps
 
@@ -1975,8 +2028,7 @@ def check_regression_t(at, fc, dev, xs):
           f"steps on one batch; median {step_s * 1e3:.2f} ms = "
           f"{BATCH / step_s:.1f} img/s; peak device memory "
           f"{peak / 2**30:.2f} GiB")
-    predict = make_predict_fn(model, dev, torch.bfloat16)
-    ev, routes, fwd_s = transunet_eval(at, fc, model, predict, xs,
+    ev, routes, fwd_s = transunet_eval(at, fc, model, dev, xs,
                                        "regression_t")
     phase("V1 regression_t",
           f"its eval forward: {ev['fused_attention']} attention and "
@@ -1989,7 +2041,6 @@ def check_multitask_transunet(at, fc, dev, xs):
     """V2. Returns (a train step's launches, step seconds, peak bytes, eval
     launches, their routes, eval seconds)."""
     from unet_torch_tpu_torch.core.rng import seed_everything
-    from unet_torch_tpu_torch.eval.reports import make_predict_fn
     from unet_torch_tpu_torch.train.optim import make_optimizer, poly_lr
     from unet_torch_tpu_torch.train.steps import make_multitask_steps
 
@@ -2026,8 +2077,7 @@ def check_multitask_transunet(at, fc, dev, xs):
           f"{losses[-1][2]:.4f}, log_vars {log_vars}; median "
           f"{step_s * 1e3:.2f} ms = {BATCH / step_s:.1f} img/s; peak device "
           f"memory {peak / 2**30:.2f} GiB")
-    predict = make_predict_fn(model, dev, torch.bfloat16)
-    ev, routes, fwd_s = transunet_eval(at, fc, model, predict, xs,
+    ev, routes, fwd_s = transunet_eval(at, fc, model, dev, xs,
                                        "multi_task_regTU")
     phase("V2 multi_task_regTU",
           f"its eval forward: {ev['fused_attention']} attention and "
@@ -2040,12 +2090,10 @@ def check_multitask_transunet(at, fc, dev, xs):
 def check_multitask_em(at, fc, dev, xs):
     """V3. Returns (eval launches, their routes, eval seconds)."""
     from unet_torch_tpu_torch.core.rng import seed_everything
-    from unet_torch_tpu_torch.eval.reports import make_predict_fn
 
     model = seeded_transunet(seed_everything(SEED), model_type="multitask_em")
     cpu_model = copy.deepcopy(model).eval()
-    predict = make_predict_fn(model, dev, torch.bfloat16)
-    ev, routes, fwd_s = transunet_eval(at, fc, model, predict, xs,
+    ev, routes, fwd_s = transunet_eval(at, fc, model, dev, xs,
                                        "multitask_em")
     phase("V3 multitask_em",
           f"six-head TransUnet eval forward bf16 B={BATCH} {SIZE}x{SIZE}: "
@@ -2088,7 +2136,6 @@ def check_transunet_trainer(at, fc, dev, xs):
     from unet_torch_tpu_torch.cli import train_cli
     from unet_torch_tpu_torch.cli.config import Config
     from unet_torch_tpu_torch.core.rng import seed_everything
-    from unet_torch_tpu_torch.eval.reports import make_predict_fn
     from unet_torch_tpu_torch.models.transunet.npz import (
         synthetic_npz_weights,
     )
@@ -2144,8 +2191,7 @@ def check_transunet_trainer(at, fc, dev, xs):
     if not served.log_vars.detach().abs().max() > 0:
         raise AssertionError("best.pt came back without trained log_vars")
     # test_multiple_reg's predict: make_predict_fn's pair of logits
-    predict = make_predict_fn(served, dev, torch.bfloat16)
-    launches, routes, _ = transunet_eval(at, fc, served, predict, xs,
+    launches, routes, _ = transunet_eval(at, fc, served, dev, xs,
                                          "the trained multi_task_regTU")
     phase("V4 trainer",
           f"a Google-layout .npz (position embeddings {pos_shape}, "
@@ -2499,18 +2545,17 @@ def profile_unet_forward(dev):
     with the first conv on reg (the route the narrow one replaced) and with
     the wgmma convs on the mma.sync kernel, in turns."""
     from unet_torch_tpu_torch.core.rng import seed_everything
-    from unet_torch_tpu_torch.eval.reports import make_predict_fn
     from unet_torch_tpu_torch.kernels import fused_conv as fc
 
     model = seeded_unet(seed_everything(SEED))
     xs = eval_batch(np.random.RandomState(SEED))
-    predict = make_predict_fn(model, dev, torch.bfloat16, classes=True)
     routes = {"routed": contextlib.nullcontext,
               "first conv on reg": lambda: narrow_on_replaced_route(fc),
               "wgmma convs on mma.sync": lambda: mma_sync_route(fc)}
     turns = list(routes)
     for name in turns + turns[::-1]:
         with routes[name]():
+            predict = served(model, dev)
             fwd_s = forward_s(predict, xs)
             rows = profiled_rows(lambda: predict(xs))
         busy = sum(r[1] for r in rows)
@@ -3469,7 +3514,7 @@ def d1_rank(rank, out):
     from torch.nn.parallel import DistributedDataParallel
 
     from unet_torch_tpu_torch.core.mesh import make_mesh
-    from unet_torch_tpu_torch.eval.reports import make_predict_fn
+    from unet_torch_tpu_torch.kernels import attention as at
     from unet_torch_tpu_torch.kernels import fused_conv as fc
     from unet_torch_tpu_torch.parallel import gather_state_tp, parallelize
     from unet_torch_tpu_torch.train.optim import make_optimizer, poly_lr
@@ -3501,14 +3546,15 @@ def d1_rank(rank, out):
     result["step_s"] = statistics.median(times[PARALLEL_WARMUP:])
     result["peak"] = torch.cuda.max_memory_allocated(dev)
     fc.reset_launches()
-    if rank == 0:
-        predict = make_predict_fn(model, dev, torch.bfloat16, classes=True)
-        xs, _ = train_batch(np.random.RandomState(SEED + 22), BATCH, SIZE)
-        hist = check_classes(predict(xs))
-        torch.cuda.synchronize()
-        result["eval_hist"] = hist.tolist()
-    result["conv_launches"] = fc.fused_conv3x3_bn_relu.launches
+    result["conv_launches"] = 0
     result["conv_routes"] = dict(fc.fused_conv3x3_bn_relu.launches_by_route)
+    if rank == 0:
+        xs, _ = train_batch(np.random.RandomState(SEED + 22), BATCH, SIZE)
+        _, classes, launches, routes = served_once(at, fc, model, dev, xs,
+                                                   classes=True)
+        result["eval_hist"] = check_classes(classes).tolist()
+        result["conv_launches"] = launches["fused_conv3x3_bn_relu"]
+        result["conv_routes"] = routes
     return result
 
 
@@ -5977,7 +6023,11 @@ def cli_phase(tag, name, dev, at, fc, smi, epochs, n_classes, eval_convs,
     convs and `eval_attention` attentions an eval forward,
     `train_attention` train forwards and as many backwards a step; CLTR an
     auction a step; `val_evals` eval forwards of validation a seed, else
-    epochs x CLI_VAL). Returns what the caller checks further and prints."""
+    epochs x CLI_VAL; a test's GRAPH_WARMUP + 1, its predict's warm-up
+    forwards and capture). Returns what the caller checks further and
+    prints."""
+    from unet_torch_tpu_torch.eval.reports import GRAPH_WARMUP
+
     start = time.perf_counter()
     raw = yaml_load(os.path.join(CONFIGS_DIR, name))
     size = raw["model_config"]["input_size"][0]
@@ -5994,9 +6044,10 @@ def cli_phase(tag, name, dev, at, fc, smi, epochs, n_classes, eval_convs,
     trainers, results, launches, clock, seen, train_s = run_train_cli(
         cfg_path, dev, at, fc)
     finite_losses(tag, trainers, epochs)
-    chunks = 1 if has_test else 0
+    # the test's one chunk: its predict's warm-up forwards and capture
+    captured = GRAPH_WARMUP + 1 if has_test else 0
     forwards = len(seeds) * ((val_evals if val_evals is not None
-                              else epochs * CLI_VAL) + chunks)
+                              else epochs * CLI_VAL) + captured)
     steps = len(seeds) * epochs  # one full batch an epoch
     want = {"fused_conv3x3_bn_relu": eval_convs * forwards,
             "fused_attention": eval_attention * forwards,
@@ -6025,8 +6076,8 @@ def cli_phase(tag, name, dev, at, fc, smi, epochs, n_classes, eval_convs,
         ours, eval_launches, eval_s, eval_split = run_test_cli(
             cfg_path, best, eval_dir, dev, at, fc, mode)
         expect_launches(f"{tag} test_cli", eval_launches,
-                        {"fused_conv3x3_bn_relu": eval_convs,
-                         "fused_attention": eval_attention})
+                        {"fused_conv3x3_bn_relu": eval_convs * captured,
+                         "fused_attention": eval_attention * captured})
         same_as_post_train(tag, results[seeds[0]], seed_dir, ours, eval_dir)
         out.update(eval_launches=eval_launches, eval_s=eval_s,
                    eval_split=eval_split, eval_dir=eval_dir)
@@ -6065,6 +6116,7 @@ def check_e1(at, fc, dev, smi):
     (`--device cpu`) on the same best.pt."""
     from unet_torch_tpu_torch.ckpt import load_weights
     from unet_torch_tpu_torch.cli import train_cli
+    from unet_torch_tpu_torch.eval.reports import GRAPH_WARMUP
 
     res = cli_phase("E1", "segmentation_mc.yml", dev, at, fc, smi, 2, 3,
                     eval_convs=len(conv_shapes(BASE, SIZE)))
@@ -6104,7 +6156,8 @@ def check_e1(at, fc, dev, smi):
         raise AssertionError(f"E1 resume: loaded {loaded}, epochs "
                              f"{epoch_lines}")
     expect_launches("E1 resume", launches, {
-        "fused_conv3x3_bn_relu": len(conv_shapes(BASE, SIZE)) * (CLI_VAL + 1)})
+        "fused_conv3x3_bn_relu": len(conv_shapes(BASE, SIZE))
+        * (CLI_VAL + GRAPH_WARMUP + 1)})
 
     # f32, card against CPU, on seed 35's best.pt
     raw32 = yaml_load(res["cfg"])
@@ -6429,7 +6482,6 @@ def main(cltr_profile=False, cltr_two_batches_only=False,
     torch.backends.cuda.matmul.allow_tf32 = False
 
     from unet_torch_tpu_torch.core.rng import seed_everything
-    from unet_torch_tpu_torch.eval.reports import make_predict_fn
     from unet_torch_tpu_torch.kernels import attention as at
     from unet_torch_tpu_torch.kernels import auction as au
     from unet_torch_tpu_torch.kernels import build
@@ -6507,33 +6559,30 @@ def main(cltr_profile=False, cltr_two_batches_only=False,
     model = seeded_unet(seed_everything(SEED))
     cpu_model = copy.deepcopy(model).eval()
     xs = eval_batch(np.random.RandomState(SEED))
-    predict = make_predict_fn(model, dev, torch.bfloat16, classes=True)
-    fc.reset_launches()
-    at.fused_attention.launches = 0
-    classes = predict(xs)
-    torch.cuda.synchronize()
-    unet_launches = fc.fused_conv3x3_bn_relu.launches
-    unet_routes = dict(fc.fused_conv3x3_bn_relu.launches_by_route)
-    if (unet_launches != len(shapes) or at.fused_attention.launches
+    predict, classes, launches, unet_routes = served_once(
+        at, fc, model, dev, xs, classes=True)
+    unet_launches = launches["fused_conv3x3_bn_relu"]
+    if (unet_launches != len(shapes) or launches["fused_attention"]
             or unet_routes != route_counts(fc, shapes)
             or unet_routes != UNET_ROUTES):
         raise AssertionError(f"{unet_launches} fused conv ({unet_routes}) "
-                             f"and {at.fused_attention.launches} attention "
+                             f"and {launches['fused_attention']} attention "
                              f"launches in one UNet forward, expected "
                              f"{len(shapes)} ({route_counts(fc, shapes)}) "
                              "and 0")
     hist = check_classes(classes)
     fwd_s = forward_s(predict, xs)
+
     # the same forward with the wgmma convs on the mma.sync kernel, and with
     # the plain version in place of the kernel, for comparison only
     with mma_sync_route(fc):
-        mma_fwd_s = forward_s(predict, xs)
+        mma_fwd_s = forward_s(served(model, dev), xs)
     # in turns: the first conv on the narrow route and on the one it replaced
-    first_fwd_s, first_reg_fwd_s = in_turns(fc, lambda: forward_s(predict,
-                                                                  xs))
+    first_fwd_s, first_reg_fwd_s = in_turns(
+        fc, lambda: forward_s(served(model, dev), xs))
     blocks.fused_conv3x3_bn_relu = fc.fused_conv3x3_bn_relu_reference
     try:
-        plain_fwd_s = forward_s(predict, xs)
+        plain_fwd_s = forward_s(served(model, dev), xs)
     finally:
         blocks.fused_conv3x3_bn_relu = fc.fused_conv3x3_bn_relu
     phase("main", f"UNet-{BASE} eval forward bf16 B={BATCH} {SIZE}x{SIZE}: "
@@ -6564,14 +6613,10 @@ def main(cltr_profile=False, cltr_two_batches_only=False,
     # 8. the TransUnet main path: eval forward, bf16, batch 8, 512x512
     model = seeded_transunet(seed_everything(SEED))
     cpu_model = copy.deepcopy(model).eval()
-    predict = make_predict_fn(model, dev, torch.bfloat16, classes=True)
-    fc.reset_launches()
-    at.fused_attention.launches = 0
-    classes = predict(xs)
-    torch.cuda.synchronize()
-    tu_conv_launches = fc.fused_conv3x3_bn_relu.launches
-    tu_routes = dict(fc.fused_conv3x3_bn_relu.launches_by_route)
-    attn_launches = at.fused_attention.launches
+    predict, classes, launches, tu_routes = served_once(
+        at, fc, model, dev, xs, classes=True)
+    tu_conv_launches = launches["fused_conv3x3_bn_relu"]
+    attn_launches = launches["fused_attention"]
     n_layers = len(model.transformer.encoder.layer)
     if ((attn_launches, tu_conv_launches) != (n_layers, len(tu_shapes))
             or tu_routes != route_counts(fc, tu_shapes)
@@ -6583,14 +6628,15 @@ def main(cltr_profile=False, cltr_two_batches_only=False,
                              f"({route_counts(fc, tu_shapes)})")
     hist = check_classes(classes)
     tu_fwd_s = forward_s(predict, xs)
+
     with mma_sync_route(fc):
-        tu_mma_fwd_s = forward_s(predict, xs)
+        tu_mma_fwd_s = forward_s(served(model, dev), xs)
     # both plain versions swapped in, for comparison only
     vit.fused_attention = lambda q, k, v, scale: at.attention_reference(
         q, k, v, scale)
     vit.fused_conv3x3_bn_relu = fc.fused_conv3x3_bn_relu_reference
     try:
-        tu_plain_fwd_s = forward_s(predict, xs)
+        tu_plain_fwd_s = forward_s(served(model, dev), xs)
     finally:
         vit.fused_attention = at.fused_attention
         vit.fused_conv3x3_bn_relu = fc.fused_conv3x3_bn_relu

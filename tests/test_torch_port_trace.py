@@ -161,6 +161,39 @@ def test_predict_and_to_host_open_each_predict_span_once_a_batch():
                    for _, traced in calls)
 
 
+@pytest.mark.parametrize("model_type,flags", [
+    ("single", {"classes": True}), ("single", {"binary": True}),
+    ("multi_task", {})], ids=["classes", "binary", "two_heads"])
+def test_predict_on_the_cpu_is_the_eager_forward_without_a_graph(model_type,
+                                                                 flags):
+    """The CPU forward runs eagerly: each result is the model's output and
+    postprocess on the batch as `.to(dtype)` casts it, and no call opens a
+    capture or replay span."""
+    from unet_torch_tpu_torch.eval.metrics import class_argmax
+    from unet_torch_tpu_torch.eval.reports import sigmoid_mask
+    from unet_torch_tpu_torch.models.unet import build_model
+
+    model = build_model(model_type, n_channels=3, n_classes=2, base=8,
+                        generator=torch.Generator().manual_seed(0))
+    predict = make_predict_fn(model, "cpu", torch.bfloat16, **flags)
+    rng = np.random.RandomState(1)
+    for _ in range(2):
+        xs = rng.randn(2, 16, 16, 3).astype(np.float32)
+        got = predict(xs)
+        with torch.inference_mode():
+            want = model(torch.from_numpy(xs).to(torch.bfloat16))
+            if flags.get("classes"):
+                want = class_argmax(want)
+            elif flags.get("binary"):
+                want = sigmoid_mask(want)
+        if model_type == "multi_task":
+            assert len(got) == len(want) == 2
+            assert all(torch.equal(g, w) for g, w in zip(got, want))
+        else:
+            assert torch.equal(got, want)
+    assert counts() == dict.fromkeys(["predict.h2d", "predict.forward"], 2)
+
+
 def test_shard_batch_on_the_cpu_opens_no_pin_span():
     x = np.arange(2 * 4 * 4 * 3, dtype=np.float32).reshape(2, 4, 4, 3)
     y = np.zeros((2, 4, 4), np.int32)

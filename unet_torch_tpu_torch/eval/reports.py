@@ -9,6 +9,7 @@ where it is used.
 from __future__ import annotations
 
 import os
+import warnings
 
 import numpy as np
 import torch
@@ -38,6 +39,9 @@ def sigmoid_mask(logits):
     return (1.0 / (1.0 + torch.exp(-x)) >= 0.5).to(torch.uint8)
 
 
+GRAPH_WARMUP = 3  # eager forwards on a side stream before a capture
+
+
 def make_predict_fn(model, device, dtype, classes: bool = False,
                     binary: bool = False):
     """Eval forward on `device` in `dtype`: NHWC float32 numpy batch in,
@@ -49,21 +53,112 @@ def make_predict_fn(model, device, dtype, classes: bool = False,
     on the host is the sync point. Spans (utils/debug.py): `predict.h2d`,
     the input's copy, which holds the host while it copies a pageable
     batch; `predict.forward`, the forward's and the postprocess's
-    dispatch."""
+    dispatch.
+
+    On a CUDA device the forward and its postprocess run as CUDA graphs,
+    one for each batch key (the batch's shape and dtype): the key's first
+    call copies the batch into a device buffer of its own, runs
+    GRAPH_WARMUP eager forwards on a side stream (so that cuDNN and cuBLAS
+    plan before the capture), captures one and replays it, inside a span
+    `predict.capture`; each later call copies its batch into that buffer
+    and replays the graph, inside a span `predict.replay`. Both spans lie
+    inside `predict.forward`. The batch crosses the bus in its own dtype
+    and is cast to `dtype` inside the graph, as the eager copy did. The
+    graphs of one predict share one memory pool, and every call returns a
+    clone of the graph's output, so a result stays valid while later calls
+    replay. Capture and replay run with `device` as the current card, so
+    that a predict serves a card other than the current one. A forward
+    that cannot be captured, or whose capture holds no device work, raises.
+
+    The graphs read the model's parameters and buffers by address: updates
+    in place (`load_state_dict`, further training of the same module) are
+    seen on replay, but a module whose tensors are replaced by new ones
+    needs a new predict."""
     model = model.to(device).eval()
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+
+    def forward(x):
+        out = model(x.to(dtype))
+        if classes:
+            return class_argmax(out)
+        return sigmoid_mask(out) if binary else out
+
+    if device.type != "cuda":
+        @torch.inference_mode()
+        def predict_eager(xs: np.ndarray) -> torch.Tensor:
+            with span("predict.h2d"):
+                x = torch.from_numpy(xs).to(device=device, dtype=dtype,
+                                            non_blocking=True)
+            with span("predict.forward"):
+                return forward(x)
+
+        return predict_eager
+
+    graphs = {}  # batch key -> (device input buffer, graph, its output)
+    pool = torch.cuda.graph_pool_handle()
 
     @torch.inference_mode()
     def predict(xs: np.ndarray) -> torch.Tensor:
-        with span("predict.h2d"):
-            x = torch.from_numpy(xs).to(device=device, dtype=dtype,
-                                        non_blocking=True)
-        with span("predict.forward"):
-            out = model(x)
-            if classes:
-                return class_argmax(out)
-            return sigmoid_mask(out) if binary else out
+        with torch.cuda.device(device):
+            with span("predict.h2d"):
+                src = torch.from_numpy(xs)
+                key = (tuple(src.shape), src.dtype)
+                entry = graphs.get(key)
+                x = (torch.empty(src.shape, dtype=src.dtype, device=device)
+                     if entry is None else entry[0])
+                x.copy_(src, non_blocking=True)
+            with span("predict.forward"):
+                if entry is None:
+                    with span("predict.capture"):
+                        graph, out = _capture(forward, x, pool, device,
+                                              type(model).__name__, key)
+                        graphs[key] = (x, graph, out)
+                        graph.replay()
+                else:
+                    _, graph, out = entry
+                    with span("predict.replay"):
+                        graph.replay()
+                # the graph's output is overwritten by the next replay
+                if isinstance(out, tuple):
+                    return tuple(o.clone() for o in out)
+                return out.clone()
 
     return predict
+
+
+def _capture(forward, x, pool, device, model_name, key):
+    """(graph, its output tensors) of forward(x) after GRAPH_WARMUP eager
+    calls on a side stream, as torch.cuda.graphs' recipe warms up. The
+    capture runs on that stream too: torch.cuda.graph's default capture
+    stream belongs to the card that was current at its first use."""
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        for _ in range(GRAPH_WARMUP):
+            forward(x)
+    torch.cuda.current_stream(device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    what = f"the eval forward of {model_name} at batch {key}"
+    try:
+        # thread_local: another thread's CUDA calls (a loader's pinning)
+        # may go on while this one captures
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            with torch.cuda.graph(graph, pool=pool, stream=side,
+                                  capture_error_mode="thread_local"):
+                out = forward(x)
+    except RuntimeError as e:
+        raise RuntimeError(f"{what} cannot be captured as a CUDA graph: "
+                           f"{e}") from e
+    for w in caught:
+        # torch's only sign that the work ran outside the capture
+        if "CUDA Graph is empty" in str(w.message):
+            raise RuntimeError(f"{what} captured an empty CUDA graph: "
+                               f"{w.message}")
+        warnings.warn_explicit(w.message, w.category, w.filename, w.lineno)
+    return graph, out
 
 
 def _batched_eval(image_list, ch, input_size, predict, chunk: int = 8):

@@ -48,7 +48,10 @@ of the one-process mask, bit for bit.
 
 Every wrapper routes by the device of its tensors: a CPU tensor goes to the
 plain version, a CUDA tensor to the kernel, which raises on anything it does
-not take. Each wrapper counts its kernel's launches in `.launches`.
+not take. Each wrapper counts its kernel's launches in `.launches`, in
+Python at each of its calls: a CUDA graph that captured calls
+(eval/reports.py::make_predict_fn) replays their kernels without the
+wrapper, so the counts hold the warm-up and capture calls and no replay.
 `fused_attention` is differentiable: with autograd recording it runs the
 train forward and backward kernels at rate 0; under `no_grad` it launches
 the eval forward only.

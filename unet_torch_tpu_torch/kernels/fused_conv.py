@@ -21,7 +21,10 @@ and `conv_tile_plan` lays out the wgmma route's tiles (the narrow route plans
 its own). There is no fallback: a
 route that fails to build or launch raises.
 `fused_conv3x3_bn_relu.launches` counts the kernel's launches and
-`.launches_by_route` the same launches by route.
+`.launches_by_route` the same launches by route. Both count calls of the
+wrapper, in Python: a CUDA graph that captured calls
+(eval/reports.py::make_predict_fn) replays their kernels without it, so the
+counts hold the warm-up and capture calls and no replay.
 """
 
 from __future__ import annotations
