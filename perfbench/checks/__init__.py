@@ -1,12 +1,20 @@
 """The comparison with the plain reference that decides `correct`: one
-module a traffic kind, each returning {number: value} for the limits'
-file to judge."""
+module a driver (perfbench/loops/__init__.py), named as its loop module,
+each returning {number: value} for the limits' file to judge."""
 
 import importlib
+import importlib.util
 
 
-def checker(kind: str):
-    return importlib.import_module(f"perfbench.checks.{kind}")
+def require(name: str):
+    """Fails, before set-up, where the driver `name` has no check module;
+    `checker` imports it only once the window has closed."""
+    if importlib.util.find_spec(f"perfbench.checks.{name}") is None:
+        raise ModuleNotFoundError(f"no check module perfbench.checks.{name}")
+
+
+def checker(name: str):
+    return importlib.import_module(f"perfbench.checks.{name}")
 
 
 def judge(numbers: dict, limits: dict):

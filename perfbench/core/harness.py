@@ -13,10 +13,10 @@ import time
 
 import torch
 
-from perfbench.checks import checker, judge
+from perfbench import loops
+from perfbench.checks import checker, judge, require
 from perfbench.core import env, flops, seeds as seedlib, trace as tracelib
 from perfbench.core.spec import BENCH
-from perfbench.loops import loop
 
 
 class Context:
@@ -61,17 +61,21 @@ def _finite(x):
 def run(cell, seed: int, seconds: float, trace: bool, start: float,
         workdir: str, device=None, fault=None, control=None, check=None):
     """(result without `checks`, checks, every number the check read).
-    `fault` wraps the timed path's call (tests and fault readings only);
-    `control` judges the reference in that precision in the program's
-    place (control readings only); `check` stands for the cell's checker
-    (readings only)."""
+    The mix's driver runs the cell and its check judges it; a mix of no
+    unit family fails before set-up. `fault` wraps the timed path's call
+    (tests and fault readings only); `control` judges the reference in that
+    precision in the program's place (control readings only); `check`
+    stands in for the check of the mix's loop (readings only)."""
     device = device or torch.device("cuda", 0)
-    kind = cell["traffic_spec"]["kind"]
-    drv = loop(kind)
     seeds = seedlib.derive(seed)
-    print(f"imports (s): {time.perf_counter() - start:.2f}",
-          file=sys.stderr)
     try:
+        mix = cell["traffic_spec"]
+        kind, name = loops.family(mix), loops.driver(mix)
+        drv = loops.loop(name)
+        if check is None:
+            require(name)
+        print(f"imports (s): {time.perf_counter() - start:.2f}",
+              file=sys.stderr)
         state = drv.setup(cell, seeds, device, workdir, fault)
         setup_s = time.perf_counter() - start
         counts = drv.window(state, seconds, timed=trace)
@@ -91,7 +95,7 @@ def run(cell, seed: int, seconds: float, trace: bool, start: float,
         del state
         if cuda:
             torch.cuda.empty_cache()
-        numbers = (check or checker(kind).check)(cell, seeds, outputs,
+        numbers = (check or checker(name).check)(cell, seeds, outputs,
                                                  device, workdir, control)
         checks, ok = judge(numbers, cell["limits"])
         if kind == "train":

@@ -7,7 +7,11 @@ limits. No run of the benchmark plants one.
 - `half_batch`: the train step takes the first half of its batch, its
   loss the mean over that half;
 - `altered`: one image's class map of each batch is changed where it is
-  produced (each class moved to the next)."""
+  produced (each class moved to the next).
+
+These wrap the calls of loops/train.py and loops/predict.py, whose `FAULTS`
+name them; a loop module of another driver exports wrappers of its own
+call."""
 
 from __future__ import annotations
 
@@ -39,7 +43,3 @@ def altered(predict, classes: int = 3):
         out[0] = (out[0] + 1) % classes
         return out
     return serve
-
-
-FAULTS = {"unchanged": unchanged, "half_batch": half_batch,
-          "altered": altered}

@@ -17,9 +17,12 @@ import time
 import numpy as np
 import torch
 
+from perfbench import faults
 from perfbench.core import tiles
 from perfbench.core.trace import no_span
 from perfbench.loops import program
+
+FAULTS = {"altered": faults.altered}
 
 
 class State:

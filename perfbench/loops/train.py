@@ -25,9 +25,13 @@ import time
 
 import torch
 
+from perfbench import faults
 from perfbench.core import tiles
 from perfbench.core.trace import no_span
 from perfbench.loops import program
+
+FAULTS = {"unchanged": faults.unchanged,
+          "half_batch": faults.half_batch}
 
 
 class State:

@@ -1,15 +1,16 @@
 """The readings that the limits of `correct` are set from, on the card:
 the program's numbers over many seeds, the control's (the reference in
 float8 in the program's place) and the planted faults', all in one
-process. A train cell's line also gives the worst leaves' gaps, which no
-limit judges. `--mode look` runs the program and, beside it, two witnesses
+process. Each mode is judged by the cell's own check module, and a fault
+is one of the cell's loop's own `FAULTS` (`loops.fault`). A cell
+judged by checks.train also gives the worst leaves' gaps, which no limit
+judges, and takes `--mode look`: the program and, beside it, two witnesses
 in its place, the reference in bfloat16 (the configurations' precision)
 and in float64, with the cancellation in each GroupNorm's gain and bias
 gradient: where the worst leaves' gaps come from.
 
     python3 perfbench/readings.py --workload <cell> --seeds 1,2,3 \
-        --mode program|control|unchanged|half_batch|altered|look \
-        [--seconds 2]
+        --mode program|control|look|<fault> [--seconds 2]
 
 One JSON line a seed on standard output, also appended to
 <out>/<cell>.<mode>.jsonl with `--out <out>`."""
@@ -173,6 +174,24 @@ def train_check(with_look: bool):
     return check
 
 
+def plan(cell, mode: str):
+    """(fault, control, check) of `mode` for the cell: the fault that the
+    cell's loop plants, the control's precision, and the check that stands
+    for the cell's own (None: the check of the cell's loop, as a run judges
+    it)."""
+    from perfbench import loops
+
+    own_train = loops.driver(cell["traffic_spec"]) == "train"
+    fault = loops.fault(cell["traffic_spec"], mode)
+    if mode not in ("program", "control", "look") and fault is None:
+        raise SystemExit(f"no mode {mode!r} for this cell")
+    if mode == "look" and not own_train:
+        raise SystemExit("--mode look reads checks.train's leaves; this "
+                         "cell is judged by another check")
+    control = "fp8" if mode == "control" else None
+    return fault, control, train_check(mode == "look") if own_train else None
+
+
 def main():
     p = argparse.ArgumentParser()
     p.add_argument("--workload", required=True)
@@ -183,15 +202,11 @@ def main():
     args = p.parse_args()
     env.set_caches()
     from perfbench.core import harness, spec
-    from perfbench.faults import FAULTS
 
     cell = spec.cell(args.workload)
     env.require_cards(cell["chips"])
     cell["limits"]["numbers"] = {}  # every number, none judged
-    fault = FAULTS.get(args.mode)
-    control = "fp8" if args.mode == "control" else None
-    check = (train_check(args.mode == "look")
-             if cell["traffic_spec"]["kind"] == "train" else None)
+    fault, control, check = plan(cell, args.mode)
     if args.out:
         Path(args.out).mkdir(parents=True, exist_ok=True)
     for seed in [int(s) for s in args.seeds.split(",")]:

@@ -9,7 +9,7 @@ PERF.md."""
 
 import pytest
 
-from perfbench import faults
+from perfbench import faults, loops
 from perfbench.tests import tiny
 
 TRAIN = ["unet64_mc.train", "transunet_r50_b16.train"]
@@ -39,7 +39,9 @@ def test_the_control_reads_apart_from_the_program(name):
 @pytest.mark.parametrize("fault", ["unchanged", "half_batch"])
 @pytest.mark.parametrize("name", TRAIN)
 def test_a_broken_step_is_not_correct(name, fault):
-    result, checks, _ = tiny.run(tiny.cell(name), fault=faults.FAULTS[fault])
+    c = tiny.cell(name)
+    result, checks, _ = tiny.run(c, fault=loops.fault(c["traffic_spec"],
+                                                      fault))
     assert not result["correct"], checks
 
 
